@@ -1,0 +1,161 @@
+"""Codegen pass + kernel cache for the WFA program compiler.
+
+``compile_group`` turns one loop body's lowered :class:`LoweredGroup` into a
+``step(env) -> env`` function around exactly one launch of the fused stencil
+kernel K1 (built by :func:`repro_torch.kernels.fused.build_fused_call`).
+Kernels are memoized by *program signature* — the lowered tap form plus
+field shapes/dtypes, time tile and device — so re-making an identical
+program (the WFA's repeated ``make_WSE`` workflow) reuses the built kernel;
+:data:`stats` exposes build/hit/fallback counters for tests and benchmarks.
+
+This slice ports the single-device repacking step: every launch wrap-pads
+its inputs by ``k·h`` (so out-of-domain taps reproduce the interpreter's
+``roll`` semantics) and the kernel writes fresh outputs.  The sharded,
+overlap, halo-resident and batched steps come with later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.compiler.ir import LoweredGroup, LoweringError, lower_group
+from repro_torch.convert import dtype_name, torch_dtype
+
+log = logging.getLogger("repro_torch.compiler")
+
+
+@dataclasses.dataclass
+class CompilerStats:
+    """Counters for the fused-kernel pipeline (reset with ``reset_stats``)."""
+
+    groups_fused: int = 0      # loop bodies routed to a fused kernel
+    kernels_built: int = 0     # distinct fused kernels constructed
+    cache_hits: int = 0        # loop bodies served from the kernel cache
+    fallbacks: int = 0         # loop bodies routed to the interpreter
+    fallback_reasons: Tuple[str, ...] = ()
+
+    def note_fallback(self, reason: str) -> None:
+        self.fallbacks += 1
+        self.fallback_reasons = self.fallback_reasons + (reason,)
+
+
+stats = CompilerStats()
+
+_KERNEL_CACHE: Dict[tuple, object] = {}
+
+
+def reset_stats() -> None:
+    # mutate in place so `from repro_torch.compiler import stats` stays live
+    stats.groups_fused = 0
+    stats.kernels_built = 0
+    stats.cache_hits = 0
+    stats.fallbacks = 0
+    stats.fallback_reasons = ()
+
+
+def clear_cache() -> None:
+    _KERNEL_CACHE.clear()
+
+
+def try_compile(compile_fn, loop):
+    """The fallback policy: run ``compile_fn()``; on :class:`LoweringError`
+    count the fallback, log the reason and return ``None`` so the caller
+    substitutes its interpreter step.  Only lowering errors are caught — a
+    kernel that fails to build or launch raises."""
+    try:
+        return compile_fn()
+    except LoweringError as e:
+        stats.note_fallback(str(e))
+        log.warning(
+            "pallas lowering failed for loop %r: %s — falling back to the "
+            "interpreter for this body", getattr(loop, "name", None), e)
+        return None
+
+
+def _field_specs(group: LoweredGroup, shapes: Dict[str, tuple],
+                 dtypes: Dict[str, object]):
+    """Ordered name -> (nz, torch dtype); validates a common (X, Y) extent."""
+    names = list(group.fields_written())
+    for n in group.fields_read():
+        if n not in names:
+            names.append(n)
+    base_xy = shapes[names[0]][:2]
+    for n in names:
+        if shapes[n][:2] != base_xy:
+            raise LoweringError(
+                f"fields {names[0]!r} {shapes[names[0]]} and {n!r} "
+                f"{shapes[n]} disagree in (X, Y); cannot fuse")
+    specs = {n: (shapes[n][2], torch_dtype(dtypes[n])) for n in names}
+    return specs, base_xy
+
+
+def _get_kernel(group: LoweredGroup, specs, bx, by, nx, ny, device, time_tile,
+                wrap):
+    from repro_torch.kernels.fused import build_fused_call
+
+    device = torch.device(device)
+    sig = (group, tuple((n, s[0], dtype_name(s[1])) for n, s in specs.items()),
+           bx, by, nx, ny, str(device), int(time_tile), bool(wrap))
+    hit = _KERNEL_CACHE.get(sig)
+    if hit is not None:
+        stats.cache_hits += 1
+        return hit
+    # a body outside the kernel's limits (dtype, field count, descriptor
+    # size) raises ValueError here: it is a gap of the port, not a lowering
+    # failure, so it must not become an interpreter fallback
+    built = build_fused_call(group.updates, specs, group.halo, bx, by, nx, ny,
+                             time_tile=time_tile, wrap=wrap, device=device)
+    stats.kernels_built += 1
+    _KERNEL_CACHE[sig] = built
+    return built
+
+
+def _wrap_pad(v: torch.Tensor, ph: int) -> torch.Tensor:
+    """``ph``-deep periodic pad of the (X, Y) axes (``ph`` ≤ extent)."""
+    v = torch.cat([v[-ph:], v, v[:ph]], dim=0)
+    return torch.cat([v[:, -ph:], v, v[:, :ph]], dim=1)
+
+
+def compile_group(ops, shapes: Dict[str, tuple], dtypes: Dict[str, object],
+                  device="cpu", *, time_tile: int = 1,
+                  group: LoweredGroup = None):
+    """Lower + codegen one loop body for single-device execution.
+
+    Returns ``step(env) -> env`` running the body as one fused kernel launch
+    on the tensors of ``env``; with ``time_tile=k`` each call advances *k*
+    steps off one wrap pad of depth ``k·h`` (validated by
+    :func:`repro_torch.compiler.ir.tile_group`).  Pass ``group=`` to reuse a
+    lowering the planner already derived.  Raises :class:`LoweringError`
+    when the body cannot be fused (the caller falls back to the interpreter
+    and logs the reason), and ``ValueError`` when it is outside the fused
+    kernel's limits (see :func:`repro_torch.kernels.fused.build_fused_call`),
+    which no caller catches.
+    """
+    from repro_torch.compiler.ir import tile_group
+    from repro_torch.kernels.ops import fused_step
+
+    if group is None:
+        group = lower_group(ops)
+    specs, (nx, ny) = _field_specs(group, shapes, dtypes)
+    # the same bound the planner clamps against: a wrap pad deeper than the
+    # grid would be ill-formed
+    tiled = tile_group(group, time_tile, brick_xy=(nx, ny))
+    ph = tiled.halo            # k·h margin, paid once per tile
+    kernel, written = _get_kernel(group, specs, nx, ny, nx, ny, device,
+                                  time_tile, wrap=True)
+    in_names = list(specs)
+    stats.groups_fused += 1
+
+    def step(env):
+        env = dict(env)
+        padded = [_wrap_pad(env[n], ph) if ph else env[n].contiguous()
+                  for n in in_names]
+        outs = fused_step(kernel, padded)
+        for name, out in zip(written, outs):
+            env[name] = out
+        return env
+
+    return step

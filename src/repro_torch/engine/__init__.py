@@ -1,0 +1,44 @@
+"""repro_torch.engine — the execution engine (planner + executor).
+
+Every way of running a recorded WFA program dispatches through here:
+
+* :func:`plan` schedules the program's op groups into
+  :class:`~repro_torch.engine.plan.Segment`s (fused kernel vs interpreter,
+  with a time-tile factor per loop body);
+* :func:`execute` runs a plan eagerly (``numpy``) or on the plan's torch
+  device;
+* :func:`compile_body` builds a single body application ``env -> env`` —
+  the one backend if/else in the tree;
+* :data:`stats` exposes the accounting (steps, launches, wrap pads, tiles
+  fused).
+"""
+
+from repro_torch.engine.executor import execute, run_program, single_runner
+from repro_torch.engine.options import UNSET, RunOptions, resolve_options
+from repro_torch.engine.plan import (
+    BACKENDS,
+    ExecutionPlan,
+    Segment,
+    compile_body,
+    plan,
+    resolve_device,
+)
+from repro_torch.engine.stats import EngineStats, reset_stats, stats
+
+__all__ = [
+    "BACKENDS",
+    "EngineStats",
+    "ExecutionPlan",
+    "RunOptions",
+    "Segment",
+    "UNSET",
+    "compile_body",
+    "execute",
+    "plan",
+    "reset_stats",
+    "resolve_device",
+    "resolve_options",
+    "run_program",
+    "single_runner",
+    "stats",
+]

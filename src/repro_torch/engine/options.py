@@ -1,0 +1,145 @@
+"""``RunOptions`` — one frozen bundle for every execution-policy knob.
+
+The port keeps the reference's field names and spellings, so one options
+value reads the same in both packages, and adds ``device``: the torch device
+the run uses (``"cuda"`` by default; the caller asks for ``"cpu"``
+explicitly).  Fields whose execution paths are not ported yet raise
+:class:`NotImplementedError` naming the slice that brings them.
+
+The legacy keywords of ``make`` / ``plan`` still work as thin deprecation
+shims: they warn **once per entry point per keyword** and forward into the
+options bundle (an explicit legacy keyword overrides the same field of a
+passed ``options=``).
+
+>>> opts = RunOptions(backend="pallas", time_tile=4, device="cpu")
+>>> opts.time_tile, opts.resident
+(4, True)
+>>> opts.replace(time_tile=1).time_tile
+1
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Optional, Set, Tuple
+
+
+class _Unset:
+    """Sentinel distinguishing "not passed" from an explicit ``None``."""
+
+    def __repr__(self) -> str:  # pragma: no cover - debug aid
+        return "<unset>"
+
+
+UNSET = _Unset()
+
+#: (entry point, keyword) pairs that already warned this process
+_WARNED: Set[Tuple[str, str]] = set()
+
+
+def _later(what: str, slice_name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"RunOptions({what}) is not ported yet: it comes with the "
+        f"{slice_name} slice of the PyTorch port")
+
+
+@dataclasses.dataclass(frozen=True)
+class RunOptions:
+    """Execution policy for one plan/run.
+
+    ``backend=None`` means "the entry point's default" (``make`` defaults to
+    ``jit``).  ``resident`` is accepted for parity; this slice always plans
+    the repacking step (wrap pad per launch, fresh kernel outputs), which is
+    the reference's own schedule wherever blocks do not run one at a time.
+    ``overlap="auto"`` keeps the monolithic launch (no cost model yet).
+    ``device`` names the torch device; ``"cuda"`` raises when no card is
+    present instead of running elsewhere.
+    """
+
+    backend: Optional[str] = None
+    mesh: Optional[object] = None
+    time_tile: Optional[int] = None
+    resident: bool = True
+    batch: int = 1
+    overlap: object = "auto"
+    differentiable: bool = False
+    recovery: Optional[object] = None
+    check_finite: int = 0
+    device: str = "cuda"
+
+    def __post_init__(self):
+        if int(self.batch) < 1:
+            raise ValueError(f"batch must be >= 1; got {self.batch}")
+        object.__setattr__(self, "batch", int(self.batch))
+        if self.overlap not in (True, False, "auto"):
+            raise ValueError(
+                f"overlap must be True, False or 'auto'; got {self.overlap!r}"
+            )
+        if self.differentiable not in (True, False):
+            raise ValueError(
+                f"differentiable must be a bool; got {self.differentiable!r}"
+            )
+        if int(self.check_finite) < 0:
+            raise ValueError(
+                f"check_finite must be >= 0 (0 disables); got {self.check_finite}"
+            )
+        object.__setattr__(self, "check_finite", int(self.check_finite))
+        if self.mesh is not None:
+            raise _later("mesh=...", "sharding")
+        if self.batch > 1:
+            raise _later(f"batch={self.batch}", "ensembles")
+        if self.overlap is True:
+            raise _later("overlap=True", "overlap")
+        if self.differentiable:
+            raise _later("differentiable=True", "adjoint")
+        if self.check_finite > 0:
+            raise _later(f"check_finite={self.check_finite}", "health")
+        if self.recovery is not None:
+            raise _later("recovery=...", "health")
+
+    def replace(self, **changes) -> "RunOptions":
+        """A copy with ``changes`` applied (``dataclasses.replace``)."""
+        return dataclasses.replace(self, **changes)
+
+    def resolved_backend(self, default: str) -> str:
+        return default if self.backend is None else self.backend
+
+
+def _warn_once(entry: str, kwarg: str, hint: str) -> None:
+    key = (entry, kwarg)
+    if key in _WARNED:
+        return
+    _WARNED.add(key)
+    warnings.warn(
+        f"{entry}({kwarg}=...) is deprecated; pass "
+        f"options=RunOptions({hint}) instead",
+        DeprecationWarning,
+        stacklevel=4,
+    )
+
+
+def resolve_options(options, entry: str, **legacy) -> RunOptions:
+    """Fold an ``options=`` value and legacy keywords into one RunOptions.
+
+    ``legacy`` maps RunOptions field names to the entry point's keyword
+    values, with :data:`UNSET` marking "not passed".  Every explicitly
+    passed legacy keyword emits one :class:`DeprecationWarning` per entry
+    point and overrides the corresponding field of ``options``.  A bare
+    string ``options`` is accepted as the backend.
+    """
+    if options is None:
+        options = RunOptions()
+    elif isinstance(options, str):
+        options = RunOptions(backend=options)
+    elif not isinstance(options, RunOptions):
+        raise TypeError(
+            f"options must be a RunOptions (or backend string); "
+            f"got {type(options).__name__}"
+        )
+    given = {k: v for k, v in legacy.items() if not isinstance(v, _Unset)}
+    for k, v in given.items():
+        _warn_once(entry, k, f"{k}={v!r}")
+    if given:
+        options = dataclasses.replace(options, **given)
+    return options

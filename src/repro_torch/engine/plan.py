@@ -1,0 +1,259 @@
+"""The engine planner: one dispatch point for every execution path.
+
+``plan(program, options)`` walks the recorded program's op groups exactly
+once and schedules each as a :class:`Segment` — either a *fused* segment (the
+:mod:`repro_torch.compiler` pipeline built one fused stencil kernel for the
+body, possibly time-tiled so k steps share one wrap pad) or an *interpreter*
+segment (the shared roll-based step, used by the ``jit`` backend and as the
+logged fallback for bodies that do not lower).
+:func:`repro_torch.engine.executor.execute` then runs the plan.
+
+Time-tile selection: an explicit ``time_tile=k`` is honoured up to the
+legality bounds of :func:`repro_torch.compiler.ir.tile_group` and clamped
+with a logged reason otherwise; ``time_tile=None`` auto-picks the largest
+power-of-two divisor of the trip count whose tiled halo stays small next to
+the grid (:func:`repro_torch.compiler.ir.auto_tile`).
+
+Layout: every fused step wrap-pads its inputs and the kernel writes fresh
+outputs (the reference's repacking step).  The reference's halo-resident
+layout writes kernel outputs in place, which is safe only while blocks run
+one at a time; on the card they run concurrently, so the resident layout
+waits for ping-pong buffers in a later slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Callable, List, Optional, Tuple
+
+import torch
+
+from repro_torch.compiler import LoweringError, auto_tile, lower_group, tile_group
+from repro_torch.compiler.codegen import compile_group, try_compile
+from repro_torch.core.program import Program, _group_ops, _interp_step
+from repro_torch.engine.options import UNSET, resolve_options
+from repro_torch.engine.stats import stats
+
+log = logging.getLogger("repro_torch.engine")
+
+#: user-facing backends (``shard_map`` is accepted by name and raises until
+#: the sharding slice)
+BACKENDS = ("numpy", "jit", "shard_map", "pallas")
+
+
+@dataclasses.dataclass
+class Segment:
+    """One scheduled op group: the loop, its ops, and the compiled step(s).
+
+    ``step`` advances ``time_tile`` logical steps per call; ``step_rem``
+    (untiled) covers the ``n % k`` remainder when the tile factor does not
+    divide the trip count.  ``numpy`` plans carry no compiled steps — the
+    executor interprets ``ops`` eagerly.
+    """
+
+    loop: Optional[object]
+    ops: Tuple
+    kind: str  # "fused" | "interp" | "eager"
+    step: Optional[Callable] = None
+    step_rem: Optional[Callable] = None
+    time_tile: int = 1
+    halo: int = 0
+    reason: str = ""  # fallback / clamp explanation, "" when none
+
+    @property
+    def n_steps(self) -> int:
+        return self.loop.n if self.loop is not None else 1
+
+
+@dataclasses.dataclass
+class ExecutionPlan:
+    """Scheduled execution of one recorded program on one device."""
+
+    program: Program
+    backend: str  # normalized: "numpy" | "jit" | "pallas"
+    device: Optional[torch.device]  # None for the host-only numpy backend
+    segments: List[Segment]
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``; a CUDA device must exist — no CPU carry-on."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"RunOptions(device={str(device)!r}) but CUDA is not available; "
+            "pass RunOptions(device='cpu') to run on the host")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def compile_body(
+    ops,
+    loop,
+    shapes,
+    dtypes,
+    backend: str,
+    *,
+    device="cpu",
+    time_tile: int = 1,
+    group=None,
+) -> Tuple[Callable, bool]:
+    """Build one body application ``env -> env`` — THE backend dispatch.
+
+    Returns ``(step, fused)``.  ``backend="pallas"`` routes through the
+    compiler (fused kernel, ``time_tile`` sub-steps per call, interpreter
+    fallback on :class:`LoweringError` counted in
+    ``repro_torch.compiler.stats``); ``backend="jit"`` returns the shared
+    roll-interpreter step.  Steps operate on tensors on ``device``.
+    """
+    stats.bodies_compiled += 1
+    if backend == "pallas":
+        from repro_torch.engine.hooks import fire_compile_hook
+
+        def fn():
+            # the hook can raise LoweringError — the injectable stand-in for
+            # a lowering failure; try_compile turns it into the fallback
+            fire_compile_hook(getattr(loop, "name", None))
+            return compile_group(ops, shapes, dtypes, device=device,
+                                 time_tile=time_tile, group=group)
+
+        step = try_compile(fn, loop)
+        if step is not None:
+            return step, True
+    elif backend != "jit":
+        raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    return _interp_step(ops), False
+
+
+def _brick_xy(program: Program, group) -> Tuple[int, int]:
+    """(X, Y) extent of the fields ``group`` touches, anchored on its first
+    written field (the convention ``codegen._field_specs`` validates)."""
+    nx, ny, _ = program.fields[group.fields_written()[0]].shape
+    return nx, ny
+
+
+def _pick_tile(group, loop, requested: Optional[int], brick_xy) -> Tuple[int, str]:
+    """Resolve the tile factor for one fused loop body: (k, clamp_reason)."""
+    n = loop.n if loop is not None else 1
+    if n <= 1:
+        return 1, ""
+    if requested is None:
+        return auto_tile(group, brick_xy, n), ""
+    k = max(1, int(requested))
+    try:
+        tile_group(group, k, brick_xy=brick_xy, n_steps=n)
+        return k, ""
+    except LoweringError as e:
+        kmax = n
+        if group.halo > 0:
+            kmax = min(kmax, min(brick_xy) // group.halo)
+        k_ok = max(1, min(k, kmax))
+        reason = f"time_tile={requested} clamped to k={k_ok}: {e}"
+        log.warning("%s", reason)
+        return k_ok, reason
+
+
+def plan(
+    program: Program,
+    options=None,
+    *,
+    backend=UNSET,
+    mesh=UNSET,
+    time_tile=UNSET,
+    resident=UNSET,
+) -> ExecutionPlan:
+    """Schedule a recorded program: group ops once, pick a strategy per body.
+
+    Execution policy arrives as one frozen
+    :class:`~repro_torch.engine.options.RunOptions` bundle (a bare string is
+    accepted as the backend).  The legacy ``backend=`` / ``mesh=`` /
+    ``time_tile=`` / ``resident=`` keywords warn once per keyword and
+    forward into the bundle.
+    """
+    options = resolve_options(
+        options,
+        "engine.plan",
+        backend=backend,
+        mesh=mesh,
+        time_tile=time_tile,
+        resident=resident,
+    )
+    backend = options.resolved_backend("jit")
+    time_tile = options.time_tile
+
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    if backend == "shard_map":
+        raise NotImplementedError(
+            "backend='shard_map' is not ported yet: it comes with the "
+            "sharding slice of the PyTorch port")
+    # the numpy validation backend is eager and host-only: it never touches
+    # a device, so it needs none
+    device = None if backend == "numpy" else resolve_device(options.device)
+
+    shapes = {n: f.shape for n, f in program.fields.items()}
+    dtypes = {n: f.dtype for n, f in program.fields.items()}
+
+    # pass one: lower + pick tile factors
+    scheduled = []
+    for loop, ops in _group_ops(program):
+        group = None
+        k, reason = 1, ""
+        if backend == "pallas":
+            try:
+                group = lower_group(ops)
+            except LoweringError:
+                group = None  # compile_body repeats the lowering to log/count
+            if group is not None:
+                k, reason = _pick_tile(group, loop, time_tile,
+                                       _brick_xy(program, group))
+        elif backend != "numpy" and time_tile is not None and time_tile != 1:
+            # an explicit tile request on an interpreter backend is dropped,
+            # not honoured — say so instead of silently running untiled
+            reason = (
+                f"time_tile={time_tile} ignored: backend {backend!r} has no "
+                "fused kernels to tile (use backend='pallas')"
+            )
+            log.warning("%s", reason)
+        scheduled.append((loop, ops, group, k, reason))
+
+    # pass two: compile each body
+    segments: List[Segment] = []
+    for loop, ops, group, k, reason in scheduled:
+        if backend == "numpy":
+            segments.append(Segment(loop=loop, ops=tuple(ops), kind="eager"))
+            continue
+        step, fused = compile_body(ops, loop, shapes, dtypes, backend,
+                                   device=device, time_tile=k, group=group)
+        if not fused:
+            k = 1
+        seg = Segment(
+            loop=loop,
+            ops=tuple(ops),
+            kind="fused" if fused else "interp",
+            step=step,
+            time_tile=k,
+            halo=group.halo if group is not None else 0,
+            reason=reason,
+        )
+        if fused and k > 1 and seg.n_steps % k:
+            seg.step_rem, _ = compile_body(ops, loop, shapes, dtypes, backend,
+                                           device=device, time_tile=1,
+                                           group=group)
+        if reason:
+            stats.note_tile_reason(reason)
+        if fused:
+            stats.segments_fused += 1
+        else:
+            stats.segments_interp += 1
+        segments.append(seg)
+
+    stats.plans_built += 1
+    stats.max_time_tile = max(
+        stats.max_time_tile, max((s.time_tile for s in segments), default=1)
+    )
+    return ExecutionPlan(program=program, backend=backend, device=device,
+                         segments=segments)

@@ -1,0 +1,95 @@
+"""Build the port's CUDA sources at first use and load them with ctypes.
+
+Every kernel source lives under ``kernels/csrc/`` and exposes a plain C
+interface; :func:`load_library` compiles one source with ``nvcc`` for
+Hopper (``sm_90a``) into ``kernels/build/`` — a directory the repository
+ignores — and loads the shared library.  The library's file name carries a
+digest of the source and the flags, so an edited source is rebuilt and a
+stale build is never loaded.  Nothing is built when a module is imported:
+the CPU tests import every module on a machine without ``nvcc``.
+
+A missing ``nvcc`` or a failed build raises :class:`KernelBuildError`;
+nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+
+#: ``--fmad=false`` keeps every multiply and add separately rounded, so the
+#: kernels can be held bitwise against their plain PyTorch versions.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+#: seconds each library took to build in this process (0.0 when loaded
+#: from an existing build), and nvcc's report (registers, spills)
+build_seconds: Dict[str, float] = {}
+build_log: Dict[str, str] = {}
+
+
+class KernelBuildError(RuntimeError):
+    """``nvcc`` is missing or refused a kernel source."""
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin``, PATH."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    cands.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in cands:
+        if c.is_file():
+            return str(c)
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    raise KernelBuildError(
+        "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+        "PATH); the CUDA kernels are built from source at first use")
+
+
+def library_path(stem: str) -> Path:
+    src = CSRC / f"{stem}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{stem}-{digest}.so"
+
+
+def load_library(stem: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<stem>.cu``; cached per process."""
+    lib = _LIBS.get(stem)
+    if lib is not None:
+        return lib
+    so = library_path(stem)
+    t0 = time.perf_counter()
+    if not so.exists():
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise KernelBuildError(
+                f"nvcc failed to build {stem}.cu (exit {proc.returncode}):\n"
+                f"{proc.stderr}{proc.stdout}")
+        build_log[stem] = proc.stderr + proc.stdout
+        os.replace(tmp, so)  # atomic: concurrent builders never see a torn file
+    build_seconds[stem] = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(so))
+    _LIBS[stem] = lib
+    return lib
