@@ -3,27 +3,50 @@
 
 Drives the port (``src/repro_torch``) and nothing of the JAX package:
 
-1. ``build``          — builds every kernel of the main path from
-                        ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a);
-2. ``kernel_vs_ref``  — holds K1 bitwise against its plain PyTorch version
-                        on the card, at float32 and float64: the heat3d body
-                        at its full main-path shapes (k = 1 and the auto
-                        tile), and a small multi-field, off-axis,
-                        multi-update body at k = 1, k = 2, and through
-                        ``make`` with a remainder launch;
-3. ``heat3d``         — ``HeatConfig()`` (512×512×128 float32) through
-                        ``make(backend="pallas")`` at ``time_tile=1`` and at
-                        the auto pick, checked against each other and against
-                        the ``jit`` roll interpreter on the card, with K1's
-                        launch count equal to the engine's; ms per step by
-                        CUDA events after a warm-up, beside the bytes bound;
-4. ``kernels``        — one JSON line describing every kernel of the path.
+1. ``build``           — builds every kernel of the main paths from
+                         ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a),
+                         one nvcc per source, all started together;
+2. ``kernel_vs_ref``   — holds K1 bitwise against its plain PyTorch version
+                         on the card, at float32 and float64: the heat3d body
+                         at its full main-path shapes (k = 1 and the auto
+                         tile), and a small multi-field, off-axis,
+                         multi-update body at k = 1, k = 2, and through
+                         ``make`` with a remainder launch;
+3. ``dual_dot_vs_ref`` — K2 on 512×512×128 float32 and float64 operands,
+                         distinct and aliased as pipelined CG passes them,
+                         within ``1e-5·Σ|aᵢbᵢ|`` (f32) / ``1e-13·Σ|aᵢbᵢ|``
+                         (f64) of the plain version evaluated in float64,
+                         and bitwise deterministic;
+4. ``transfer_vs_ref`` — K3 and K4 bitwise against their plain versions at
+                         every level pair of the 512×512×128 hierarchy, at
+                         float32 and float64;
+5. ``heat3d``          — ``HeatConfig()`` (512×512×128 float32) through
+                         ``make(backend="pallas")`` at ``time_tile=1`` and at
+                         the auto pick, checked against each other and against
+                         the ``jit`` roll interpreter on the card, with K1's
+                         launch count equal to the engine's; ms per step by
+                         CUDA events after a warm-up, beside the bytes bound;
+6. ``solve_heat3d``    — ``record_implicit(HeatConfig())`` through
+                         ``solve(backend="pallas")`` with ``cg``, ``pipecg``
+                         and ``cg`` + ``precondition="mg"`` at
+                         ``tol = 1e-5·‖b‖``: the outcome word, iterations,
+                         K1–K4 launches, an independent float64 residual,
+                         the difference from ``backend="jit"``, ms per solve
+                         and per iteration, the device time by kernel and
+                         the device idle share;
+7. ``mg_poisson``      — ``record_poisson`` at 512×512×128 with a unit-norm
+                         random interior right-hand side from ``--seed``,
+                         ``method="mg"`` and ``cg`` + ``precondition="mg"``;
+8. ``kernels``         — one JSON line describing every kernel of the paths.
 
-Then the card's name and power limit, and last the result line.  Any failed
-check raises: the script exits non-zero and prints no result line.  Without
-a CUDA device it exits non-zero before printing anything.
+Each main path (``heat3d``, ``solve_heat3d``, ``mg_poisson``) runs with the
+launch counters set to 0 just before it and read just after, and fails if
+one of its kernels was not launched.  Then the card's name and power limit,
+and last the result line.  Any failed check raises: the script exits
+non-zero and prints no result line.  Without a CUDA device it exits
+non-zero before printing anything.
 
-    python3 chip_smoke.py [--steps 200]
+    python3 chip_smoke.py [--steps 200] [--seed 0]
 """
 from __future__ import annotations
 
@@ -40,6 +63,16 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 #: H100 SXM device-memory rate and float32 / float64 (non-tensor) peaks
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+#: the kernel libraries of the main paths (csrc/<stem>.cu)
+LIBRARIES = ("fused_stencil", "dual_dot", "transfer")
+#: K2 vs the plain version in float64: |K2 − exact| ≤ REL · Σ|aᵢbᵢ|.  The
+#: kernel sums 32 terms per thread, then a 256-thread tree, then the block
+#: partials: about 50 roundings deep, so 50·u (u = 6e-8 at f32, 1.1e-16 at
+#: f64) on the sum of magnitudes, with margin
+K2_REL = {"float32": 1e-5, "float64": 1e-13}
+#: the implicit tolerance, relative to ‖b‖ (HeatConfig().tol = 1e-6 is an
+#: absolute bound that a float32 solve on Kelvin-scale data cannot reach)
+SOLVE_REL_TOL = 1e-5
 #: the jit roll interpreter vs the fused kernel on Kelvin-scale fields.  The
 #: two sum the taps in different orders (recorded vs canonical), so they
 #: drift apart by rounding: within 2e-4 over a short run (the bound the
@@ -47,6 +80,12 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 #: field's magnitude per step over a long one
 JIT_SHORT_STEPS = 16
 JIT_SHORT_ATOL = 2e-4
+#: a solve on ``backend="pallas"`` vs the same solve on ``"jit"``: the two
+#: sum the operator's taps (K1 vs the roll interpreter) and the dots (K2 vs
+#: torch) in different orders, so each iteration's update of the solution
+#: may round differently; over the same number of iterations they stay
+#: within this many float32 ulp of the field's magnitude per iteration
+SOLVE_JIT_ULPS = 4
 
 
 def emit(obj) -> None:
@@ -145,12 +184,13 @@ def phase_build():
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    build.load_library("fused_stencil")
-    ptxas = [ln.strip() for ln in build.build_log.get("fused_stencil", "").splitlines()
-             if "Used" in ln or "spill" in ln]
-    emit({"phase": "build", "kernel": "fused_stencil",
+    build.build_libraries(LIBRARIES)
+    ptxas = {stem: [ln.strip() for ln in build.build_log.get(stem, "").splitlines()
+                    if "Used" in ln or "spill" in ln] for stem in LIBRARIES}
+    emit({"phase": "build", "libraries": list(LIBRARIES),
           "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": build.build_seconds["fused_stencil"], "ptxas": ptxas})
+          "nvcc_seconds": {s: build.build_seconds[s] for s in LIBRARIES},
+          "ptxas": ptxas})
 
 
 def _build_kernel(program_ops, shapes, dtypes, k, device):
@@ -356,10 +396,9 @@ def phase_heat3d(steps: int, heat):
         run = single_runner(p)
         env = env_from_numpy({"T_n": T.init_data}, "cuda")
         ms = cuda_time_ms(lambda: run(env), repeats=3)
-        rows, idle = device_breakdown(run, env)
         timing[tag] = {"ms_per_step": ms / steps,
                        "time_tile": p.segments[0].time_tile,
-                       "device_kernels_us": rows, "device_idle_share": idle}
+                       **device_breakdown(lambda: run(env))}
     kern, padded = heat["kernel"], heat["padded"]
     k1_ms = cuda_time_ms(lambda: launch_fused(kern, padded), repeats=20)
     plain_ms = cuda_time_ms(lambda: fused_step_ref(kern, padded), repeats=5)
@@ -381,18 +420,392 @@ def phase_heat3d(steps: int, heat):
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
-def device_breakdown(run, env, top: int = 4):
-    """Device time by kernel over one ``run(env)`` under ``torch.profiler``,
-    and the device's busy share of that run's wall time.  Returns None for
-    both where the profiler reports no device time."""
+# ---------------------------------------------------------------------------
+# slice 2: K2, K3, K4 and the implicit solves
+# ---------------------------------------------------------------------------
+
+def kernel_counters():
+    """The launch counter of every kernel wrapper, by kernel."""
+    from repro_torch.kernels.dotprod import launch_dual_dot
+    from repro_torch.kernels.fused import launch_fused
+    from repro_torch.kernels.transfer import launch_prolong, launch_restrict
+
+    return {"K1": launch_fused, "K2": launch_dual_dot, "K3": launch_restrict,
+            "K4": launch_prolong}
+
+
+def reset_counts() -> None:
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in kernel_counters().items()}
+
+
+def phase_dual_dot_vs_ref(seed: int):
+    import torch
+
+    from repro_torch.configs.heat3d import HeatConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dotprod import dual_dot_ref, launch_dual_dot
+
+    cfg = HeatConfig()
+    shape = (cfg.nx, cfg.ny, cfg.nz)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cases, main = [], {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).removeprefix("torch.")
+        a, b, c, d = (torch.randn(shape, device="cuda", generator=g, dtype=dtype)
+                      for _ in range(4))
+        # pipelined CG passes (r, r, w, r) and PCG (r, z, r, r): two distinct
+        # operands, the main path's case
+        for label, ops4 in (("distinct", (a, b, c, d)), ("aliased_rrwr", (a, a, b, a))):
+            got = ops.dual_dot(*ops4)
+            again = ops.dual_dot(*ops4)
+            exact = dual_dot_ref(*(t.double() for t in ops4))
+            scale = torch.stack([(ops4[0].double() * ops4[1]).abs().sum(),
+                                 (ops4[2].double() * ops4[3]).abs().sum()])
+            err = (got.double() - exact).abs()
+            ratio = float((err / scale).max())
+            if not torch.equal(got, again):
+                raise AssertionError(f"K2 is not deterministic ({name}, {label})")
+            if not bool(torch.isfinite(got).all()) or ratio > K2_REL[name]:
+                raise AssertionError(f"K2 {name} {label}: |err|/Σ|ab| = {ratio} > "
+                                     f"{K2_REL[name]}")
+            cases.append({"dtype": name, "operands": label,
+                          "max_abs_err": float(err.max()),
+                          "err_over_sum_abs": ratio, "bound": K2_REL[name]})
+            if dtype == torch.float32 and label == "aliased_rrwr":
+                main = {"ops": ops4, "err": float(err.max())}
+    a, _, b, _ = main["ops"]
+    ops4 = main["ops"]
+    ms = cuda_time_ms(lambda: launch_dual_dot(*ops4), repeats=50)
+    wrapper_ms = cuda_time_ms(lambda: ops.dual_dot(*ops4), repeats=50)
+    plain_ms = cuda_time_ms(lambda: dual_dot_ref(*ops4), repeats=20)
+    lib_ms = cuda_time_ms(lambda: (torch.dot(a.view(-1), a.view(-1)),
+                                   torch.dot(b.view(-1), a.view(-1))), repeats=50)
+    n = a.numel()
+    blocks = -(-n // 8192)
+    nbytes = 2 * n * 4 + blocks * 2 * 4       # two distinct operands + partials
+    b_ms, b_by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                     (4 * n / PEAK_FLOPS["float32"] * 1e3, "operations"))
+    emit({"phase": "dual_dot_vs_ref", "shape": list(shape),
+          "tolerance": "|K2 - dual_dot_ref(f64)| <= rel * sum|a_i b_i|",
+          "cases": cases, "timed": "float32, (r, r, w, r)",
+          "k2_ms": ms, "k2_with_partial_sum_ms": wrapper_ms, "plain_ms": plain_ms,
+          "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+          "bound_bytes": nbytes, "distinct_operands": 2})
+    return {"err": main["err"], "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
+
+
+def hierarchy_shapes(shape):
+    """The fine shapes of every level pair of ``shape``'s hierarchy."""
+    from repro_torch.compiler.ir import coarsen_shape, coarsenable
+
+    out = []
+    while coarsenable(shape):
+        out.append(tuple(shape))
+        shape = coarsen_shape(shape)
+    return out
+
+
+def transfer_ops(fine, coarse):
+    """Operations of the plain separable transfers for one level pair:
+    restriction 4 per x/y/z-pass output, prolongation 2 per odd (averaged)
+    pass output."""
+    m = [n // 2 - 1 for n in fine]
+    (nx, ny, nz), (cx, cy, cz) = fine, coarse
+    r_ops = 4 * (m[0] * ny * nz + m[0] * m[1] * nz + m[0] * m[1] * m[2])
+    p_ops = 2 * ((m[0] + 1) * cy * cz + nx * (m[1] + 1) * cz + nx * ny * (m[2] + 1))
+    return r_ops, p_ops
+
+
+def phase_transfer_vs_ref(seed: int):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.heat3d import HeatConfig
+    from repro_torch.compiler.ir import coarsen_shape
+    from repro_torch.kernels.transfer import (launch_prolong, launch_restrict,
+                                              prolong_ref, restrict_ref)
+
+    cfg = HeatConfig()
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    pairs = []
+    for dtype in (torch.float32, torch.float64):
+        for fine in hierarchy_shapes((cfg.nx, cfg.ny, cfg.nz)):
+            coarse = coarsen_shape(fine)
+            f = torch.randn(fine, device="cuda", generator=g, dtype=dtype)
+            c = torch.randn(coarse, device="cuda", generator=g, dtype=dtype)
+            errs = []
+            for kern, plain in ((launch_restrict(f), restrict_ref(f)),
+                                (launch_prolong(c, fine), prolong_ref(c, fine))):
+                torch.cuda.synchronize()
+                errs.append(float((kern.double() - plain.double()).abs().max()))
+                if not torch.equal(kern, plain):
+                    raise AssertionError(f"K3/K4 differ from the plain version at "
+                                         f"{fine} {dtype} (max {errs[-1]})")
+            pairs.append({"fine": list(fine), "coarse": list(coarse),
+                          "dtype": str(dtype).removeprefix("torch."),
+                          "k3_max_abs_err": errs[0], "k4_max_abs_err": errs[1]})
+    # time at the finest pair, float32 (the main path's)
+    fine = (cfg.nx, cfg.ny, cfg.nz)
+    coarse = coarsen_shape(fine)
+    f = torch.randn(fine, device="cuda", generator=g)
+    c = torch.randn(coarse, device="cuda", generator=g)
+    w = torch.tensor([0.25, 0.5, 0.25], device="cuda")
+    W = (w[:, None, None] * w[None, :, None] * w[None, None, :])[None, None]
+    v = torch.tensor([0.5, 1.0, 0.5], device="cuda")
+    V = (v[:, None, None] * v[None, :, None] * v[None, None, :])[None, None]
+    f5 = f[None, None, 1:, 1:, 1:].contiguous()
+    c5 = c[None, None].contiguous()
+    lib_r = lambda: F.conv3d(f5, W, stride=2)                    # noqa: E731
+    lib_p = lambda: F.conv_transpose3d(c5, V, stride=2)          # noqa: E731
+    # the library calls compute the same interiors (up to association)
+    lib_r_err = float((lib_r()[0, 0] - restrict_ref(f)[1:-1, 1:-1, 1:-1]).abs().max())
+    n = fine
+    lib_p_err = float((lib_p()[0, 0, 2:n[0], 2:n[1], 2:n[2]]
+                       - prolong_ref(c, fine)[1:-1, 1:-1, 1:-1]).abs().max())
+    r_ops, p_ops = transfer_ops(fine, coarse)
+    cells_f = fine[0] * fine[1] * fine[2]
+    cells_c = coarse[0] * coarse[1] * coarse[2]
+    rows = {}
+    for key, kern, plain, lib, ops_n in (
+            ("K3", lambda: launch_restrict(f), lambda: restrict_ref(f), lib_r, r_ops),
+            ("K4", lambda: launch_prolong(c, fine), lambda: prolong_ref(c, fine),
+             lib_p, p_ops)):
+        nbytes = 4 * (cells_f + cells_c)
+        b_ms, b_by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                         (ops_n / PEAK_FLOPS["float32"] * 1e3, "operations"))
+        rows[key] = {"ms": cuda_time_ms(kern, repeats=50),
+                     "plain_ms": cuda_time_ms(plain, repeats=10),
+                     "library_ms": cuda_time_ms(lib, repeats=20),
+                     "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
+                     "err": max(p[f"{key.lower()}_max_abs_err"] for p in pairs)}
+    emit({"phase": "transfer_vs_ref", "tolerance": "bitwise", "pairs": pairs,
+          "timed": {"fine": list(fine), "coarse": list(coarse), "dtype": "float32"},
+          "K3": {k: v for k, v in rows["K3"].items() if k != "err"},
+          "K4": {k: v for k, v in rows["K4"].items() if k != "err"},
+          "library_vs_plain_max_abs_err": {"conv3d": lib_r_err,
+                                           "conv_transpose3d": lib_p_err}})
+    return rows
+
+
+def btcs_relative_residual(x, T0, w):
+    """‖b − A x‖ / ‖b‖ of the BTCS system, in float64 by plain slicing on the
+    card: A = I − ωψ·S on the interior, identity on the Moat rows; b = ψ·T0
+    on the interior, T0 on the Moat."""
+    import torch
+
+    psi = 1.0 / (1.0 + 6.0 * w)
+    x = torch.as_tensor(x, device="cuda").double()
+    b = torch.as_tensor(T0, device="cuda").double().clone()
+    b[1:-1, 1:-1, 1:-1] *= psi
+    Ax = x.clone()
+    Ax[1:-1, 1:-1, 1:-1] = x[1:-1, 1:-1, 1:-1] - w * psi * neighbours(x)
+    return float(torch.linalg.vector_norm(b - Ax) / torch.linalg.vector_norm(b))
+
+
+def poisson_relative_residual(x, F):
+    """‖b − A x‖ / ‖b‖ of the Poisson system, in float64 by plain slicing on
+    the card: A = 6I − S on the interior, identity on the (zero) Moat rows;
+    b = F on the interior."""
+    import torch
+
+    x = torch.as_tensor(x, device="cuda").double()
+    F = torch.as_tensor(F, device="cuda").double()
+    b = torch.zeros_like(x)
+    b[1:-1, 1:-1, 1:-1] = F[1:-1, 1:-1, 1:-1]
+    Ax = x.clone()
+    Ax[1:-1, 1:-1, 1:-1] = 6.0 * x[1:-1, 1:-1, 1:-1] - neighbours(x)
+    return float(torch.linalg.vector_norm(b - Ax) / torch.linalg.vector_norm(b))
+
+
+def neighbours(x):
+    """Sum of the six face neighbours over the interior."""
+    c = (slice(1, -1),) * 3
+    total = 0
+    for ax in range(3):
+        lo = list(c)
+        hi = list(c)
+        lo[ax] = slice(0, -2)
+        hi[ax] = slice(2, None)
+        total = total + x[tuple(lo)] + x[tuple(hi)]
+    return total
+
+
+def time_solve(step, x0, iterations):
+    """ms per solve and per iteration of ``step(x0)`` on device tensors,
+    after a warm-up solve, and its device breakdown."""
+    ms = cuda_time_ms(lambda: step(x0), repeats=3)
+    return {"ms_per_solve": ms, "ms_per_iteration": ms / max(iterations, 1),
+            **device_breakdown(lambda: step(x0), top=6)}
+
+
+def run_solve_path(record, method, precondition, tol, maxiter):
+    """One solve through the user's entry point, with the launch counters
+    set to 0 just before and read just after."""
+    from repro_torch import compiler
+    from repro_torch.engine import RunOptions, reset_stats, stats
+
+    compiler.reset_stats()
+    reset_stats()
+    reset_counts()
+    wse, T = record()
+    x, info = wse.solve(T, method=method, precondition=precondition, tol=tol,
+                        maxiter=maxiter, options=RunOptions(backend="pallas"),
+                        return_info=True)
+    counts = read_counts()
+    return x, info, counts, {"fallbacks": compiler.stats.fallbacks,
+                             "kernels_built": compiler.stats.kernels_built,
+                             "mg_level_log": [[list(shape), f, r] for shape, f, r
+                                              in stats.mg_level_log]}
+
+
+def phase_solve_heat3d():
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.heat3d import HeatConfig, make_field, record_implicit
+    from repro_torch.engine import RunOptions
+    from repro_torch.solver import make_solver
+
+    cfg = HeatConfig()
+    T0 = make_field(cfg)
+    b = T0.astype(np.float64)
+    b[1:-1, 1:-1, 1:-1] *= 1.0 / (1.0 + 6.0 * cfg.omega)
+    norm_b = float(np.linalg.norm(b))
+    tol = SOLVE_REL_TOL * norm_b
+    x0 = torch.tensor(T0, device="cuda")
+    runs, total = [], {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    for method, pc in (("cg", None), ("pipecg", None), ("cg", "mg")):
+        x, info, counts, comp = run_solve_path(
+            lambda: record_implicit(cfg), method, pc, tol, cfg.maxiter)
+        outcome = str(info.outcomes[0])
+        iters = int(info.iterations[0])
+        rel = btcs_relative_residual(x, T0, cfg.omega)
+        wse, T = record_implicit(cfg)
+        x_jit, info_jit = wse.solve(T, method=method, precondition=pc, tol=tol,
+                                    maxiter=cfg.maxiter,
+                                    options=RunOptions(backend="jit"),
+                                    return_info=True)
+        jit_iters = int(info_jit.iterations[0])
+        jit_err = float(np.abs(x.astype(np.float64) - x_jit).max())
+        jit_atol = SOLVE_JIT_ULPS * max(iters, 1) * float(
+            np.spacing(np.abs(x_jit).max().astype(x_jit.dtype)))
+        wse, T = record_implicit(cfg)
+        prog = wse.program
+        wse.__exit__()
+        step = make_solver(prog, "T", method=method, precondition=pc,
+                           backend="pallas", tol=tol, maxiter=cfg.maxiter)
+        timing = time_solve(step, x0, iters)
+        need = {"K1"} | ({"K2"} if method == "pipecg" or pc else set()) \
+            | ({"K3", "K4"} if pc else set())
+        runs.append({"method": method, "precondition": pc, "outcome": outcome,
+                     "iterations": iters, "residual_reported": float(info.residual[0]),
+                     "independent_f64_relative_residual": rel,
+                     "jit_iterations": jit_iters,
+                     "pallas_vs_jit_max_abs_err": jit_err,
+                     "pallas_vs_jit_atol": jit_atol, "launches": counts,
+                     "fallbacks": comp["fallbacks"], **timing})
+        if outcome != "CONVERGED":
+            raise AssertionError(f"solve {method}/{pc} ended {outcome}")
+        if not np.isfinite(x).all() or x.shape != T0.shape:
+            raise AssertionError(f"solve {method}/{pc}: bad shape or non-finite")
+        if rel > SOLVE_REL_TOL:
+            raise AssertionError(f"solve {method}/{pc}: independent residual "
+                                 f"{rel} > {SOLVE_REL_TOL}")
+        if jit_iters != iters:
+            raise AssertionError(f"solve {method}/{pc}: {iters} iterations, "
+                                 f"{jit_iters} with backend='jit'")
+        if jit_err > jit_atol:
+            raise AssertionError(f"solve {method}/{pc}: pallas vs jit {jit_err}"
+                                 f" > {jit_atol} ({SOLVE_JIT_ULPS} ulp of the "
+                                 "field per iteration)")
+        if comp["fallbacks"]:
+            raise AssertionError(f"solve {method}/{pc}: interpreter fallbacks")
+        missing = [k for k in sorted(need) if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"solve {method}/{pc}: {missing} never launched")
+        for k in total:
+            total[k] += counts[k]
+    emit({"phase": "solve_heat3d", "shape": [cfg.nx, cfg.ny, cfg.nz],
+          "dtype": cfg.dtype, "norm_b": norm_b, "tol": tol,
+          "tol_relative": SOLVE_REL_TOL, "runs": runs, "launches": total})
+    return total
+
+
+def phase_mg_poisson(seed: int):
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.heat3d import HeatConfig
+    from repro_torch.solver import make_solver, poisson_program, record_poisson
+
+    cfg = HeatConfig()
+    shape = (cfg.nx, cfg.ny, cfg.nz)
+    rng = np.random.default_rng(seed)
+    F = np.zeros(shape, np.float32)
+    F[1:-1, 1:-1, 1:-1] = rng.normal(
+        size=tuple(n - 2 for n in shape)).astype(np.float32)
+    F /= np.linalg.norm(F)
+    tol = SOLVE_REL_TOL
+    x0 = torch.zeros(shape, device="cuda")
+    runs, total = [], {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    for method, pc, maxiter in (("mg", None, 60), ("cg", "mg", 200)):
+        x, info, counts, comp = run_solve_path(
+            lambda: record_poisson(F), method, pc, tol, maxiter)
+        outcome = str(info.outcomes[0])
+        iters = int(info.iterations[0])
+        rel = poisson_relative_residual(x, F)
+        step = make_solver(poisson_program(shape, rhs=F), "T", method=method,
+                           precondition=pc, backend="pallas", tol=tol,
+                           maxiter=maxiter)
+        timing = time_solve(step, x0, iters)
+        runs.append({"method": method, "precondition": pc, "outcome": outcome,
+                     "iterations": iters, "residual_reported": float(info.residual[0]),
+                     "independent_f64_relative_residual": rel, "launches": counts,
+                     "fallbacks": comp["fallbacks"], **timing,
+                     "mg_level_log": comp["mg_level_log"]})
+        if outcome != "CONVERGED" or not np.isfinite(x).all():
+            raise AssertionError(f"poisson {method}/{pc} ended {outcome}")
+        if rel > tol:
+            raise AssertionError(f"poisson {method}/{pc}: independent residual "
+                                 f"{rel} > {tol}")
+        if comp["fallbacks"]:
+            raise AssertionError(f"poisson {method}/{pc}: interpreter fallbacks")
+        need = {"K1", "K3", "K4"} | ({"K2"} if pc else set())
+        missing = [k for k in sorted(need) if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"poisson {method}/{pc}: {missing} never launched")
+        for k in total:
+            total[k] += counts[k]
+    emit({"phase": "mg_poisson", "shape": list(shape), "seed": seed,
+          "rhs": "unit-norm standard normal interior", "tol_relative": tol,
+          "runs": runs, "launches": total})
+    return total
+
+
+def device_breakdown(fn, top: int = 4) -> dict:
+    """Device time by kernel over one ``fn()`` under ``torch.profiler``, and
+    the device's idle share: of the profiled call's wall time
+    (``device_idle_share``, the profiler's own host cost included) and of
+    an unprofiled call's (``device_idle_share_unprofiled``).  The shares are
+    None where the profiler reports no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    run(env)
+    fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    plain_wall_us = (time.perf_counter() - t0) * 1e6
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(env)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = []
@@ -404,12 +817,14 @@ def device_breakdown(run, env, top: int = 4):
             us = e.self_cuda_time_total
         if us > 0:
             kernels.append((us, e.key[:60], e.count))
-    if not kernels:
-        return None, None
     kernels.sort(reverse=True)
     busy = sum(k[0] for k in kernels)
-    rows = [{"kernel": name, "us": us, "calls": n} for us, name, n in kernels[:top]]
-    return rows, 1.0 - busy / wall_us
+    return {"device_kernels_us": [{"kernel": name, "us": us, "calls": n}
+                                  for us, name, n in kernels[:top]],
+            "device_busy_us": busy,
+            "device_idle_share": 1.0 - busy / wall_us if kernels else None,
+            "device_idle_share_unprofiled":
+                1.0 - busy / plain_wall_us if kernels else None}
 
 
 def card_line() -> str:
@@ -423,6 +838,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=200,
                     help="heat3d time steps per run (default 200)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random operands and right-hand sides")
     args = ap.parse_args()
 
     import torch
@@ -436,14 +853,26 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     heat = phase_kernel_vs_ref(args.steps)
+    k2 = phase_dual_dot_vs_ref(args.seed)
+    transfers = phase_transfer_vs_ref(args.seed)
     k1 = phase_heat3d(args.steps, heat)
+    solve_counts = phase_solve_heat3d()
+    phase_mg_poisson(args.seed)
+    csrc = "src/repro_torch/kernels/csrc/"
+    rows = [("K1 fused_stencil", "fused_stencil.cu",
+             "src/repro/kernels/fused.py:245", dict(k1, library_ms=None)),
+            ("K2 dual_dot", "dual_dot.cu", "src/repro/kernels/dotprod.py:39",
+             dict(k2, launches=solve_counts["K2"])),
+            ("K3 restrict", "transfer.cu", "src/repro/kernels/transfer.py:119",
+             dict(transfers["K3"], launches=solve_counts["K3"])),
+            ("K4 prolong", "transfer.cu", "src/repro/kernels/transfer.py:126",
+             dict(transfers["K4"], launches=solve_counts["K4"]))]
     emit({"kernels": [{
-        "name": "K1 fused_stencil", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fused_stencil.cu",
-        "replaces": "src/repro/kernels/fused.py:245",
-        "launches": k1["launches"], "max_abs_err": k1["err"],
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"], "library_ms": None}]})
+        "name": name, "route": "cuda", "source": csrc + src, "replaces": where,
+        "launches": r["launches"], "max_abs_err": r["err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        for name, src, where, r in rows]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -10,16 +10,27 @@
    applied in-kernel, memoized by program signature;
 3. execution in :mod:`repro_torch.engine`, with a logged interpreter
    fallback whenever lowering is unsupported.
+
+Multigrid adds level operators re-discretized from the recorded taps
+(:func:`mg_hierarchy`) and the transfer ops (:class:`TransferStencil`,
+compiled by :func:`compile_transfer` into the kernels K3/K4).
 """
 from repro_torch.compiler.codegen import (CompilerStats, clear_cache,
-                                          compile_group, reset_stats, stats,
-                                          try_compile)
-from repro_torch.compiler.ir import (AffineUpdate, LoweredGroup, LoweringError,
-                                     Tap, TiledGroup, auto_tile, lower_group,
-                                     lower_update, tile_group)
+                                          compile_group, compile_transfer,
+                                          reset_stats, stats, try_compile)
+from repro_torch.compiler.ir import (MG_MIN_DIM, AffineUpdate, LoweredGroup,
+                                     LoweringError, MGOperator, Tap,
+                                     TiledGroup, TransferStencil, auto_tile,
+                                     coarsen_operator, coarsen_shape,
+                                     coarsenable, lower_group, lower_update,
+                                     mg_fine_operator, mg_hierarchy,
+                                     tile_group)
 
 __all__ = [
-    "AffineUpdate", "CompilerStats", "LoweredGroup", "LoweringError", "Tap",
-    "TiledGroup", "auto_tile", "clear_cache", "compile_group", "lower_group",
-    "lower_update", "reset_stats", "stats", "tile_group", "try_compile",
+    "MG_MIN_DIM", "AffineUpdate", "CompilerStats", "LoweredGroup",
+    "LoweringError", "MGOperator", "Tap", "TiledGroup", "TransferStencil",
+    "auto_tile", "clear_cache", "coarsen_operator", "coarsen_shape",
+    "coarsenable", "compile_group", "compile_transfer", "lower_group",
+    "lower_update", "mg_fine_operator", "mg_hierarchy", "reset_stats",
+    "stats", "tile_group", "try_compile",
 ]

@@ -8,6 +8,9 @@ field shapes/dtypes, time tile and device — so re-making an identical
 program (the WFA's repeated ``make_WSE`` workflow) reuses the built kernel;
 :data:`stats` exposes build/hit/fallback counters for tests and benchmarks.
 
+:func:`compile_transfer` caches the multigrid transfer kernels (K3, K4) in
+the same cache.
+
 This slice ports the single-device repacking step: every launch wrap-pads
 its inputs by ``k·h`` (so out-of-domain taps reproduce the interpreter's
 ``roll`` semantics) and the kernel writes fresh outputs.  The sharded,
@@ -16,6 +19,7 @@ overlap, halo-resident and batched steps come with later slices.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 from typing import Dict, Tuple
 
@@ -113,6 +117,41 @@ def _get_kernel(group: LoweredGroup, specs, bx, by, nx, ny, device, time_tile,
     return built
 
 
+def compile_transfer(kind: str, fine_shape, coarse_shape, dtype,
+                     device="cuda"):
+    """Build (and cache) one inter-grid transfer for a level pair.
+
+    ``kind`` is ``"restrict"`` (full weighting, fine → coarse, K3) or
+    ``"prolong"`` (trilinear, coarse → fine, K4); the canonical form is
+    :class:`repro_torch.compiler.ir.TransferStencil`, which validates the
+    shape pair once, here.  Cached in the same signature-keyed cache as the
+    fused stencil kernels — one entry per (kind, level-pair shapes, dtype,
+    device) — with the same ``kernels_built`` / ``cache_hits`` accounting.
+    The returned call is :func:`repro_torch.kernels.ops.restrict` or
+    :func:`~repro_torch.kernels.ops.prolong` bound to the level pair: it
+    launches the kernel on a CUDA tensor and runs its plain version on a
+    CPU one.  ``device`` is the card by default, which must exist.
+    """
+    from repro_torch.compiler.ir import TransferStencil
+    from repro_torch.engine.plan import resolve_device
+    from repro_torch.kernels import ops
+
+    ts = TransferStencil(kind, tuple(fine_shape), tuple(coarse_shape))
+    device = resolve_device(device)
+    sig = ("transfer", ts, dtype_name(dtype), str(device))
+    hit = _KERNEL_CACHE.get(sig)
+    if hit is not None:
+        stats.cache_hits += 1
+        return hit
+    if kind == "restrict":
+        call = functools.partial(ops.restrict)
+    else:
+        call = functools.partial(ops.prolong, fine_shape=ts.fine_shape)
+    stats.kernels_built += 1
+    _KERNEL_CACHE[sig] = call
+    return call
+
+
 def _wrap_pad(v: torch.Tensor, ph: int) -> torch.Tensor:
     """``ph``-deep periodic pad of the (X, Y) axes (``ph`` ≤ extent)."""
     v = torch.cat([v[-ph:], v, v[:ph]], dim=0)
@@ -120,7 +159,7 @@ def _wrap_pad(v: torch.Tensor, ph: int) -> torch.Tensor:
 
 
 def compile_group(ops, shapes: Dict[str, tuple], dtypes: Dict[str, object],
-                  device="cpu", *, time_tile: int = 1,
+                  device="cuda", *, time_tile: int = 1,
                   group: LoweredGroup = None):
     """Lower + codegen one loop body for single-device execution.
 

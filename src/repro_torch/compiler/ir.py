@@ -17,9 +17,9 @@ Normalization performed here: constant folding, like-term combination, and
 distribution of products over sums, so e.g. the Fig. 3 heat update always
 canonicalizes to the same seven taps regardless of how the Python spelled it.
 
-This is the single-device subset of the reference IR: the overlap region
-split, the multigrid transfer ops and the adjoint tap transpose come with
-their slices.
+This is the single-device subset of the reference IR plus its multigrid
+part (level operators, re-discretization, transfer ops); the overlap region
+split and the adjoint tap transpose come with their slices.
 """
 from __future__ import annotations
 
@@ -153,6 +153,178 @@ def auto_tile(group: LoweredGroup, brick_xy: Tuple[int, int],
             return cand
         cand //= 2
     return 1
+
+
+# ---------------------------------------------------------------------------
+# multigrid: level-indexed operators + inter-grid transfer ops
+# ---------------------------------------------------------------------------
+
+#: Smallest grid extent that still admits one coarsening step: the coarse
+#: grid ``n//2 + 1`` must keep at least one interior cell (n_c >= 3).
+MG_MIN_DIM = 5
+
+
+@dataclasses.dataclass(frozen=True)
+class TransferStencil:
+    """One inter-grid transfer op in canonical form.
+
+    The multigrid analogue of :class:`AffineUpdate`: instead of taps on one
+    grid, a transfer reads one level and writes the next.  ``kind`` selects
+    the fixed weight stencil — ``"restrict"`` is 27-point full weighting
+    (tensor product of (1/4, 1/2, 1/4) per axis, weights summing to 1) and
+    ``"prolong"`` is trilinear interpolation (its transpose up to the factor
+    8).  Vertex alignment is *even*: coarse cell ``I`` sits on fine cell
+    ``2I``, so the coarse Moat plane coincides with the fine domain boundary
+    on the low side exactly.  Codegen lowers each transfer to one hand-written
+    kernel (:mod:`repro_torch.kernels.transfer`), cached per (kind, shapes,
+    dtype, device).
+    """
+
+    kind: str                         # "restrict" | "prolong"
+    fine_shape: Tuple[int, int, int]
+    coarse_shape: Tuple[int, int, int]
+
+    def __post_init__(self):
+        if self.kind not in ("restrict", "prolong"):
+            raise LoweringError(f"unknown transfer kind {self.kind!r}")
+        if coarsen_shape(self.fine_shape) != tuple(self.coarse_shape):
+            raise LoweringError(
+                f"transfer shapes disagree: coarsening {self.fine_shape} "
+                f"gives {coarsen_shape(self.fine_shape)}, not "
+                f"{tuple(self.coarse_shape)}")
+
+
+@dataclasses.dataclass(frozen=True)
+class MGOperator:
+    """Constant-coefficient operator stencil of one multigrid level.
+
+    The level-indexed program form: ``A x = Σ c_d · x[cell + d]`` over the
+    full (X, Y, Z) interior, identity on the Moat.  ``taps`` maps integer
+    offsets ``(dz, dx, dy)`` to coefficients; the hierarchy is produced by
+    :func:`coarsen_operator` and each level is unparsed back into a recorded
+    program (smoother / residual bodies) that lowers through the ordinary
+    IR → codegen path — one kernel cache entry per level.
+    """
+
+    shape: Tuple[int, int, int]       # (nx, ny, nz) of this level's grid
+    taps: Tuple[Tuple[Tuple[int, int, int], float], ...]  # sorted offset->c
+
+    @property
+    def diag(self) -> float:
+        for off, c in self.taps:
+            if off == (0, 0, 0):
+                return c
+        raise LoweringError("mg operator has no diagonal (center) tap")
+
+
+def coarsen_shape(shape) -> Tuple[int, ...]:
+    """Shape of the next-coarser grid: coarse cell I on fine cell 2I, so
+    ``n_c = n//2 + 1`` (Moat planes included) for every extent."""
+    return tuple(int(n) // 2 + 1 for n in shape)
+
+
+def coarsenable(shape) -> bool:
+    """True when every extent admits one more coarsening (>= MG_MIN_DIM)."""
+    return all(int(n) >= MG_MIN_DIM for n in shape)
+
+
+def mg_fine_operator(group: LoweredGroup, answer: str,
+                     shape: Tuple[int, int, int]) -> MGOperator:
+    """Validate a lowered operator body for geometric multigrid.
+
+    Re-discretization only makes sense for operators whose off-diagonal
+    part scales like a second-order term (h⁻²), which the tap form can
+    guarantee only for *symmetric constant-coefficient* stencils updating
+    the full interior; anything else raises :class:`LoweringError` with the
+    reason (the solver turns that into a clear error or a logged fallback).
+    """
+    if group is None:
+        raise LoweringError(
+            "mg needs an affine-lowerable operator body (this one runs on "
+            "the interpreter fallback)")
+    if len(group.updates) != 1:
+        raise LoweringError(
+            f"mg needs a single-update operator body, got "
+            f"{len(group.updates)} updates")
+    u = group.updates[0]
+    nz = shape[2]
+    if (u.z0, u.zlen) != (1, nz - 2):
+        raise LoweringError(
+            f"mg needs the operator to update the full interior z window "
+            f"[1, {nz - 1}); it updates [{u.z0}, {u.z0 + u.zlen})")
+    taps: Dict[Tuple[int, int, int], float] = {}
+    for coeff, tps in u.terms:
+        if len(tps) != 1 or tps[0].field != answer:
+            raise LoweringError(
+                "mg needs a constant-coefficient operator (every term one "
+                "tap of the unknown); variable-coefficient products cannot "
+                "be re-discretized geometrically")
+        t = tps[0]
+        off = (t.dz, t.dx, t.dy)
+        if max(abs(t.dz), abs(t.dx), abs(t.dy)) > 1:
+            raise LoweringError(
+                f"mg supports taps within the 27-point neighbourhood; tap "
+                f"{off} reaches further (re-discretization would change the "
+                "coarse stencil radius)")
+        taps[off] = taps.get(off, 0.0) + coeff
+    for (dz, dx, dy), c in taps.items():
+        if (dz, dx, dy) == (0, 0, 0):
+            continue
+        mirror = taps.get((-dz, -dx, -dy))
+        if mirror is None or abs(mirror - c) > 1e-12 * max(1.0, abs(c)):
+            raise LoweringError(
+                f"mg needs a symmetric operator stencil; tap {(dz, dx, dy)} "
+                f"(coeff {c}) has no matching mirror tap")
+    if (0, 0, 0) not in taps:
+        raise LoweringError("mg operator has no diagonal (center) tap")
+    return MGOperator(shape=tuple(shape), taps=tuple(sorted(taps.items())))
+
+
+def coarsen_operator(op: MGOperator) -> MGOperator:
+    """Re-discretize an operator one level coarser.
+
+    Row-sum decomposition: ``A = s·I + L`` with ``s = Σ c_d`` (the zeroth-
+    order / mass part, grid-independent) and ``L = A − s·I`` (zero row sum —
+    the second-order part, scaling as h⁻²).  Doubling the spacing quarters
+    ``L`` while the integer tap offsets stay fixed:
+
+        A_2h = s·I + L_h / 4
+
+    which matches the Galerkin operator of full-weighting/trilinear
+    transfers to O(h²) for symmetric stencils — the classic geometric
+    coarse-grid operator, derived from the recorded taps alone.
+    """
+    if not coarsenable(op.shape):
+        raise LoweringError(
+            f"grid {op.shape} is not coarsenable: every extent must be "
+            f">= {MG_MIN_DIM} so the coarse grid keeps an interior")
+    s = sum(c for _, c in op.taps)
+    coarse = []
+    for off, c in op.taps:
+        if off == (0, 0, 0):
+            coarse.append((off, s + (c - s) / 4.0))
+        else:
+            coarse.append((off, c / 4.0))
+    return MGOperator(shape=coarsen_shape(op.shape), taps=tuple(coarse))
+
+
+def mg_hierarchy(op: MGOperator, max_levels: int = None) -> List[MGOperator]:
+    """The level-indexed operator sequence, finest first.
+
+    Coarsens while every extent stays >= :data:`MG_MIN_DIM` (and below
+    ``max_levels`` when given).  Raises :class:`LoweringError` if the fine
+    grid admits no coarsening at all — one level is relaxation, not mg.
+    """
+    if not coarsenable(op.shape):
+        raise LoweringError(
+            f"grid {op.shape} is not coarsenable: mg needs every extent "
+            f">= {MG_MIN_DIM}")
+    levels = [op]
+    while coarsenable(levels[-1].shape):
+        if max_levels is not None and len(levels) >= max_levels:
+            break
+        levels.append(coarsen_operator(levels[-1]))
+    return levels
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,9 @@
 Grid sizes follow the paper's test points: the Fig. 3 example (102³ with
 boundary layers) and the industrially-relevant zone (5.8e6–4.67e7 cells);
 the default 512×512×128 float32 grid is 3.36e7 cells, about 134 MB a field.
-The implicit-solve parameters are carried for the Krylov slice.
+The implicit side of the workload (Eq. 3) is parameterized here too:
+``method``/``tol``/``maxiter`` feed :func:`record_implicit`, which records
+the BTCS system through the WFA frontend ready for ``wse.solve``.
 """
 from __future__ import annotations
 
@@ -67,3 +69,10 @@ def record_heat(cfg: HeatConfig, steps: int, init=None):
                    + T_n[1:-1, 1, 0] + T_n[1:-1, 0, -1]
                    + T_n[1:-1, -1, 0] + T_n[1:-1, 0, 1])
     return wse, T_n
+
+
+def record_implicit(cfg: HeatConfig):
+    """Record the config's BTCS system; returns ``(wse, field)`` ready for
+    ``wse.solve(answer=field, method=cfg.method, tol=cfg.tol, ...)``."""
+    from repro_torch.solver import record_btcs
+    return record_btcs(make_field(cfg), cfg.omega)

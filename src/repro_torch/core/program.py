@@ -192,6 +192,13 @@ class WFAInterface:
                 time_tile=UNSET if time_tile is None else time_tile,
                 resident=UNSET if resident is None else resident,
             )
+            if any(getattr(op.loop, "role", None) is not None
+                   for op in self.program.ops):
+                # the program object stays usable for wse.solve(...)
+                raise ValueError(
+                    "this program records an implicit system "
+                    "(Operator()/Rhs() groups); run wse.solve(answer, ...) "
+                    "instead of make")
             from repro_torch.engine import run_program
             out = run_program(self.program, env=env, options=options)
         finally:
@@ -200,11 +207,24 @@ class WFAInterface:
 
     def solve(self, answer, method: str = "cg", backend=None, mesh=None,
               **kwargs):
-        """Implicit solves come with the Krylov slice of the port."""
-        release_program(self.program)
-        raise NotImplementedError(
-            "WFAInterface.solve is not ported yet: it comes with the Krylov "
-            "solver slice (slice 2)")
+        """Solve the recorded implicit system ``A(x) = b`` for ``answer``.
+
+        The operator body (recorded inside ``with Operator():``) compiles
+        through the same IR → fused-kernel pipeline as explicit programs;
+        matrix-free iterations run on top of the compiled application —
+        Krylov methods, or geometric multigrid via ``method="mg"`` /
+        ``precondition="mg"``.  Policy travels as ``options=RunOptions(...)``
+        (backend defaults to ``"pallas"``, device to ``"cuda"``).  See
+        :func:`repro_torch.solver.solve` for the full keyword surface
+        (``steps``, ``tol``, ``maxiter``, ``lambda_bounds``,
+        ``precondition``, ``mg_opts``, ``return_info``, ``member_env``).
+        """
+        from repro_torch.solver.api import solve as _solve
+        try:
+            return _solve(self.program, answer, method=method,
+                          backend=backend, mesh=mesh, **kwargs)
+        finally:
+            release_program(self.program)
 
     # paper-compatible alias
     make_WSE = make

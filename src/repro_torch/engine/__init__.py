@@ -9,6 +9,8 @@ Every way of running a recorded WFA program dispatches through here:
   device;
 * :func:`compile_body` builds a single body application ``env -> env`` —
   the one backend if/else in the tree;
+* :func:`plan_mg_levels` schedules a multigrid hierarchy (level bodies
+  through :func:`compile_body`, transfers through the kernel cache);
 * :data:`stats` exposes the accounting (steps, launches, wrap pads, tiles
   fused).
 """
@@ -18,9 +20,11 @@ from repro_torch.engine.options import UNSET, RunOptions, resolve_options
 from repro_torch.engine.plan import (
     BACKENDS,
     ExecutionPlan,
+    LevelSegment,
     Segment,
     compile_body,
     plan,
+    plan_mg_levels,
     resolve_device,
 )
 from repro_torch.engine.stats import EngineStats, reset_stats, stats
@@ -29,12 +33,14 @@ __all__ = [
     "BACKENDS",
     "EngineStats",
     "ExecutionPlan",
+    "LevelSegment",
     "RunOptions",
     "Segment",
     "UNSET",
     "compile_body",
     "execute",
     "plan",
+    "plan_mg_levels",
     "reset_stats",
     "resolve_device",
     "resolve_options",

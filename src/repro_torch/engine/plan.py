@@ -97,7 +97,7 @@ def compile_body(
     dtypes,
     backend: str,
     *,
-    device="cpu",
+    device="cuda",
     time_tile: int = 1,
     group=None,
 ) -> Tuple[Callable, bool]:
@@ -107,8 +107,10 @@ def compile_body(
     compiler (fused kernel, ``time_tile`` sub-steps per call, interpreter
     fallback on :class:`LoweringError` counted in
     ``repro_torch.compiler.stats``); ``backend="jit"`` returns the shared
-    roll-interpreter step.  Steps operate on tensors on ``device``.
+    roll-interpreter step.  Steps operate on tensors on ``device`` (the
+    card by default, which must exist).
     """
+    device = resolve_device(device)
     stats.bodies_compiled += 1
     if backend == "pallas":
         from repro_torch.engine.hooks import fire_compile_hook
@@ -126,6 +128,88 @@ def compile_body(
     elif backend != "jit":
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
     return _interp_step(ops), False
+
+
+@dataclasses.dataclass
+class LevelSegment:
+    """One multigrid level's scheduled bodies and transfers.
+
+    The multi-level analogue of :class:`Segment`: ``smooth`` and ``resid``
+    are compiled body applications (``env -> env``, fused kernel K1 or roll
+    interpreter — the same :func:`compile_body` dispatch as every other
+    path), ``restrict``/``prolong`` move tensors to/from the next-coarser
+    level (``None`` on the coarsest).  ``diag`` is the level operator's
+    constant diagonal, which the smoother and coarse solve divide by.
+    """
+
+    level: int
+    shape: Tuple[int, int, int]
+    smooth: Callable
+    resid: Callable
+    smooth_fused: bool
+    resid_fused: bool
+    diag: float
+    restrict: Optional[Callable] = None
+    prolong: Optional[Callable] = None
+
+
+def plan_mg_levels(bodies, backend: str, dtype,
+                   device="cuda") -> List[LevelSegment]:
+    """Schedule one multigrid hierarchy: every level body through the
+    engine's single dispatch point, every transfer through the kernel cache.
+
+    ``bodies`` is finest-first; each entry is a dict with ``shape``,
+    ``diag`` and two recorded bodies ``smooth``/``resid`` as ``(ops,
+    shapes, dtypes)`` triples (see :mod:`repro_torch.solver.multigrid`,
+    which records them per level).  ``backend="pallas"`` lowers each body to
+    one fused kernel — one cache entry per level — and the transfers to the
+    restriction/prolongation kernels K3/K4 of
+    :mod:`repro_torch.kernels.transfer` (on a CPU ``device`` their plain
+    versions run; unlike the reference, no environment decides this);
+    ``backend="jit"`` uses the roll interpreter and the plain transfers.
+    Per-level outcomes land in ``stats.mg_level_log``.  The levels live on
+    ``device``: the card by default, which must exist.
+    """
+    from repro_torch.compiler.codegen import compile_transfer
+    from repro_torch.kernels.transfer import prolong_ref, restrict_ref
+
+    device = resolve_device(device)
+
+    segments: List[LevelSegment] = []
+    log_entries = []
+    for lvl, body in enumerate(bodies):
+        shape = tuple(body["shape"])
+        s_ops, s_shapes, s_dtypes = body["smooth"]
+        r_ops, r_shapes, r_dtypes = body["resid"]
+        smooth, s_fused = compile_body(s_ops, None, s_shapes, s_dtypes, backend,
+                                       device=device)
+        resid, r_fused = compile_body(r_ops, None, r_shapes, r_dtypes, backend,
+                                      device=device)
+        seg = LevelSegment(
+            level=lvl,
+            shape=shape,
+            smooth=smooth,
+            resid=resid,
+            smooth_fused=s_fused,
+            resid_fused=r_fused,
+            diag=float(body["diag"]),
+        )
+        if lvl + 1 < len(bodies):
+            coarse = tuple(bodies[lvl + 1]["shape"])
+            if backend == "pallas":
+                seg.restrict = compile_transfer("restrict", shape, coarse, dtype,
+                                                device)
+                seg.prolong = compile_transfer("prolong", shape, coarse, dtype,
+                                               device)
+            else:
+                seg.restrict = restrict_ref
+                seg.prolong = lambda c, n=shape: prolong_ref(c, n)
+        segments.append(seg)
+        log_entries.append((shape, s_fused, r_fused))
+        stats.mg_levels_built += 1
+    stats.mg_hierarchies += 1
+    stats.mg_level_log = tuple(log_entries)
+    return segments
 
 
 def _brick_xy(program: Program, group) -> Tuple[int, int]:

@@ -4,8 +4,11 @@ One global :data:`stats` instance (mirroring ``repro_torch.compiler.stats``)
 that :func:`repro_torch.engine.plan` and :func:`repro_torch.engine.execute`
 update in place; tests and benchmarks ``reset_stats()`` around a run.  The
 counters are the reference's ``EngineStats``, field for field, so the two
-packages' accounting compares directly; the ones for paths this slice does
-not run (overlap, multigrid, ensembles, health, service) stay 0.
+packages' accounting compares directly.  The multigrid counters
+(``mg_hierarchies``, ``mg_levels_built``, ``mg_level_log``) and the solve
+outcome words (``solve_outcomes``) are live for single-device solves; the
+ones for paths not ported yet (overlap, ensembles, the health ladder and
+sentinels, service) stay 0.
 
 Exchange counting is *static*: the executor derives the counts from the
 plan — one wrap pad per fused-kernel launch (zero for halo-free bodies) and

@@ -3,7 +3,8 @@
 Every kernel source lives under ``kernels/csrc/`` and exposes a plain C
 interface; :func:`load_library` compiles one source with ``nvcc`` for
 Hopper (``sm_90a``) into ``kernels/build/`` — a directory the repository
-ignores — and loads the shared library.  The library's file name carries a
+ignores — and loads the shared library; :func:`build_libraries` starts one
+``nvcc`` per source, all at once, and loads them all.  The library's file name carries a
 digest of the source and the flags, so an edited source is rebuilt and a
 stale build is never loaded.  Nothing is built when a module is imported:
 the CPU tests import every module on a machine without ``nvcc``.
@@ -20,7 +21,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -35,8 +36,9 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-#: seconds each library took to build in this process (0.0 when loaded
-#: from an existing build), and nvcc's report (registers, spills)
+#: seconds from the start of a build to each library's nvcc finishing in
+#: this process (0.0 when loaded from an existing build), and nvcc's report
+#: (registers, spills)
 build_seconds: Dict[str, float] = {}
 build_log: Dict[str, str] = {}
 
@@ -69,27 +71,53 @@ def library_path(stem: str) -> Path:
     return BUILD_DIR / f"lib{stem}-{digest}.so"
 
 
+def _build(stems: Sequence[str]) -> None:
+    """Build every missing library of ``stems``: one ``nvcc`` per source,
+    all started together, then wait for each.  Raises
+    :class:`KernelBuildError` naming every source that failed."""
+    missing = [s for s in dict.fromkeys(stems)
+               if s not in _LIBS and not library_path(s).exists()]
+    if not missing:
+        return
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for stem in missing:
+        so = library_path(stem)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
+        procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True),
+                       tmp, so)
+    errors = []
+    for stem, (proc, tmp, so) in procs.items():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            errors.append(f"nvcc failed to build {stem}.cu (exit "
+                          f"{proc.returncode}):\n{err}{out}")
+            continue
+        build_log[stem] = err + out
+        os.replace(tmp, so)  # atomic: a concurrent build never sees a torn file
+        build_seconds[stem] = time.perf_counter() - t0
+    if errors:
+        raise KernelBuildError("\n".join(errors))
+
+
 def load_library(stem: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<stem>.cu``; cached per process."""
     lib = _LIBS.get(stem)
     if lib is not None:
         return lib
-    so = library_path(stem)
-    t0 = time.perf_counter()
-    if not so.exists():
-        nvcc = find_nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise KernelBuildError(
-                f"nvcc failed to build {stem}.cu (exit {proc.returncode}):\n"
-                f"{proc.stderr}{proc.stdout}")
-        build_log[stem] = proc.stderr + proc.stdout
-        os.replace(tmp, so)  # atomic: concurrent builders never see a torn file
-    build_seconds[stem] = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(so))
+    _build([stem])
+    build_seconds.setdefault(stem, 0.0)
+    lib = ctypes.CDLL(str(library_path(stem)))
     _LIBS[stem] = lib
     return lib
+
+
+def build_libraries(stems: Sequence[str]) -> Dict[str, ctypes.CDLL]:
+    """Build the missing libraries of ``stems`` in parallel and load all."""
+    _build(stems)
+    return {stem: load_library(stem) for stem in stems}

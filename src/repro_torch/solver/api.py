@@ -1,0 +1,656 @@
+"""``wfa.solve`` — matrix-free implicit solves through the program compiler.
+
+The port of ``repro/solver/api.py`` for one device.  The operator body
+recorded inside ``with Operator():`` (see :mod:`repro_torch.solver.frontend`)
+compiles through the engine's single backend dispatch
+(:func:`repro_torch.engine.compile_body`) into one launch of the fused
+stencil kernel K1 per operator application on ``backend="pallas"`` —
+kernel cache, stats counters and logged interpreter fallback included — and
+the matrix-free iterations of :mod:`repro_torch.solver.krylov` run on top
+of the compiled application.  ``method="mg"`` / ``precondition="mg"`` add
+geometric multigrid (:mod:`repro_torch.solver.multigrid`, transfers K3/K4).
+On ``backend="pallas"`` the fused dot pair of PCG and pipelined CG is the
+kernel K2 (:func:`repro_torch.kernels.ops.dual_dot`).
+
+Entry points:
+
+* :func:`solve` — run a recorded system to convergence (also reachable as
+  ``WFAInterface.solve``);
+* :func:`make_solver` — build a reusable solver ``step_fn(x0)``;
+* :func:`operator_fns` — just the compiled ``(A, rhs)`` applications.
+
+Every entry point runs on the card unless the caller asks for the host
+(``RunOptions(device="cpu")``, or ``device="cpu"`` for ``make_solver`` and ``operator_fns``).  The
+sharded solver, the batched (ensemble) solver, the adjoint and the recovery
+ladder come with their slices and raise ``NotImplementedError`` here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Callable, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.compiler import LoweringError, Tap, lower_group
+from repro_torch.core.program import Program, _group_ops, release_program
+from repro_torch.solver import health, krylov
+
+log = logging.getLogger("repro_torch.solver")
+
+METHODS = ("cg", "pipecg", "bicgstab", "chebyshev", "jacobi", "mg")
+
+#: methods that never touch a dot product — no reduction (and no host
+#: synchronisation) per iteration
+REDUCTION_FREE = ("chebyshev", "jacobi")
+
+#: methods that accept ``precondition="mg"`` (CG needs an SPD M; BiCGSTAB
+#: preconditions from the right, so any fixed linear M works)
+PRECONDITIONABLE = ("cg", "bicgstab")
+
+
+@dataclasses.dataclass
+class SolveInfo:
+    """Per-call convergence record returned by ``solve(..., return_info=True)``.
+
+    ``outcomes`` holds the :mod:`repro_torch.solver.health` taxonomy name
+    per time step (``CONVERGED`` / ``MAXITER`` / ``NAN_RESIDUAL`` /
+    ``BREAKDOWN`` / ``STAGNATED`` / ``DIVERGED``); ``recovery`` stays None
+    until the recovery ladder is ported."""
+
+    method: str
+    backend: str
+    iterations: np.ndarray  # (steps,) inner iterations per time step
+    residual: np.ndarray  # (steps,) final ‖r‖ per time step
+    outcomes: Optional[np.ndarray] = None  # (steps,) taxonomy names
+    recovery: Optional["health.RecoveryTrace"] = None
+
+
+def _later(what: str, slice_name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet: it comes with the {slice_name} slice of "
+        "the PyTorch port")
+
+
+# ---------------------------------------------------------------------------
+# program splitting + validation
+# ---------------------------------------------------------------------------
+
+
+def _answer_name(program: Program, answer) -> str:
+    name = getattr(answer, "name", answer)
+    if name not in program.fields:
+        raise ValueError(f"answer field {name!r} is not registered in this program")
+    return name
+
+
+def _split(program: Program, answer: str):
+    """-> ((op_loop, op_ops), (rhs_loop, rhs_ops) | None), validated."""
+    op_groups, rhs_groups = [], []
+    for loop, ops in _group_ops(program):
+        role = getattr(loop, "role", None)
+        if role == "operator":
+            op_groups.append((loop, ops))
+        elif role == "rhs":
+            rhs_groups.append((loop, ops))
+        else:
+            raise ValueError(
+                "wfa.solve programs may only contain Operator()/Rhs() "
+                f"groups; found updates under {getattr(loop, 'name', loop)!r}"
+            )
+    if len(op_groups) != 1:
+        raise ValueError(
+            f"expected exactly one Operator() group, found {len(op_groups)}"
+        )
+    if len(rhs_groups) > 1:
+        raise ValueError(f"expected at most one Rhs() group, found {len(rhs_groups)}")
+    for _, ops in op_groups + rhs_groups:
+        written = {op.field_name for op in ops}
+        if written != {answer}:
+            raise ValueError(
+                "Operator()/Rhs() bodies must update only the unknown field "
+                f"{answer!r}; they write {sorted(written)}"
+            )
+    return op_groups[0], (rhs_groups[0] if rhs_groups else None)
+
+
+def _lower_operator(op_ops: Sequence, answer: str):
+    """Lower the operator body for validation / bounds / diagonal extraction.
+
+    Returns the :class:`LoweredGroup`, or ``None`` when the body is not
+    affine-lowerable (the application then runs on the interpreter fallback
+    and linearity cannot be checked statically).  Raises ``ValueError`` for
+    bodies that lower but are *not linear* in the unknown.
+    """
+    try:
+        group = lower_group(op_ops)
+    except LoweringError:
+        return None
+    for u in group.updates:
+        if u.const != 0.0:
+            raise ValueError(
+                f"operator body has a constant term ({u.const}); A(x) must "
+                "be linear in the unknown — move constants into the Rhs()"
+            )
+        for coeff, taps in u.terms:
+            n_unknown = sum(t.field == answer for t in taps)
+            if n_unknown == 0:
+                raise ValueError(
+                    "operator term reads only coefficient fields — an "
+                    "affine shift; move it into the Rhs()"
+                )
+            if n_unknown > 1:
+                raise ValueError(
+                    "operator body is nonlinear in the unknown "
+                    f"({n_unknown} taps of {answer!r} multiplied); Krylov "
+                    "methods need a linear operator"
+                )
+    return group
+
+
+def gershgorin_bounds(group, answer: str) -> Optional[Tuple[float, float]]:
+    """Eigenvalue bounds of the lowered operator via Gershgorin circles.
+
+    Only for constant-coefficient single-update bodies (every term one tap
+    of the unknown): centre = diagonal coefficient, radius = Σ|off-diagonal|.
+    The identity Moat rows contribute eigenvalue 1, so the bracket is widened
+    to include it.  Returns ``None`` when bounds cannot be derived (variable
+    coefficients) or the operator is indefinite — pass ``lambda_bounds=``.
+    """
+    if group is None or len(group.updates) != 1:
+        return None
+    diag = 0.0
+    radius = 0.0
+    for coeff, taps in group.updates[0].terms:
+        if len(taps) != 1 or taps[0].field != answer:
+            return None
+        t = taps[0]
+        if (t.dz, t.dx, t.dy) == (0, 0, 0):
+            diag += coeff
+        else:
+            radius += abs(coeff)
+    lmin = min(diag - radius, 1.0)
+    lmax = max(diag + radius, 1.0)
+    if lmin <= 0.0:
+        return None
+    return lmin, lmax
+
+
+def _resolve_bounds(method, lambda_bounds, group, answer):
+    if method != "chebyshev":
+        return None
+    bounds = lambda_bounds or gershgorin_bounds(group, answer)
+    if bounds is None:
+        raise ValueError(
+            "chebyshev needs eigenvalue bounds: the operator does not admit "
+            "automatic Gershgorin bounds — pass lambda_bounds=(lmin, lmax)"
+        )
+    return float(bounds[0]), float(bounds[1])
+
+
+def _check_jacobi(method, group):
+    if method == "jacobi" and (group is None or len(group.updates) != 1):
+        raise ValueError(
+            "jacobi needs a lowerable single-update affine operator (the "
+            "diagonal is read off the tap form); use bicgstab instead"
+        )
+
+
+def _check_precondition(method, precondition):
+    if precondition not in (None, "mg"):
+        raise ValueError(
+            f"unknown preconditioner {precondition!r}; expected None or 'mg'"
+        )
+    if precondition is not None and method not in PRECONDITIONABLE:
+        hint = " (method='mg' is already multigrid)" if method == "mg" else ""
+        raise ValueError(
+            f"precondition='mg' supports methods {PRECONDITIONABLE}; "
+            f"got method={method!r}{hint}"
+        )
+
+
+def _build_mg(method, precondition, group, name, shape, dtype, backend, mg_opts,
+              device):
+    """Build the multigrid hierarchy when ``method``/``precondition`` asks.
+
+    ``method="mg"`` turns an illegal system (grid not coarsenable,
+    non-affine / variable-coefficient / asymmetric operator) into a clear
+    ``ValueError``; ``precondition="mg"`` degrades gracefully — a logged
+    warning and a fallback to the unpreconditioned method.
+    """
+    if method != "mg" and precondition != "mg":
+        return None
+    from repro_torch.solver.multigrid import build_multigrid
+
+    try:
+        return build_multigrid(group, name, shape, dtype, backend, mg_opts,
+                               device)
+    except LoweringError as e:
+        if method == "mg":
+            raise ValueError(f"method='mg' cannot be built: {e}") from e
+        log.warning(
+            "precondition='mg' unavailable (%s) — falling back to "
+            "unpreconditioned %s",
+            e,
+            method,
+        )
+        return None
+
+
+def _jacobi_diag(group, answer: str, env):
+    """Diagonal of the operator: a scalar, or a tensor for variable
+    coefficients (center-tap products only)."""
+    diag = None
+    for coeff, taps in group.updates[0].terms:
+        mine = [t for t in taps if t.field == answer]
+        if mine != [Tap(answer, 0, 0, 0)]:
+            continue  # off-diagonal term
+        term = coeff
+        for t in taps:
+            if t.field == answer:
+                continue
+            if (t.dz, t.dx, t.dy) != (0, 0, 0):
+                raise ValueError(
+                    "jacobi: coefficient tap with nonzero offset is not "
+                    "supported; use bicgstab"
+                )
+            term = term * env[t.field]
+        diag = term if diag is None else diag + term
+    if diag is None:
+        raise ValueError("jacobi: operator has no diagonal (center) tap")
+    return diag
+
+
+def _written_mask(group, shape) -> np.ndarray:
+    """(X, Y, Z) bool mask of cells the operator body writes (the rest are
+    identity rows)."""
+    nx, ny, nz = shape
+    m = np.zeros((nx, ny, nz), dtype=bool)
+    for u in group.updates:
+        m[1:-1, 1:-1, u.z0 : u.z0 + u.zlen] = True
+    return m
+
+
+# ---------------------------------------------------------------------------
+# step construction
+# ---------------------------------------------------------------------------
+
+
+def _make_runner(
+    *,
+    method: str,
+    name: str,
+    coef_names,
+    op_step: Callable,
+    rhs_step: Optional[Callable],
+    dot: Callable,
+    dot2: Callable,
+    tol: float,
+    maxiter: int,
+    steps: int,
+    bounds,
+    group,
+    jacobi_mask: Optional[torch.Tensor],
+    mg=None,
+    M: Optional[Callable] = None,
+):
+    """Solve loop: ``run(x0, *coefs) -> (x, (iters, res, outcomes))``.
+
+    Per time step the ``Rhs()`` body produces ``b`` from the state (the
+    identity when none was recorded) and the method solves ``A x = b``
+    warm-started at the state; the reference's ``lax.scan`` over steps is a
+    Python loop.  ``mg`` carries the compiled
+    :class:`~repro_torch.solver.multigrid.Multigrid` for ``method="mg"``;
+    ``M`` is the preconditioner action for CG/BiCGSTAB; ``jacobi_mask``
+    marks the cells the operator writes (``method="jacobi"`` only).  ``iters`` and
+    ``outcomes`` are int32 arrays of shape ``(steps,)``, ``res`` the final
+    ``‖r‖`` per step in the dots' accumulation dtype.
+    """
+
+    def run_method(A, b, x0, envc):
+        if method == "mg":
+            return krylov.stationary(
+                lambda x: mg.cycle(x, b),
+                lambda x: mg.residual_norm2(x, b, dot),
+                x0,
+                tol=tol,
+                maxiter=maxiter,
+                ref2=dot(b, b),
+            )
+        if method == "cg":
+            return krylov.cg(
+                A, dot, b, x0, tol=tol, maxiter=maxiter, M=M, dot2=dot2
+            )
+        if method == "pipecg":
+            return krylov.pipecg(A, dot2, b, x0, tol=tol, maxiter=maxiter)
+        if method == "bicgstab":
+            return krylov.bicgstab(A, dot, b, x0, tol=tol, maxiter=maxiter, M=M)
+        if method == "chebyshev":
+            return krylov.chebyshev(
+                A, b, x0, bounds[0], bounds[1], iters=maxiter, dot=dot, tol=tol
+            )
+        D = _jacobi_diag(group, name, envc)
+        jstep = lambda x: torch.where(jacobi_mask, x + (b - A(x)) / D, b)  # noqa: E731
+        # one extra operator application per solve reports + classifies the
+        # true end-of-run residual (jacobi is otherwise reduction-free)
+        return krylov.jacobi(
+            jstep,
+            x0,
+            iters=maxiter,
+            rnorm2=lambda x: dot(b - A(x), b - A(x)),
+            tol=tol,
+        )
+
+    def run(x0, *coef_args):
+        envc = dict(zip(coef_names, coef_args))
+
+        def A(v):
+            env = dict(envc)
+            env[name] = v
+            return op_step(env)[name]
+
+        x = x0
+        iters, res, outcomes = [], [], []
+        for _ in range(steps):
+            if rhs_step is not None:
+                env = dict(envc)
+                env[name] = x
+                b = rhs_step(env)[name]
+            else:
+                b = x
+            x, i, r, outcome = run_method(A, b, x, envc)
+            iters.append(i)
+            res.append(r)
+            outcomes.append(outcome)
+        res = torch.stack(res).cpu().numpy()
+        return x, (np.asarray(iters, np.int32), res,
+                   np.asarray(outcomes, np.int32))
+
+    return run
+
+
+def _build_step(ops, loop, program: Program, backend: str, device) -> Callable:
+    """One body application ``env -> env`` through the engine's single
+    dispatch point (:func:`repro_torch.engine.compile_body`): the fused
+    kernel K1 when ``backend="pallas"`` (interpreter fallback on
+    LoweringError, counted in ``repro_torch.compiler.stats``), the shared
+    roll interpreter otherwise."""
+    from repro_torch.engine import compile_body
+
+    if backend not in ("jit", "pallas"):
+        raise ValueError(f"unknown solver backend {backend!r}")
+    shapes = {n: f.shape for n, f in program.fields.items()}
+    dtypes = {n: f.dtype for n, f in program.fields.items()}
+    step, _ = compile_body(ops, loop, shapes, dtypes, backend, device=device)
+    return step
+
+
+def operator_fns(program: Program, answer, backend: str = "jit", device="cuda"):
+    """Compiled single-device ``(A, rhs)`` applications for a recorded system.
+
+    ``A(v)`` applies the operator body with the unknown bound to ``v``
+    (coefficient fields are closed over from their init data, on
+    ``device``); ``rhs(T)`` produces ``b`` from the state — the identity
+    when no ``Rhs()`` group was recorded.
+    """
+    from repro_torch.engine import resolve_device
+
+    device = resolve_device(device)
+    name = _answer_name(program, answer)
+    release_program(program)
+    (op_loop, op_ops), rhs_group = _split(program, name)
+    _lower_operator(op_ops, name)
+    op_step = _build_step(op_ops, op_loop, program, backend, device)
+    consts = {
+        n: torch.tensor(f.init_data, device=device)
+        for n, f in program.fields.items()
+        if n != name
+    }
+
+    def A(v):
+        env = dict(consts)
+        env[name] = v
+        return op_step(env)[name]
+
+    if rhs_group is None:
+        return A, (lambda T: T)
+    rhs_step = _build_step(rhs_group[1], rhs_group[0], program, backend, device)
+
+    def rhs(T):
+        env = dict(consts)
+        env[name] = T
+        return rhs_step(env)[name]
+
+    return A, rhs
+
+
+# ---------------------------------------------------------------------------
+# single-device solver
+# ---------------------------------------------------------------------------
+
+
+def make_solver(
+    program: Program,
+    answer,
+    *,
+    method: str = "cg",
+    backend: str = "pallas",
+    tol: float = 1e-6,
+    maxiter: int = 500,
+    steps: int = 1,
+    lambda_bounds: Optional[Tuple[float, float]] = None,
+    precondition: Optional[str] = None,
+    mg_opts=None,
+    batch: int = 1,
+    member_env=None,
+    differentiable: bool = False,
+    device="cuda",
+) -> Callable:
+    """Build a reusable solver ``step_fn(x0) -> (x, (iters, res, outcomes))``.
+
+    Each call advances ``steps`` implicit time steps: per step the ``Rhs()``
+    body produces ``b`` from the state (identity if none was recorded) and
+    the iteration solves ``A x = b`` warm-started at the state.
+    ``method="mg"`` iterates geometric V/W-cycles; ``precondition="mg"``
+    wraps one cycle from a zero guess around CG/BiCGSTAB (tune with
+    ``mg_opts=MGOptions(...)``).
+
+    ``x0`` is a NumPy array or a tensor; ``step_fn`` copies it to
+    ``device`` (a clone, where the reference donates its buffer), so the
+    caller's array is never touched.  ``x`` comes back as a tensor on
+    ``device``, ``iters``/``res``/``outcomes`` as host arrays of shape
+    ``(steps,)``.  ``member_env`` overrides coefficient fields' init data.
+    ``batch > 1`` and ``differentiable=True`` come with later slices.
+    """
+    from repro_torch.engine import resolve_device
+
+    if differentiable:
+        raise _later("make_solver(differentiable=True)", "adjoint")
+    if batch > 1:
+        raise _later(f"make_solver(batch={batch})", "ensembles")
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; expected one of {METHODS}")
+    _check_precondition(method, precondition)
+    name = _answer_name(program, answer)
+    release_program(program)
+    (op_loop, op_ops), rhs_group = _split(program, name)
+    group = _lower_operator(op_ops, name)
+    bounds = _resolve_bounds(method, lambda_bounds, group, name)
+    _check_jacobi(method, group)
+    device = resolve_device(device)
+    field = program.fields[name]
+    mg = _build_mg(
+        method,
+        precondition,
+        group,
+        name,
+        field.shape,
+        field.dtype,
+        backend,
+        mg_opts,
+        device,
+    )
+    op_step = _build_step(op_ops, op_loop, program, backend, device)
+    rhs_step = (
+        _build_step(rhs_group[1], rhs_group[0], program, backend, device)
+        if rhs_group is not None
+        else None
+    )
+    member_env = member_env or {}
+    coef_names = [n for n in program.fields if n != name]
+    coefs = [
+        torch.tensor(np.asarray(member_env.get(n, program.fields[n].init_data)),
+                     device=device)
+        for n in coef_names
+    ]
+    shape = program.fields[name].shape
+    mask = (torch.tensor(_written_mask(group, shape), device=device)
+            if method == "jacobi" else None)
+
+    # dots accumulate in promote(dtype, float32), as the reference's do: a
+    # float32 field keeps float32 sums, a float64 one float64 sums
+    def dot(a, b):
+        return torch.sum(a * b, dtype=torch.promote_types(a.dtype, torch.float32))
+
+    def dot2(a, b, c, d):
+        from repro_torch.kernels import ops as kops
+
+        # the fused dual-dot kernel K2 on the card (its plain version on the
+        # host); unlike the reference, no interpret-mode switch decides
+        if backend == "pallas":
+            part = kops.dual_dot(a, b, c, d)  # one fused operand sweep
+            return part[0], part[1]
+        return dot(a, b), dot(c, d)
+
+    run = _make_runner(
+        method=method,
+        name=name,
+        coef_names=coef_names,
+        op_step=op_step,
+        rhs_step=rhs_step,
+        dot=dot,
+        dot2=dot2,
+        tol=tol,
+        maxiter=maxiter,
+        steps=steps,
+        bounds=bounds,
+        group=group,
+        jacobi_mask=mask,
+        mg=mg,
+        M=mg.apply if (mg is not None and precondition == "mg") else None,
+    )
+
+    def step_fn(x0):
+        if isinstance(x0, torch.Tensor):
+            x0 = x0.to(device=device, copy=True)
+        else:
+            x0 = torch.tensor(np.asarray(x0), device=device)
+        return run(x0, *coefs)
+
+    return step_fn
+
+
+def make_sharded_solver(program: Program, answer, mesh, **kwargs):
+    """The brick-sharded solver comes with the sharding slice."""
+    raise _later("make_sharded_solver", "sharding")
+
+
+# ---------------------------------------------------------------------------
+# one-shot entry point (WFAInterface.solve lands here)
+# ---------------------------------------------------------------------------
+
+
+def solve(
+    program: Program,
+    answer,
+    *,
+    method: str = "cg",
+    backend: Optional[str] = None,
+    mesh=None,
+    steps: int = 1,
+    tol: float = 1e-6,
+    maxiter: int = 500,
+    lambda_bounds: Optional[Tuple[float, float]] = None,
+    precondition: Optional[str] = None,
+    mg_opts=None,
+    return_info: bool = False,
+    options=None,
+    member_env=None,
+):
+    """Solve the recorded implicit system for ``answer``; returns the
+    solution as a NumPy array (and a :class:`SolveInfo` when
+    ``return_info=True``).
+
+    Execution policy travels as ``options=RunOptions(...)`` — the legacy
+    ``backend=`` / ``mesh=`` keywords are deprecation shims that warn once
+    and forward (backend defaults to ``"pallas"``).  ``options.device``
+    names the torch device (``"cuda"`` by default, which raises without a
+    card; ``"cpu"`` runs on the host, every kernel as its plain version).
+
+    The initial guess is the unknown field's init data (its Moat must carry
+    the boundary values, as in the explicit path).  ``tol`` bounds the
+    absolute residual ``‖r‖`` for the Krylov methods and is relative,
+    ``‖r‖ ≤ tol·‖b‖``, for ``method="mg"`` (whose stop reads the true
+    residual of every cycle).  ``method="mg"`` iterates geometric multigrid
+    V/W-cycles; ``precondition="mg"`` accelerates CG/BiCGSTAB with one
+    cycle per iteration.
+
+    Example — the paper's BTCS heat system, multigrid-preconditioned, on
+    the host::
+
+        >>> import numpy as np
+        >>> from repro_torch.engine import RunOptions
+        >>> from repro_torch.solver import record_btcs
+        >>> T0 = np.full((17, 17, 9), 500.0, np.float32)
+        >>> T0[1:-1, 1:-1, 0] = 300.0
+        >>> wse, T = record_btcs(T0, 0.1)
+        >>> x, info = wse.solve(T, method="cg", precondition="mg", tol=1e-6,
+        ...                     options=RunOptions(backend="jit", device="cpu"),
+        ...                     return_info=True)
+        >>> x.shape, bool(info.iterations[0] < 10), str(info.outcomes[0])
+        ((17, 17, 9), True, 'CONVERGED')
+    """
+    from repro_torch.engine.options import UNSET, resolve_options
+    from repro_torch.engine.stats import stats as engine_stats
+
+    options = resolve_options(
+        options,
+        "wfa.solve",
+        backend=UNSET if backend is None else backend,
+        mesh=UNSET if mesh is None else mesh,
+    )
+    backend = options.resolved_backend("pallas")
+    name = _answer_name(program, answer)
+    member_env = member_env or {}
+    step_fn = make_solver(
+        program,
+        name,
+        method=method,
+        backend=backend,
+        tol=tol,
+        maxiter=maxiter,
+        steps=steps,
+        lambda_bounds=lambda_bounds,
+        precondition=precondition,
+        mg_opts=mg_opts,
+        member_env=member_env,
+        device=options.device,
+    )
+    x0 = np.asarray(member_env.get(name, program.fields[name].init_data))
+    x, (iters, res, outs) = step_fn(x0)
+    x = x.cpu().numpy()
+    engine_stats.solve_outcomes = tuple(
+        str(v) for v in np.unique(health.outcome_names(outs))
+    )
+    if return_info:
+        info = SolveInfo(
+            method=method,
+            backend=backend,
+            iterations=iters,
+            residual=res,
+            outcomes=health.outcome_names(outs),
+        )
+        return x, info
+    return x

@@ -232,10 +232,22 @@ def test_heat_config_matches_reference():
 
 
 def test_solve_is_not_ported_and_releases_the_program():
-    wse, T = build_heat(port_core, heat_init(), 2)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        wse.solve(answer=T)
-    port_core.WFAInterface().__exit__()   # no program left active
+    """``solve`` is ported now; the test keeps its name, and checks that
+    ``solve`` on an explicit ``ForLoop`` program (no ``Operator()`` /
+    ``Rhs()`` group) raises the reference's ValueError and leaves no
+    program active."""
+    messages = []
+    for core in (ref_core, port_core):
+        wse, T = build_heat(core, heat_init(), 2)
+        with pytest.raises(ValueError) as err:
+            if core is port_core:
+                wse.solve(answer=T, options=RunOptions(device="cpu"))
+            else:
+                wse.solve(answer=T)
+        messages.append(str(err.value))
+        core.WFAInterface().__exit__()   # no program left active
+    assert messages[0] == messages[1]
+    assert "Operator()/Rhs()" in messages[1]
 
 
 def test_port_imports_neither_jax_nor_repro():
