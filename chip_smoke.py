@@ -37,11 +37,37 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
 7. ``mg_poisson``      — ``record_poisson`` at 512×512×128 with a unit-norm
                          random interior right-hand side from ``--seed``,
                          ``method="mg"`` and ``cg`` + ``precondition="mg"``;
-8. ``kernels``         — one JSON line describing every kernel of the paths.
+8. ``legacy_kernels_vs_ref`` — K6 and K7 bitwise against their plain
+                         versions at float32 and float64: K6 on the padded
+                         514×514×128 brick (1×1 mesh), the padded 258×258×128
+                         brick (2×2 mesh) and the reference's test shapes, K7
+                         with random planes on the 1×1 mesh's brick and on
+                         each brick of a 2×2 mesh; K5's ``Ap`` bitwise and its
+                         dot within ``1e-5·Σ|c·Ap|`` (f32) / ``1e-13·Σ|c·Ap|``
+                         (f64) of the plain version in float64, and bitwise
+                         deterministic, on the same bricks;
+9. ``legacy_ftcs``     — ``HeatConfig()`` through ``make_sharded_ftcs`` with
+                         all five variants on a 1×1 mesh, then a random field
+                         from ``--seed`` on 1×1 and 2×2 meshes: every variant
+                         and mesh bitwise equal, ``ftcs_solve`` within 1 f32
+                         ulp of the field per step, K6/K7 launched once per
+                         brick per step; ms per step and device idle share;
+10. ``legacy_btcs``    — ``make_sharded_iteration`` (cg, pipecg, chebyshev;
+                         with and without kernels; 1×1 and 2×2 meshes) from a
+                         seeded 512×512×128 state for 20 iterations: kernel
+                         vs plain and 2×2 vs 1×1 within 4 f32 ulp of the field
+                         per iteration and their recurrence scalars within
+                         1e-4 relative — cg and pipecg at their last iteration
+                         with ‖r‖ above 1e-6·‖r₀‖, chebyshev bitwise at the
+                         20th — one K5 per brick per iteration
+                         and one K2 per brick per pipecg iteration; ms per
+                         iteration; one ``btcs_solve`` cg step with its
+                         independent float64 residual;
+11. ``kernels``        — one JSON line describing every kernel of the paths.
 
-Each main path (``heat3d``, ``solve_heat3d``, ``mg_poisson``) runs with the
-launch counters set to 0 just before it and read just after, and fails if
-one of its kernels was not launched.  Then the card's name and power limit,
+Each main path (``heat3d``, ``solve_heat3d``, ``mg_poisson``, ``legacy_ftcs``,
+``legacy_btcs``) runs with the launch counters set to 0 just before it and
+read just after, and fails if one of its kernels was not launched.  Then the card's name and power limit,
 and last the result line.  Any failed check raises: the script exits
 non-zero and prints no result line.  Without a CUDA device it exits
 non-zero before printing anything.
@@ -64,7 +90,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 #: the kernel libraries of the main paths (csrc/<stem>.cu)
-LIBRARIES = ("fused_stencil", "dual_dot", "transfer")
+LIBRARIES = ("fused_stencil", "dual_dot", "transfer", "stencil7")
 #: K2 vs the plain version in float64: |K2 − exact| ≤ REL · Σ|aᵢbᵢ|.  The
 #: kernel sums 32 terms per thread, then a 256-thread tree, then the block
 #: partials: about 50 roundings deep, so 50·u (u = 6e-8 at f32, 1.1e-16 at
@@ -86,6 +112,28 @@ JIT_SHORT_ATOL = 2e-4
 #: may round differently; over the same number of iterations they stay
 #: within this many float32 ulp of the field's magnitude per iteration
 SOLVE_JIT_ULPS = 4
+#: K5's dot vs the plain version in float64: |K5 − exact| ≤ REL · Σ|c·Ap|
+#: (one product per cell, a 256-thread tree per block, then torch.sum over
+#: the partials: shallower than K2's sum, so K2's bound holds)
+K5_REL = K2_REL
+#: the legacy Krylov iterations of each make_sharded_iteration run
+LEGACY_ITERS = 20
+#: make_sharded_iteration, kernel vs plain and 2×2 vs 1×1: the dots sum in
+#: other orders, so each iteration's update may round differently, within
+#: this many float32 ulp of the field's magnitude per iteration, and the
+#: recurrence scalars (rr, γ, α) within ITER_SCALAR_REL of each other
+ITER_ULPS = 4
+ITER_SCALAR_REL = 1e-4
+#: CG's and pipelined CG's float32 recurrences lose their accuracy once ‖r‖
+#: falls below about this share of ‖r₀‖ (16 u), and the iteration harness,
+#: unlike the solver, never replaces the residual: from there two dot orders
+#: may drift apart without bound (at ``--seed 0`` pipecg's recurrence ‖r‖
+#: climbs back from 8e-8·‖r₀‖ at iteration 10 to 4e-6 at 13; the
+#: legacy_btcs line records each method's ‖r‖ history and each pair's
+#: difference at the last iteration).  So both are compared at the last
+#: iteration before ‖r‖ first falls to this floor, where a wrong dot would
+#: still show
+KRYLOV_FLOOR = 1e-6
 
 
 def emit(obj) -> None:
@@ -430,8 +478,12 @@ def kernel_counters():
     from repro_torch.kernels.fused import launch_fused
     from repro_torch.kernels.transfer import launch_prolong, launch_restrict
 
+    from repro_torch.kernels.spmv import launch_spmv_dot
+    from repro_torch.kernels.stencil7 import launch_stencil7, launch_stencil_planes
+
     return {"K1": launch_fused, "K2": launch_dual_dot, "K3": launch_restrict,
-            "K4": launch_prolong}
+            "K4": launch_prolong, "K5": launch_spmv_dot, "K6": launch_stencil7,
+            "K7": launch_stencil_planes}
 
 
 def reset_counts() -> None:
@@ -679,7 +731,7 @@ def phase_solve_heat3d():
     norm_b = float(np.linalg.norm(b))
     tol = SOLVE_REL_TOL * norm_b
     x0 = torch.tensor(T0, device="cuda")
-    runs, total = [], {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    runs, total = [], dict.fromkeys(kernel_counters(), 0)
     for method, pc in (("cg", None), ("pipecg", None), ("cg", "mg")):
         x, info, counts, comp = run_solve_path(
             lambda: record_implicit(cfg), method, pc, tol, cfg.maxiter)
@@ -753,7 +805,7 @@ def phase_mg_poisson(seed: int):
     F /= np.linalg.norm(F)
     tol = SOLVE_REL_TOL
     x0 = torch.zeros(shape, device="cuda")
-    runs, total = [], {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    runs, total = [], dict.fromkeys(kernel_counters(), 0)
     for method, pc, maxiter in (("mg", None, 60), ("cg", "mg", 200)):
         x, info, counts, comp = run_solve_path(
             lambda: record_poisson(F), method, pc, tol, maxiter)
@@ -786,6 +838,429 @@ def phase_mg_poisson(seed: int):
           "rhs": "unit-norm standard normal interior", "tol_relative": tol,
           "runs": runs, "launches": total})
     return total
+
+
+# ---------------------------------------------------------------------------
+# slice 3: K5, K6, K7 and the legacy brick drivers
+# ---------------------------------------------------------------------------
+
+#: brick extents of the reference's kernel tests (tests/test_kernels.py)
+LEGACY_TEST_SHAPES = ((3, 7, 9), (6, 10, 5), (7, 130, 12))
+#: K5/K6 bricks: the 1×1 and 2×2 meshes' bricks of 512×512×128, then the
+#: reference's test shapes
+LEGACY_BRICKS = ((512, 512, 128), (256, 256, 128)) + LEGACY_TEST_SHAPES
+#: the make_sharded_ftcs variants, in the reference's order of precedence
+FTCS_VARIANTS = (("baseline", {}), ("overlap", {"overlap": True}),
+                 ("halo_depth4", {"halo_depth": 4}),
+                 ("kernel", {"use_kernel": True}),
+                 ("planes", {"use_kernel": "planes"}))
+
+
+def roofline(nbytes: float, ops: float, dtype_name: str) -> tuple:
+    """(least ms, "bytes" | "operations") for moving ``nbytes`` and doing
+    ``ops`` floating-point operations of ``dtype_name``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def seven_point_weight(c_diag: float, c_off: float, like):
+    """The 3×3×3 ``conv3d`` weight of ``c_diag·c + c_off·Σ6``."""
+    import torch
+
+    W = torch.zeros((1, 1, 3, 3, 3), dtype=like.dtype, device=like.device)
+    W[0, 0, 1, 1, 1] = c_diag
+    for d in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0), (1, 1, 2)):
+        W[(0, 0) + d] = c_off
+    return W
+
+
+def stencil_conv(P, W):
+    """The library counterpart of K6: z edge-replicated by ``F.pad``, then
+    one ``F.conv3d`` over the padded brick."""
+    import torch.nn.functional as F
+
+    return F.conv3d(F.pad(P[None, None], (1, 1, 0, 0, 0, 0), mode="replicate"),
+                    W)[0, 0]
+
+
+def spmv_conv(P, W):
+    """The library counterpart of K5: :func:`stencil_conv` and
+    ``torch.dot``."""
+    import torch
+
+    av = stencil_conv(P, W)
+    return av, torch.dot(P[1:-1, 1:-1].reshape(-1), av.reshape(-1))
+
+
+def phase_legacy_kernels_vs_ref(seed: int):
+    import torch
+
+    from repro_torch.configs.heat3d import HeatConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.spmv import launch_spmv_dot, spmv_dot_ref
+    from repro_torch.kernels.stencil7 import (affine_stencil_ref, launch_stencil7,
+                                              launch_stencil_planes,
+                                              stencil_planes_ref)
+
+    cfg = HeatConfig()
+    w = cfg.omega
+    a, wpsi = 1.0 - 6.0 * w, w / (1.0 + 6.0 * w)
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, device="cuda", generator=g, dtype=dtype)
+
+    k6, k5, k7, main = [], [], [], {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).removeprefix("torch.")
+        for bx, by, nz in LEGACY_BRICKS:
+            P = rnd((bx + 2, by + 2, nz), dtype)
+            got, want = launch_stencil7(P, a, w), affine_stencil_ref(P, a, w)
+            av, parts = launch_spmv_dot(P, 1.0, -wpsi)
+            av2, parts2 = launch_spmv_dot(P, 1.0, -wpsi)
+            want_av, plain_dot = spmv_dot_ref(P, 1.0, -wpsi)
+            torch.cuda.synchronize()
+            err6 = float((got.double() - want.double()).abs().max())
+            if not torch.equal(got, want):
+                raise AssertionError(f"K6 differs from affine_stencil_ref at "
+                                     f"{(bx, by, nz)} {name} (max {err6})")
+            prod = P[1:-1, 1:-1].double() * want_av.double()
+            dot, dot2 = torch.sum(parts), torch.sum(parts2)
+            dot_err = abs(float(dot) - float(prod.sum()))
+            ratio = dot_err / float(prod.abs().sum())
+            if not torch.equal(av, want_av):
+                raise AssertionError(f"K5's Ap differs from spmv_dot_ref at "
+                                     f"{(bx, by, nz)} {name}")
+            if not (torch.equal(av, av2) and torch.equal(dot, dot2)):
+                raise AssertionError(f"K5 is not deterministic at {(bx, by, nz)} {name}")
+            if not bool(torch.isfinite(dot)) or ratio > K5_REL[name]:
+                raise AssertionError(f"K5 dot {name} {(bx, by, nz)}: |err|/Σ|c·Ap| "
+                                     f"= {ratio} > {K5_REL[name]}")
+            k6.append({"brick": [bx, by, nz], "dtype": name, "max_abs_err": err6})
+            k5.append({"brick": [bx, by, nz], "dtype": name, "ap_max_abs_err": 0.0,
+                       "dot_abs_err": dot_err, "dot_err_over_sum_abs": ratio,
+                       "plain_dot_abs_err": abs(float(plain_dot) - float(prod.sum())),
+                       "bound": K5_REL[name]})
+            if dtype == torch.float32 and bx == cfg.nx:
+                main.update(P=P, k5_err=dot_err)
+        for mesh_shape in ((1, 1), (2, 2)):
+            bx, by = cfg.nx // mesh_shape[0], cfg.ny // mesh_shape[1]
+            for cx in range(mesh_shape[0]):
+                for cy in range(mesh_shape[1]):
+                    T = rnd((bx, by, cfg.nz), dtype)
+                    planes = [rnd(s, dtype) for s in ((1, by, cfg.nz), (1, by, cfg.nz),
+                                                      (bx, 1, cfg.nz), (bx, 1, cfg.nz))]
+                    args = (T, *planes, (cx, cy), a, w, cfg.nx, cfg.ny)
+                    got, want = launch_stencil_planes(*args), stencil_planes_ref(*args)
+                    torch.cuda.synchronize()
+                    err = float((got.double() - want.double()).abs().max())
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"K7 differs from stencil_planes_ref on "
+                                             f"brick {(cx, cy)} of {mesh_shape} "
+                                             f"{name} (max {err})")
+                    k7.append({"mesh": list(mesh_shape), "coords": [cx, cy],
+                               "brick": [bx, by, cfg.nz], "dtype": name,
+                               "max_abs_err": err})
+                    if dtype == torch.float32 and mesh_shape == (1, 1):
+                        main["planes"] = args
+
+    # time at the main path's float32 shapes
+    P, args = main["P"], main["planes"]
+    cells = cfg.nx * cfg.ny * cfg.nz
+    interior = (cfg.nx - 2) * (cfg.ny - 2) * (cfg.nz - 2)
+    blocks = launch_spmv_dot(P, 1.0, -wpsi)[1].numel()
+    W6, W5 = seven_point_weight(a, w, P), seven_point_weight(1.0, -wpsi, P)
+    lib6_err = float((stencil_conv(P, W6) - affine_stencil_ref(P, a, w)).abs().max())
+    rows = {}
+    for key, kern, plain, lib, nbytes, ops_n in (
+            ("K6", lambda: launch_stencil7(P, a, w), lambda: affine_stencil_ref(P, a, w),
+             lambda: stencil_conv(P, W6), 4 * (P.numel() + cells), 8 * cells),
+            ("K5", lambda: launch_spmv_dot(P, 1.0, -wpsi),
+             lambda: spmv_dot_ref(P, 1.0, -wpsi), lambda: spmv_conv(P, W5),
+             4 * (P.numel() + cells + blocks), 10 * cells),
+            ("K7", lambda: launch_stencil_planes(*args), lambda: stencil_planes_ref(*args),
+             None, 4 * (2 * cells + 2 * (cfg.ny + cfg.nx) * cfg.nz), 8 * interior)):
+        b_ms, b_by = roofline(nbytes, ops_n, "float32")
+        rows[key] = {"ms": cuda_time_ms(kern, repeats=50),
+                     "plain_ms": cuda_time_ms(plain, repeats=10),
+                     "library_ms": cuda_time_ms(lib, repeats=10) if lib else None,
+                     "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes}
+    rows["K5"]["with_partial_sum_ms"] = cuda_time_ms(
+        lambda: ops.spmv_hex_dot(P, 1.0, -wpsi), repeats=50)
+    rows["K6"]["err"] = max(c["max_abs_err"] for c in k6)
+    rows["K7"]["err"] = max(c["max_abs_err"] for c in k7)
+    rows["K5"]["err"] = main["k5_err"]
+    emit({"phase": "legacy_kernels_vs_ref",
+          "tolerance": {"K6": "bitwise", "K7": "bitwise", "K5 Ap": "bitwise",
+                        "K5 dot": "|K5 - exact(f64)| <= rel * sum|c*Ap|"},
+          "K6_cases": k6, "K7_cases": k7, "K5_cases": k5,
+          "timed": {"padded": list(P.shape), "brick": list(args[0].shape),
+                    "dtype": "float32"},
+          "library": {"K6": "F.pad(z, replicate) + F.conv3d, TF32 off",
+                      "K5": "the same + torch.dot",
+                      "K7": None},
+          "library_vs_plain_max_abs_err": {"K6": lib6_err},
+          **{k: {kk: vv for kk, vv in v.items() if kk != "err"} for k, v in rows.items()}})
+    return rows
+
+
+def phase_legacy_ftcs(steps: int, seed: int):
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.heat3d import HeatConfig, make_field
+    from repro_torch.core.explicit import ftcs_solve, make_sharded_ftcs
+    from repro_torch.core.mesh import make_mesh
+
+    cfg = HeatConfig()
+    shape, w = (cfg.nx, cfg.ny, cfg.nz), cfg.omega
+    meshes = {"1x1": make_mesh((1, 1), ("data", "model")),
+              "2x2": make_mesh((2, 2), ("data", "model"))}
+
+    def run_variants(mesh, T, n):
+        outs, per = {}, {}
+        for name, kw in FTCS_VARIANTS:
+            k = kw.get("halo_depth", 1)
+            if n % k:
+                raise ValueError(f"{n} steps do not divide into halo depth {k}")
+            step, sharding = make_sharded_ftcs(mesh, shape, w, steps_per_call=n // k,
+                                               **kw)
+            x = sharding.shard(T)
+            before = read_counts()
+            out = step(x).gather()
+            torch.cuda.synchronize()
+            per[name] = {kk: v - before[kk] for kk, v in read_counts().items()}
+            if not torch.isfinite(out).all() or tuple(out.shape) != shape:
+                raise AssertionError(f"legacy_ftcs {name}: bad shape or non-finite")
+            outs[name] = out
+        bricks = mesh.size
+        for name, d in per.items():
+            want6 = n * bricks if name == "kernel" else 0
+            want7 = n * bricks if name == "planes" else 0
+            if (d["K6"], d["K7"]) != (want6, want7):
+                raise AssertionError(f"legacy_ftcs {name} on {mesh.dims}: K6/K7 "
+                                     f"launches {(d['K6'], d['K7'])}, expected "
+                                     f"{(want6, want7)}")
+        base = outs["baseline"]
+        for name, out in outs.items():
+            if not torch.equal(out, base):
+                err = float((out.double() - base.double()).abs().max())
+                raise AssertionError(f"legacy_ftcs: {name} differs from the baseline "
+                                     f"on {mesh.dims} (max {err})")
+        return outs, per
+
+    # --- the main path: counters to 0 just before, read just after -------
+    T0 = torch.tensor(make_field(cfg), device="cuda")
+    reset_counts()
+    heat, heat_counts = run_variants(meshes["1x1"], T0, steps)
+    main_counts = read_counts()
+    # -----------------------------------------------------------------------
+    g = torch.Generator(device="cuda").manual_seed(seed + 4)
+    R0 = 300.0 + 200.0 * torch.rand(shape, device="cuda", generator=g)
+    rand_steps = 20
+    rand = {m: run_variants(mesh, R0, rand_steps)[0]["baseline"]
+            for m, mesh in meshes.items()}
+    if not torch.equal(rand["2x2"], rand["1x1"]):
+        raise AssertionError("legacy_ftcs: the 2×2 mesh differs from the 1×1 mesh")
+    solved = ftcs_solve(T0, w, steps)
+    solve_err = float((solved.double() - heat["baseline"].double()).abs().max())
+    solve_atol = steps * float(np.spacing(np.float32(heat["baseline"].abs().max().item())))
+    if not torch.isfinite(solved).all() or solve_err > solve_atol:
+        raise AssertionError(f"ftcs_solve vs make_sharded_ftcs: {solve_err} > "
+                             f"{solve_atol} (1 ulp per step)")
+
+    # --- timing: 20-step calls on device bricks, CUDA events -------------
+    timing = {}
+    n = 20
+    for m, mesh in meshes.items():
+        for name, kw in FTCS_VARIANTS:
+            step, sharding = make_sharded_ftcs(
+                mesh, shape, w, steps_per_call=n // kw.get("halo_depth", 1), **kw)
+            x = sharding.shard(T0)
+            timing[f"{m} {name}"] = {
+                "ms_per_step": cuda_time_ms(lambda: step(x), repeats=3) / n,
+                **device_breakdown(lambda: step(x))}
+    timing["ftcs_solve"] = {
+        "ms_per_step": cuda_time_ms(lambda: ftcs_solve(T0, w, n), repeats=3) / n,
+        **device_breakdown(lambda: ftcs_solve(T0, w, n))}
+    emit({"phase": "legacy_ftcs", "shape": list(shape), "dtype": cfg.dtype,
+          "steps": steps, "variants": [v[0] for v in FTCS_VARIANTS],
+          "launches": heat_counts, "main_path_launches": main_counts,
+          "variants_bitwise": True,
+          "random_field": {"seed": seed, "steps": rand_steps,
+                           "meshes": list(meshes), "bitwise": True},
+          "ftcs_solve_vs_sharded": {"max_abs_err": solve_err, "atol": solve_atol},
+          "timing": timing})
+    return main_counts
+
+
+def initial_iteration_state(method: str, x0, w: float):
+    """A seeded state of ``make_sharded_iteration``, computed in float64
+    from ``x0`` and rounded to float32: the start of the method on
+    ``A x = b`` with ``b = rhs(x0)``."""
+    import torch
+
+    psi = 1.0 / (1.0 + 6.0 * w)
+    x = x0.double()
+    b = x.clone()
+    b[1:-1, 1:-1, 1:-1] *= psi
+
+    def A(v):
+        out = v.clone()
+        out[1:-1, 1:-1, 1:-1] = v[1:-1, 1:-1, 1:-1] - w * psi * neighbours(v)
+        return out
+
+    r = b - A(x)
+    f32 = lambda *vs: tuple(torch.as_tensor(v, device="cuda").float() for v in vs)  # noqa: E731
+    if method == "cg":
+        return f32(x, r, r, (r * r).sum())
+    if method == "pipecg":
+        z = torch.zeros_like(x)
+        return f32(x, r, A(r), z, z, z, 1e30, 1.0)
+    lmin, lmax = 1.0 - 6.0 * w * psi, 1.0 + 6.0 * w * psi
+    theta, delta = 0.5 * (lmax + lmin), 0.5 * (lmax - lmin)
+    d = r / theta
+    return f32(x + d, r, d, delta / theta)
+
+
+def phase_legacy_btcs(seed: int):
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.heat3d import HeatConfig, make_field
+    from repro_torch.convert import state_from_numpy
+    from repro_torch.core.implicit import btcs_solve, make_sharded_iteration
+    from repro_torch.core.mesh import BrickArray, make_mesh
+
+    cfg = HeatConfig()
+    shape, w = (cfg.nx, cfg.ny, cfg.nz), cfg.omega
+    meshes = {"1x1": make_mesh((1, 1), ("data", "model")),
+              "2x2": make_mesh((2, 2), ("data", "model"))}
+    g = torch.Generator(device="cuda").manual_seed(seed + 5)
+    x0 = 300.0 + 200.0 * torch.rand(shape, device="cuda", generator=g,
+                                    dtype=torch.float64)
+    ulp = float(np.spacing(np.float32(x0.abs().max().item())))
+    methods = ("cg", "pipecg", "chebyshev")
+    states = {m: initial_iteration_state(m, x0, w) for m in methods}
+    del x0
+    iters = LEGACY_ITERS
+    # where each method's runs are compared: CG and pipelined CG at the last
+    # iteration before the recurrence residual ‖rᵢ‖ (state entry 1) of the
+    # plain 1×1 run first falls to KRYLOV_FLOOR·‖r₀‖; chebyshev at the last
+    check_at, history = {"chebyshev": iters}, {}
+    for method in ("cg", "pipecg"):
+        step, specs = make_sharded_iteration(meshes["1x1"], shape, w, method=method)
+        s = state_from_numpy(states[method], specs[0].sharding)
+        norms = [float(torch.linalg.vector_norm(s[1].gather().double()))]
+        for _ in range(iters):
+            s = step(s)
+            norms.append(float(torch.linalg.vector_norm(s[1].gather().double())))
+        history[method] = [v / norms[0] for v in norms]
+        below = [i for i, h in enumerate(history[method]) if h <= KRYLOV_FLOOR]
+        check_at[method] = below[0] - 1 if below else iters
+        if check_at[method] < 1:
+            raise AssertionError(f"legacy_btcs {method}: no iteration above the floor")
+    runs, results, steps, last_x = [], {}, {}, {}
+    # --- the main path: counters to 0 just before, read just after -------
+    reset_counts()
+    for method in methods:
+        for m, mesh in meshes.items():
+            for use_kernel in (False, True):
+                step, specs = make_sharded_iteration(mesh, shape, w, method=method,
+                                                     use_kernel=use_kernel)
+                s = state_from_numpy(states[method], specs[0].sharding)
+                before = read_counts()
+                for i in range(iters):
+                    s = step(s)
+                    if i + 1 == check_at[method]:
+                        out = tuple(v.gather() if isinstance(v, BrickArray) else v
+                                    for v in s)
+                torch.cuda.synchronize()
+                d = {k: v - before[k] for k, v in read_counts().items()}
+                final = [v.gather() if isinstance(v, BrickArray) else v for v in s]
+                if not all(bool(torch.isfinite(v).all()) for v in (*out, *final)):
+                    raise AssertionError(f"legacy_btcs {method} {m} kernel={use_kernel}: "
+                                         "non-finite state")
+                last_x[method, m, use_kernel] = final[0]
+                del final
+                want5 = iters * mesh.size if use_kernel else 0
+                want2 = want5 if method == "pipecg" else 0
+                if (d["K5"], d["K2"]) != (want5, want2):
+                    raise AssertionError(f"legacy_btcs {method} {m} kernel={use_kernel}: "
+                                         f"K5/K2 launches {(d['K5'], d['K2'])}, "
+                                         f"expected {(want5, want2)}")
+                results[method, m, use_kernel] = out
+                steps[method, m, use_kernel] = (step, specs)
+                runs.append({"method": method, "mesh": m, "use_kernel": use_kernel,
+                             "launches": {k: d[k] for k in ("K2", "K5")}})
+    main_counts = read_counts()
+    # -----------------------------------------------------------------------
+    checks = []
+    for method in methods:
+        n = check_at[method]
+        atol = ITER_ULPS * n * ulp
+        pairs = [((method, "1x1", True), (method, "1x1", False)),
+                 ((method, "2x2", False), (method, "1x1", False)),
+                 ((method, "2x2", True), (method, "1x1", True))]
+        for got_key, want_key in pairs:
+            got, want = results[got_key], results[want_key]
+            vec_err = max(float((g_.double() - w_.double()).abs().max())
+                          for g_, w_ in zip(got, want) if g_.ndim)
+            scal = [abs(float(g_) / float(w_) - 1.0) if float(w_) else 0.0
+                    for g_, w_ in zip(got, want) if not g_.ndim]
+            bitwise = all(torch.equal(g_.to(w_.device), w_) for g_, w_ in zip(got, want))
+            last_err = float((last_x[got_key].double()
+                              - last_x[want_key].double()).abs().max())
+            checks.append({"got": list(got_key), "want": list(want_key),
+                           "at_iteration": n, "vectors_max_abs_err": vec_err,
+                           "atol": atol, "scalars_rel_diff": scal,
+                           "scalars_rel_bound": ITER_SCALAR_REL, "bitwise": bitwise,
+                           f"x_max_abs_err_at_iteration_{iters}": last_err})
+            if method == "chebyshev" and not bitwise:
+                raise AssertionError(f"legacy_btcs chebyshev {got_key} vs {want_key}: "
+                                     f"not bitwise (max {vec_err})")
+            if vec_err > atol:
+                raise AssertionError(f"legacy_btcs {got_key} vs {want_key}: {vec_err} > "
+                                     f"{atol} ({ITER_ULPS} ulp of the field per "
+                                     "iteration)")
+            if max(scal, default=0.0) > ITER_SCALAR_REL:
+                raise AssertionError(f"legacy_btcs {got_key} vs {want_key}: recurrence "
+                                     f"scalars differ by {scal} > {ITER_SCALAR_REL} "
+                                     "relative")
+    timing = {}
+    for (method, m, use_kernel), (step, specs) in steps.items():
+        if m != "1x1":
+            continue
+        s = state_from_numpy(states[method], specs[0].sharding)
+        timing[f"{method} kernel={use_kernel}"] = {
+            "ms_per_iteration": cuda_time_ms(lambda: step(s), repeats=20),
+            **device_breakdown(lambda: step(s))}
+    # one legacy BTCS time step with cg, on one device
+    T0 = make_field(cfg)
+    b = T0.astype(np.float64)
+    b[1:-1, 1:-1, 1:-1] *= 1.0 / (1.0 + 6.0 * w)
+    tol = SOLVE_REL_TOL * float(np.linalg.norm(b))
+    T0c = torch.tensor(T0, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    T1, (its, res) = btcs_solve(T0c, w, 1, method="cg", tol=tol, maxiter=cfg.maxiter)
+    torch.cuda.synchronize()
+    solve_ms = (time.perf_counter() - t0) * 1e3
+    rel = btcs_relative_residual(T1, T0, w)
+    if not torch.isfinite(T1).all() or tuple(T1.shape) != shape or rel > SOLVE_REL_TOL:
+        raise AssertionError(f"btcs_solve cg: independent residual {rel} > "
+                             f"{SOLVE_REL_TOL} or a bad result")
+    emit({"phase": "legacy_btcs", "shape": list(shape), "dtype": "float32",
+          "iterations": iters, "seed": seed, "compared_at": check_at,
+          "residual_history_over_r0": history, "krylov_floor": KRYLOV_FLOOR,
+          "runs": runs, "checks": checks,
+          "main_path_launches": main_counts, "timing": timing,
+          "btcs_solve": {"method": "cg", "tol": tol, "iterations": int(its[0]),
+                         "residual_reported": float(res[0]),
+                         "independent_f64_relative_residual": rel,
+                         "ms_host_clock": solve_ms}})
+    return main_counts
 
 
 def device_breakdown(fn, top: int = 4) -> dict:
@@ -858,15 +1333,27 @@ def main() -> int:
     k1 = phase_heat3d(args.steps, heat)
     solve_counts = phase_solve_heat3d()
     phase_mg_poisson(args.seed)
+    legacy = phase_legacy_kernels_vs_ref(args.seed)
+    ftcs_counts = phase_legacy_ftcs(args.steps, args.seed)
+    btcs_counts = phase_legacy_btcs(args.seed)
     csrc = "src/repro_torch/kernels/csrc/"
     rows = [("K1 fused_stencil", "fused_stencil.cu",
              "src/repro/kernels/fused.py:245", dict(k1, library_ms=None)),
             ("K2 dual_dot", "dual_dot.cu", "src/repro/kernels/dotprod.py:39",
-             dict(k2, launches=solve_counts["K2"])),
+             dict(k2, launches=solve_counts["K2"] + btcs_counts["K2"])),
             ("K3 restrict", "transfer.cu", "src/repro/kernels/transfer.py:119",
              dict(transfers["K3"], launches=solve_counts["K3"])),
             ("K4 prolong", "transfer.cu", "src/repro/kernels/transfer.py:126",
-             dict(transfers["K4"], launches=solve_counts["K4"]))]
+             dict(transfers["K4"], launches=solve_counts["K4"])),
+            ("K5 spmv_dot", "stencil7.cu", "src/repro/kernels/spmv.py:52",
+             dict(legacy["K5"], launches=btcs_counts["K5"])),
+            ("K6 affine_stencil", "stencil7.cu", "src/repro/kernels/stencil7.py:62",
+             dict(legacy["K6"], launches=ftcs_counts["K6"])),
+            ("K7 stencil_planes", "stencil7.cu", "src/repro/kernels/stencil7.py:140",
+             dict(legacy["K7"], launches=ftcs_counts["K7"]))]
+    missing = [name for name, _, _, r in rows if r["launches"] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on their main paths: {missing}")
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": csrc + src, "replaces": where,
         "launches": r["launches"], "max_abs_err": r["err"], "ms": r["ms"],

@@ -1,5 +1,9 @@
 """Carry field state between NumPy (the JAX side's ``init_data`` / env) and
-torch tensors on a device, preserving dtype.
+torch tensors on a device, preserving dtype: whole fields
+(:func:`env_from_numpy` / :func:`env_to_numpy`) and the brick state of the
+legacy drivers (:func:`state_from_numpy` / :func:`state_to_numpy`: a field,
+or an iteration state of fields and scalars), so that both packages start
+from the same arrays.
 
 >>> import numpy as np
 >>> env = {"T": np.arange(8, dtype=np.float64).reshape(2, 2, 2)}
@@ -9,7 +13,7 @@ torch tensors on a device, preserving dtype.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,3 +39,29 @@ def env_from_numpy(env: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor
 def env_to_numpy(env: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """Host NumPy copies of the tensors (waits for the device)."""
     return {k: v.detach().cpu().numpy().copy() for k, v in env.items()}
+
+
+def state_from_numpy(state: Sequence[np.ndarray], sharding) -> Tuple:
+    """An iteration state of the legacy brick harness
+    (:func:`repro_torch.core.implicit.make_sharded_iteration`) from NumPy
+    arrays (or tensors): 3-D fields become BrickArrays of ``sharding``,
+    scalars fresh 0-d tensors on the mesh's home device."""
+    out = []
+    for a in state:
+        if not isinstance(a, torch.Tensor):
+            a = torch.from_numpy(np.array(a))
+        if a.ndim == 3:
+            out.append(sharding.shard(a))
+        elif a.ndim == 0:
+            out.append(a.to(sharding.mesh.home, copy=True))
+        else:
+            raise ValueError(f"state entries are (X, Y, Z) fields or scalars; "
+                             f"got shape {a.shape}")
+    return tuple(out)
+
+
+def state_to_numpy(state) -> Tuple[np.ndarray, ...]:
+    """Host NumPy copies of an iteration state (fields gathered)."""
+    from repro_torch.core.mesh import device_get
+
+    return tuple(device_get(x) for x in state)

@@ -3,7 +3,10 @@
 Public surface: :class:`~repro_torch.core.field.Field` +
 :class:`~repro_torch.core.program.WFAInterface` +
 :class:`~repro_torch.core.program.ForLoop` — the NumPy-like frontend of the
-paper's Fig. 3, with the paper's ``WSE_*`` spellings as aliases.
+paper's Fig. 3, with the paper's ``WSE_*`` spellings as aliases.  The
+legacy functional drivers live in :mod:`~repro_torch.core.explicit` and
+:mod:`~repro_torch.core.implicit`, over the single-process brick mesh of
+:mod:`~repro_torch.core.mesh` and :mod:`~repro_torch.core.halo`.
 """
 from repro_torch.core.field import Field
 from repro_torch.core.program import ForLoop, WFAInterface

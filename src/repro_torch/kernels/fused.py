@@ -130,7 +130,7 @@ def default_tile(k: int, bx: int, by: int) -> Tuple[int, int]:
 
 def build_fused_call(updates: Sequence, field_specs: Dict[str, Tuple[int, object]],
                      halo: int, bx: int, by: int, nx: int, ny: int,
-                     time_tile: int = 1, wrap: bool = False, device="cpu"):
+                     time_tile: int = 1, wrap: bool = False, *, device):
     """Build the fused kernel for one loop body.
 
     ``updates``     — :class:`repro_torch.compiler.ir.AffineUpdate`s, in
@@ -142,8 +142,9 @@ def build_fused_call(updates: Sequence, field_specs: Dict[str, Tuple[int, object
     ``time_tile``   — sub-steps fused per launch (k); inputs carry ``k·halo``
                       margins.  ``wrap`` marks wrap-pad margins so the
                       per-sub-step Moat mask wraps coordinates.
-    ``device``      — where the kernel runs; on a CUDA device the
-                      descriptor is uploaded now.
+    ``device``      — where the kernel runs (required: no default, so a
+                      caller cannot build for the host by leaving it out);
+                      on a CUDA device the descriptor is uploaded now.
 
     Returns ``(kernel, written)``: the :class:`FusedKernel` to pass to
     :func:`repro_torch.kernels.ops.fused_step` and the written fields in

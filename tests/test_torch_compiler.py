@@ -142,7 +142,7 @@ def test_fused_plain_version_matches_reference_kernel_bitwise(dtype, k):
     specs, (nx, ny) = _field_specs(group, {n: f.shape for n, f in prog.fields.items()},
                                    {n: f.dtype for n, f in prog.fields.items()})
     kernel, written = build_fused_call(group.updates, specs, group.halo, nx, ny,
-                                       nx, ny, time_tile=k, wrap=True)
+                                       nx, ny, time_tile=k, wrap=True, device="cpu")
     assert kernel.hazard and written == ("A", "B")
     padded = [_wrap_pad(torch.tensor(env[n]), kernel.pad) for n in kernel.in_names]
     got = fused_step_ref(kernel, padded)
@@ -210,6 +210,19 @@ def test_cuda_launcher_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="not CUDA"):
         launch_fused(kernel, padded)
     assert launch_fused.launches == before
+
+
+def test_build_fused_call_needs_a_device():
+    """build_fused_call has no default device: a call that leaves it out
+    is refused instead of building for the host."""
+    build, _ = program_inputs("heat", np.float32)
+    wse, T = build(port_core, 2)
+    group = port_compiler.lower_group(wse.program.ops)
+    wse.__exit__()
+    specs, (nx, ny) = _field_specs(group, {"T_n": T.shape}, {"T_n": T.dtype})
+    with pytest.raises(TypeError, match="device"):
+        build_fused_call(group.updates, specs, group.halo, nx, ny, nx, ny,
+                         wrap=True)
 
 
 def _outside_kernel_limits(how):

@@ -260,20 +260,28 @@ def test_port_imports_neither_jax_nor_repro():
         " or n == 'repro' or n.startswith('repro.'))\n"
         "print('BAD', bad)\n"
         "print('N', len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
+        "print('MISSING', [n for n in NEW if n not in sys.modules])\n"
     )
+    # the legacy brick drivers and their kernels K5-K7 (slice 3)
+    new = ["repro_torch.core.mesh", "repro_torch.core.halo",
+           "repro_torch.core.explicit", "repro_torch.core.implicit",
+           "repro_torch.kernels.stencil7", "repro_torch.kernels.spmv",
+           "repro_torch.convert"]
+    code = f"NEW = {new!r}\n" + code
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout
-    assert int(out.stdout.split("N ")[1]) >= 15   # every module imported
+    assert "MISSING []" in out.stdout
+    assert int(out.stdout.split("N ")[1].split()[0]) >= 21   # every module imported
 
 
 def test_port_docstring_examples_run():
     import doctest
     import importlib
 
-    for name in ("repro_torch", "repro_torch.convert",
+    for name in ("repro_torch", "repro_torch.convert", "repro_torch.core.mesh",
                  "repro_torch.core.program", "repro_torch.engine.options",
                  "repro_torch.engine.stats"):
         res = doctest.testmod(importlib.import_module(name))
