@@ -9,9 +9,13 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
 2. ``kernel_vs_ref``   — holds K1 bitwise against its plain PyTorch version
                          on the card, at float32 and float64: the heat3d body
                          at its full main-path shapes (k = 1 and the auto
-                         tile), and a small multi-field, off-axis,
-                         multi-update body at k = 1, k = 2, and through
-                         ``make`` with a remainder launch;
+                         tile), in the padded mode and in the margin mode
+                         (resident inputs, ping-pong outputs; M = k·h and
+                         k·h + 1, interiors also equal to the padded mode's,
+                         margins untouched), and small multi-field,
+                         off-axis, multi-update bodies at k = 1, k = 2 in
+                         both modes, and through ``make`` with a remainder
+                         launch;
 3. ``dual_dot_vs_ref`` — K2 on 512×512×128 float32 and float64 operands,
                          distinct and aliased as pipelined CG passes them,
                          within ``1e-5·Σ|aᵢbᵢ|`` (f32) / ``1e-13·Σ|aᵢbᵢ|``
@@ -22,10 +26,16 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          float32 and float64;
 5. ``heat3d``          — ``HeatConfig()`` (512×512×128 float32) through
                          ``make(backend="pallas")`` at ``time_tile=1`` and at
-                         the auto pick, checked against each other and against
+                         the auto pick, each on the halo-resident layout (the
+                         default; K1's margin mode) and with
+                         ``resident=False`` (the repacking step; K1's padded
+                         mode): all four bitwise equal, and checked against
                          the ``jit`` roll interpreter on the card, with K1's
-                         launch count equal to the engine's; ms per step by
-                         CUDA events after a warm-up, beside the bytes bound;
+                         launch counts by mode equal to the engine's; ms per
+                         step by CUDA events after a warm-up and the device
+                         breakdown of all four, beside the bytes bound; the
+                         device allocations per step of the resident k = 1
+                         loop (must be 0);
 6. ``solve_heat3d``    — ``record_implicit(HeatConfig())`` through
                          ``solve(backend="pallas")`` with ``cg``, ``pipecg``
                          and ``cg`` + ``precondition="mg"`` at
@@ -63,7 +73,8 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          and one K2 per brick per pipecg iteration; ms per
                          iteration; one ``btcs_solve`` cg step with its
                          independent float64 residual;
-11. ``kernels``        — one JSON line describing every kernel of the paths.
+11. ``kernels``        — one JSON line describing every kernel of the paths
+                         (K1's padded and margin modes on rows of their own).
 
 Each main path (``heat3d``, ``solve_heat3d``, ``mg_poisson``, ``legacy_ftcs``,
 ``legacy_btcs``) runs with the launch counters set to 0 just before it and
@@ -241,7 +252,7 @@ def phase_build():
           "ptxas": ptxas})
 
 
-def _build_kernel(program_ops, shapes, dtypes, k, device):
+def _build_kernel(program_ops, shapes, dtypes, k, device, margin=0):
     from repro_torch.compiler.codegen import _field_specs
     from repro_torch.compiler.ir import lower_group
     from repro_torch.kernels.fused import build_fused_call
@@ -249,7 +260,8 @@ def _build_kernel(program_ops, shapes, dtypes, k, device):
     group = lower_group(program_ops)
     specs, (nx, ny) = _field_specs(group, shapes, dtypes)
     kernel, _ = build_fused_call(group.updates, specs, group.halo, nx, ny, nx,
-                                 ny, time_tile=k, wrap=True, device=device)
+                                 ny, time_tile=k, wrap=True, device=device,
+                                 margin=margin)
     return kernel
 
 
@@ -279,6 +291,57 @@ def compare_kernel(kernel, padded):
         err = max(err, (g.double() - w.double()).abs().max().item())
         if not torch.equal(g, w):
             raise AssertionError(f"K1 differs from fused_step_ref (max {err})")
+    return err
+
+
+def _resident_inputs(kernel, env, device):
+    """The margin-mode inputs of ``kernel``: each field entered into a
+    resident buffer of margin ``kernel.margin`` and refreshed to depth
+    ``k·h``, as the engine's resident step does."""
+    import torch
+
+    from repro_torch.engine.layout import HaloLayout, wrap_refresh
+
+    lay = HaloLayout(pad=kernel.margin, shapes={})
+    return [wrap_refresh(lay.enter({n: torch.tensor(env[n], device=device)})[n],
+                         kernel.margin, kernel.pad) for n in kernel.in_names]
+
+
+def margin_outputs(kernel, inputs, fill: float = -7.0):
+    """One output buffer per written field at the resident extent, every
+    cell ``fill``."""
+    import torch
+
+    return [torch.full_like(inputs[kernel.in_names.index(n)], fill)
+            for n in kernel.written]
+
+
+def compare_margin(kernel, inputs, padded_out):
+    """K1's margin mode vs fused_step_ref's on the same card inputs, into
+    output buffers filled alike: the whole buffers bitwise (so the margins
+    stay untouched), and the interiors bitwise against the padded mode's
+    outputs ``padded_out``.  Returns max |diff| (must be 0)."""
+    import torch
+
+    from repro_torch.kernels.fused import fused_step_ref, launch_fused
+
+    before = [t.clone() for t in inputs]
+    got = launch_fused(kernel, inputs, out=margin_outputs(kernel, inputs))
+    want = fused_step_ref(kernel, inputs, out=margin_outputs(kernel, inputs))
+    torch.cuda.synchronize()
+    M = kernel.margin
+    err = 0.0
+    for g, w, p in zip(got, want, padded_out):
+        if not torch.isfinite(g).all():
+            raise AssertionError("K1 margin mode produced non-finite values")
+        err = max(err, (g.double() - w.double()).abs().max().item())
+        if not torch.equal(g, w):
+            raise AssertionError(f"K1 margin mode differs from fused_step_ref "
+                                 f"(max {err})")
+        if not torch.equal(g[M:-M, M:-M], p):
+            raise AssertionError("K1 margin mode differs from the padded mode")
+    if not all(torch.equal(t, b) for t, b in zip(inputs, before)):
+        raise AssertionError("K1 margin mode wrote one of its inputs")
     return err
 
 
@@ -316,23 +379,37 @@ def small_body_cases():
             dtypes = {n: f.dtype for n, f in prog.fields.items()}
             for k in (1, 2):
                 kern = _build_kernel(prog.ops, shapes, dtypes, k, "cuda")
-                err = compare_kernel(
-                    kern, _padded_inputs(kern, body_env, "cuda"))
+                padded = _padded_inputs(kern, body_env, "cuda")
+                err = compare_kernel(kern, padded)
                 cases.append({"body": body,
                               "shape": list(shapes[kern.in_names[0]]),
                               "dtype": np.dtype(dtype).name, "k": k,
                               "halo": kern.halo, "hazard": kern.hazard,
                               "max_abs_err": err})
-        # through make, on the card and on the CPU: 5 steps at k=2 = 2 tiled
-        # launches + 1 remainder
+                M = kern.pad + 1
+                kern_m = _build_kernel(prog.ops, shapes, dtypes, k, "cuda",
+                                       margin=M)
+                err = compare_margin(kern_m,
+                                     _resident_inputs(kern_m, body_env, "cuda"),
+                                     launch_fused(kern, padded))
+                cases.append({"body": body, "mode": "margin", "margin": M,
+                              "shape": list(shapes[kern.in_names[0]]),
+                              "dtype": np.dtype(dtype).name, "k": k,
+                              "halo": kern.halo, "hazard": kern.hazard,
+                              "max_abs_err": err})
+        # through make (the resident layout), on the card and on the CPU: 5
+        # steps at k=2 = 2 tiled launches + 1 remainder, all in margin mode
         outs = {}
         for device in ("cuda", "cpu"):
             wse, A, B = record_coupled(rt, A0, C0, B0, 5)
-            before = launch_fused.launches
+            before = (launch_fused.launches, launch_fused.margin_launches)
             outs[device] = wse.make(answer=A, options=RunOptions(
                 backend="pallas", time_tile=2, device=device))
-            if device == "cuda" and launch_fused.launches - before != 3:
-                raise AssertionError("expected 2 tiled + 1 remainder launch")
+            launched = (launch_fused.launches - before[0],
+                        launch_fused.margin_launches - before[1])
+            if device == "cuda" and launched != (3, 3):
+                raise AssertionError(f"expected 2 tiled + 1 remainder launch in "
+                                     f"margin mode, got {launched}")
         if not np.array_equal(outs["cuda"], outs["cpu"]):
             raise AssertionError("make on the card differs from make on the CPU")
         cases.append({"body": "coupled_advdiff", "path": "make", "steps": 5,
@@ -348,6 +425,7 @@ def phase_kernel_vs_ref(steps_heat: int):
 
     from repro_torch.compiler.ir import auto_tile, lower_group
     from repro_torch.configs.heat3d import HeatConfig, make_field, record_heat
+    from repro_torch.kernels.fused import launch_fused
 
     dev = torch.device("cuda")
     cases = []
@@ -361,22 +439,64 @@ def phase_kernel_vs_ref(steps_heat: int):
         dtypes = {"T_n": T.dtype}
         wse.__exit__()
         k_auto = auto_tile(lower_group(ops), (c.nx, c.ny), steps_heat)
+        env = {"T_n": make_field(c)}
         for k in sorted({1, k_auto}):
             kern = _build_kernel(ops, shapes, dtypes, k, dev)
-            padded = _padded_inputs(kern, {"T_n": make_field(c)}, dev)
+            padded = _padded_inputs(kern, env, dev)
             err = compare_kernel(kern, padded)
             cases.append({"body": "heat3d", "shape": [c.nx, c.ny, c.nz],
                           "dtype": dtype, "k": k, "max_abs_err": err})
             if dtype == cfg.dtype and k == 1:
                 heat = {"kernel": kern, "padded": padded, "err": err}
+            padded_out = launch_fused(kern, padded)
+            del padded
+            for M in (kern.pad, kern.pad + 1):
+                kern_m = _build_kernel(ops, shapes, dtypes, k, dev, margin=M)
+                ins = _resident_inputs(kern_m, env, dev)
+                err = compare_margin(kern_m, ins, padded_out)
+                cases.append({"body": "heat3d", "mode": "margin", "margin": M,
+                              "shape": [c.nx, c.ny, c.nz], "dtype": dtype,
+                              "k": k, "max_abs_err": err})
+                if dtype == cfg.dtype and k == 1 and M == kern.pad:
+                    heat["margin"] = {"kernel": kern_m, "inputs": ins,
+                                      "err": err}
+            del padded_out
     cases += small_body_cases()
     emit({"phase": "kernel_vs_ref", "tolerance": "bitwise", "cases": cases})
     return heat
 
 
+def allocations_per_step(cfg, steps: int) -> dict:
+    """Device allocations per step of the resident k = 1 loop: the growth of
+    ``allocation.all.allocated`` over a ``2·steps`` run less that over a
+    ``steps`` run, divided by ``steps`` (what a run allocates once — the
+    layout's enter and exit, the ping-pong spares — cancels)."""
+    import torch
+
+    from repro_torch.configs.heat3d import record_heat
+    from repro_torch.convert import env_from_numpy
+    from repro_torch.engine import RunOptions, plan, single_runner
+
+    grown = {}
+    for n in (steps, 2 * steps):
+        wse, T = record_heat(cfg, n)
+        p = plan(wse.program, RunOptions(backend="pallas", time_tile=1))
+        wse.__exit__()
+        run = single_runner(p)
+        env = env_from_numpy({"T_n": T.init_data}, "cuda")
+        run(env)
+        torch.cuda.synchronize()
+        a0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+        run(env)
+        torch.cuda.synchronize()
+        grown[n] = torch.cuda.memory_stats()["allocation.all.allocated"] - a0
+    per_step = (grown[2 * steps] - grown[steps]) / steps
+    return {"steps": [steps, 2 * steps], "allocations_per_run":
+            [grown[steps], grown[2 * steps]], "allocations_per_step": per_step}
+
+
 def phase_heat3d(steps: int, heat):
     import numpy as np
-    import torch
 
     from repro_torch import compiler
     from repro_torch.configs.heat3d import HeatConfig, record_heat
@@ -385,21 +505,29 @@ def phase_heat3d(steps: int, heat):
     from repro_torch.kernels.fused import fused_step_ref, launch_fused
 
     cfg = HeatConfig()
+    #: the main path's four runs: (time_tile, resident)
+    modes = {"k1": (1, True), "auto": (None, True),
+             "k1_repack": (1, False), "auto_repack": (None, False)}
     outs, runs = {}, []
     # --- the main path: counters to 0 just before, read just after -------
     compiler.reset_stats()
     compiler.clear_cache()
     reset_stats()
-    launch_fused.launches = 0
-    for tag, tt in (("k1", 1), ("auto", None)):
+    reset_counts()
+    for tag, (tt, resident) in modes.items():
         wse, T = record_heat(cfg, steps)
-        before = (launch_fused.launches, stats.launches)
-        outs[tag] = wse.make(answer=T, options=RunOptions(backend="pallas",
-                                                          time_tile=tt))
-        runs.append({"run": tag, "time_tile": stats.max_time_tile,
-                     "k1_launches": launch_fused.launches - before[0],
-                     "engine_launches": stats.launches - before[1]})
-    main_launches = launch_fused.launches
+        stats.max_time_tile = 1     # so it reads this run's tile
+        before = (read_counts(), stats.launches, stats.repacks)
+        outs[tag] = wse.make(answer=T, options=RunOptions(
+            backend="pallas", time_tile=tt, resident=resident))
+        after = read_counts()
+        runs.append({"run": tag, "resident": resident,
+                     "time_tile": stats.max_time_tile,
+                     "k1_launches": after["K1"] - before[0]["K1"],
+                     "k1_margin_launches": after["K1m"] - before[0]["K1m"],
+                     "engine_launches": stats.launches - before[1],
+                     "repacks": stats.repacks - before[2]})
+    counts = read_counts()
     fallbacks = compiler.stats.fallbacks
     engine_launches = stats.launches
     # -----------------------------------------------------------------------
@@ -412,16 +540,26 @@ def phase_heat3d(steps: int, heat):
             backend=backend, time_tile=1))
     if fallbacks != 0:
         raise AssertionError(f"{fallbacks} interpreter fallbacks on the main path")
-    if main_launches == 0 or main_launches != engine_launches:
-        raise AssertionError(f"K1 launches {main_launches} != engine launches "
+    if counts["K1"] == 0 or counts["K1"] != engine_launches:
+        raise AssertionError(f"K1 launches {counts['K1']} != engine launches "
                              f"{engine_launches}")
+    for r in runs:
+        want = r["engine_launches"] if r["resident"] else 0
+        if r["k1_launches"] != r["engine_launches"] or r["k1_margin_launches"] != want:
+            raise AssertionError(f"{r['run']}: K1 launches by mode {r} do not "
+                                 "match the engine's")
+        if r["repacks"] != (2 if r["resident"] else r["engine_launches"]):
+            raise AssertionError(f"{r['run']}: {r['repacks']} repacks")
     for tag, out in outs.items():
         if out.shape != (cfg.nx, cfg.ny, cfg.nz) or not np.isfinite(out).all():
             raise AssertionError(f"{tag}: bad shape {out.shape} or non-finite")
-    auto_err = float(np.abs(outs["k1"].astype(np.float64) - outs["auto"]).max())
-    if not np.array_equal(outs["k1"], outs["auto"]):
-        raise AssertionError(f"time_tile=1 and the auto tile disagree "
-                             f"(max {auto_err})")
+    diffs = {}
+    for a, b in (("k1", "auto"), ("k1", "k1_repack"), ("auto", "auto_repack")):
+        diffs[f"{a}_vs_{b}"] = float(np.abs(outs[a].astype(np.float64)
+                                            - outs[b]).max())
+        if not np.array_equal(outs[a], outs[b]):
+            raise AssertionError(f"{a} and {b} disagree "
+                                 f"(max {diffs[f'{a}_vs_{b}']})")
     short_err = float(np.abs(short["pallas"].astype(np.float64)
                              - short["jit"]).max())
     if short_err > JIT_SHORT_ATOL:
@@ -432,12 +570,16 @@ def phase_heat3d(steps: int, heat):
     if jit_err > jit_atol:
         raise AssertionError(f"pallas vs jit over {steps} steps: {jit_err} > "
                              f"{jit_atol} (1 ulp per step)")
+    allocs = allocations_per_step(cfg, steps)
+    if allocs["allocations_per_step"] != 0:
+        raise AssertionError(f"the resident k=1 loop allocates: {allocs}")
 
     # --- timing: whole runs on device tensors, CUDA events --------------
     timing = {}
-    for tag, opts in (("k1", RunOptions(backend="pallas", time_tile=1)),
-                      ("auto", RunOptions(backend="pallas")),
-                      ("jit", RunOptions(backend="jit"))):
+    for tag, opts in [(tag, RunOptions(backend="pallas", time_tile=tt,
+                                       resident=resident))
+                      for tag, (tt, resident) in modes.items()] + [
+                          ("jit", RunOptions(backend="jit"))]:
         wse, T = record_heat(cfg, steps)
         p = plan(wse.program, opts)
         wse.__exit__()
@@ -446,26 +588,41 @@ def phase_heat3d(steps: int, heat):
         ms = cuda_time_ms(lambda: run(env), repeats=3)
         timing[tag] = {"ms_per_step": ms / steps,
                        "time_tile": p.segments[0].time_tile,
+                       "margin": p.layout.pad,
                        **device_breakdown(lambda: run(env))}
     kern, padded = heat["kernel"], heat["padded"]
     k1_ms = cuda_time_ms(lambda: launch_fused(kern, padded), repeats=20)
     plain_ms = cuda_time_ms(lambda: fused_step_ref(kern, padded), repeats=5)
     b_ms, b_by = bound_ms(kern, cfg.dtype)
-    emit({"phase": "heat3d", "shape": [cfg.nx, cfg.ny, cfg.nz],
+    km, ins = heat["margin"]["kernel"], heat["margin"]["inputs"]
+    out = margin_outputs(km, ins)
+    km_ms = cuda_time_ms(lambda: launch_fused(km, ins, out=out), repeats=20)
+    km_plain_ms = cuda_time_ms(lambda: fused_step_ref(km, ins, out=out),
+                               repeats=5)
+    bm_ms, bm_by = bound_ms(km, cfg.dtype)
+    emit({"phase": "heat3d", "card": card_line(),
+          "shape": [cfg.nx, cfg.ny, cfg.nz],
           "dtype": cfg.dtype, "steps": steps, "runs": runs,
-          "fallbacks": fallbacks, "k1_launches": main_launches,
+          "fallbacks": fallbacks, "launches": counts,
           "engine_launches": engine_launches,
-          "k1_vs_auto_max_abs_err": auto_err,
+          "max_abs_err": diffs,
           "pallas_vs_jit": {"steps": steps, "max_abs_err": jit_err,
                             "atol": jit_atol},
           "pallas_vs_jit_short": {"steps": min(steps, JIT_SHORT_STEPS),
                                   "max_abs_err": short_err,
                                   "atol": JIT_SHORT_ATOL},
+          "resident_k1_allocations": allocs,
           "timing": timing,
           "bound_ms_per_step_k1": b_ms, "bound_by": b_by,
-          "k1_kernel_ms": k1_ms, "k1_plain_ms": plain_ms})
-    return {"launches": main_launches, "err": heat["err"], "ms": k1_ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+          "k1_kernel_ms": k1_ms, "k1_plain_ms": plain_ms,
+          "k1_margin_kernel_ms": km_ms, "k1_margin_plain_ms": km_plain_ms,
+          "k1_margin_bound_ms": bm_ms})
+    return ({"launches": counts["K1"] - counts["K1m"], "err": heat["err"],
+             "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+             "bound_by": b_by},
+            {"launches": counts["K1m"], "err": heat["margin"]["err"],
+             "ms": km_ms, "plain_ms": km_plain_ms, "bound_ms": bm_ms,
+             "bound_by": bm_by})
 
 
 # ---------------------------------------------------------------------------
@@ -487,12 +644,20 @@ def kernel_counters():
 
 
 def reset_counts() -> None:
+    from repro_torch.kernels.fused import launch_fused
+
     for fn in kernel_counters().values():
         fn.launches = 0
+    launch_fused.margin_launches = 0
 
 
 def read_counts() -> dict:
-    return {k: fn.launches for k, fn in kernel_counters().items()}
+    """Launches by kernel; ``K1m`` is K1's margin-mode share of ``K1``."""
+    from repro_torch.kernels.fused import launch_fused
+
+    counts = {k: fn.launches for k, fn in kernel_counters().items()}
+    counts["K1m"] = launch_fused.margin_launches
+    return counts
 
 
 def phase_dual_dot_vs_ref(seed: int):
@@ -1330,7 +1495,7 @@ def main() -> int:
     heat = phase_kernel_vs_ref(args.steps)
     k2 = phase_dual_dot_vs_ref(args.seed)
     transfers = phase_transfer_vs_ref(args.seed)
-    k1 = phase_heat3d(args.steps, heat)
+    k1, k1_margin = phase_heat3d(args.steps, heat)
     solve_counts = phase_solve_heat3d()
     phase_mg_poisson(args.seed)
     legacy = phase_legacy_kernels_vs_ref(args.seed)
@@ -1339,6 +1504,8 @@ def main() -> int:
     csrc = "src/repro_torch/kernels/csrc/"
     rows = [("K1 fused_stencil", "fused_stencil.cu",
              "src/repro/kernels/fused.py:245", dict(k1, library_ms=None)),
+            ("K1 fused_stencil, margin mode", "fused_stencil.cu",
+             "src/repro/kernels/fused.py:245", dict(k1_margin, library_ms=None)),
             ("K2 dual_dot", "dual_dot.cu", "src/repro/kernels/dotprod.py:39",
              dict(k2, launches=solve_counts["K2"] + btcs_counts["K2"])),
             ("K3 restrict", "transfer.cu", "src/repro/kernels/transfer.py:119",

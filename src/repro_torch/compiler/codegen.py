@@ -11,10 +11,19 @@ program (the WFA's repeated ``make_WSE`` workflow) reuses the built kernel;
 :func:`compile_transfer` caches the multigrid transfer kernels (K3, K4) in
 the same cache.
 
-This slice ports the single-device repacking step: every launch wrap-pads
-its inputs by ``k·h`` (so out-of-domain taps reproduce the interpreter's
-``roll`` semantics) and the kernel writes fresh outputs.  The sharded,
-overlap, halo-resident and batched steps come with later slices.
+Two single-device steps are ported:
+
+* the halo-resident step (``resident=K``, what the planner builds for
+  ``backend="pallas"`` by default): fields live in resident buffers with a
+  ``K``-deep margin (:mod:`repro_torch.engine.layout`); each launch
+  refreshes the four margin slabs to depth ``k·h`` in place, K1's margin
+  mode reads the current buffers and writes the spare buffer of each
+  written field, and the step swaps the two;
+* the repacking step (``resident=0``): every launch wrap-pads its inputs by
+  ``k·h`` (so out-of-domain taps reproduce the interpreter's ``roll``
+  semantics) and the kernel writes fresh outputs.
+
+The sharded, overlap and batched steps come with later slices.
 """
 from __future__ import annotations
 
@@ -97,12 +106,12 @@ def _field_specs(group: LoweredGroup, shapes: Dict[str, tuple],
 
 
 def _get_kernel(group: LoweredGroup, specs, bx, by, nx, ny, device, time_tile,
-                wrap):
+                wrap, margin=0):
     from repro_torch.kernels.fused import build_fused_call
 
     device = torch.device(device)
     sig = (group, tuple((n, s[0], dtype_name(s[1])) for n, s in specs.items()),
-           bx, by, nx, ny, str(device), int(time_tile), bool(wrap))
+           bx, by, nx, ny, str(device), int(time_tile), bool(wrap), int(margin))
     hit = _KERNEL_CACHE.get(sig)
     if hit is not None:
         stats.cache_hits += 1
@@ -111,7 +120,8 @@ def _get_kernel(group: LoweredGroup, specs, bx, by, nx, ny, device, time_tile,
     # size) raises ValueError here: it is a gap of the port, not a lowering
     # failure, so it must not become an interpreter fallback
     built = build_fused_call(group.updates, specs, group.halo, bx, by, nx, ny,
-                             time_tile=time_tile, wrap=wrap, device=device)
+                             time_tile=time_tile, wrap=wrap, device=device,
+                             margin=margin)
     stats.kernels_built += 1
     _KERNEL_CACHE[sig] = built
     return built
@@ -160,18 +170,27 @@ def _wrap_pad(v: torch.Tensor, ph: int) -> torch.Tensor:
 
 def compile_group(ops, shapes: Dict[str, tuple], dtypes: Dict[str, object],
                   device="cuda", *, time_tile: int = 1,
-                  group: LoweredGroup = None):
+                  group: LoweredGroup = None, resident: int = 0):
     """Lower + codegen one loop body for single-device execution.
 
-    Returns ``step(env) -> env`` running the body as one fused kernel launch
-    on the tensors of ``env``; with ``time_tile=k`` each call advances *k*
-    steps off one wrap pad of depth ``k·h`` (validated by
-    :func:`repro_torch.compiler.ir.tile_group`).  Pass ``group=`` to reuse a
-    lowering the planner already derived.  Raises :class:`LoweringError`
-    when the body cannot be fused (the caller falls back to the interpreter
-    and logs the reason), and ``ValueError`` when it is outside the fused
-    kernel's limits (see :func:`repro_torch.kernels.fused.build_fused_call`),
-    which no caller catches.
+    With ``time_tile=k`` each call advances *k* steps off one halo window of
+    depth ``k·h`` (validated by :func:`repro_torch.compiler.ir.tile_group`).
+    Pass ``group=`` to reuse a lowering the planner already derived.
+
+    ``resident=0`` returns ``step(env) -> env``: one launch on wrap-padded
+    copies of ``env``'s tensors, into fresh outputs.  ``resident=K`` returns
+    ``step(env, spare) -> env`` on the halo-resident layout: ``env`` holds
+    resident buffers with a ``K``-deep margin, ``spare`` (owned by the
+    executor, updated in place) one more buffer per written field; the step
+    refreshes every input's margin to depth ``k·h``, launches K1 from the
+    current buffers into the spares and swaps the two.  Fields the body
+    only reads stay in their (refreshed) buffers.
+
+    Raises :class:`LoweringError` when the body cannot be fused (the caller
+    falls back to the interpreter and logs the reason) or when ``K < k·h``,
+    and ``ValueError`` when it is outside the fused kernel's limits (see
+    :func:`repro_torch.kernels.fused.build_fused_call`), which no caller
+    catches.
     """
     from repro_torch.compiler.ir import tile_group
     from repro_torch.kernels.ops import fused_step
@@ -183,10 +202,25 @@ def compile_group(ops, shapes: Dict[str, tuple], dtypes: Dict[str, object],
     # grid would be ill-formed
     tiled = tile_group(group, time_tile, brick_xy=(nx, ny))
     ph = tiled.halo            # k·h margin, paid once per tile
+    if resident and resident < ph:
+        raise LoweringError(f"resident margin {resident} < tiled halo {ph}")
     kernel, written = _get_kernel(group, specs, nx, ny, nx, ny, device,
-                                  time_tile, wrap=True)
+                                  time_tile, wrap=True, margin=resident)
     in_names = list(specs)
     stats.groups_fused += 1
+
+    if resident:
+        from repro_torch.engine.layout import wrap_refresh
+
+        def step(env, spare):
+            env = dict(env)
+            ins = [wrap_refresh(env[n], resident, ph) for n in in_names]
+            fused_step(kernel, ins, out=[spare[n] for n in written])
+            for name in written:
+                env[name], spare[name] = spare[name], env[name]
+            return env
+
+        return step
 
     def step(env):
         env = dict(env)

@@ -11,11 +11,14 @@ Every way of running a recorded WFA program dispatches through here:
   the one backend if/else in the tree;
 * :func:`plan_mg_levels` schedules a multigrid hierarchy (level bodies
   through :func:`compile_body`, transfers through the kernel cache);
-* :data:`stats` exposes the accounting (steps, launches, wrap pads, tiles
-  fused).
+* :class:`HaloLayout` is the halo-resident layout a ``pallas`` plan steps
+  on (:mod:`repro_torch.engine.layout`, with ``wrap_refresh``);
+* :data:`stats` exposes the accounting (steps, launches, halo exchanges,
+  repacks, tiles fused).
 """
 
 from repro_torch.engine.executor import execute, run_program, single_runner
+from repro_torch.engine.layout import HaloLayout
 from repro_torch.engine.options import UNSET, RunOptions, resolve_options
 from repro_torch.engine.plan import (
     BACKENDS,
@@ -33,6 +36,7 @@ __all__ = [
     "BACKENDS",
     "EngineStats",
     "ExecutionPlan",
+    "HaloLayout",
     "LevelSegment",
     "RunOptions",
     "Segment",

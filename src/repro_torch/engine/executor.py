@@ -5,8 +5,16 @@
 * single device — the plan's steps called from a plain Python loop on
   tensors that live on the plan's device.  Time-tiled segments advance ``k``
   steps per call (``n // k`` tiled launches + ``n % k`` untiled remainder
-  launches), which is where the wrap-pad amortization lands.
+  launches), which is where the halo amortization lands.
 
+Halo residency (:mod:`repro_torch.engine.layout`): when the plan carries a
+padded layout, the run *enters* it once (every field copied to the
+resident extent), steps the fused segments on those standing buffers —
+margin slabs refreshed in place, K1 writing each written field into its
+ping-pong spare — and *exits* once at the end; interpreter segments inside
+a mixed plan are bracketed by exit/enter so their roll semantics see plain
+tensors.  The spares are allocated at the first enter, one per written
+field, so with an all-fused plan at k = 1 the step loop allocates nothing.
 The executor also derives the engine's static communication accounting from
 the plan (see :mod:`repro_torch.engine.stats`).
 """
@@ -17,6 +25,7 @@ import time
 from typing import Dict
 
 import numpy as np
+import torch
 
 from repro_torch.convert import env_from_numpy, env_to_numpy
 from repro_torch.core.program import _apply_op
@@ -25,30 +34,83 @@ from repro_torch.engine.plan import ExecutionPlan, Segment
 from repro_torch.engine.stats import stats
 
 
-def _apply_segment(seg: Segment, env):
-    """Run one segment: tiled launches + remainder, or the plain loop."""
+def _apply_segment(seg: Segment, env, *spare):
+    """Run one segment: tiled launches + remainder, or the plain loop.
+    ``spare`` is the resident steps' ping-pong buffers, where they run."""
     if seg.loop is None:
-        return seg.step(env)
+        return seg.step(env, *spare)
     n, k = seg.loop.n, seg.time_tile
     if k > 1:
         for _ in range(n // k):
-            env = seg.step(env)
+            env = seg.step(env, *spare)
         for _ in range(n % k):
-            env = seg.step_rem(env)
+            env = seg.step_rem(env, *spare)
         return env
     for _ in range(n):
-        env = seg.step(env)
+        env = seg.step(env, *spare)
     return env
+
+
+def _resident(plan: ExecutionPlan) -> bool:
+    """Whether the plan's fused segments step on a halo-resident layout."""
+    return (plan.layout is not None and plan.layout.pad > 0
+            and any(seg.kind == "fused" for seg in plan.segments))
+
+
+def _layout_schedule(plan: ExecutionPlan):
+    """The plan's step/conversion event stream: ``"enter"``/``"exit"``
+    markers interleaved with segments.  Fused segments run on the layout's
+    padded buffers; interpreter segments (mixed plans, lowering fallbacks)
+    are bracketed by exit/enter so both step kinds see the env form they
+    were compiled for.  With an all-fused plan this is exactly one enter
+    and one exit per run.  The runner and the repack accounting both
+    consume this one stream, so they cannot drift apart.
+    """
+    padded = False
+    for seg in plan.segments:
+        if seg.kind == "fused":
+            if not padded:
+                yield "enter"
+                padded = True
+        elif padded:
+            yield "exit"
+            padded = False
+        yield seg
+    if padded:
+        yield "exit"
 
 
 def single_runner(plan: ExecutionPlan):
     """``run(env) -> env`` over tensors on ``plan.device`` (no host copies,
-    no synchronisation — the caller times or reads back the result)."""
+    no synchronisation — the caller times or reads back the result).  The
+    caller's tensors are never written; on a resident plan the result is
+    fresh tensors from the layout's exit."""
+    if not _resident(plan):
+        def run(env):
+            env = dict(env)
+            for seg in plan.segments:
+                env = _apply_segment(seg, env)
+            return env
+
+        return run
+
+    layout = plan.layout
+    written = {n for seg in plan.segments for n in seg.written}
 
     def run(env):
-        env = dict(env)
-        for seg in plan.segments:
-            env = _apply_segment(seg, env)
+        spare: Dict[str, torch.Tensor] = {}
+        for ev in _layout_schedule(plan):
+            if ev == "enter":
+                env = layout.enter(env)
+                for n in written:
+                    if n not in spare:
+                        spare[n] = torch.empty_like(env[n])
+            elif ev == "exit":
+                env = layout.exit(env)
+            elif ev.kind == "fused":
+                env = _apply_segment(ev, env, spare)
+            else:
+                env = _apply_segment(ev, env)
         return env
 
     return run
@@ -60,9 +122,20 @@ def _run_single(plan: ExecutionPlan, env: Dict[str, np.ndarray]):
 
 
 def _account(plan: ExecutionPlan) -> None:
-    """Static accounting for one execution of ``plan``: fused segments pay
-    one wrap pad (and one full-field repack) per kernel launch, none when
-    the body is halo-free; interpreter segments roll in place."""
+    """Static accounting for one execution of ``plan``.
+
+    Fused segments pay one halo exchange per kernel launch (none when the
+    body is halo-free): on a resident plan the in-place margin refresh, and
+    the only repacking conversions are the layout's enter/exit events — two
+    for an all-fused plan, plus a pair around each interpreter segment of a
+    mixed plan; otherwise one full wrap pad (a repack) per launch.
+    Interpreter segments roll in place.
+    """
+    resident = _resident(plan)
+    if resident:
+        stats.resident_runs += 1
+        stats.repacks += sum(
+            1 for ev in _layout_schedule(plan) if isinstance(ev, str))
     for seg in plan.segments:
         n, k = seg.n_steps, seg.time_tile
         stats.steps_run += n
@@ -73,7 +146,8 @@ def _account(plan: ExecutionPlan) -> None:
             stats.tiles_fused += tiled
             if seg.halo > 0:
                 stats.exchanges += launches
-                stats.repacks += launches
+                if not resident:
+                    stats.repacks += launches
         else:
             stats.launches += n
 

@@ -1,0 +1,134 @@
+"""Halo-resident field layout: fields stay put, halos move.
+
+The port of ``repro/engine/layout.py``.  Instead of building a wrap-padded
+copy of every field for each kernel launch (two full-field ``torch.cat``s
+per input, ``compiler/codegen.py::_wrap_pad``), each field is stored once
+at its run-wide padded extent ``(nx + 2K, ny + 2K, nz)``, where ``K`` is the
+largest window ``k·h`` any scheduled fused segment needs (the plan's
+``layout.pad``).
+
+A run then touches memory three ways, none of which repacks a field:
+
+* **enter/exit** — one conversion at each boundary of a run of fused
+  segments (:func:`repro_torch.engine.executor.single_runner`);
+* **margin refresh** — before a launch reads a depth-``ph`` window, only
+  the four edge slabs are rewritten, in place (:func:`wrap_refresh`);
+* **ping-pong outputs** — K1's margin mode writes each written field into
+  a second resident buffer of the same extent, which the step then swaps
+  with the first.  The reference writes in place through
+  ``input_output_aliases``, which is valid only while blocks run one at a
+  time; on the card blocks run concurrently, and a block's window would
+  read cells a neighbour already wrote.
+
+Margin contents are transient: refreshed to depth ``ph`` right before each
+launch that reads them and dead in between.
+
+Every operation here passes leading (batch) axes through; only the
+trailing (X, Y, Z) axes are touched.
+
+>>> import torch
+>>> lay = HaloLayout(pad=2, shapes={"T": (4, 4, 3)})
+>>> env = {"T": torch.arange(48.0).reshape(4, 4, 3)}
+>>> padded = lay.enter(env)
+>>> tuple(padded["T"].shape)
+(8, 8, 3)
+>>> bool((lay.exit(padded)["T"] == env["T"]).all())
+True
+>>> tuple(lay.enter({"T": torch.stack([env["T"]] * 5)})["T"].shape)
+(5, 8, 8, 3)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class HaloLayout:
+    """Resident padded layout of one plan's fields.
+
+    ``pad`` is the run-wide margin ``K`` (0 disables residency: enter and
+    exit degrade to identity).  ``shapes`` records the interior extents the
+    plan was built from, as metadata only: enter and exit pad and slice
+    whatever env they receive.
+    """
+
+    pad: int
+    shapes: Dict[str, Tuple[int, int, int]]
+
+    def enter(self, env):
+        """Copy every field into a fresh buffer of the resident extent.
+        Margins start zero; they are refreshed before any kernel reads
+        them.  Leading (batch) axes pass through unpadded."""
+        if self.pad == 0:
+            return dict(env)
+        K = self.pad
+
+        def _pad(v):
+            v = torch.as_tensor(v)
+            shape = (*v.shape[:-3], v.shape[-3] + 2 * K, v.shape[-2] + 2 * K,
+                     v.shape[-1])
+            buf = v.new_zeros(shape)
+            buf[..., K:-K, K:-K, :].copy_(v)
+            return buf
+
+        return {n: _pad(v) for n, v in env.items()}
+
+    def exit(self, env):
+        """Slice every field's interior out of the resident buffers, into
+        fresh contiguous tensors that alias no resident buffer."""
+        if self.pad == 0:
+            return dict(env)
+        K = self.pad
+        return {n: v[..., K:-K, K:-K, :].clone(
+                    memory_format=torch.contiguous_format)
+                for n, v in env.items()}
+
+
+def slab_rects(bx: int, by: int, h: int) -> Dict[str, Tuple[int, int, int, int]]:
+    """Margin-slab geometry: name -> (ox, oy, sx, sy) in brick coordinates.
+
+    The four depth-``h`` margin slabs of a (bx, by) brick: X slabs span the
+    interior columns, Y slabs the x-extended rows, so the corners carry the
+    data that wraps in both axes.  The rectangles are pairwise disjoint and
+    cover the margin frame exactly.  X slabs come first: a Y slab's source
+    reads the X slabs' cells.
+    """
+    return {
+        "lo_x": (-h, 0, h, by),
+        "hi_x": (bx, 0, h, by),
+        "lo_y": (-h, -h, bx + 2 * h, h),
+        "hi_y": (-h, by, bx + 2 * h, h),
+    }
+
+
+#: where each slab's wrap source lies, in units of the brick extent
+_WRAP_SOURCE = {"lo_x": (1, 0), "hi_x": (-1, 0), "lo_y": (0, 1), "hi_y": (0, -1)}
+
+
+def wrap_refresh(resident: torch.Tensor, margin: int, h: int) -> torch.Tensor:
+    """Refresh the depth-``h`` wrap margin of a resident buffer in place.
+
+    Writes exactly what a ``h``-deep periodic pad of the interior holds
+    (``compiler/codegen.py::_wrap_pad``, the roll interpreter's semantics)
+    into the margin frame: four ``copy_``s of edge slabs from the opposite
+    interior edge, X slabs first, then the Y slabs over the x-extended rows.
+    Only the slabs move; the interior is untouched and nothing is
+    allocated.  Needs ``h <= margin`` and ``h`` at most the brick's extent.
+    Returns ``resident``.
+    """
+    if h == 0:
+        return resident
+    K = margin
+    bx = resident.shape[-3] - 2 * K
+    by = resident.shape[-2] - 2 * K
+    for name, (ox, oy, sx, sy) in slab_rects(bx, by, h).items():
+        fx, fy = _WRAP_SOURCE[name]
+        x0, y0 = K + ox, K + oy
+        sx0, sy0 = x0 + fx * bx, y0 + fy * by
+        resident[..., x0:x0 + sx, y0:y0 + sy, :].copy_(
+            resident[..., sx0:sx0 + sx, sy0:sy0 + sy, :])
+    return resident

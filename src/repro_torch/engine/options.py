@@ -49,9 +49,12 @@ class RunOptions:
     """Execution policy for one plan/run.
 
     ``backend=None`` means "the entry point's default" (``make`` defaults to
-    ``jit``).  ``resident`` is accepted for parity; this slice always plans
-    the repacking step (wrap pad per launch, fresh kernel outputs), which is
-    the reference's own schedule wherever blocks do not run one at a time.
+    ``jit``).  ``resident=True`` steps ``backend="pallas"`` plans on the
+    halo-resident layout (:mod:`repro_torch.engine.layout`): fields entered
+    once per run, margin slabs refreshed in place per launch, K1's outputs
+    ping-ponged between two resident buffers per written field.
+    ``resident=False`` keeps the repacking step (a wrap pad per launch,
+    fresh kernel outputs); both give the same bits.
     ``overlap="auto"`` keeps the monolithic launch (no cost model yet).
     ``device`` names the torch device; ``"cuda"`` raises when no card is
     present instead of running elsewhere.

@@ -14,11 +14,19 @@ with a logged reason otherwise; ``time_tile=None`` auto-picks the largest
 power-of-two divisor of the trip count whose tiled halo stays small next to
 the grid (:func:`repro_torch.compiler.ir.auto_tile`).
 
-Layout: every fused step wrap-pads its inputs and the kernel writes fresh
-outputs (the reference's repacking step).  The reference's halo-resident
-layout writes kernel outputs in place, which is safe only while blocks run
-one at a time; on the card they run concurrently, so the resident layout
-waits for ping-pong buffers in a later slice.
+Layout: planning is two-pass.  Pass one lowers each body and picks its
+tile factor; with ``RunOptions(resident=True)`` (the default) and
+``backend="pallas"``, the run-wide margin is ``K = max k·h`` over the fused
+bodies and the plan carries ``HaloLayout(K, shapes)``
+(:mod:`repro_torch.engine.layout`).  Pass two compiles each body against
+that margin: the executor enters the layout once per run of fused
+segments, and each launch refreshes four margin slabs in place and writes
+a second resident buffer per written field (ping-pong), instead of
+wrap-padding every input.  The reference writes in place and plans this
+only in interpret mode, where blocks run one at a time; ping-pong makes it
+valid on the card, so the port plans it on the CPU and the card alike.
+``resident=False`` (or ``K = 0``: every fused body halo-free) keeps the
+repacking step: a wrap pad per launch and fresh kernel outputs.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import torch
 from repro_torch.compiler import LoweringError, auto_tile, lower_group, tile_group
 from repro_torch.compiler.codegen import compile_group, try_compile
 from repro_torch.core.program import Program, _group_ops, _interp_step
+from repro_torch.engine.layout import HaloLayout
 from repro_torch.engine.options import UNSET, resolve_options
 from repro_torch.engine.stats import stats
 
@@ -49,7 +58,8 @@ class Segment:
     ``step`` advances ``time_tile`` logical steps per call; ``step_rem``
     (untiled) covers the ``n % k`` remainder when the tile factor does not
     divide the trip count.  ``numpy`` plans carry no compiled steps — the
-    executor interprets ``ops`` eagerly.
+    executor interprets ``ops`` eagerly.  ``written`` names the fields a
+    fused body writes (the executor's ping-pong spares on a resident plan).
     """
 
     loop: Optional[object]
@@ -60,6 +70,7 @@ class Segment:
     time_tile: int = 1
     halo: int = 0
     reason: str = ""  # fallback / clamp explanation, "" when none
+    written: Tuple[str, ...] = ()
 
     @property
     def n_steps(self) -> int:
@@ -68,12 +79,20 @@ class Segment:
 
 @dataclasses.dataclass
 class ExecutionPlan:
-    """Scheduled execution of one recorded program on one device."""
+    """Scheduled execution of one recorded program on one device.
+
+    ``layout`` is the halo-resident layout the executor runs the fused
+    segments on: every field entered once to the plan-wide margin
+    ``layout.pad`` (max ``k·h`` over the fused bodies).  ``pad == 0``
+    (``resident=False``, an interpreter backend, or only halo-free bodies)
+    is the repacking path.
+    """
 
     program: Program
     backend: str  # normalized: "numpy" | "jit" | "pallas"
     device: Optional[torch.device]  # None for the host-only numpy backend
     segments: List[Segment]
+    layout: Optional[HaloLayout] = None
 
 
 def resolve_device(device) -> torch.device:
@@ -100,6 +119,7 @@ def compile_body(
     device="cuda",
     time_tile: int = 1,
     group=None,
+    resident: int = 0,
 ) -> Tuple[Callable, bool]:
     """Build one body application ``env -> env`` — THE backend dispatch.
 
@@ -107,8 +127,11 @@ def compile_body(
     compiler (fused kernel, ``time_tile`` sub-steps per call, interpreter
     fallback on :class:`LoweringError` counted in
     ``repro_torch.compiler.stats``); ``backend="jit"`` returns the shared
-    roll-interpreter step.  Steps operate on tensors on ``device`` (the
-    card by default, which must exist).
+    roll-interpreter step.  ``resident=K`` builds a fused step on the
+    halo-resident layout of margin ``K``, ``step(env, spare) -> env`` (see
+    :func:`repro_torch.compiler.codegen.compile_group`); the solver keeps
+    ``0``, so its vectors stay unpadded.  Steps operate on tensors on
+    ``device`` (the card by default, which must exist).
     """
     device = resolve_device(device)
     stats.bodies_compiled += 1
@@ -120,7 +143,8 @@ def compile_body(
             # a lowering failure; try_compile turns it into the fallback
             fire_compile_hook(getattr(loop, "name", None))
             return compile_group(ops, shapes, dtypes, device=device,
-                                 time_tile=time_tile, group=group)
+                                 time_tile=time_tile, group=group,
+                                 resident=resident)
 
         step = try_compile(fn, loop)
         if step is not None:
@@ -256,6 +280,10 @@ def plan(
     accepted as the backend).  The legacy ``backend=`` / ``mesh=`` /
     ``time_tile=`` / ``resident=`` keywords warn once per keyword and
     forward into the bundle.
+
+    Two passes: pass one lowers each body and picks its tile factor, which
+    fixes the run-wide margin ``K = max k·h`` of the halo-resident layout;
+    pass two compiles each body (and its remainder step) against ``K``.
     """
     options = resolve_options(
         options,
@@ -304,14 +332,21 @@ def plan(
             log.warning("%s", reason)
         scheduled.append((loop, ops, group, k, reason))
 
-    # pass two: compile each body
+    pad = 0
+    if options.resident and backend == "pallas":
+        pad = max((k * g.halo for _, _, g, k, _ in scheduled if g is not None),
+                  default=0)
+    layout = HaloLayout(pad=pad, shapes=shapes)
+
+    # pass two: compile each body against the layout
     segments: List[Segment] = []
     for loop, ops, group, k, reason in scheduled:
         if backend == "numpy":
             segments.append(Segment(loop=loop, ops=tuple(ops), kind="eager"))
             continue
         step, fused = compile_body(ops, loop, shapes, dtypes, backend,
-                                   device=device, time_tile=k, group=group)
+                                   device=device, time_tile=k, group=group,
+                                   resident=pad)
         if not fused:
             k = 1
         seg = Segment(
@@ -322,11 +357,12 @@ def plan(
             time_tile=k,
             halo=group.halo if group is not None else 0,
             reason=reason,
+            written=tuple(group.fields_written()) if fused else (),
         )
         if fused and k > 1 and seg.n_steps % k:
             seg.step_rem, _ = compile_body(ops, loop, shapes, dtypes, backend,
                                            device=device, time_tile=1,
-                                           group=group)
+                                           group=group, resident=pad)
         if reason:
             stats.note_tile_reason(reason)
         if fused:
@@ -340,4 +376,4 @@ def plan(
         stats.max_time_tile, max((s.time_tile for s in segments), default=1)
     )
     return ExecutionPlan(program=program, backend=backend, device=device,
-                         segments=segments)
+                         segments=segments, layout=layout)

@@ -11,8 +11,11 @@ ones for paths not ported yet (overlap, ensembles, the health ladder and
 sentinels, service) stay 0.
 
 Exchange counting is *static*: the executor derives the counts from the
-plan — one wrap pad per fused-kernel launch (zero for halo-free bodies) and
-one launch per interpreter step.
+plan — one halo exchange per fused-kernel launch (zero for halo-free
+bodies: a wrap pad, or on a resident plan the in-place margin refresh) and
+one launch per interpreter step.  ``repacks`` counts full-field
+conversions: one per launch on the repacking path, the layout's
+enter/exit events on a resident plan.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ class EngineStats:
     exchanges: int = 0  # halo exchanges, wrap pads or margin refreshes
     tiles_fused: int = 0  # k>1 tiled launches (k steps per launch)
     resident_runs: int = 0  # executions stepping on a halo-resident layout
-    repacks: int = 0  # full-field pad/copy conversions (one per fused launch)
+    repacks: int = 0  # full-field pad/copy conversions (per launch, or enter/exit)
     max_time_tile: int = 1  # largest k any segment ran with
     elapsed_s: float = 0.0  # wall time inside execute()
     tile_reasons: Tuple[str, ...] = ()  # why a tile factor was clamped/refused
@@ -76,7 +79,7 @@ class EngineStats:
 
     @property
     def exchanges_per_step(self) -> float:
-        """Wrap pads (halo exchanges) per logical time step."""
+        """Halo exchanges (wrap pads or margin refreshes) per logical step."""
         return self.exchanges / self.steps_run if self.steps_run else 0.0
 
     @property

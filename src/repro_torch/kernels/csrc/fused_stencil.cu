@@ -1,7 +1,16 @@
 // fused_stencil.cu — the fused loop-body stencil kernel (K1) for Hopper.
 //
 // Replaces repro/kernels/fused.py::build_fused_call (the Pallas kernel built
-// around its pl.pallas_call) in the padded -> fresh-output mode.  One generic
+// around its pl.pallas_call) in two modes:
+// - padded: inputs are the (bx+2kh, by+2kh, nz) wrap-padded window, outputs
+//   fresh (bx, by, nz) tensors;
+// - margin (the halo-resident layout): inputs are resident buffers of extent
+//   (bx+2M, by+2M, nz), M >= k*h, whose window starts at M - k*h; the final
+//   sub-step writes cell (x, y) to (M+x, M+y) of a caller-supplied output
+//   buffer of the same extent that is never an input (ping-pong).  The
+//   reference writes in place through input_output_aliases, which is valid
+//   only while blocks run one at a time.
+// The two modes differ only in the origins and row strides of Geom.  One generic
 // kernel serves every loop body: instead of a source generated per program,
 // it reads the body's canonical tap form from a small descriptor that the
 // host flattens from the LoweredGroup (repro_torch/kernels/fused.py,
@@ -64,8 +73,8 @@ constexpr int kTapInts = 5;
 
 template <typename T>
 struct Fields {
-  const T* in[kMaxFields];   // wrap-padded inputs (bx+2kh, by+2kh, nz_f)
-  T* out[kMaxFields];        // fresh outputs (bx, by, nz_f), written fields
+  const T* in[kMaxFields];   // inputs, padded or resident (see Geom)
+  T* out[kMaxFields];        // outputs of the written fields (see Geom)
   T* buf0[kMaxFields];       // scratch windows (k > 1), written fields
   T* buf1[kMaxFields];
   int nz[kMaxFields];
@@ -81,6 +90,8 @@ struct Geom {
   int tiles_x, tiles_y;
   int n_ints, n_coefs;
   int max_nz;
+  int in_off, in_py;     // window origin (x and y) and row stride of inputs
+  int out_off, out_py;   // brick origin (x and y) and row stride of outputs
 };
 
 template <typename T>
@@ -114,7 +125,6 @@ fused_stencil_kernel(Fields<T> f, Geom g, T* tmp,
   const int kh = g.k * g.h;
   const int WX = g.tile_x + 2 * kh;     // scratch window extent (max)
   const int WY = g.tile_y + 2 * kh;
-  const int PY = g.by + 2 * kh;         // padded input extent in y
   const int n_tiles = g.tiles_x * g.tiles_y;
   const int n_updates = desc[0];
   const size_t win = (size_t)WX * WY;
@@ -132,7 +142,8 @@ fused_stencil_kernel(Fields<T> f, Geom g, T* tmp,
     auto src = [&](int fl, int s, int i, int j, int z) -> T {
       const int nz = s_nz[fl];
       if (s == 0 || !s_wr[fl])
-        return s_in[fl][((size_t)(x0 + i) * PY + (y0 + j)) * nz + z];
+        return s_in[fl][((size_t)(g.in_off + x0 + i) * g.in_py +
+                         (g.in_off + y0 + j)) * nz + z];
       return s_buf[(s - 1) & 1][fl][(size_t)blockIdx.x * win * nz +
                                     ((size_t)i * WY + j) * nz + z];
     };
@@ -140,7 +151,8 @@ fused_stencil_kernel(Fields<T> f, Geom g, T* tmp,
     auto dst = [&](int fl, int s, int i, int j, int z) -> T* {
       const int nz = s_nz[fl];
       if (s == g.k - 1)
-        return s_out[fl] + ((size_t)(x0 + i - kh) * g.by + (y0 + j - kh)) * nz + z;
+        return s_out[fl] + ((size_t)(g.out_off + x0 + i - kh) * g.out_py +
+                            (g.out_off + y0 + j - kh)) * nz + z;
       return s_buf[s & 1][fl] + (size_t)blockIdx.x * win * nz +
              ((size_t)i * WY + j) * nz + z;
     };
@@ -278,6 +290,10 @@ int launch(const void* const* ins, void* const* outs, void* const* buf0,
   g.n_ints = geom[13];
   g.n_coefs = geom[14];
   g.max_nz = geom[15];
+  g.in_off = geom[16];
+  g.in_py = geom[17];
+  g.out_off = geom[18];
+  g.out_py = geom[19];
   const size_t smem = (size_t)g.n_coefs * sizeof(double) +
                       (size_t)g.n_ints * sizeof(int);
   fused_stencil_kernel<T><<<grid, threads, smem, stream>>>(

@@ -14,21 +14,35 @@ lowered updates:
 
 The descriptor is uploaded once per kernel-cache entry (the ``_get_kernel``
 signature of :mod:`repro_torch.compiler.codegen`) and copied into shared
-memory by every block.  Only the padded → fresh-output mode is ported: the
-resident (aliased) and region modes come with later slices.
+memory by every block.  Two modes are ported:
+
+* padded (``margin=0``): inputs are the ``(bx + 2kh, by + 2kh, nz)``
+  wrap-padded window, outputs fresh ``(bx, by, nz)`` tensors;
+* margin (``margin=M ≥ k·h``, the halo-resident layout of
+  :mod:`repro_torch.engine.layout`): inputs are resident buffers of extent
+  ``(bx + 2M, by + 2M, nz)`` whose depth-``k·h`` window starts at
+  ``M − k·h``, and the written fields land at offset ``M`` of
+  caller-supplied output buffers of the same extent.  An output buffer is
+  never an input: the reference's in-place ``input_output_aliases`` is
+  valid only while blocks run one at a time, and on the card they do not,
+  so the engine ping-pongs two resident buffers per written field.
+
+The region mode (overlap) and the batch axis (ensembles) come with later
+slices.
 
 Three entry points:
 
 * :func:`launch_fused` launches the CUDA kernel on CUDA tensors and counts
-  its launches in ``launch_fused.launches``;
+  its launches in ``launch_fused.launches`` (both modes) and
+  ``launch_fused.margin_launches`` (the margin mode's share);
 * :func:`fused_step_ref` is the plain PyTorch version: the same trapezoid,
-  the same Moat mask and the same association, over the whole padded
-  window at once.  The CPU path and the tests use it;
+  the same Moat mask and the same association, over the whole window at
+  once.  The CPU path and the tests use it;
 * :func:`repro_torch.kernels.ops.fused_step` picks between them by the
   tensors' device.
 
-Bound on the card: bytes (each padded input read once, each output written
-once per launch); see the note in the CUDA source.
+Bound on the card: bytes (each input's window read once, each output
+written once per launch); see the note in the CUDA source.
 """
 from __future__ import annotations
 
@@ -73,13 +87,21 @@ class FusedKernel:
     coefs: Tuple[float, ...]
     hazard: bool
     device: torch.device
+    margin: int = 0                  # resident margin M; 0: padded mode
     ints_dev: Optional[torch.Tensor] = None
     coefs_dev: Optional[torch.Tensor] = None
 
     @property
     def pad(self) -> int:
-        """Depth ``k·h`` of the wrap pad every input carries."""
+        """Depth ``k·h`` of the window every launch reads around the brick."""
         return self.k * self.halo
+
+    @property
+    def extent(self) -> Tuple[int, int]:
+        """(X, Y) extent of the inputs: the padded window, or the resident
+        buffer in margin mode (which the outputs share)."""
+        d = 2 * (self.margin or self.pad)
+        return self.bx + d, self.by + d
 
 
 def _encode(updates, in_names, nz_of):
@@ -130,7 +152,8 @@ def default_tile(k: int, bx: int, by: int) -> Tuple[int, int]:
 
 def build_fused_call(updates: Sequence, field_specs: Dict[str, Tuple[int, object]],
                      halo: int, bx: int, by: int, nx: int, ny: int,
-                     time_tile: int = 1, wrap: bool = False, *, device):
+                     time_tile: int = 1, wrap: bool = False, *, device,
+                     margin: int = 0):
     """Build the fused kernel for one loop body.
 
     ``updates``     — :class:`repro_torch.compiler.ir.AffineUpdate`s, in
@@ -145,14 +168,22 @@ def build_fused_call(updates: Sequence, field_specs: Dict[str, Tuple[int, object
     ``device``      — where the kernel runs (required: no default, so a
                       caller cannot build for the host by leaving it out);
                       on a CUDA device the descriptor is uploaded now.
+    ``margin``      — the halo-resident mode: inputs and outputs at the
+                      resident extent ``(bx + 2M, by + 2M, nz)`` with
+                      ``M >= k·halo`` (see the module docstring); 0 keeps
+                      the padded → fresh-output mode.
 
     Returns ``(kernel, written)``: the :class:`FusedKernel` to pass to
     :func:`repro_torch.kernels.ops.fused_step` and the written fields in
     first-written order.  Raises ``ValueError``, on every device and before
     touching CUDA, for a body outside the kernel's limits: another dtype
     than float32/float64, more than one dtype, more than ``MAX_FIELDS``
-    fields, or a descriptor over ``MAX_DESC_BYTES``.
+    fields, or a descriptor over ``MAX_DESC_BYTES``; and for a margin
+    below ``k·halo``.
     """
+    if margin and margin < time_tile * halo:
+        raise ValueError(
+            f"resident margin {margin} < window halo {time_tile * halo}")
     in_names = tuple(field_specs)
     written = []
     for u in updates:
@@ -181,7 +212,7 @@ def build_fused_call(updates: Sequence, field_specs: Dict[str, Tuple[int, object
         nz=tuple(nz_of[n] for n in in_names), dtype=next(iter(dtypes)),
         halo=int(halo), k=int(time_tile), bx=bx, by=by, nx=nx, ny=ny,
         wrap=bool(wrap), tile=tile, ints=ints, coefs=coefs, hazard=hazard,
-        device=device)
+        device=device, margin=int(margin))
     if device.type == "cuda":
         kern.ints_dev = torch.tensor(ints, dtype=torch.int32, device=device)
         kern.coefs_dev = torch.tensor(coefs, dtype=torch.float64, device=device)
@@ -260,18 +291,63 @@ def _apply_updates(updates, cur, nz_of, h, out_x, out_y, gx0, gy0, nx, ny,
             for name, a in cur.items()}
 
 
-def fused_step_ref(kernel: FusedKernel, padded: Sequence[torch.Tensor],
-                   coords: Tuple[int, int] = (0, 0)) -> Tuple[torch.Tensor, ...]:
+def _check_outputs(kernel: FusedKernel, inputs, out) -> None:
+    """Margin mode's output buffers: one per written field, at the resident
+    extent, and none sharing storage with an input or with another output
+    (the ping-pong guard: the kernel's blocks would read cells a
+    neighbouring block already wrote)."""
+    if not kernel.margin:
+        if out is not None:
+            raise ValueError("out= is the margin mode's; this kernel was "
+                             "built with margin=0")
+        return
+    if out is None or len(out) != len(kernel.written):
+        raise ValueError(f"margin mode needs out= with one buffer per written "
+                         f"field {kernel.written}")
+    ex, ey = kernel.extent
+    nz_of = dict(zip(kernel.in_names, kernel.nz))
+    for name, o in zip(kernel.written, out):
+        want = (ex, ey, nz_of[name])
+        if tuple(o.shape) != want or o.dtype != kernel.dtype:
+            raise ValueError(f"output {name!r} is {tuple(o.shape)} {o.dtype}, "
+                             f"expected {want} {kernel.dtype}")
+        if o.device != inputs[0].device or not o.is_contiguous():
+            raise ValueError(f"output {name!r} must be contiguous on "
+                             f"{inputs[0].device}")
+    storages = [t.untyped_storage().data_ptr() for t in inputs]
+    seen = set()
+    for name, o in zip(kernel.written, out):
+        ptr = o.untyped_storage().data_ptr()
+        if ptr in storages or ptr in seen:
+            raise ValueError(f"output {name!r} shares storage with an input or "
+                             "another output; margin mode needs a separate "
+                             "(ping-pong) buffer")
+        seen.add(ptr)
+
+
+def fused_step_ref(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
+                   coords: Tuple[int, int] = (0, 0),
+                   out: Optional[Sequence[torch.Tensor]] = None
+                   ) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of one launch of ``kernel``.
 
-    ``padded`` are the ``(bx + 2·k·h, by + 2·k·h, nz)`` inputs in
-    ``kernel.in_names`` order; ``coords`` the brick's global cell origin.
-    The whole padded window is one block: each output cell's arithmetic is
-    the same whichever block computes it, so this matches the tiled kernel
-    bit for bit.  Returns the written fields, ``(bx, by, nz)`` each.
+    Padded mode: ``inputs`` are the ``(bx + 2·k·h, by + 2·k·h, nz)`` windows
+    in ``kernel.in_names`` order; returns fresh ``(bx, by, nz)`` written
+    fields.  Margin mode: ``inputs`` are resident buffers; the window is
+    sliced from offset ``M − k·h``, and the written fields land in the
+    interior ``[M:M+bx, M:M+by]`` of the ``out`` buffers, which are
+    returned (their margins are left as they were).  ``coords`` is the
+    brick's global cell origin.  The whole window is one block: each output
+    cell's arithmetic is the same whichever block computes it, so this
+    matches the tiled kernel bit for bit.
     """
+    _check_outputs(kernel, inputs, out)
     k, h = kernel.k, kernel.halo
-    cur = dict(zip(kernel.in_names, padded))
+    if kernel.margin:
+        lo = kernel.margin - kernel.pad
+        wx, wy = kernel.bx + 2 * kernel.pad, kernel.by + 2 * kernel.pad
+        inputs = [t[lo:lo + wx, lo:lo + wy] for t in inputs]
+    cur = dict(zip(kernel.in_names, inputs))
     nz_of = dict(zip(kernel.in_names, kernel.nz))
     gx0 = coords[0] - k * h
     gy0 = coords[1] - k * h
@@ -282,7 +358,12 @@ def fused_step_ref(kernel: FusedKernel, padded: Sequence[torch.Tensor],
         gy0 += h
         cur = _apply_updates(kernel.updates, cur, nz_of, h, out_x, out_y,
                              gx0, gy0, kernel.nx, kernel.ny, kernel.wrap)
-    return tuple(cur[n].contiguous() for n in kernel.written)
+    if not kernel.margin:
+        return tuple(cur[n].contiguous() for n in kernel.written)
+    M = kernel.margin
+    for name, o in zip(kernel.written, out):
+        o[M:M + kernel.bx, M:M + kernel.by].copy_(cur[name])
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -315,14 +396,14 @@ def _library():
     return _LIB
 
 
-def _check_inputs(kernel: FusedKernel, padded) -> torch.device:
-    if len(padded) != len(kernel.in_names):
+def _check_inputs(kernel: FusedKernel, inputs) -> torch.device:
+    if len(inputs) != len(kernel.in_names):
         raise ValueError(
-            f"expected {len(kernel.in_names)} inputs, got {len(padded)}")
+            f"expected {len(kernel.in_names)} inputs, got {len(inputs)}")
     dev = kernel.device
-    ph = kernel.pad
-    for name, nz, t in zip(kernel.in_names, kernel.nz, padded):
-        want = (kernel.bx + 2 * ph, kernel.by + 2 * ph, nz)
+    ex, ey = kernel.extent
+    for name, nz, t in zip(kernel.in_names, kernel.nz, inputs):
+        want = (ex, ey, nz)
         if t.device != dev:
             raise ValueError(f"input {name!r} is on {t.device}, kernel on {dev}")
         if t.dtype != kernel.dtype:
@@ -335,17 +416,23 @@ def _check_inputs(kernel: FusedKernel, padded) -> torch.device:
     return dev
 
 
-def launch_fused(kernel: FusedKernel, padded: Sequence[torch.Tensor],
-                 coords: Tuple[int, int] = (0, 0)) -> Tuple[torch.Tensor, ...]:
-    """Launch K1 on CUDA tensors; returns fresh ``(bx, by, nz)`` outputs.
+def launch_fused(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
+                 coords: Tuple[int, int] = (0, 0),
+                 out: Optional[Sequence[torch.Tensor]] = None
+                 ) -> Tuple[torch.Tensor, ...]:
+    """Launch K1 on CUDA tensors.
 
-    Checks device, dtype, shape and contiguity, allocates outputs and
-    scratch with ``torch.empty``, launches on the current stream and raises
-    if the launch was refused.  Does not synchronise.
+    Padded mode: returns fresh ``(bx, by, nz)`` outputs.  Margin mode:
+    writes the brick interiors of the caller's ``out`` buffers (resident
+    extent, no storage shared with an input) and returns them; no output is
+    allocated.  Checks device, dtype, shape and contiguity, allocates the
+    k > 1 and hazard scratch with ``torch.empty``, launches on the current
+    stream and raises if the launch was refused.  Does not synchronise.
     """
     if kernel.device.type != "cuda" or kernel.ints_dev is None:
         raise ValueError(f"kernel was built for {kernel.device}, not CUDA")
-    dev = _check_inputs(kernel, padded)
+    dev = _check_inputs(kernel, inputs)
+    _check_outputs(kernel, inputs, out)
     lib = _library()
     k, ph = kernel.k, kernel.pad
     tx, ty = kernel.tile
@@ -357,13 +444,17 @@ def launch_fused(kernel: FusedKernel, padded: Sequence[torch.Tensor],
     win = (tx + 2 * ph) * (ty + 2 * ph)
     max_nz = max(kernel.nz)
     opts = dict(dtype=kernel.dtype, device=dev)
+    if kernel.margin:
+        outs = dict(zip(kernel.written, out))
+    else:
+        outs = {name: torch.empty((kernel.bx, kernel.by, nz), **opts)
+                for name, nz in zip(kernel.in_names, kernel.nz)
+                if name in kernel.written}
     # `keep` holds the scratch tensors until the launch is enqueued (the loop
     # rebinds b0/b1); after that the caching allocator orders their reuse on
     # this stream behind the kernel
-    outs, bufs0, bufs1, keep = {}, [], [], []
+    bufs0, bufs1, keep = [], [], []
     for name, nz in zip(kernel.in_names, kernel.nz):
-        if name in kernel.written:
-            outs[name] = torch.empty((kernel.bx, kernel.by, nz), **opts)
         if name in kernel.written and k > 1:
             b0 = torch.empty(grid * win * nz, **opts)
             b1 = torch.empty(grid * win * nz, **opts)
@@ -376,14 +467,17 @@ def launch_fused(kernel: FusedKernel, padded: Sequence[torch.Tensor],
     tmp = (torch.empty(grid * win * max_nz, **opts) if kernel.hazard
            else None)
     n = len(kernel.in_names)
-    geom = (ctypes.c_int * 16)(
+    M = kernel.margin
+    in_off, out_off = (M - ph, M) if M else (0, 0)
+    geom = (ctypes.c_int * 20)(
         kernel.bx, kernel.by, kernel.nx, kernel.ny, int(coords[0]),
         int(coords[1]), k, kernel.halo, int(kernel.wrap), tx, ty, tiles_x,
-        tiles_y, len(kernel.ints), len(kernel.coefs), max_nz)
+        tiles_y, len(kernel.ints), len(kernel.coefs), max_nz,
+        in_off, kernel.extent[1], out_off, kernel.extent[1] if M else kernel.by)
     fn = (lib.fused_stencil_f32 if kernel.dtype == torch.float32
           else lib.fused_stencil_f64)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(_PTRS(*[t.data_ptr() for t in padded]),
+    rc = fn(_PTRS(*[t.data_ptr() for t in inputs]),
             _PTRS(*[outs[nm].data_ptr() if nm in outs else None
                     for nm in kernel.in_names]),
             _PTRS(*bufs0), _PTRS(*bufs1),
@@ -396,7 +490,9 @@ def launch_fused(kernel: FusedKernel, padded: Sequence[torch.Tensor],
             f"fused_stencil launch failed: {lib.fused_stencil_error(rc).decode()}"
             f" (cudaError {rc})")
     launch_fused.launches += 1
+    launch_fused.margin_launches += bool(M)
     return tuple(outs[nm] for nm in kernel.written)
 
 
 launch_fused.launches = 0
+launch_fused.margin_launches = 0

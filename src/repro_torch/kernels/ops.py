@@ -8,7 +8,7 @@ version; any other device raises.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -31,12 +31,16 @@ def _on_card(t: torch.Tensor, what: str) -> bool:
     raise RuntimeError(f"no {what} kernel for device {t.device}")
 
 
-def fused_step(kernel: FusedKernel, padded: Sequence[torch.Tensor],
-               coords: Tuple[int, int] = (0, 0)) -> Tuple[torch.Tensor, ...]:
-    """One launch of the fused loop-body kernel K1 on wrap-padded inputs."""
-    if _on_card(padded[0], "fused stencil"):
-        return launch_fused(kernel, padded, coords)
-    return fused_step_ref(kernel, padded, coords)
+def fused_step(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
+               coords: Tuple[int, int] = (0, 0),
+               out: Optional[Sequence[torch.Tensor]] = None
+               ) -> Tuple[torch.Tensor, ...]:
+    """One launch of the fused loop-body kernel K1: on wrap-padded inputs
+    into fresh outputs, or (margin mode) on resident buffers into the
+    ``out`` buffers."""
+    if _on_card(inputs[0], "fused stencil"):
+        return launch_fused(kernel, inputs, coords, out=out)
+    return fused_step_ref(kernel, inputs, coords, out=out)
 
 
 def dual_dot(a, b, c, d) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Card-only tests of the port's kernels K2–K7.
+"""Card-only tests of the port's kernels K2–K7 and of K1's margin mode.
 
 This file imports neither JAX nor ``repro``, so it runs on a machine that
 has a CUDA card and no JAX::
@@ -24,14 +24,24 @@ Without a card every test skips.  Tolerances:
   (f32) / ``1e-13·Σ|c·Ap|`` (f64) of the plain version in float64, and the
   same bits on two runs;
 * every ``make_sharded_ftcs`` variant on the card, on 1×1 and 2×2 meshes:
-  bitwise equal to the plain step on the CPU.
+  bitwise equal to the plain step on the CPU;
+* K1's margin mode (resident inputs, ping-pong outputs) against
+  ``fused_step_ref`` in margin mode: bitwise, margins of the output left
+  alone; ``make`` on the resident layout equal to ``resident=False`` on the
+  card, bitwise.
 """
 import numpy as np
 import pytest
 import torch
 
 from conftest import heat_init
-from repro_torch.engine import RunOptions
+import repro_torch.core as port_core
+from repro_torch.compiler import lower_group
+from repro_torch.compiler.codegen import _field_specs, _wrap_pad
+from repro_torch.engine import HaloLayout, RunOptions
+from repro_torch.engine.layout import wrap_refresh
+from repro_torch.kernels.fused import (build_fused_call, fused_step_ref,
+                                       launch_fused)
 from repro_torch.kernels import ops
 from repro_torch.kernels import transfer as port_transfer
 from repro_torch.kernels.dotprod import dual_dot_ref, launch_dual_dot
@@ -190,3 +200,89 @@ def test_cuda_sharded_ftcs_bitwise_vs_cpu():
             assert launched == ((6 * bricks, 0) if kw.get("use_kernel") is True
                                 else (0, 6 * bricks) if kw.get("use_kernel")
                                 else (0, 0)), (shape, kw, launched)
+
+
+def _hazard_body(A0, C0, B0, steps):
+    """A multi-field, off-axis, multi-update body: a 2-tap coefficient
+    product, B reading A's new value at dz = ±1, and A re-written from its
+    own new value at dz = -1 (the kernel's hazard path)."""
+    wse = port_core.WSE_Interface()
+    A = port_core.WSE_Array("A", init_data=A0, dtype=A0.dtype)
+    C = port_core.WSE_Array("C", init_data=C0, dtype=C0.dtype)
+    B = port_core.WSE_Array("B", init_data=B0, dtype=B0.dtype)
+    with port_core.WSE_For_Loop("t", steps):
+        A[1:-1, 0, 0] = A[1:-1, 0, 0] + 0.05 * (
+            A[2:, 0, 0] + A[:-2, 0, 0] + A[1:-1, 1, 0] + A[1:-1, -1, 0]
+            - 4.0 * A[1:-1, 0, 0]) + C[1:-1, 0, 0] * (
+            A[1:-1, 1, 1] + A[1:-1, -1, -1] - 2.0 * A[1:-1, 0, 0])
+        B[1:-1, 0, 0] = 0.5 * B[1:-1, 0, 0] + 0.25 * (
+            A[2:, 0, 0] + A[:-2, 0, 0]) + 0.125
+        A[2:-1, 0, 0] = A[2:-1, 0, 0] - 0.01 * A[1:-2, 0, 0]
+    return wse, A
+
+
+@pytest.mark.cuda
+def test_cuda_fused_margin_mode_bitwise_vs_plain():
+    """K1 in margin mode equals fused_step_ref in margin mode bit for bit,
+    at float32 and float64, k = 1 and 2, M = k·h and k·h + 1, writes only
+    the brick interiors of its outputs, and equals the padded mode's
+    outputs there (chip_smoke.py runs the heat body at full width)."""
+    _need_card()
+    rng = np.random.default_rng(8)
+    for dtype in (np.float32, np.float64):
+        A0, C0, B0 = (rng.uniform(0.0, 1.0, (37, 29, 11)).astype(dtype)
+                      for _ in range(3))
+        wse, _ = _hazard_body(A0, C0, B0, 4)
+        prog = wse.program
+        wse.__exit__()
+        group = lower_group(prog.ops)
+        specs, (nx, ny) = _field_specs(
+            group, {n: f.shape for n, f in prog.fields.items()},
+            {n: f.dtype for n, f in prog.fields.items()})
+        env = {n: torch.tensor(f.init_data, device="cuda")
+               for n, f in prog.fields.items()}
+        for k in (1, 2):
+            padded, _ = build_fused_call(group.updates, specs, group.halo, nx,
+                                         ny, nx, ny, time_tile=k, wrap=True,
+                                         device="cuda")
+            want = launch_fused(padded, [_wrap_pad(env[n], padded.pad)
+                                         for n in padded.in_names])
+            for M in (k * group.halo, k * group.halo + 1):
+                kern, _ = build_fused_call(group.updates, specs, group.halo,
+                                           nx, ny, nx, ny, time_tile=k,
+                                           wrap=True, device="cuda", margin=M)
+                assert kern.hazard
+                lay = HaloLayout(pad=M, shapes={})
+                ins = [wrap_refresh(lay.enter({n: env[n]})[n], M, kern.pad)
+                       for n in kern.in_names]
+                outs = {}
+                for how in ("kernel", "plain"):
+                    out = [torch.full_like(ins[kern.in_names.index(n)], -7.0)
+                           for n in kern.written]
+                    call = launch_fused if how == "kernel" else fused_step_ref
+                    outs[how] = call(kern, ins, out=out)
+                for g, p, w in zip(outs["kernel"], outs["plain"], want):
+                    assert torch.equal(g, p), (dtype, k, M)
+                    assert torch.equal(g[M:-M, M:-M], w)
+                with pytest.raises(ValueError, match="shares storage"):
+                    launch_fused(kern, ins, out=[ins[0], outs["plain"][1]])
+
+
+@pytest.mark.cuda
+def test_cuda_resident_make_equals_repack_make():
+    """make(backend="pallas") on the card: the resident layout (margin-mode
+    launches only) equals the repacking step bitwise, with a remainder."""
+    _need_card()
+    rng = np.random.default_rng(9)
+    A0, C0, B0 = (rng.uniform(0.0, 1.0, (37, 29, 11)).astype(np.float32)
+                  for _ in range(3))
+    out = {}
+    for resident in (True, False):
+        before = (launch_fused.launches, launch_fused.margin_launches)
+        wse, A = _hazard_body(A0, C0, B0, 5)
+        out[resident] = wse.make(answer=A, options=RunOptions(
+            backend="pallas", time_tile=2, resident=resident))
+        launched = (launch_fused.launches - before[0],
+                    launch_fused.margin_launches - before[1])
+        assert launched == ((3, 3) if resident else (3, 0))
+    np.testing.assert_array_equal(out[True], out[False])

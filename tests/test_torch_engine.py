@@ -9,8 +9,9 @@ kernel does, built with ``--fmad=false``), so the two differ by rounding:
 at most 2 ulp of the field's magnitude per step, at float32 and float64,
 and at most 2e-4 on Kelvin-scale fields.  (The arithmetic itself is held
 bitwise in ``test_torch_compiler.py``.)  Structural results — launches,
-tiles, wrap pads, kernel builds, cache hits, fallbacks, the picked tile —
-must be equal.
+tiles, halo exchanges, resident runs and repacks (both packages plan the
+halo-resident layout here), kernel builds, cache hits, fallbacks, the
+picked tile — must be equal.
 """
 import warnings
 
@@ -36,6 +37,7 @@ def _stats(engine, compiler):
     e, c = engine.stats, compiler.stats
     return {"steps_run": e.steps_run, "launches": e.launches,
             "tiles_fused": e.tiles_fused, "exchanges": e.exchanges,
+            "resident_runs": e.resident_runs, "repacks": e.repacks,
             "segments_fused": e.segments_fused, "max_time_tile": e.max_time_tile,
             "kernels_built": c.kernels_built, "cache_hits": c.cache_hits,
             "fallbacks": c.fallbacks, "groups_fused": c.groups_fused}

@@ -266,7 +266,9 @@ def test_port_imports_neither_jax_nor_repro():
     new = ["repro_torch.core.mesh", "repro_torch.core.halo",
            "repro_torch.core.explicit", "repro_torch.core.implicit",
            "repro_torch.kernels.stencil7", "repro_torch.kernels.spmv",
-           "repro_torch.convert"]
+           "repro_torch.convert",
+           # the halo-resident layout (slice 4)
+           "repro_torch.engine.layout"]
     code = f"NEW = {new!r}\n" + code
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -282,7 +284,7 @@ def test_port_docstring_examples_run():
     import importlib
 
     for name in ("repro_torch", "repro_torch.convert", "repro_torch.core.mesh",
-                 "repro_torch.core.program", "repro_torch.engine.options",
-                 "repro_torch.engine.stats"):
+                 "repro_torch.core.program", "repro_torch.engine.layout",
+                 "repro_torch.engine.options", "repro_torch.engine.stats"):
         res = doctest.testmod(importlib.import_module(name))
         assert res.attempted > 0 and res.failed == 0, (name, res)
