@@ -7,15 +7,20 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a),
                          one nvcc per source, all started together;
 2. ``kernel_vs_ref``   — holds K1 bitwise against its plain PyTorch version
-                         on the card, at float32 and float64: the heat3d body
-                         at its full main-path shapes (k = 1 and the auto
-                         tile), in the padded mode and in the margin mode
-                         (resident inputs, ping-pong outputs; M = k·h and
-                         k·h + 1, interiors also equal to the padded mode's,
-                         margins untouched), and small multi-field,
+                         on the card, at float32 and float64, through both
+                         entries (the k = 1 entry for k = 1 without a hazard,
+                         the generic one otherwise; every launch checked to
+                         go through the entry ``fused_entry`` names): the
+                         heat3d body at its full main-path shapes (k = 1 and
+                         the auto tile), in the padded mode and in the margin
+                         mode (resident inputs, ping-pong outputs; M = k·h
+                         and k·h + 1, interiors also equal to the padded
+                         mode's, margins untouched), small multi-field,
                          off-axis, multi-update bodies at k = 1, k = 2 in
-                         both modes, and through ``make`` with a remainder
-                         launch;
+                         both modes (one with a hazard), the k = 1 entry's
+                         edge cases (a second update reading the first's new
+                         value at dz = ±1, nz = 200, a 3×3×2 coarse level),
+                         and ``make`` with a remainder launch;
 3. ``dual_dot_vs_ref`` — K2 on 512×512×128 float32 and float64 operands,
                          distinct and aliased as pipelined CG passes them,
                          within ``1e-5·Σ|aᵢbᵢ|`` (f32) / ``1e-13·Σ|aᵢbᵢ|``
@@ -31,16 +36,20 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          ``resident=False`` (the repacking step; K1's padded
                          mode): all four bitwise equal, and checked against
                          the ``jit`` roll interpreter on the card, with K1's
-                         launch counts by mode equal to the engine's; ms per
-                         step by CUDA events after a warm-up and the device
-                         breakdown of all four, beside the bytes bound; the
+                         launch counts by mode equal to the engine's and
+                         every launch of the k = 1 runs through the k = 1
+                         entry; ms per step by CUDA events after a warm-up,
+                         host µs per step, the device idle share with the
+                         profiler off and the device breakdown of all four,
+                         beside the bytes bound and beside ``PREDICTED``; the
                          device allocations per step of the resident k = 1
                          loop (must be 0);
 6. ``solve_heat3d``    — ``record_implicit(HeatConfig())`` through
                          ``solve(backend="pallas")`` with ``cg``, ``pipecg``
                          and ``cg`` + ``precondition="mg"`` at
                          ``tol = 1e-5·‖b‖``: the outcome word, iterations,
-                         K1–K4 launches, an independent float64 residual,
+                         K1–K4 launches (K1 through its k = 1 entry), an
+                         independent float64 residual,
                          the difference from ``backend="jit"``, ms per solve
                          and per iteration, the device time by kernel and
                          the device idle share;
@@ -74,7 +83,9 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          iteration; one ``btcs_solve`` cg step with its
                          independent float64 residual;
 11. ``kernels``        — one JSON line describing every kernel of the paths
-                         (K1's padded and margin modes on rows of their own).
+                         (K1 on three rows: the k = 1 entry in the padded and
+                         the margin mode, the generic entry at the auto
+                         tile).
 
 Each main path (``heat3d``, ``solve_heat3d``, ``mg_poisson``, ``legacy_ftcs``,
 ``legacy_btcs``) runs with the launch counters set to 0 just before it and
@@ -97,6 +108,18 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+#: what the k = 1 entry of K1 was predicted to give on one NVIDIA H100 80GB
+#: HBM3 at 700 W, written before its first run on a card (PERF.md §6);
+#: phase ``heat3d`` prints it beside what it measures
+PREDICTED = {
+    "card": "NVIDIA H100 80GB HBM3, 700 W",
+    "k1_entry_ms": {"padded": 0.25, "margin": 0.25},
+    "ms_per_step": {"k1": 0.27, "k1_repack": 0.52, "auto": 2.0,
+                    "auto_repack": 2.04},
+    "device_idle_share_unprofiled": {"k1": 0.05},
+    "host_us_per_step": {"k1": 100.0},
+    "ms_per_solve": {"btcs_cg": 6.1, "btcs_pipecg": 10.4, "btcs_cg_mg": 27.0},
+}
 #: H100 SXM device-memory rate and float32 / float64 (non-tensor) peaks
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
@@ -167,6 +190,21 @@ def cuda_time_ms(fn, repeats: int) -> float:
     return start.elapsed_time(end) / repeats
 
 
+def host_us(fn) -> float:
+    """Host time of one ``fn()`` on an idle card, µs: from the call to its
+    return, before the card has finished (what the host spends issuing the
+    work while the card runs it), after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    us = (time.perf_counter() - t0) * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def body_ops(kernel) -> int:
     """Floating-point operations one sub-step of ``kernel``'s body needs per
     output (x, y) cell, summed over its updates' z windows."""
@@ -201,11 +239,12 @@ def bound_ms(kernel, dtype_name: str) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def record_coupled(mod, A0, C0, B0, steps):
+def record_coupled(mod, A0, C0, B0, steps, hazard=True):
     """A small multi-field, off-axis, multi-update body: advection–diffusion
     of A with a variable-coefficient cross term (2-tap products), B reading
-    A's new value at dz = ±1, and A re-written from its own new value at
-    dz = -1 (the kernel's in-place hazard path)."""
+    A's new value at dz = ±1, and with ``hazard`` A re-written from its own
+    new value at dz = -1 (the generic entry's in-place hazard path; without
+    it the k = 1 entry serves the body at k = 1)."""
     wse = mod.WFAInterface()
     A = mod.Field("A", init_data=A0, dtype=A0.dtype)
     C = mod.Field("C", init_data=C0, dtype=C0.dtype)
@@ -220,7 +259,8 @@ def record_coupled(mod, A0, C0, B0, steps):
                                - 2.0 * A[1:-1, 0, 0])
         B[1:-1, 0, 0] = 0.5 * B[1:-1, 0, 0] + 0.25 * (A[2:, 0, 0]
                                                      + A[:-2, 0, 0]) + 0.125
-        A[2:-1, 0, 0] = A[2:-1, 0, 0] - 0.01 * A[1:-2, 0, 0]
+        if hazard:
+            A[2:-1, 0, 0] = A[2:-1, 0, 0] - 0.01 * A[1:-2, 0, 0]
     return wse, A, B
 
 
@@ -275,13 +315,29 @@ def _padded_inputs(kernel, env, device):
             for n in kernel.in_names]
 
 
+def launch_via_entry(kernel, inputs, out=None):
+    """``launch_fused`` that fails unless the launch went through the entry
+    ``fused_entry`` names (one ``k1_launches`` for the k = 1 entry, none
+    for the generic one)."""
+    from repro_torch.kernels.fused import fused_entry, launch_fused
+
+    before = launch_fused.k1_launches
+    got = launch_fused(kernel, inputs, out=out)
+    want = int(fused_entry(kernel) == "k1")
+    if launch_fused.k1_launches - before != want:
+        raise AssertionError(f"k = {kernel.k} hazard={kernel.hazard}: "
+                             f"{launch_fused.k1_launches - before} k = 1 entry "
+                             f"launches, expected {want}")
+    return got
+
+
 def compare_kernel(kernel, padded):
     """K1 vs fused_step_ref on the same card inputs: max |diff| (must be 0)."""
     import torch
 
-    from repro_torch.kernels.fused import fused_step_ref, launch_fused
+    from repro_torch.kernels.fused import fused_step_ref
 
-    got = launch_fused(kernel, padded)
+    got = launch_via_entry(kernel, padded)
     want = fused_step_ref(kernel, padded)
     torch.cuda.synchronize()
     err = 0.0
@@ -323,10 +379,10 @@ def compare_margin(kernel, inputs, padded_out):
     outputs ``padded_out``.  Returns max |diff| (must be 0)."""
     import torch
 
-    from repro_torch.kernels.fused import fused_step_ref, launch_fused
+    from repro_torch.kernels.fused import fused_step_ref
 
     before = [t.clone() for t in inputs]
-    got = launch_fused(kernel, inputs, out=margin_outputs(kernel, inputs))
+    got = launch_via_entry(kernel, inputs, out=margin_outputs(kernel, inputs))
     want = fused_step_ref(kernel, inputs, out=margin_outputs(kernel, inputs))
     torch.cuda.synchronize()
     M = kernel.margin
@@ -352,8 +408,9 @@ def small_body_cases():
     import numpy as np
 
     import repro_torch as rt
+    from repro_torch.configs.heat3d import HeatConfig, record_heat
     from repro_torch.engine import RunOptions
-    from repro_torch.kernels.fused import launch_fused
+    from repro_torch.kernels.fused import fused_entry, launch_fused
 
     cases = []
     rng = np.random.default_rng(0)
@@ -366,37 +423,55 @@ def small_body_cases():
         wide = {"P": rng.uniform(0.0, 1.0, (20, 23, 9)).astype(dtype),
                 "Q": rng.uniform(0.0, 0.1, (20, 23, 7)).astype(dtype),
                 "R": rng.uniform(0.0, 1.0, (20, 23, 6)).astype(dtype)}
+        # the k = 1 entry's edge shapes: nz = 200 > BZ, and a coarse
+        # multigrid level's 3×3×2 (empty z window: only the copy-through)
+        heat = {shape: rng.uniform(300.0, 500.0, shape).astype(dtype)
+                for shape in ((9, 7, 200), (3, 3, 2))}
+
+        def record_heat_on(T0):
+            nx, ny, nz = T0.shape
+            return record_heat(HeatConfig(nx=nx, ny=ny, nz=nz,
+                                          dtype=np.dtype(dtype).name), 4,
+                               init=T0)[0]
+
+        #: (body, fields, recorder, time tiles)
         bodies = (
             ("coupled_advdiff", env,
-             lambda: record_coupled(rt, A0, C0, B0, 4)[0]),
+             lambda: record_coupled(rt, A0, C0, B0, 4)[0], (1, 2)),
             ("wide_halo2_mixed_nz", wide,
-             lambda: record_wide(rt, wide["P"], wide["Q"], wide["R"], 4)))
-        for body, body_env, record in bodies:
+             lambda: record_wide(rt, wide["P"], wide["Q"], wide["R"], 4),
+             (1, 2)),
+            ("two_update_dz", env,
+             lambda: record_coupled(rt, A0, C0, B0, 4, hazard=False)[0],
+             (1,)),
+            ("heat_nz200", {"T_n": heat[9, 7, 200]},
+             lambda: record_heat_on(heat[9, 7, 200]), (1,)),
+            ("heat_3x3x2", {"T_n": heat[3, 3, 2]},
+             lambda: record_heat_on(heat[3, 3, 2]), (1,)))
+        for body, body_env, record, tiles in bodies:
             wse = record()
             prog = wse.program
             wse.__exit__()
             shapes = {n: f.shape for n, f in prog.fields.items()}
             dtypes = {n: f.dtype for n, f in prog.fields.items()}
-            for k in (1, 2):
+            for k in tiles:
                 kern = _build_kernel(prog.ops, shapes, dtypes, k, "cuda")
                 padded = _padded_inputs(kern, body_env, "cuda")
                 err = compare_kernel(kern, padded)
-                cases.append({"body": body,
-                              "shape": list(shapes[kern.in_names[0]]),
-                              "dtype": np.dtype(dtype).name, "k": k,
-                              "halo": kern.halo, "hazard": kern.hazard,
-                              "max_abs_err": err})
-                M = kern.pad + 1
-                kern_m = _build_kernel(prog.ops, shapes, dtypes, k, "cuda",
-                                       margin=M)
-                err = compare_margin(kern_m,
-                                     _resident_inputs(kern_m, body_env, "cuda"),
-                                     launch_fused(kern, padded))
-                cases.append({"body": body, "mode": "margin", "margin": M,
-                              "shape": list(shapes[kern.in_names[0]]),
-                              "dtype": np.dtype(dtype).name, "k": k,
-                              "halo": kern.halo, "hazard": kern.hazard,
-                              "max_abs_err": err})
+                case = {"body": body, "shape": list(shapes[kern.in_names[0]]),
+                        "dtype": np.dtype(dtype).name, "k": k,
+                        "halo": kern.halo, "hazard": kern.hazard,
+                        "entry": fused_entry(kern)}
+                cases.append(dict(case, max_abs_err=err))
+                padded_out = launch_fused(kern, padded)
+                for M in (kern.pad, kern.pad + 1):
+                    kern_m = _build_kernel(prog.ops, shapes, dtypes, k, "cuda",
+                                           margin=M)
+                    err = compare_margin(
+                        kern_m, _resident_inputs(kern_m, body_env, "cuda"),
+                        padded_out)
+                    cases.append(dict(case, mode="margin", margin=M,
+                                      max_abs_err=err))
         # through make (the resident layout), on the card and on the CPU: 5
         # steps at k=2 = 2 tiled launches + 1 remainder, all in margin mode
         outs = {}
@@ -425,7 +500,7 @@ def phase_kernel_vs_ref(steps_heat: int):
 
     from repro_torch.compiler.ir import auto_tile, lower_group
     from repro_torch.configs.heat3d import HeatConfig, make_field, record_heat
-    from repro_torch.kernels.fused import launch_fused
+    from repro_torch.kernels.fused import fused_entry, launch_fused
 
     dev = torch.device("cuda")
     cases = []
@@ -445,7 +520,8 @@ def phase_kernel_vs_ref(steps_heat: int):
             padded = _padded_inputs(kern, env, dev)
             err = compare_kernel(kern, padded)
             cases.append({"body": "heat3d", "shape": [c.nx, c.ny, c.nz],
-                          "dtype": dtype, "k": k, "max_abs_err": err})
+                          "dtype": dtype, "k": k, "entry": fused_entry(kern),
+                          "max_abs_err": err})
             if dtype == cfg.dtype and k == 1:
                 heat = {"kernel": kern, "padded": padded, "err": err}
             padded_out = launch_fused(kern, padded)
@@ -456,10 +532,13 @@ def phase_kernel_vs_ref(steps_heat: int):
                 err = compare_margin(kern_m, ins, padded_out)
                 cases.append({"body": "heat3d", "mode": "margin", "margin": M,
                               "shape": [c.nx, c.ny, c.nz], "dtype": dtype,
-                              "k": k, "max_abs_err": err})
-                if dtype == cfg.dtype and k == 1 and M == kern.pad:
-                    heat["margin"] = {"kernel": kern_m, "inputs": ins,
-                                      "err": err}
+                              "k": k, "entry": fused_entry(kern_m),
+                              "max_abs_err": err})
+                if dtype == cfg.dtype and M == kern.pad:
+                    # the main path's resident launches: k = 1 entry at
+                    # k = 1, the generic one at the auto tile
+                    heat["margin" if k == 1 else "generic"] = {
+                        "kernel": kern_m, "inputs": ins, "err": err}
             del padded_out
     cases += small_body_cases()
     emit({"phase": "kernel_vs_ref", "tolerance": "bitwise", "cases": cases})
@@ -525,6 +604,7 @@ def phase_heat3d(steps: int, heat):
                      "time_tile": stats.max_time_tile,
                      "k1_launches": after["K1"] - before[0]["K1"],
                      "k1_margin_launches": after["K1m"] - before[0]["K1m"],
+                     "k1_entry_launches": after["K1k1"] - before[0]["K1k1"],
                      "engine_launches": stats.launches - before[1],
                      "repacks": stats.repacks - before[2]})
     counts = read_counts()
@@ -550,6 +630,10 @@ def phase_heat3d(steps: int, heat):
                                  "match the engine's")
         if r["repacks"] != (2 if r["resident"] else r["engine_launches"]):
             raise AssertionError(f"{r['run']}: {r['repacks']} repacks")
+        if r["time_tile"] == 1 and r["k1_entry_launches"] != r["k1_launches"]:
+            raise AssertionError(f"{r['run']}: {r['k1_entry_launches']} of "
+                                 f"{r['k1_launches']} k = 1 launches went "
+                                 "through the k = 1 entry")
     for tag, out in outs.items():
         if out.shape != (cfg.nx, cfg.ny, cfg.nz) or not np.isfinite(out).all():
             raise AssertionError(f"{tag}: bad shape {out.shape} or non-finite")
@@ -589,9 +673,21 @@ def phase_heat3d(steps: int, heat):
         timing[tag] = {"ms_per_step": ms / steps,
                        "time_tile": p.segments[0].time_tile,
                        "margin": p.layout.pad,
+                       "host_us_per_step": host_us(lambda: run(env)) / steps,
                        **device_breakdown(lambda: run(env))}
     kern, padded = heat["kernel"], heat["padded"]
     k1_ms = cuda_time_ms(lambda: launch_fused(kern, padded), repeats=20)
+    kg, gins = heat["generic"]["kernel"], heat["generic"]["inputs"]
+    gout = margin_outputs(kg, gins)
+    kg_ms = cuda_time_ms(lambda: launch_fused(kg, gins, out=gout), repeats=5)
+    kg_plain_ms = cuda_time_ms(lambda: fused_step_ref(kg, gins, out=gout),
+                               repeats=2)
+    bg_ms, bg_by = bound_ms(kg, cfg.dtype)
+    measured = {tag: {"ms_per_step": t["ms_per_step"],
+                      "device_idle_share_unprofiled":
+                          t["device_idle_share_unprofiled"],
+                      "host_us_per_step": t["host_us_per_step"]}
+                for tag, t in timing.items()}
     plain_ms = cuda_time_ms(lambda: fused_step_ref(kern, padded), repeats=5)
     b_ms, b_by = bound_ms(kern, cfg.dtype)
     km, ins = heat["margin"]["kernel"], heat["margin"]["inputs"]
@@ -616,13 +712,28 @@ def phase_heat3d(steps: int, heat):
           "bound_ms_per_step_k1": b_ms, "bound_by": b_by,
           "k1_kernel_ms": k1_ms, "k1_plain_ms": plain_ms,
           "k1_margin_kernel_ms": km_ms, "k1_margin_plain_ms": km_plain_ms,
-          "k1_margin_bound_ms": bm_ms})
-    return ({"launches": counts["K1"] - counts["K1m"], "err": heat["err"],
-             "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-             "bound_by": b_by},
-            {"launches": counts["K1m"], "err": heat["margin"]["err"],
-             "ms": km_ms, "plain_ms": km_plain_ms, "bound_ms": bm_ms,
-             "bound_by": bm_by})
+          "k1_margin_bound_ms": bm_ms,
+          "generic_k": kg.k, "generic_margin_kernel_ms": kg_ms,
+          "generic_margin_plain_ms": kg_plain_ms,
+          "generic_margin_bound_ms": bg_ms})
+    emit({"phase": "heat3d_predicted_vs_measured", "card": card_line(),
+          "predicted": PREDICTED, "measured": measured,
+          "k1_entry_ms": {"padded": k1_ms, "margin": km_ms},
+          "generic_entry_ms": kg_ms})
+    by_mode = {"padded": 0, "margin": 0}
+    for r in runs:
+        by_mode["margin" if r["resident"] else "padded"] += r["k1_entry_launches"]
+    return {"k1_padded": {"launches": by_mode["padded"], "err": heat["err"],
+                          "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                          "bound_by": b_by},
+            "k1_margin": {"launches": by_mode["margin"],
+                          "err": heat["margin"]["err"], "ms": km_ms,
+                          "plain_ms": km_plain_ms, "bound_ms": bm_ms,
+                          "bound_by": bm_by},
+            "generic": {"launches": counts["K1"] - counts["K1k1"],
+                        "err": heat["generic"]["err"], "ms": kg_ms,
+                        "plain_ms": kg_plain_ms, "bound_ms": bg_ms,
+                        "bound_by": bg_by}}
 
 
 # ---------------------------------------------------------------------------
@@ -649,14 +760,17 @@ def reset_counts() -> None:
     for fn in kernel_counters().values():
         fn.launches = 0
     launch_fused.margin_launches = 0
+    launch_fused.k1_launches = 0
 
 
 def read_counts() -> dict:
-    """Launches by kernel; ``K1m`` is K1's margin-mode share of ``K1``."""
+    """Launches by kernel; ``K1m`` is K1's margin-mode share of ``K1`` and
+    ``K1k1`` the k = 1 entry's share."""
     from repro_torch.kernels.fused import launch_fused
 
     counts = {k: fn.launches for k, fn in kernel_counters().items()}
     counts["K1m"] = launch_fused.margin_launches
+    counts["K1k1"] = launch_fused.k1_launches
     return counts
 
 
@@ -896,7 +1010,7 @@ def phase_solve_heat3d():
     norm_b = float(np.linalg.norm(b))
     tol = SOLVE_REL_TOL * norm_b
     x0 = torch.tensor(T0, device="cuda")
-    runs, total = [], dict.fromkeys(kernel_counters(), 0)
+    runs, total = [], dict.fromkeys(read_counts(), 0)
     for method, pc in (("cg", None), ("pipecg", None), ("cg", "mg")):
         x, info, counts, comp = run_solve_path(
             lambda: record_implicit(cfg), method, pc, tol, cfg.maxiter)
@@ -918,7 +1032,7 @@ def phase_solve_heat3d():
         step = make_solver(prog, "T", method=method, precondition=pc,
                            backend="pallas", tol=tol, maxiter=cfg.maxiter)
         timing = time_solve(step, x0, iters)
-        need = {"K1"} | ({"K2"} if method == "pipecg" or pc else set()) \
+        need = {"K1", "K1k1"} | ({"K2"} if method == "pipecg" or pc else set()) \
             | ({"K3", "K4"} if pc else set())
         runs.append({"method": method, "precondition": pc, "outcome": outcome,
                      "iterations": iters, "residual_reported": float(info.residual[0]),
@@ -970,7 +1084,7 @@ def phase_mg_poisson(seed: int):
     F /= np.linalg.norm(F)
     tol = SOLVE_REL_TOL
     x0 = torch.zeros(shape, device="cuda")
-    runs, total = [], dict.fromkeys(kernel_counters(), 0)
+    runs, total = [], dict.fromkeys(read_counts(), 0)
     for method, pc, maxiter in (("mg", None, 60), ("cg", "mg", 200)):
         x, info, counts, comp = run_solve_path(
             lambda: record_poisson(F), method, pc, tol, maxiter)
@@ -993,7 +1107,7 @@ def phase_mg_poisson(seed: int):
                                  f"{rel} > {tol}")
         if comp["fallbacks"]:
             raise AssertionError(f"poisson {method}/{pc}: interpreter fallbacks")
-        need = {"K1", "K3", "K4"} | ({"K2"} if pc else set())
+        need = {"K1", "K1k1", "K3", "K4"} | ({"K2"} if pc else set())
         missing = [k for k in sorted(need) if counts[k] == 0]
         if missing:
             raise AssertionError(f"poisson {method}/{pc}: {missing} never launched")
@@ -1495,17 +1609,26 @@ def main() -> int:
     heat = phase_kernel_vs_ref(args.steps)
     k2 = phase_dual_dot_vs_ref(args.seed)
     transfers = phase_transfer_vs_ref(args.seed)
-    k1, k1_margin = phase_heat3d(args.steps, heat)
+    k1 = phase_heat3d(args.steps, heat)
     solve_counts = phase_solve_heat3d()
-    phase_mg_poisson(args.seed)
+    mg_counts = phase_mg_poisson(args.seed)
     legacy = phase_legacy_kernels_vs_ref(args.seed)
     ftcs_counts = phase_legacy_ftcs(args.steps, args.seed)
     btcs_counts = phase_legacy_btcs(args.seed)
     csrc = "src/repro_torch/kernels/csrc/"
-    rows = [("K1 fused_stencil", "fused_stencil.cu",
-             "src/repro/kernels/fused.py:245", dict(k1, library_ms=None)),
-            ("K1 fused_stencil, margin mode", "fused_stencil.cu",
-             "src/repro/kernels/fused.py:245", dict(k1_margin, library_ms=None)),
+    # the solves apply their operators through the k = 1 entry, padded
+    solve_k1 = solve_counts["K1k1"] + mg_counts["K1k1"]
+    rows = [("K1 fused_stencil, k = 1 entry, padded mode", "fused_stencil.cu",
+             "src/repro/kernels/fused.py:245",
+             dict(k1["k1_padded"], library_ms=None,
+                  launches=k1["k1_padded"]["launches"] + solve_k1)),
+            ("K1 fused_stencil, k = 1 entry, margin mode", "fused_stencil.cu",
+             "src/repro/kernels/fused.py:245",
+             dict(k1["k1_margin"], library_ms=None)),
+            (f"K1 fused_stencil, generic entry, k = {heat['generic']['kernel'].k}"
+             ", margin mode", "fused_stencil.cu",
+             "src/repro/kernels/fused.py:245",
+             dict(k1["generic"], library_ms=None)),
             ("K2 dual_dot", "dual_dot.cu", "src/repro/kernels/dotprod.py:39",
              dict(k2, launches=solve_counts["K2"] + btcs_counts["K2"])),
             ("K3 restrict", "transfer.cu", "src/repro/kernels/transfer.py:119",

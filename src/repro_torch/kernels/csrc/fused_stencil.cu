@@ -10,33 +10,74 @@
 //   buffer of the same extent that is never an input (ping-pong).  The
 //   reference writes in place through input_output_aliases, which is valid
 //   only while blocks run one at a time.
-// The two modes differ only in the origins and row strides of Geom.  One generic
-// kernel serves every loop body: instead of a source generated per program,
-// it reads the body's canonical tap form from a small descriptor that the
-// host flattens from the LoweredGroup (repro_torch/kernels/fused.py,
-// _encode), and it is templated on float / double.
+// The two modes differ only in the origins and row strides of Geom.  Instead
+// of a source generated per program, both entries read the body's canonical
+// tap form from a small descriptor that the host flattens from the
+// LoweredGroup (repro_torch/kernels/fused.py, _encode), and both are
+// templated on float / double.
+//
+// Two entries; repro_torch/kernels/fused.py::fused_entry picks one per
+// kernel:
+// - fused_k1_kernel: every launch with k = 1 and no hazard (the make step
+//   in margin mode, every solver operator application in padded mode);
+// - fused_stencil_kernel: k > 1 (the trapezoid) and hazard bodies.
 //
 // What it computes, per launch: for each AffineUpdate, in program order,
 //     field[z0:z0+zlen] = const + sum_g c_g * (sum_p prod_t tap_{g,p,t})
-// on the interior (x, y) cells, with at most 2 taps per product.  Each block
-// owns an output tile and loads the tile's window k*h cells deeper on each
-// side from the wrap-padded inputs; it applies the body k times, the valid
-// region shrinking by h per sub-step (trapezoid).  The Dirichlet Moat mask
-// comes from global coordinates (coords + tile origin), taken mod (nx, ny)
-// when `wrap`.  Later updates read earlier updates' centre values.  z planes
-// outside [z0, z0+zlen) are copied through unchanged.
+// on the interior (x, y) cells, with at most 2 taps per product, k times
+// (the valid region shrinking by h per sub-step, trapezoid).  The Dirichlet
+// Moat mask comes from global coordinates.  Later updates read earlier
+// updates' centre values.  z planes outside [z0, z0+zlen) are copied
+// through unchanged.
 //
 // Association: taps that share a coefficient are summed first, in recorded
 // order, and multiplied once; the groups are then added in order of first
-// appearance, then `const` — the association of the Pallas body, which is
-// what keeps the kernel within 1 ulp of the roll interpreter.
+// appearance, then `const` — the association of the Pallas body.  One
+// __device__ function, eval_update, holds it, and both entries call it, so
+// they agree with each other and with fused_step_ref by construction.
 //
-// Design (right first; speed is later work):
+// Bound: bytes.  At k = 1 a launch reads each input window once and writes
+// each output once: for the heat3d body at 512 x 512 x 128 float, about
+// 2 x 134 MB per step, against about 9 flops per cell.
+//
+// k = 1 entry (fused_k1_kernel), K6's thread mapping (stencil7.cu):
+// - a block is (BZ, BY) threads, BZ = min(128, ceil(max nz / kK1Cells)
+//   rounded up to 32), BY = 256 / BZ (rounded down, as K6); x comes from
+//   blockIdx.y, y from blockIdx.x * BY + threadIdx.y, and each thread walks
+//   z = threadIdx.x, +BZ, ..., kK1Cells cells at once.  So a warp reads and
+//   writes consecutive z (coalesced), and a block owns whole z columns: a
+//   later update's from_center tap at dz != 0 (always dx = dy = 0 by
+//   lowering) reads a value that this block wrote, and the __syncthreads()
+//   between updates is enough.  Threads past the brick's y edge skip the
+//   work and still reach every barrier.
+// - kK1Cells = 4 cells per thread: with one, each tap's load waited on the
+//   previous tap's add, so a cell paid the load latency once per tap, and
+//   the per-block descriptor copy was spread over one cell per thread; four
+//   cells issue four independent loads per tap (measured 0.81 -> 0.31 ms
+//   per heat3d launch on an H100; more cells cost registers and occupancy).
+// - no division or modulo per cell: each thread computes its cell's (x, y)
+//   row in the inputs and outputs once, in 64 bits; a tap's offset is that
+//   row times its field's nz plus dx*sx + dy*nz + dz, with the field's x
+//   stride sx = in_py * nz kept in shared memory per block.
+// - the Moat mask once per column, with no wrap: at k = 1 the only cells
+//   written are the brick's own, at global (cx + i, cy + j) inside
+//   [0, nx) x [0, ny) (the host checks cx + bx <= nx and cy + by <= ny).
+// - coefficients rounded to T once per block, into shared memory beside the
+//   descriptor; the `!= 1.0` and `!= 0.0` tests stay on the double values,
+//   so the same operations happen in the same order.
+// - outputs written in place of the final sub-step: no scratch, no
+//   temporary, no block-stride tile loop.
+// Neighbour reuse (each input cell is read by up to 7 taps) is left to
+// L1/L2.  Left for the next K1 change: staging the (x, y) neighbourhood in
+// shared memory, and holding the k > 1 trapezoid on chip.
+//
+// Generic entry (fused_stencil_kernel), right first:
 // - One thread per (x, y, z) cell of the tile's current region, z the
 //   contiguous axis, block-stride over the region.  Layout stays (X, Y, Z).
 // - k > 1: sub-steps run on block-private scratch windows in global memory
 //   (two per written field, ping-pong), with __syncthreads() between them.
-//   No block reads another block's output inside a launch.
+//   No block reads another block's output inside a launch.  The Moat mask
+//   wraps global coordinates mod (nx, ny) when `wrap`.
 // - __syncthreads() separates the updates of one sub-step, because a later
 //   update may read an earlier one's result at another z.  An update that
 //   re-writes a field while reading that field's new value at dz != 0 first
@@ -45,19 +86,13 @@
 //
 // FMA contraction: build with --fmad=false.  Every multiply and add then
 // rounds on its own, as the plain PyTorch version's separate elementwise
-// kernels do, so the kernel is held *bitwise* against fused_step_ref on the
-// card at float and double.  Turning contraction on is a decision for a
+// kernels do, so both entries are held *bitwise* against fused_step_ref on
+// the card at float and double.  Turning contraction on is a decision for a
 // later performance change.
-//
-// Bound: bytes.  At k = 1 a launch reads each padded input once and writes
-// each output once: for the heat3d body at 512 x 512 x 128 float, about
-// 2 x 134 MB per step, against about 9 flops per cell.  The design does
-// nothing about that bound yet: no shared-memory staging, TMA or z chunking;
-// the k > 1 scratch windows go through device memory.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC -o libfused_stencil.so
-// The C entry returns cudaGetLastError() after the launch; 0 is success.
+// The C entries return cudaGetLastError() after the launch; 0 is success.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -70,6 +105,8 @@ constexpr int kMaxFields = 16;
 constexpr int kUpdHeader = 9;
 // one tap: field, dz, dx, dy, from_center
 constexpr int kTapInts = 5;
+// z cells one thread of the k = 1 entry evaluates at once
+constexpr int kK1Cells = 4;
 
 template <typename T>
 struct Fields {
@@ -93,6 +130,89 @@ struct Geom {
   int in_off, in_py;     // window origin (x and y) and row stride of inputs
   int out_off, out_py;   // brick origin (x and y) and row stride of outputs
 };
+
+// N cells of one thread, evaluated side by side: every operation acts on
+// each cell alone, rounded as the scalar one is, so a cell's value does not
+// depend on N.  The N loads of one tap are issued together.
+template <typename T, int N>
+struct Cells {
+  T v[N];
+  __device__ Cells() {}
+  __device__ explicit Cells(T s) {
+#pragma unroll
+    for (int c = 0; c < N; ++c) v[c] = s;
+  }
+};
+
+template <typename T, int N>
+__device__ __forceinline__ Cells<T, N> operator+(const Cells<T, N>& a,
+                                                 const Cells<T, N>& b) {
+  Cells<T, N> r;
+#pragma unroll
+  for (int c = 0; c < N; ++c) r.v[c] = a.v[c] + b.v[c];
+  return r;
+}
+
+template <typename T, int N>
+__device__ __forceinline__ Cells<T, N> operator*(const Cells<T, N>& a,
+                                                 const Cells<T, N>& b) {
+  Cells<T, N> r;
+#pragma unroll
+  for (int c = 0; c < N; ++c) r.v[c] = a.v[c] * b.v[c];
+  return r;
+}
+
+template <typename T, int N>
+__device__ __forceinline__ Cells<T, N> operator*(T s, const Cells<T, N>& b) {
+  Cells<T, N> r;
+#pragma unroll
+  for (int c = 0; c < N; ++c) r.v[c] = s * b.v[c];
+  return r;
+}
+
+template <typename T, int N>
+__device__ __forceinline__ Cells<T, N> operator+(const Cells<T, N>& a, T s) {
+  Cells<T, N> r;
+#pragma unroll
+  for (int c = 0; c < N; ++c) r.v[c] = a.v[c] + s;
+  return r;
+}
+
+// One update's body at one cell (V = T) or at N cells (V = Cells<T, N>):
+// the group sums, the coefficient products, `const`, in the association of
+// the note above.  `q` indexes the update's first group in `desc`; `cf`
+// holds the update's doubles (const, then one coefficient per group) and
+// `coef(c)` the same value rounded to T; `tap(t)` reads the tap whose five
+// ints start at t.
+template <typename V, typename Coef, typename Tap>
+__device__ __forceinline__ V eval_update(const int* desc, int q, int n_groups,
+                                         const double* cf, Coef coef,
+                                         Tap tap) {
+  V acc = V();
+  bool have = false;
+  for (int gi = 0; gi < n_groups; ++gi) {
+    const int n_prod = desc[q++];
+    V gsum = V();
+    for (int p = 0; p < n_prod; ++p) {
+      const int n_taps = desc[q++];
+      V t = tap(desc + q);
+      q += kTapInts;
+      for (int tt = 1; tt < n_taps; ++tt) {
+        t = t * tap(desc + q);
+        q += kTapInts;
+      }
+      gsum = (p == 0) ? t : gsum + t;
+    }
+    const V tg = (cf[1 + gi] != 1.0) ? coef(1 + gi) * gsum : gsum;
+    acc = have ? acc + tg : tg;
+    have = true;
+  }
+  if (!have)
+    acc = V(coef(0));
+  else if (cf[0] != 0.0)
+    acc = acc + coef(0);
+  return acc;
+}
 
 template <typename T>
 __global__ void __launch_bounds__(256)
@@ -192,33 +312,10 @@ fused_stencil_kernel(Fields<T> f, Geom g, T* tmp,
           const int i = lo + (int)(r / oy);
           T val;
           if (z >= z0 && z < z0 + zlen && interior(i, j)) {
-            int q = body;
-            T acc = T(0);
-            bool have = false;
-            for (int gi = 0; gi < n_groups; ++gi) {
-              const int n_prod = desc[q++];
-              T gsum = T(0);
-              for (int p = 0; p < n_prod; ++p) {
-                const int n_taps = desc[q++];
-                T t = tap(desc + q, s, i, j, z);
-                q += kTapInts;
-                for (int tt = 1; tt < n_taps; ++tt) {
-                  t = t * tap(desc + q, s, i, j, z);
-                  q += kTapInts;
-                }
-                gsum = (p == 0) ? t : gsum + t;
-              }
-              const double cf = coefs[cb + 1 + gi];
-              const T tg = (cf != 1.0) ? static_cast<T>(cf) * gsum : gsum;
-              acc = have ? acc + tg : tg;
-              have = true;
-            }
-            const double cst = coefs[cb];
-            if (!have)
-              acc = static_cast<T>(cst);
-            else if (cst != 0.0)
-              acc = acc + static_cast<T>(cst);
-            val = acc;
+            val = eval_update<T>(
+                desc, body, n_groups, coefs + cb,
+                [&](int c) { return static_cast<T>(coefs[cb + c]); },
+                [&](const int* t) { return tap(t, s, i, j, z); });
           } else if (first) {
             val = src(fl, s, i, j, z);
           } else {
@@ -252,27 +349,121 @@ fused_stencil_kernel(Fields<T> f, Geom g, T* tmp,
 }
 
 template <typename T>
-int launch(const void* const* ins, void* const* outs, void* const* buf0,
-           void* const* buf1, void* tmp, const int* nz, const int* written,
-           int n_fields, const int* desc, const double* coefs,
-           const int* geom, int grid, int threads, int device,
-           cudaStream_t stream) {
-  if (n_fields < 1 || n_fields > kMaxFields) return (int)cudaErrorInvalidValue;
-  // launch on the tensors' card, and give the calling thread back its own
-  int prev = -1;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err != cudaSuccess) return (int)err;
-  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess)
-    return (int)err;
-  Fields<T> f = {};
-  for (int q = 0; q < n_fields; ++q) {
-    f.in[q] = static_cast<const T*>(ins[q]);
-    f.out[q] = static_cast<T*>(outs[q]);
-    f.buf0[q] = static_cast<T*>(buf0[q]);
-    f.buf1[q] = static_cast<T*>(buf1[q]);
-    f.nz[q] = nz[q];
-    f.written[q] = written[q];
+__global__ void __launch_bounds__(256)
+fused_k1_kernel(Fields<T> f, Geom g, const int* __restrict__ desc_g,
+                const double* __restrict__ coef_g) {
+  extern __shared__ double smem[];
+  double* coefs = smem;                                   // n_coefs
+  T* coefs_t = reinterpret_cast<T*>(smem + g.n_coefs);    // n_coefs, as T
+  int* desc = reinterpret_cast<int*>(coefs_t + g.n_coefs);
+  __shared__ const T* s_in[kMaxFields];
+  __shared__ T* s_out[kMaxFields];
+  __shared__ long long s_sx[kMaxFields];   // input x stride, in_py * nz
+  __shared__ int s_nz[kMaxFields];
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+  if (tid == 0) {
+#pragma unroll
+    for (int q = 0; q < kMaxFields; ++q) {
+      s_in[q] = f.in[q];
+      s_out[q] = f.out[q];
+      s_nz[q] = f.nz[q];
+      s_sx[q] = (long long)g.in_py * f.nz[q];
+    }
   }
+  for (int q = tid; q < g.n_coefs; q += nthreads) {
+    const double c = coef_g[q];
+    coefs[q] = c;
+    coefs_t[q] = static_cast<T>(c);
+  }
+  for (int q = tid; q < g.n_ints; q += nthreads) desc[q] = desc_g[q];
+  __syncthreads();
+
+  // this thread's column: brick cell (i, j), z = threadIdx.x, +BZ, ...
+  const int i = blockIdx.y;
+  const int j = blockIdx.x * blockDim.y + threadIdx.y;
+  const bool live = j < g.by;
+  // the column's (x, y) row in the inputs (window centre, h deep) and in
+  // the outputs; a field's offset is the row times its nz
+  const long long r_in = (long long)(g.in_off + g.h + i) * g.in_py +
+                         (g.in_off + g.h + j);
+  const long long r_out = (long long)(g.out_off + i) * g.out_py +
+                          (g.out_off + j);
+  const int gx = g.cx + i, gy = g.cy + j;
+  const bool interior = gx > 0 && gx < g.nx - 1 && gy > 0 && gy < g.ny - 1;
+
+  const int n_updates = desc[0];
+  int pos = 1;
+  for (int u = 0; u < n_updates; ++u) {
+    const int* hd = desc + pos;
+    const int fl = hd[0], z0 = hd[1], zlen = hd[2], nz = hd[3];
+    const int first = hd[4], n_groups = hd[6], cb = hd[7];
+    const int body = pos + kUpdHeader;
+    // the first write of a field also carries the unwritten z planes and
+    // the Moat cells through; a later one touches only its window
+    const int zb = first ? 0 : z0;
+    const int ze = first ? nz : z0 + zlen;
+    if (live && (first || interior)) {
+      const T* own = s_in[fl] + r_in * nz;
+      T* dst = s_out[fl] + r_out * nz;
+      // kK1Cells cells of the column at once, blockDim.x apart
+      for (int zc = zb + (int)threadIdx.x; zc < ze;
+           zc += kK1Cells * blockDim.x) {
+        int zs[kK1Cells];     // where each cell's taps are read
+        bool win[kK1Cells];   // the cell is updated (else copied through)
+        bool any = false;
+#pragma unroll
+        for (int c = 0; c < kK1Cells; ++c) {
+          const int z = zc + c * blockDim.x;
+          win[c] = interior && z < ze && z >= z0 && z < z0 + zlen;
+          any = any || win[c];
+          zs[c] = win[c] ? z : z0;   // other cells read z0's taps, unused
+        }
+        Cells<T, kK1Cells> val;
+        if (any)
+          val = eval_update<Cells<T, kK1Cells>>(
+              desc, body, n_groups, coefs + cb,
+              [&](int c) { return coefs_t[cb + c]; },
+              [&](const int* t) {
+                // t: field, dz, dx, dy, from_center
+                const long long tnz = s_nz[t[0]];
+                const T* src =
+                    t[4] ? s_out[t[0]] + r_out * tnz + t[1]
+                         : s_in[t[0]] + r_in * tnz + t[2] * s_sx[t[0]] +
+                               t[3] * tnz + t[1];
+                Cells<T, kK1Cells> r;
+#pragma unroll
+                for (int c = 0; c < kK1Cells; ++c) r.v[c] = src[zs[c]];
+                return r;
+              });
+#pragma unroll
+        for (int c = 0; c < kK1Cells; ++c) {
+          const int z = zc + c * blockDim.x;
+          if (z < ze) dst[z] = win[c] ? val.v[c] : own[z];
+        }
+      }
+    }
+    __syncthreads();
+    pos = hd[8];
+  }
+}
+
+// Sets `device` current for the launch and gives the calling thread its
+// own device back.
+struct DeviceScope {
+  int prev = -1;
+  int device;
+  cudaError_t err;
+  explicit DeviceScope(int dev) : device(dev) {
+    err = cudaGetDevice(&prev);
+    if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  }
+  ~DeviceScope() {
+    if (prev >= 0 && prev != device) cudaSetDevice(prev);
+  }
+};
+
+Geom read_geom(const int* geom) {
   Geom g;
   g.bx = geom[0];
   g.by = geom[1];
@@ -294,13 +485,73 @@ int launch(const void* const* ins, void* const* outs, void* const* buf0,
   g.in_py = geom[17];
   g.out_off = geom[18];
   g.out_py = geom[19];
+  return g;
+}
+
+template <typename T>
+Fields<T> read_fields(const void* const* ins, void* const* outs,
+                      const int* nz, const int* written, int n_fields) {
+  Fields<T> f = {};
+  for (int q = 0; q < n_fields; ++q) {
+    f.in[q] = static_cast<const T*>(ins[q]);
+    f.out[q] = static_cast<T*>(outs[q]);
+    f.nz[q] = nz[q];
+    f.written[q] = written ? written[q] : 0;
+  }
+  return f;
+}
+
+template <typename T>
+int launch(const void* const* ins, void* const* outs, void* const* buf0,
+           void* const* buf1, void* tmp, const int* nz, const int* written,
+           int n_fields, const int* desc, const double* coefs,
+           const int* geom, int grid, int threads, int device,
+           cudaStream_t stream) {
+  if (n_fields < 1 || n_fields > kMaxFields) return (int)cudaErrorInvalidValue;
+  DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return (int)scope.err;
+  Fields<T> f = read_fields<T>(ins, outs, nz, written, n_fields);
+  for (int q = 0; q < n_fields; ++q) {
+    f.buf0[q] = static_cast<T*>(buf0[q]);
+    f.buf1[q] = static_cast<T*>(buf1[q]);
+  }
+  const Geom g = read_geom(geom);
   const size_t smem = (size_t)g.n_coefs * sizeof(double) +
                       (size_t)g.n_ints * sizeof(int);
   fused_stencil_kernel<T><<<grid, threads, smem, stream>>>(
       f, g, static_cast<T*>(tmp), desc, coefs);
-  err = cudaGetLastError();
-  if (prev != device) cudaSetDevice(prev);
-  return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The k = 1 entry: grid (grid_x, grid_y) = (ceil(by / block_y), bx), block
+// (block_z, block_y) of at most 256 threads, as fused.py::k1_launch_shape
+// computes.
+template <typename T>
+int launch_k1(const void* const* ins, void* const* outs, const int* nz,
+              int n_fields, const int* desc, const double* coefs,
+              const int* geom, int grid_x, int grid_y, int block_z,
+              int block_y, int device, cudaStream_t stream) {
+  const Geom g = read_geom(geom);
+  if (n_fields < 1 || n_fields > kMaxFields || g.k != 1 ||
+      block_z * block_y > 256 || block_z % 32 != 0 || grid_x < 1 ||
+      grid_y != g.bx || grid_y > 65535 ||
+      (long long)grid_x * block_y < g.by ||
+      g.cx < 0 || g.cy < 0 || g.cx + g.bx > g.nx || g.cy + g.by > g.ny)
+    return (int)cudaErrorInvalidValue;
+  DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return (int)scope.err;
+  const Fields<T> f = read_fields<T>(ins, outs, nz, nullptr, n_fields);
+  const size_t smem = (size_t)g.n_coefs * (sizeof(double) + sizeof(T)) +
+                      (size_t)g.n_ints * sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_k1_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  fused_k1_kernel<T><<<dim3(grid_x, grid_y), dim3(block_z, block_y), smem,
+                       stream>>>(f, g, desc, coefs);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -325,6 +576,24 @@ int fused_stencil_f64(const void* const* ins, void* const* outs,
   return launch<double>(ins, outs, buf0, buf1, tmp, nz, written, n_fields,
                         desc, coefs, geom, grid, threads, device,
                         static_cast<cudaStream_t>(stream));
+}
+
+int fused_k1_f32(const void* const* ins, void* const* outs, const int* nz,
+                 int n_fields, const int* desc, const double* coefs,
+                 const int* geom, int grid_x, int grid_y, int block_z,
+                 int block_y, int device, void* stream) {
+  return launch_k1<float>(ins, outs, nz, n_fields, desc, coefs, geom, grid_x,
+                          grid_y, block_z, block_y, device,
+                          static_cast<cudaStream_t>(stream));
+}
+
+int fused_k1_f64(const void* const* ins, void* const* outs, const int* nz,
+                 int n_fields, const int* desc, const double* coefs,
+                 const int* geom, int grid_x, int grid_y, int block_z,
+                 int block_y, int device, void* stream) {
+  return launch_k1<double>(ins, outs, nz, n_fields, desc, coefs, geom, grid_x,
+                           grid_y, block_z, block_y, device,
+                           static_cast<cudaStream_t>(stream));
 }
 
 const char* fused_stencil_error(int code) {

@@ -1,8 +1,8 @@
 """K1 — the generic fused stencil for one loop body, on Hopper.
 
 The port of ``repro/kernels/fused.py::build_fused_call``.  The Pallas body
-there is unrolled in Python for each tap set; here one CUDA kernel
-(``csrc/fused_stencil.cu``, built for ``sm_90a`` at first use) reads the same
+there is unrolled in Python for each tap set; here CUDA kernels
+(``csrc/fused_stencil.cu``, built for ``sm_90a`` at first use) read the same
 structure from a descriptor that :func:`build_fused_call` flattens from the
 lowered updates:
 
@@ -27,14 +27,25 @@ memory by every block.  Two modes are ported:
   valid only while blocks run one at a time, and on the card they do not,
   so the engine ping-pongs two resident buffers per written field.
 
+Both modes launch one of two CUDA entries, which share one body evaluator
+(the association) and so give the same bits; :func:`fused_entry` picks:
+
+* ``"k1"`` (``fused_k1_kernel``) for ``k == 1`` without a hazard — every
+  ``make`` step at ``time_tile=1`` and every solver operator application.
+  Each block owns whole z columns of a ``(BZ, BY)`` thread block, laid out
+  by :func:`k1_launch_shape`, with no division per cell and no scratch;
+* ``"generic"`` (``fused_stencil_kernel``) for ``k > 1`` (the trapezoid on
+  block-private scratch windows) and for hazard bodies.
+
 The region mode (overlap) and the batch axis (ensembles) come with later
 slices.
 
 Three entry points:
 
-* :func:`launch_fused` launches the CUDA kernel on CUDA tensors and counts
-  its launches in ``launch_fused.launches`` (both modes) and
-  ``launch_fused.margin_launches`` (the margin mode's share);
+* :func:`launch_fused` launches a CUDA entry on CUDA tensors and counts its
+  launches in ``launch_fused.launches`` (both modes, both entries),
+  ``launch_fused.margin_launches`` (the margin mode's share) and
+  ``launch_fused.k1_launches`` (the k = 1 entry's share);
 * :func:`fused_step_ref` is the plain PyTorch version: the same trapezoid,
   the same Moat mask and the same association, over the whole window at
   once.  The CPU path and the tests use it;
@@ -64,6 +75,12 @@ THREADS = 256
 MAX_SCRATCH_BLOCKS = 512
 #: the dtypes the kernel is built for
 DTYPES = (torch.float32, torch.float64)
+#: z cells one thread of the k = 1 entry evaluates at once (``kK1Cells`` in
+#: the CUDA source)
+K1_CELLS = 4
+#: CUDA's limits on gridDim.x and on gridDim.y (the k = 1 entry's x extent)
+MAX_GRID_X = 2 ** 31 - 1
+MAX_GRID_Y = 65535
 
 
 @dataclasses.dataclass(eq=False)
@@ -144,10 +161,41 @@ def _encode(updates, in_names, nz_of):
 
 
 def default_tile(k: int, bx: int, by: int) -> Tuple[int, int]:
-    """Output tile of one block: 16×16 untiled, 32×32 when k > 1 (a wider
-    tile keeps the trapezoid's recompute share down)."""
+    """Output tile of one block of the generic entry: 16×16 at k = 1 (hazard
+    bodies), 32×32 when k > 1 (a wider tile keeps the trapezoid's recompute
+    share down)."""
     t = 16 if k == 1 else 32
     return min(t, bx), min(t, by)
+
+
+def fused_entry(kernel: FusedKernel) -> str:
+    """The CUDA entry that serves ``kernel``'s launches: ``"k1"`` for
+    ``k == 1`` without a hazard, else ``"generic"``."""
+    return "k1" if kernel.k == 1 and not kernel.hazard else "generic"
+
+
+def k1_launch_shape(kernel: FusedKernel
+                    ) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """``((grid_x, grid_y), (BZ, BY))`` of the k = 1 entry.
+
+    A block is ``BZ × BY ≤ THREADS`` threads, ``BZ = min(128, ⌈max nz /
+    K1_CELLS⌉ rounded up to 32)`` and ``BY = THREADS // BZ``; ``grid_y = bx``
+    blocks give x, ``grid_x = ceil(by / BY)`` give y (``blockIdx.x·BY +
+    threadIdx.y``), and each thread walks ``z = threadIdx.x, +BZ, …``,
+    ``K1_CELLS`` of them at once — K6's ``shape_for`` with the z blocks
+    folded into that walk.  Raises ``ValueError`` for an empty brick or a
+    grid over CUDA's limits.
+    """
+    per_thread = -(-max(kernel.nz) // K1_CELLS)
+    bz = min(128, -(-per_thread // 32) * 32)
+    by_threads = THREADS // bz
+    grid = (-(-kernel.by // by_threads), kernel.bx)
+    if (kernel.bx < 1 or kernel.by < 1 or min(kernel.nz) < 1
+            or grid[0] > MAX_GRID_X or grid[1] > MAX_GRID_Y):
+        raise ValueError(
+            f"brick {kernel.bx}×{kernel.by}×{max(kernel.nz)} is empty or "
+            f"over the k = 1 entry's grid limits ({MAX_GRID_X}, {MAX_GRID_Y})")
+    return grid, (bz, by_threads)
 
 
 def build_fused_call(updates: Sequence, field_specs: Dict[str, Tuple[int, object]],
@@ -390,6 +438,12 @@ def _library():
                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        for fn in (lib.fused_k1_f32, lib.fused_k1_f64):
+            fn.argtypes = [ptrs, ptrs, ints, ctypes.c_int, ctypes.c_void_p,
+                           ctypes.c_void_p, ints, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib.fused_stencil_error.argtypes = [ctypes.c_int]
         lib.fused_stencil_error.restype = ctypes.c_char_p
         _LIB = lib
@@ -420,28 +474,35 @@ def launch_fused(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
                  coords: Tuple[int, int] = (0, 0),
                  out: Optional[Sequence[torch.Tensor]] = None
                  ) -> Tuple[torch.Tensor, ...]:
-    """Launch K1 on CUDA tensors.
+    """Launch K1 on CUDA tensors, through the entry :func:`fused_entry`
+    names.
 
     Padded mode: returns fresh ``(bx, by, nz)`` outputs.  Margin mode:
     writes the brick interiors of the caller's ``out`` buffers (resident
     extent, no storage shared with an input) and returns them; no output is
     allocated.  Checks device, dtype, shape and contiguity, allocates the
-    k > 1 and hazard scratch with ``torch.empty``, launches on the current
-    stream and raises if the launch was refused.  Does not synchronise.
+    generic entry's k > 1 and hazard scratch with ``torch.empty``, launches
+    on the current stream and raises if the launch was refused.  The k = 1
+    entry also needs the brick inside the global extent (``coords ≥ 0``,
+    ``coords + (bx, by) ≤ (nx, ny)``), which it checks.  Does not
+    synchronise.
     """
     if kernel.device.type != "cuda" or kernel.ints_dev is None:
         raise ValueError(f"kernel was built for {kernel.device}, not CUDA")
     dev = _check_inputs(kernel, inputs)
     _check_outputs(kernel, inputs, out)
+    entry = fused_entry(kernel)
+    cx, cy = int(coords[0]), int(coords[1])
+    if entry == "k1" and not (0 <= cx and cx + kernel.bx <= kernel.nx
+                              and 0 <= cy and cy + kernel.by <= kernel.ny):
+        raise ValueError(f"brick at {coords} of extent ({kernel.bx}, "
+                         f"{kernel.by}) leaves the ({kernel.nx}, {kernel.ny}) "
+                         "grid")
     lib = _library()
     k, ph = kernel.k, kernel.pad
     tx, ty = kernel.tile
     tiles_x = -(-kernel.bx // tx)
     tiles_y = -(-kernel.by // ty)
-    n_tiles = tiles_x * tiles_y
-    need_scratch = k > 1 or kernel.hazard
-    grid = min(n_tiles, MAX_SCRATCH_BLOCKS) if need_scratch else n_tiles
-    win = (tx + 2 * ph) * (ty + 2 * ph)
     max_nz = max(kernel.nz)
     opts = dict(dtype=kernel.dtype, device=dev)
     if kernel.margin:
@@ -450,49 +511,61 @@ def launch_fused(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
         outs = {name: torch.empty((kernel.bx, kernel.by, nz), **opts)
                 for name, nz in zip(kernel.in_names, kernel.nz)
                 if name in kernel.written}
-    # `keep` holds the scratch tensors until the launch is enqueued (the loop
-    # rebinds b0/b1); after that the caching allocator orders their reuse on
-    # this stream behind the kernel
-    bufs0, bufs1, keep = [], [], []
-    for name, nz in zip(kernel.in_names, kernel.nz):
-        if name in kernel.written and k > 1:
-            b0 = torch.empty(grid * win * nz, **opts)
-            b1 = torch.empty(grid * win * nz, **opts)
-            keep += [b0, b1]
-            bufs0.append(b0.data_ptr())
-            bufs1.append(b1.data_ptr())
-        else:
-            bufs0.append(None)
-            bufs1.append(None)
-    tmp = (torch.empty(grid * win * max_nz, **opts) if kernel.hazard
-           else None)
     n = len(kernel.in_names)
     M = kernel.margin
     in_off, out_off = (M - ph, M) if M else (0, 0)
     geom = (ctypes.c_int * 20)(
-        kernel.bx, kernel.by, kernel.nx, kernel.ny, int(coords[0]),
-        int(coords[1]), k, kernel.halo, int(kernel.wrap), tx, ty, tiles_x,
-        tiles_y, len(kernel.ints), len(kernel.coefs), max_nz,
-        in_off, kernel.extent[1], out_off, kernel.extent[1] if M else kernel.by)
-    fn = (lib.fused_stencil_f32 if kernel.dtype == torch.float32
-          else lib.fused_stencil_f64)
+        kernel.bx, kernel.by, kernel.nx, kernel.ny, cx, cy, k, kernel.halo,
+        int(kernel.wrap), tx, ty, tiles_x, tiles_y, len(kernel.ints),
+        len(kernel.coefs), max_nz, in_off, kernel.extent[1], out_off,
+        kernel.extent[1] if M else kernel.by)
+    f32 = kernel.dtype == torch.float32
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(_PTRS(*[t.data_ptr() for t in inputs]),
-            _PTRS(*[outs[nm].data_ptr() if nm in outs else None
-                    for nm in kernel.in_names]),
-            _PTRS(*bufs0), _PTRS(*bufs1),
-            None if tmp is None else tmp.data_ptr(),
-            _INTS(*kernel.nz), _INTS(*[int(nm in outs) for nm in kernel.in_names]),
-            n, kernel.ints_dev.data_ptr(), kernel.coefs_dev.data_ptr(), geom,
-            grid, THREADS, dev.index, stream)
+    ins = _PTRS(*[t.data_ptr() for t in inputs])
+    out_ptrs = _PTRS(*[outs[nm].data_ptr() if nm in outs else None
+                       for nm in kernel.in_names])
+    if entry == "k1":
+        (gx, gy), (bz, bty) = k1_launch_shape(kernel)
+        fn = lib.fused_k1_f32 if f32 else lib.fused_k1_f64
+        rc = fn(ins, out_ptrs, _INTS(*kernel.nz), n, kernel.ints_dev.data_ptr(),
+                kernel.coefs_dev.data_ptr(), geom, gx, gy, bz, bty, dev.index,
+                stream)
+    else:
+        grid = min(tiles_x * tiles_y, MAX_SCRATCH_BLOCKS)
+        win = (tx + 2 * ph) * (ty + 2 * ph)
+        # `keep` holds the scratch tensors until the launch is enqueued (the
+        # loop rebinds b0/b1); after that the caching allocator orders their
+        # reuse on this stream behind the kernel
+        bufs0, bufs1, keep = [], [], []
+        for name, nz in zip(kernel.in_names, kernel.nz):
+            if name in kernel.written and k > 1:
+                b0 = torch.empty(grid * win * nz, **opts)
+                b1 = torch.empty(grid * win * nz, **opts)
+                keep += [b0, b1]
+                bufs0.append(b0.data_ptr())
+                bufs1.append(b1.data_ptr())
+            else:
+                bufs0.append(None)
+                bufs1.append(None)
+        tmp = (torch.empty(grid * win * max_nz, **opts) if kernel.hazard
+               else None)
+        fn = lib.fused_stencil_f32 if f32 else lib.fused_stencil_f64
+        rc = fn(ins, out_ptrs, _PTRS(*bufs0), _PTRS(*bufs1),
+                None if tmp is None else tmp.data_ptr(),
+                _INTS(*kernel.nz),
+                _INTS(*[int(nm in outs) for nm in kernel.in_names]),
+                n, kernel.ints_dev.data_ptr(), kernel.coefs_dev.data_ptr(),
+                geom, grid, THREADS, dev.index, stream)
     if rc != 0:
         raise RuntimeError(
-            f"fused_stencil launch failed: {lib.fused_stencil_error(rc).decode()}"
-            f" (cudaError {rc})")
+            f"fused_stencil {entry} launch failed: "
+            f"{lib.fused_stencil_error(rc).decode()} (cudaError {rc})")
     launch_fused.launches += 1
     launch_fused.margin_launches += bool(M)
+    launch_fused.k1_launches += entry == "k1"
     return tuple(outs[nm] for nm in kernel.written)
 
 
 launch_fused.launches = 0
 launch_fused.margin_launches = 0
+launch_fused.k1_launches = 0

@@ -28,7 +28,14 @@ Without a card every test skips.  Tolerances:
 * K1's margin mode (resident inputs, ping-pong outputs) against
   ``fused_step_ref`` in margin mode: bitwise, margins of the output left
   alone; ``make`` on the resident layout equal to ``resident=False`` on the
-  card, bitwise.
+  card, bitwise;
+* K1's k = 1 entry against ``fused_step_ref``, in the padded mode and the
+  margin mode (M = h and h + 1), at float32 and float64: bitwise (one body
+  evaluator with the generic entry, ``--fmad=false``), margins of the
+  output left alone, one ``k1_launches`` per launch.
+
+The bodies of :data:`K1_BODIES` are shared with ``test_torch_k1.py``, which
+holds their plain version against the JAX reference on the CPU.
 """
 import numpy as np
 import pytest
@@ -40,8 +47,8 @@ from repro_torch.compiler import lower_group
 from repro_torch.compiler.codegen import _field_specs, _wrap_pad
 from repro_torch.engine import HaloLayout, RunOptions
 from repro_torch.engine.layout import wrap_refresh
-from repro_torch.kernels.fused import (build_fused_call, fused_step_ref,
-                                       launch_fused)
+from repro_torch.kernels.fused import (build_fused_call, fused_entry,
+                                       fused_step_ref, launch_fused)
 from repro_torch.kernels import ops
 from repro_torch.kernels import transfer as port_transfer
 from repro_torch.kernels.dotprod import dual_dot_ref, launch_dual_dot
@@ -286,3 +293,104 @@ def test_cuda_resident_make_equals_repack_make():
                     launch_fused.margin_launches - before[1])
         assert launched == ((3, 3) if resident else (3, 0))
     np.testing.assert_array_equal(out[True], out[False])
+
+
+#: bodies the k = 1 entry serves: heat; advection–diffusion with off-axis
+#: taps and a second update reading the first's new value at dz = ±1 (not a
+#: hazard); halo 2 with fields of different nz; one field with nz = 200 >
+#: BZ; a 3×3×2 brick, the shape of a coarse multigrid level
+K1_BODIES = ("heat", "advdiff_dz", "wide_halo2_mixed_nz", "nz200",
+             "coarse_3x3x2")
+
+
+def k1_body(m, name, dtype, steps=2, seed=0):
+    """``(wse, env)``: body ``name`` recorded into ``m`` (``repro.core`` or
+    ``repro_torch.core``) over seeded NumPy fields ``env``."""
+    rng = np.random.default_rng(seed)
+    wse = m.WSE_Interface()
+    if name in ("heat", "nz200", "coarse_3x3x2"):
+        shape = {"heat": (10, 12, 14), "nz200": (9, 7, 200),
+                 "coarse_3x3x2": (3, 3, 2)}[name]
+        env = {"T": rng.uniform(300.0, 500.0, shape).astype(dtype)}
+        T = m.WSE_Array("T", init_data=env["T"], dtype=env["T"].dtype)
+        with m.WSE_For_Loop("t", steps):
+            T[1:-1, 0, 0] = 0.4 * T[1:-1, 0, 0] + 0.1 * (
+                T[2:, 0, 0] + T[:-2, 0, 0] + T[1:-1, 1, 0] + T[1:-1, 0, -1]
+                + T[1:-1, -1, 0] + T[1:-1, 0, 1])
+    elif name == "advdiff_dz":
+        env = {n: rng.uniform(0.0, hi, (13, 11, 9)).astype(dtype)
+               for n, hi in (("A", 1.0), ("C", 0.05), ("B", 1.0))}
+        A, C, B = (m.WSE_Array(n, init_data=env[n], dtype=env[n].dtype)
+                   for n in ("A", "C", "B"))
+        with m.WSE_For_Loop("t", steps):
+            A[1:-1, 0, 0] = A[1:-1, 0, 0] + 0.05 * (
+                A[2:, 0, 0] + A[:-2, 0, 0] + A[1:-1, 1, 0] + A[1:-1, -1, 0]
+                - 4.0 * A[1:-1, 0, 0]) - 0.1 * (
+                A[1:-1, 0, 0] - A[1:-1, -1, 0]) + C[1:-1, 0, 0] * (
+                A[1:-1, 1, 1] + A[1:-1, -1, -1] - 2.0 * A[1:-1, 0, 0])
+            B[1:-1, 0, 0] = 0.5 * B[1:-1, 0, 0] + 0.25 * (
+                A[2:, 0, 0] + A[:-2, 0, 0]) + 0.125
+    elif name == "wide_halo2_mixed_nz":
+        env = {"P": rng.uniform(0.0, 1.0, (20, 23, 9)).astype(dtype),
+               "Q": rng.uniform(0.0, 0.1, (20, 23, 7)).astype(dtype),
+               "R": rng.uniform(0.0, 1.0, (20, 23, 6)).astype(dtype)}
+        P, Q, R = (m.WSE_Array(n, init_data=env[n], dtype=env[n].dtype)
+                   for n in ("P", "Q", "R"))
+        with m.WSE_For_Loop("t", steps):
+            P[1:-1, 0, 0] = 0.3 * P[1:-1, 0, 0] + 0.2 * (
+                P[1:-1, 2, 0] + P[1:-1, -2, 1]) + Q[:, 0, 0] * Q[:, 1, -2]
+            Q[2:5, 0, 0] = 0.0 * Q[2:5, 0, 0] + 1.5
+            R[1:-1, 0, 0] = 0.5 * R[2:, 0, 0] + 0.5 * R[:-2, 0, 0]
+    else:
+        raise KeyError(name)
+    return wse, env
+
+
+def k1_kernel(name, dtype, device, margin=0):
+    """``(kernel, env)`` of body ``name`` at k = 1 on ``device``."""
+    wse, env = k1_body(port_core, name, dtype)
+    prog = wse.program
+    wse.__exit__()
+    group = lower_group(prog.ops)
+    specs, (nx, ny) = _field_specs(
+        group, {n: f.shape for n, f in prog.fields.items()},
+        {n: f.dtype for n, f in prog.fields.items()})
+    kern, _ = build_fused_call(group.updates, specs, group.halo, nx, ny, nx,
+                               ny, time_tile=1, wrap=True, device=device,
+                               margin=margin)
+    return kern, env
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", K1_BODIES)
+def test_cuda_k1_entry_bitwise_vs_plain(name):
+    """K1's k = 1 entry equals fused_step_ref bit for bit in the padded mode
+    and in the margin mode (M = h and h + 1, output margins untouched), at
+    float32 and float64, and counts one k1 launch per launch."""
+    _need_card()
+    for dtype in (np.float32, np.float64):
+        kern, env = k1_kernel(name, dtype, "cuda")
+        assert fused_entry(kern) == "k1"
+        padded = [_wrap_pad(torch.tensor(env[n], device="cuda"), kern.pad)
+                  for n in kern.in_names]
+        before = launch_fused.k1_launches
+        got = launch_fused(kern, padded)
+        assert launch_fused.k1_launches == before + 1
+        want = fused_step_ref(kern, padded)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (name, dtype)
+        for M in (kern.halo, kern.halo + 1):
+            km, _ = k1_kernel(name, dtype, "cuda", margin=M)
+            lay = HaloLayout(pad=M, shapes={})
+            ins = [wrap_refresh(lay.enter({n: torch.tensor(
+                env[n], device="cuda")})[n], M, km.pad) for n in km.in_names]
+            outs = {}
+            for how in ("kernel", "plain"):
+                out = [torch.full_like(ins[km.in_names.index(n)], -7.0)
+                       for n in km.written]
+                call = launch_fused if how == "kernel" else fused_step_ref
+                outs[how] = call(km, ins, out=out)
+            assert launch_fused.k1_launches == before + 1 + (M - kern.halo + 1)
+            for g, p, w in zip(outs["kernel"], outs["plain"], want):
+                assert torch.equal(g, p), (name, dtype, M)
+                assert torch.equal(g[M:-M, M:-M], w)
