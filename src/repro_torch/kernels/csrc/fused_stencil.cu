@@ -11,16 +11,21 @@
 //   reference writes in place through input_output_aliases, which is valid
 //   only while blocks run one at a time.
 // The two modes differ only in the origins and row strides of Geom.  Instead
-// of a source generated per program, both entries read the body's canonical
+// of a source generated per program, both kernels read the body's canonical
 // tap form from a small descriptor that the host flattens from the
 // LoweredGroup (repro_torch/kernels/fused.py, _encode), and both are
 // templated on float / double.
 //
-// Two entries; repro_torch/kernels/fused.py::fused_entry picks one per
-// kernel:
-// - fused_k1_kernel: every launch with k = 1 and no hazard (the make step
-//   in margin mode, every solver operator application in padded mode);
-// - fused_stencil_kernel: k > 1 (the trapezoid) and hazard bodies.
+// Two kernels; repro_torch/kernels/fused.py::fused_entry picks one per
+// launch:
+// - fused_column_kernel, the column entry: one launch evaluates ONE
+//   sub-step over a rectangular region of the window.  It serves every
+//   body without a hazard: at k = 1 one launch over the brick (the make step
+//   at time_tile=1 in margin mode, every solver operator application in
+//   padded mode); at k > 1 the sweep, k launches enqueued by one C call
+//   (fused_sweep_*), sub-step s over the trapezoid's region s;
+// - fused_stencil_kernel, the generic entry: hazard bodies, at any k (the
+//   trapezoid on block-private scratch windows).
 //
 // What it computes, per launch: for each AffineUpdate, in program order,
 //     field[z0:z0+zlen] = const + sum_g c_g * (sum_p prod_t tap_{g,p,t})
@@ -33,14 +38,14 @@
 // Association: taps that share a coefficient are summed first, in recorded
 // order, and multiplied once; the groups are then added in order of first
 // appearance, then `const` — the association of the Pallas body.  One
-// __device__ function, eval_update, holds it, and both entries call it, so
+// __device__ function, eval_update, holds it, and both kernels call it, so
 // they agree with each other and with fused_step_ref by construction.
 //
 // Bound: bytes.  At k = 1 a launch reads each input window once and writes
 // each output once: for the heat3d body at 512 x 512 x 128 float, about
 // 2 x 134 MB per step, against about 9 flops per cell.
 //
-// k = 1 entry (fused_k1_kernel), K6's thread mapping (stencil7.cu):
+// Column entry (fused_column_kernel), K6's thread mapping (stencil7.cu):
 // - a block is (BZ, BY) threads, BZ = min(128, ceil(max nz / kK1Cells)
 //   rounded up to 32), BY = 256 / BZ (rounded down, as K6); x comes from
 //   blockIdx.y, y from blockIdx.x * BY + threadIdx.y, and each thread walks
@@ -48,7 +53,7 @@
 //   writes consecutive z (coalesced), and a block owns whole z columns: a
 //   later update's from_center tap at dz != 0 (always dx = dy = 0 by
 //   lowering) reads a value that this block wrote, and the __syncthreads()
-//   between updates is enough.  Threads past the brick's y edge skip the
+//   between updates is enough.  Threads past the region's y edge skip the
 //   work and still reach every barrier.
 // - kK1Cells = 4 cells per thread: with one, each tap's load waited on the
 //   previous tap's add, so a cell paid the load latency once per tap, and
@@ -59,19 +64,48 @@
 //   row in the inputs and outputs once, in 64 bits; a tap's offset is that
 //   row times its field's nz plus dx*sx + dy*nz + dz, with the field's x
 //   stride sx = in_py * nz kept in shared memory per block.
-// - the Moat mask once per column, with no wrap: at k = 1 the only cells
-//   written are the brick's own, at global (cx + i, cy + j) inside
-//   [0, nx) x [0, ny) (the host checks cx + bx <= nx and cy + by <= ny).
+// - the Moat mask once per column: the column's global (gx, gy), wrapped
+//   mod (nx, ny) with a non-negative remainder when `wrap` and the column
+//   lies off the grid (a sweep's regions reach (k-1)*h past the brick,
+//   below 0 for a brick at the grid's low edge).  Without wrap a cell
+//   outside [0, nx) x [0, ny) is not interior.  At k = 1 the host also
+//   keeps the brick inside the grid.
 // - coefficients rounded to T once per block, into shared memory beside the
 //   descriptor; the `!= 1.0` and `!= 0.0` tests stay on the double values,
 //   so the same operations happen in the same order.
-// - outputs written in place of the final sub-step: no scratch, no
-//   temporary, no block-stride tile loop.
+// - outputs written in place: no block-private scratch, no temporary, no
+//   block-stride tile loop.
 // Neighbour reuse (each input cell is read by up to 7 taps) is left to
-// L1/L2.  Left for the next K1 change: staging the (x, y) neighbourhood in
-// shared memory, and holding the k > 1 trapezoid on chip.
+// L1/L2.  Left for a later K1 change: staging the (x, y) neighbourhood in
+// shared memory.
 //
-// Generic entry (fused_stencil_kernel), right first:
+// The sweep (k > 1 without a hazard).  Sub-step s (0 <= s < k) evaluates
+// region s of the trapezoid, extent (bx + 2(k-s-1)h, by + 2(k-s-1)h) at
+// global origin (cx, cy) - (k-s-1)h, over the whole region in one launch:
+// - a written field is read from the input at s = 0 and from scratch
+//   (s-1) & 1 after; an unwritten field always from the input; sub-step s
+//   writes scratch s & 1, and the outputs at s = k - 1.  The first write of
+//   a field copies its Moat cells and unwritten z planes from that same
+//   source, and from_center taps read the sub-step's own destination.
+// - scratch buffers have the inputs' extent and row stride, and a region
+//   cell sits at the same (x, y) in the input, in both scratch buffers and
+//   in the window, so only the origins move per sub-step (Geom, one per
+//   sub-step, computed by fused.py::sweep_geoms).
+// - each cell's arithmetic is the trapezoid's, so the sweep equals the
+//   generic entry and fused_step_ref bit for bit.
+// - bytes: k launches, each reading its region's window and writing its
+//   region: about k x the k = 1 launch's bytes (0.66 ms of HBM at heat3d
+//   512 x 512 x 128 float, k = 8), against the TPU kernel's one read and
+//   one write of the window (0.083 ms).
+// Why the trapezoid is not held on chip: a block must own whole z columns
+// (a later update reads an earlier one's new value at dz != 0), a heat3d
+// column is 128 x 4 B, and each written field needs two copies, so 227 KB
+// of shared memory holds about 220 columns, a 14 x 14 window: at k = 8,
+// h = 1 no output tile is left, and at k = 2 a 10 x 10 tile recomputes
+// about 1.6x the cells to save half the bytes.  The k = 1 launch is bound
+// by issue and latency, not bytes, so that would be slower per step.
+//
+// Generic entry (fused_stencil_kernel), hazard bodies, right first:
 // - One thread per (x, y, z) cell of the tile's current region, z the
 //   contiguous axis, block-stride over the region.  Layout stays (X, Y, Z).
 // - k > 1: sub-steps run on block-private scratch windows in global memory
@@ -86,7 +120,7 @@
 //
 // FMA contraction: build with --fmad=false.  Every multiply and add then
 // rounds on its own, as the plain PyTorch version's separate elementwise
-// kernels do, so both entries are held *bitwise* against fused_step_ref on
+// kernels do, so both kernels are held *bitwise* against fused_step_ref on
 // the card at float and double.  Turning contraction on is a decision for a
 // later performance change.
 //
@@ -105,8 +139,11 @@ constexpr int kMaxFields = 16;
 constexpr int kUpdHeader = 9;
 // one tap: field, dz, dx, dy, from_center
 constexpr int kTapInts = 5;
-// z cells one thread of the k = 1 entry evaluates at once
+// z cells one thread of the column entry evaluates at once
 constexpr int kK1Cells = 4;
+// ints of one Geom (read_geom), and sub-steps of one sweep call
+constexpr int kGeomInts = 20;
+constexpr int kMaxSweep = 64;
 
 template <typename T>
 struct Fields {
@@ -118,12 +155,18 @@ struct Fields {
   int written[kMaxFields];
 };
 
+// One launch's geometry.  The generic entry reads the brick and its k
+// sub-steps from it; a column-entry launch evaluates one sub-step over a
+// region: bx, by, cx, cy are then the region's extent and global origin,
+// in_off the origin of its h-deep read window in the inputs, and
+// out_off, out_py where it lands in its destination (k and the tile
+// fields unused).
 struct Geom {
-  int bx, by;            // brick extent of the outputs
+  int bx, by;            // brick (column entry: region) extent
   int nx, ny;            // global extent (Moat)
-  int cx, cy;            // global origin of the brick
+  int cx, cy;            // global origin of the brick (region)
   int k, h, wrap;
-  int tile_x, tile_y;    // output tile of one block
+  int tile_x, tile_y;    // output tile of one block (generic entry)
   int tiles_x, tiles_y;
   int n_ints, n_coefs;
   int max_nz;
@@ -350,8 +393,8 @@ fused_stencil_kernel(Fields<T> f, Geom g, T* tmp,
 
 template <typename T>
 __global__ void __launch_bounds__(256)
-fused_k1_kernel(Fields<T> f, Geom g, const int* __restrict__ desc_g,
-                const double* __restrict__ coef_g) {
+fused_column_kernel(Fields<T> f, Geom g, const int* __restrict__ desc_g,
+                    const double* __restrict__ coef_g) {
   extern __shared__ double smem[];
   double* coefs = smem;                                   // n_coefs
   T* coefs_t = reinterpret_cast<T*>(smem + g.n_coefs);    // n_coefs, as T
@@ -379,17 +422,21 @@ fused_k1_kernel(Fields<T> f, Geom g, const int* __restrict__ desc_g,
   for (int q = tid; q < g.n_ints; q += nthreads) desc[q] = desc_g[q];
   __syncthreads();
 
-  // this thread's column: brick cell (i, j), z = threadIdx.x, +BZ, ...
+  // this thread's column: region cell (i, j), z = threadIdx.x, +BZ, ...
   const int i = blockIdx.y;
   const int j = blockIdx.x * blockDim.y + threadIdx.y;
   const bool live = j < g.by;
   // the column's (x, y) row in the inputs (window centre, h deep) and in
-  // the outputs; a field's offset is the row times its nz
+  // the destination; a field's offset is the row times its nz
   const long long r_in = (long long)(g.in_off + g.h + i) * g.in_py +
                          (g.in_off + g.h + j);
   const long long r_out = (long long)(g.out_off + i) * g.out_py +
                           (g.out_off + j);
-  const int gx = g.cx + i, gy = g.cy + j;
+  // wrap only a column past the grid (none at k = 1, the edge columns of a
+  // sweep's regions): a runtime modulo costs tens of instructions
+  int gx = g.cx + i, gy = g.cy + j;
+  if (g.wrap && (gx < 0 || gx >= g.nx)) gx = ((gx % g.nx) + g.nx) % g.nx;
+  if (g.wrap && (gy < 0 || gy >= g.ny)) gy = ((gy % g.ny) + g.ny) % g.ny;
   const bool interior = gx > 0 && gx < g.nx - 1 && gy > 0 && gy < g.ny - 1;
 
   const int n_updates = desc[0];
@@ -400,7 +447,8 @@ fused_k1_kernel(Fields<T> f, Geom g, const int* __restrict__ desc_g,
     const int first = hd[4], n_groups = hd[6], cb = hd[7];
     const int body = pos + kUpdHeader;
     // the first write of a field also carries the unwritten z planes and
-    // the Moat cells through; a later one touches only its window
+    // the Moat cells through from its source (input or previous sub-step);
+    // a later one touches only its window
     const int zb = first ? 0 : z0;
     const int ze = first ? nz : z0 + zlen;
     if (live && (first || interior)) {
@@ -489,19 +537,6 @@ Geom read_geom(const int* geom) {
 }
 
 template <typename T>
-Fields<T> read_fields(const void* const* ins, void* const* outs,
-                      const int* nz, const int* written, int n_fields) {
-  Fields<T> f = {};
-  for (int q = 0; q < n_fields; ++q) {
-    f.in[q] = static_cast<const T*>(ins[q]);
-    f.out[q] = static_cast<T*>(outs[q]);
-    f.nz[q] = nz[q];
-    f.written[q] = written ? written[q] : 0;
-  }
-  return f;
-}
-
-template <typename T>
 int launch(const void* const* ins, void* const* outs, void* const* buf0,
            void* const* buf1, void* tmp, const int* nz, const int* written,
            int n_fields, const int* desc, const double* coefs,
@@ -510,10 +545,14 @@ int launch(const void* const* ins, void* const* outs, void* const* buf0,
   if (n_fields < 1 || n_fields > kMaxFields) return (int)cudaErrorInvalidValue;
   DeviceScope scope(device);
   if (scope.err != cudaSuccess) return (int)scope.err;
-  Fields<T> f = read_fields<T>(ins, outs, nz, written, n_fields);
+  Fields<T> f = {};
   for (int q = 0; q < n_fields; ++q) {
+    f.in[q] = static_cast<const T*>(ins[q]);
+    f.out[q] = static_cast<T*>(outs[q]);
     f.buf0[q] = static_cast<T*>(buf0[q]);
     f.buf1[q] = static_cast<T*>(buf1[q]);
+    f.nz[q] = nz[q];
+    f.written[q] = written[q];
   }
   const Geom g = read_geom(geom);
   const size_t smem = (size_t)g.n_coefs * sizeof(double) +
@@ -523,35 +562,72 @@ int launch(const void* const* ins, void* const* outs, void* const* buf0,
   return (int)cudaGetLastError();
 }
 
-// The k = 1 entry: grid (grid_x, grid_y) = (ceil(by / block_y), bx), block
-// (block_z, block_y) of at most 256 threads, as fused.py::k1_launch_shape
-// computes.
+// The column entry over k sub-steps (k = 1: one launch over the brick):
+// launch s gets geoms[s * kGeomInts ...], grid (grids[2s], grids[2s + 1])
+// and block (block_z, block_y) of at most 256 threads, as
+// fused.py::k1_launch_shape computes them; each grid is checked to cover
+// its region (grid y = bx_s, grid x * block_y >= by_s).  A written
+// field (outs[q] != null) is read from ins[q] at s = 0, else from scratch
+// (s-1) & 1, and written to scratch s & 1, or to outs[q] at s = k - 1;
+// scratch0 must be set for k > 1, scratch1 for k > 2.  Returns the first
+// error; launches after it are not enqueued.
 template <typename T>
-int launch_k1(const void* const* ins, void* const* outs, const int* nz,
-              int n_fields, const int* desc, const double* coefs,
-              const int* geom, int grid_x, int grid_y, int block_z,
-              int block_y, int device, cudaStream_t stream) {
-  const Geom g = read_geom(geom);
-  if (n_fields < 1 || n_fields > kMaxFields || g.k != 1 ||
-      block_z * block_y > 256 || block_z % 32 != 0 || grid_x < 1 ||
-      grid_y != g.bx || grid_y > 65535 ||
-      (long long)grid_x * block_y < g.by ||
-      g.cx < 0 || g.cy < 0 || g.cx + g.bx > g.nx || g.cy + g.by > g.ny)
+int launch_sweep(const void* const* ins, void* const* outs,
+                 void* const* scratch0, void* const* scratch1, const int* nz,
+                 int n_fields, const int* desc, const double* coefs,
+                 const int* geoms, const int* grids, int k, int block_z,
+                 int block_y, int device, cudaStream_t stream) {
+  if (n_fields < 1 || n_fields > kMaxFields || k < 1 || k > kMaxSweep ||
+      block_z < 32 || block_z % 32 != 0 || block_y < 1 ||
+      block_z * block_y > 256)
     return (int)cudaErrorInvalidValue;
+  const Geom g0 = read_geom(geoms);
+  for (int s = 0; s < k; ++s) {
+    const Geom g = read_geom(geoms + s * kGeomInts);
+    const int grid_x = grids[2 * s], grid_y = grids[2 * s + 1];
+    if (g.bx < 1 || g.by < 1 || grid_x < 1 || grid_y != g.bx ||
+        grid_y > 65535 || (long long)grid_x * block_y < g.by || g.h < 0 ||
+        g.nx < 1 || g.ny < 1 || g.in_off < 0 || g.out_off < 0 ||
+        g.in_off + 2 * g.h + g.by > g.in_py || g.out_off + g.by > g.out_py ||
+        g.n_ints != g0.n_ints || g.n_coefs != g0.n_coefs)
+      return (int)cudaErrorInvalidValue;
+  }
+  // k = 1 keeps the brick inside the grid, as the k = 1 entry always has
+  if (k == 1 && (g0.cx < 0 || g0.cy < 0 || g0.cx + g0.bx > g0.nx ||
+                 g0.cy + g0.by > g0.ny))
+    return (int)cudaErrorInvalidValue;
+  for (int q = 0; q < n_fields; ++q)
+    if (outs[q] && ((k > 1 && !scratch0[q]) || (k > 2 && !scratch1[q])))
+      return (int)cudaErrorInvalidValue;
   DeviceScope scope(device);
   if (scope.err != cudaSuccess) return (int)scope.err;
-  const Fields<T> f = read_fields<T>(ins, outs, nz, nullptr, n_fields);
-  const size_t smem = (size_t)g.n_coefs * (sizeof(double) + sizeof(T)) +
-                      (size_t)g.n_ints * sizeof(int);
+  const size_t smem = (size_t)g0.n_coefs * (sizeof(double) + sizeof(T)) +
+                      (size_t)g0.n_ints * sizeof(int);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fused_k1_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fused_column_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  fused_k1_kernel<T><<<dim3(grid_x, grid_y), dim3(block_z, block_y), smem,
-                       stream>>>(f, g, desc, coefs);
-  return (int)cudaGetLastError();
+  void* const* scratch[2] = {scratch0, scratch1};
+  for (int s = 0; s < k; ++s) {
+    const Geom g = read_geom(geoms + s * kGeomInts);
+    Fields<T> f = {};
+    for (int q = 0; q < n_fields; ++q) {
+      const bool wr = outs[q] != nullptr;
+      f.in[q] = static_cast<const T*>(wr && s > 0 ? scratch[(s - 1) & 1][q]
+                                                  : ins[q]);
+      f.out[q] = static_cast<T*>(
+          !wr ? nullptr : s == k - 1 ? outs[q] : scratch[s & 1][q]);
+      f.nz[q] = nz[q];
+    }
+    fused_column_kernel<T><<<dim3(grids[2 * s], grids[2 * s + 1]),
+                             dim3(block_z, block_y), smem, stream>>>(
+        f, g, desc, coefs);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 }  // namespace
@@ -578,22 +654,26 @@ int fused_stencil_f64(const void* const* ins, void* const* outs,
                         static_cast<cudaStream_t>(stream));
 }
 
-int fused_k1_f32(const void* const* ins, void* const* outs, const int* nz,
-                 int n_fields, const int* desc, const double* coefs,
-                 const int* geom, int grid_x, int grid_y, int block_z,
-                 int block_y, int device, void* stream) {
-  return launch_k1<float>(ins, outs, nz, n_fields, desc, coefs, geom, grid_x,
-                          grid_y, block_z, block_y, device,
-                          static_cast<cudaStream_t>(stream));
+int fused_sweep_f32(const void* const* ins, void* const* outs,
+                    void* const* scratch0, void* const* scratch1,
+                    const int* nz, int n_fields, const int* desc,
+                    const double* coefs, const int* geoms, const int* grids,
+                    int k, int block_z, int block_y, int device,
+                    void* stream) {
+  return launch_sweep<float>(ins, outs, scratch0, scratch1, nz, n_fields,
+                             desc, coefs, geoms, grids, k, block_z, block_y,
+                             device, static_cast<cudaStream_t>(stream));
 }
 
-int fused_k1_f64(const void* const* ins, void* const* outs, const int* nz,
-                 int n_fields, const int* desc, const double* coefs,
-                 const int* geom, int grid_x, int grid_y, int block_z,
-                 int block_y, int device, void* stream) {
-  return launch_k1<double>(ins, outs, nz, n_fields, desc, coefs, geom, grid_x,
-                           grid_y, block_z, block_y, device,
-                           static_cast<cudaStream_t>(stream));
+int fused_sweep_f64(const void* const* ins, void* const* outs,
+                    void* const* scratch0, void* const* scratch1,
+                    const int* nz, int n_fields, const int* desc,
+                    const double* coefs, const int* geoms, const int* grids,
+                    int k, int block_z, int block_y, int device,
+                    void* stream) {
+  return launch_sweep<double>(ins, outs, scratch0, scratch1, nz, n_fields,
+                              desc, coefs, geoms, grids, k, block_z, block_y,
+                              device, static_cast<cudaStream_t>(stream));
 }
 
 const char* fused_stencil_error(int code) {

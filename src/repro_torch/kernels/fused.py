@@ -27,38 +27,53 @@ memory by every block.  Two modes are ported:
   valid only while blocks run one at a time, and on the card they do not,
   so the engine ping-pongs two resident buffers per written field.
 
-Both modes launch one of two CUDA entries, which share one body evaluator
-(the association) and so give the same bits; :func:`fused_entry` picks:
+Both modes launch one of two CUDA kernels, which share one body evaluator
+(the association) and so give the same bits; :func:`fused_entry` names the
+route of each kernel:
 
-* ``"k1"`` (``fused_k1_kernel``) for ``k == 1`` without a hazard — every
-  ``make`` step at ``time_tile=1`` and every solver operator application.
-  Each block owns whole z columns of a ``(BZ, BY)`` thread block, laid out
-  by :func:`k1_launch_shape`, with no division per cell and no scratch;
-* ``"generic"`` (``fused_stencil_kernel``) for ``k > 1`` (the trapezoid on
-  block-private scratch windows) and for hazard bodies.
+* ``"k1"`` — the column entry (``fused_column_kernel``) once over the brick,
+  for ``k == 1`` without a hazard: every ``make`` step at ``time_tile=1``
+  and every solver operator application.  Each block owns whole z columns
+  of a ``(BZ, BY)`` thread block, laid out by :func:`k1_launch_shape`, with
+  no division per cell and no scratch;
+* ``"sweep"`` — the column entry k times, for ``k > 1`` without a hazard
+  (``make``'s auto pick): sub-step ``s`` over region ``s`` of the
+  trapezoid, as :func:`sweep_geoms` lays out, from and into two
+  full-extent scratch buffers per written field that the kernel holds from
+  its first launch on; one C call enqueues the k launches;
+* ``"generic"`` (``fused_stencil_kernel``) for hazard bodies at any k (the
+  trapezoid on block-private scratch windows).
 
 The region mode (overlap) and the batch axis (ensembles) come with later
 slices.
 
-Three entry points:
+Entry points:
 
 * :func:`launch_fused` launches a CUDA entry on CUDA tensors and counts its
-  launches in ``launch_fused.launches`` (both modes, both entries),
-  ``launch_fused.margin_launches`` (the margin mode's share) and
-  ``launch_fused.k1_launches`` (the k = 1 entry's share);
+  launches in ``launch_fused.launches`` (both modes, every entry),
+  ``launch_fused.margin_launches`` (the margin mode's share),
+  ``launch_fused.k1_launches`` (the k = 1 route's share),
+  ``launch_fused.sweep_launches`` (the sweep's share, one per k-step
+  launch) and ``launch_fused.sweep_substeps`` (the sweep's column-entry
+  launches, k per sweep);
 * :func:`fused_step_ref` is the plain PyTorch version: the same trapezoid,
   the same Moat mask and the same association, over the whole window at
   once.  The CPU path and the tests use it;
-* :func:`repro_torch.kernels.ops.fused_step` picks between them by the
-  tensors' device.
+* :func:`fused_sweep_ref` is the plain version of the sweep's schedule
+  (one sub-step per :func:`sweep_geoms` entry, through full-extent
+  scratch), which the tests hold against :func:`fused_step_ref`;
+* :func:`repro_torch.kernels.ops.fused_step` picks between the launcher and
+  :func:`fused_step_ref` by the tensors' device.
 
 Bound on the card: bytes (each input's window read once, each output
 written once per launch); see the note in the CUDA source.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
+import itertools
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -75,12 +90,20 @@ THREADS = 256
 MAX_SCRATCH_BLOCKS = 512
 #: the dtypes the kernel is built for
 DTYPES = (torch.float32, torch.float64)
-#: z cells one thread of the k = 1 entry evaluates at once (``kK1Cells`` in
+#: z cells one thread of the column entry evaluates at once (``kK1Cells`` in
 #: the CUDA source)
 K1_CELLS = 4
-#: CUDA's limits on gridDim.x and on gridDim.y (the k = 1 entry's x extent)
+#: CUDA's limits on gridDim.x and on gridDim.y (the column entry's x extent)
 MAX_GRID_X = 2 ** 31 - 1
 MAX_GRID_Y = 65535
+
+#: one launch's geometry, the CUDA source's ``Geom`` field for field.  For
+#: the column entry ``bx, by`` and ``cx, cy`` are the region's extent and
+#: global origin, ``in_off`` the origin of its ``h``-deep read window in the
+#: inputs, ``out_off, out_py`` where it lands in its destination
+Geom = collections.namedtuple(
+    "Geom", "bx by nx ny cx cy k h wrap tile_x tile_y tiles_x tiles_y n_ints "
+            "n_coefs max_nz in_off in_py out_off out_py")
 
 
 @dataclasses.dataclass(eq=False)
@@ -107,6 +130,11 @@ class FusedKernel:
     margin: int = 0                  # resident margin M; 0: padded mode
     ints_dev: Optional[torch.Tensor] = None
     coefs_dev: Optional[torch.Tensor] = None
+    #: what the launcher keeps between launches: the sweep's geometry by
+    #: brick coords, and its scratch buffers (not copied by
+    #: ``dataclasses.replace``)
+    held: dict = dataclasses.field(default_factory=dict, init=False,
+                                   repr=False)
 
     @property
     def pad(self) -> int:
@@ -161,41 +189,87 @@ def _encode(updates, in_names, nz_of):
 
 
 def default_tile(k: int, bx: int, by: int) -> Tuple[int, int]:
-    """Output tile of one block of the generic entry: 16×16 at k = 1 (hazard
-    bodies), 32×32 when k > 1 (a wider tile keeps the trapezoid's recompute
-    share down)."""
+    """Output tile of one block of the generic entry, which serves only
+    hazard bodies: 16×16 at k = 1, 32×32 when k > 1 (a wider tile keeps the
+    trapezoid's recompute share down).  The column entry has no tile."""
     t = 16 if k == 1 else 32
     return min(t, bx), min(t, by)
 
 
 def fused_entry(kernel: FusedKernel) -> str:
-    """The CUDA entry that serves ``kernel``'s launches: ``"k1"`` for
-    ``k == 1`` without a hazard, else ``"generic"``."""
-    return "k1" if kernel.k == 1 and not kernel.hazard else "generic"
+    """The route that serves ``kernel``'s launches: ``"generic"`` for a
+    hazard body, else the column entry — ``"k1"`` for ``k == 1``,
+    ``"sweep"`` for ``k > 1``."""
+    if kernel.hazard:
+        return "generic"
+    return "k1" if kernel.k == 1 else "sweep"
 
 
-def k1_launch_shape(kernel: FusedKernel
+def k1_launch_shape(kernel: FusedKernel,
+                    extent: Optional[Tuple[int, int]] = None
                     ) -> Tuple[Tuple[int, int], Tuple[int, int]]:
-    """``((grid_x, grid_y), (BZ, BY))`` of the k = 1 entry.
+    """``((grid_x, grid_y), (BZ, BY))`` of one column-entry launch over a
+    region of ``extent`` (default: the brick, the k = 1 launch).
 
     A block is ``BZ × BY ≤ THREADS`` threads, ``BZ = min(128, ⌈max nz /
-    K1_CELLS⌉ rounded up to 32)`` and ``BY = THREADS // BZ``; ``grid_y = bx``
-    blocks give x, ``grid_x = ceil(by / BY)`` give y (``blockIdx.x·BY +
+    K1_CELLS⌉ rounded up to 32)`` and ``BY = THREADS // BZ``; ``grid_y = rx``
+    blocks give x, ``grid_x = ceil(ry / BY)`` give y (``blockIdx.x·BY +
     threadIdx.y``), and each thread walks ``z = threadIdx.x, +BZ, …``,
     ``K1_CELLS`` of them at once — K6's ``shape_for`` with the z blocks
-    folded into that walk.  Raises ``ValueError`` for an empty brick or a
+    folded into that walk.  Raises ``ValueError`` for an empty region or a
     grid over CUDA's limits.
     """
+    rx, ry = extent or (kernel.bx, kernel.by)
     per_thread = -(-max(kernel.nz) // K1_CELLS)
     bz = min(128, -(-per_thread // 32) * 32)
     by_threads = THREADS // bz
-    grid = (-(-kernel.by // by_threads), kernel.bx)
-    if (kernel.bx < 1 or kernel.by < 1 or min(kernel.nz) < 1
+    grid = (-(-ry // by_threads), rx)
+    if (rx < 1 or ry < 1 or min(kernel.nz) < 1
             or grid[0] > MAX_GRID_X or grid[1] > MAX_GRID_Y):
         raise ValueError(
-            f"brick {kernel.bx}×{kernel.by}×{max(kernel.nz)} is empty or "
-            f"over the k = 1 entry's grid limits ({MAX_GRID_X}, {MAX_GRID_Y})")
+            f"region {rx}×{ry}×{max(kernel.nz)} is empty or over the column "
+            f"entry's grid limits ({MAX_GRID_X}, {MAX_GRID_Y})")
     return grid, (bz, by_threads)
+
+
+def _origins(kernel: FusedKernel) -> Tuple[int, int, int]:
+    """``(in_off, out_off, out_py)``: the window's origin in the inputs, and
+    the brick's origin and row stride in the outputs."""
+    M = kernel.margin
+    if M:
+        return M - kernel.pad, M, kernel.extent[1]
+    return 0, 0, kernel.by
+
+
+def sweep_geoms(kernel: FusedKernel, coords: Tuple[int, int] = (0, 0)
+                ) -> Tuple[Geom, ...]:
+    """One :data:`Geom` per sub-step of the column entry's sweep (one at
+    k = 1: the brick).
+
+    Sub-step ``s`` evaluates region ``s`` of the trapezoid: extent ``(bx +
+    2r, by + 2r)`` with ``r = (k − s − 1)·h``, global origin ``coords −
+    r``, read window at ``in_off + s·h`` of the inputs (both modes).  It
+    writes the scratch buffers, which share the inputs' extent and row
+    stride, at the region's own place in the window (``in_off + (s+1)·h``),
+    and at ``s = k − 1`` the outputs at the brick's origin.
+    """
+    k, h = kernel.k, kernel.halo
+    in_off, out_off, out_py = _origins(kernel)
+    ey = kernel.extent[1]
+    cx, cy = int(coords[0]), int(coords[1])
+    geoms = []
+    for s in range(k):
+        r = (k - s - 1) * h
+        last = s == k - 1
+        geoms.append(Geom(
+            bx=kernel.bx + 2 * r, by=kernel.by + 2 * r, nx=kernel.nx,
+            ny=kernel.ny, cx=cx - r, cy=cy - r, k=1, h=h,
+            wrap=int(kernel.wrap), tile_x=0, tile_y=0, tiles_x=0, tiles_y=0,
+            n_ints=len(kernel.ints), n_coefs=len(kernel.coefs),
+            max_nz=max(kernel.nz), in_off=in_off + s * h, in_py=ey,
+            out_off=out_off if last else in_off + (s + 1) * h,
+            out_py=out_py if last else ey))
+    return tuple(geoms)
 
 
 def build_fused_call(updates: Sequence, field_specs: Dict[str, Tuple[int, object]],
@@ -414,6 +488,44 @@ def fused_step_ref(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
     return tuple(out)
 
 
+def fused_sweep_ref(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
+                    coords: Tuple[int, int] = (0, 0),
+                    out: Optional[Sequence[torch.Tensor]] = None
+                    ) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of the column entry's sweep schedule: the same
+    inputs, outputs and result as :func:`fused_step_ref`, reached the way
+    the card reaches it — one sub-step per :func:`sweep_geoms` entry, each
+    reading its window at the geometry's origin from the input or from the
+    previous sub-step's full-extent scratch and writing its region there.
+    Scratch starts as NaN, so a read of a cell no sub-step wrote shows in
+    the result.  The tests hold it against :func:`fused_step_ref`; nothing
+    on the main path calls it.
+    """
+    _check_outputs(kernel, inputs, out)
+    h, k = kernel.halo, kernel.k
+    nz_of = dict(zip(kernel.in_names, kernel.nz))
+    src = dict(zip(kernel.in_names, inputs))
+    if kernel.margin:
+        outs = dict(zip(kernel.written, out))
+    else:
+        outs = {n: inputs[0].new_empty((kernel.bx, kernel.by, nz_of[n]))
+                for n in kernel.written}
+    scratch = [{n: torch.full_like(src[n], float("nan"))
+                for n in kernel.written} for _ in range(min(k - 1, 2))]
+    for s, g in enumerate(sweep_geoms(kernel, coords)):
+        lo = g.in_off
+        cur = {n: a[lo:lo + g.bx + 2 * h, lo:lo + g.by + 2 * h]
+               for n, a in src.items()}
+        new = _apply_updates(kernel.updates, cur, nz_of, h, g.bx, g.by, g.cx,
+                             g.cy, g.nx, g.ny, bool(g.wrap))
+        dst = outs if s == k - 1 else scratch[s & 1]
+        for n in kernel.written:
+            dst[n][g.out_off:g.out_off + g.bx,
+                   g.out_off:g.out_off + g.by].copy_(new[n])
+        src.update({n: dst[n] for n in kernel.written})
+    return tuple(outs[n] for n in kernel.written)
+
+
 # ---------------------------------------------------------------------------
 # the CUDA launcher
 # ---------------------------------------------------------------------------
@@ -438,11 +550,11 @@ def _library():
                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        for fn in (lib.fused_k1_f32, lib.fused_k1_f64):
-            fn.argtypes = [ptrs, ptrs, ints, ctypes.c_int, ctypes.c_void_p,
-                           ctypes.c_void_p, ints, ctypes.c_int, ctypes.c_int,
+        for fn in (lib.fused_sweep_f32, lib.fused_sweep_f64):
+            fn.argtypes = [ptrs, ptrs, ptrs, ptrs, ints, ctypes.c_int,
+                           ctypes.c_void_p, ctypes.c_void_p, ints, ints,
                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p]
+                           ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.fused_stencil_error.argtypes = [ctypes.c_int]
         lib.fused_stencil_error.restype = ctypes.c_char_p
@@ -470,22 +582,53 @@ def _check_inputs(kernel: FusedKernel, inputs) -> torch.device:
     return dev
 
 
+def _sweep_held(kernel: FusedKernel, coords: Tuple[int, int]):
+    """What the sweep keeps between launches of ``kernel``: the ctypes
+    geometry of the brick at ``coords`` with each sub-step's grid and the
+    column entry's block (:func:`k1_launch_shape` of each region), built at
+    their first launch, and the scratch pointer tables over two buffers per
+    written field at the inputs' extent (``min(k − 1, 2)`` of them),
+    allocated once (``torch.empty``) and reused by every later launch."""
+    held = kernel.held
+    key = ("geoms", coords)
+    if key not in held:
+        geoms = sweep_geoms(kernel, coords)
+        shapes = [k1_launch_shape(kernel, (g.bx, g.by)) for g in geoms]
+        held[key] = ((ctypes.c_int * (len(Geom._fields) * len(geoms)))(
+            *itertools.chain.from_iterable(geoms)),
+            (ctypes.c_int * (2 * len(geoms)))(
+                *itertools.chain.from_iterable(g for g, _ in shapes)),
+            shapes[0][1])
+    if "scratch" not in held:
+        ex, ey = kernel.extent
+        bufs = [[torch.empty((ex, ey, nz), dtype=kernel.dtype,
+                             device=kernel.device)
+                 if name in kernel.written and kernel.k > b + 1 else None
+                 for name, nz in zip(kernel.in_names, kernel.nz)]
+                for b in range(2)]
+        held["scratch"] = (bufs, [_PTRS(*[None if t is None else t.data_ptr()
+                                          for t in ts]) for ts in bufs])
+    return held[key], held["scratch"][1]
+
+
 def launch_fused(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
                  coords: Tuple[int, int] = (0, 0),
                  out: Optional[Sequence[torch.Tensor]] = None
                  ) -> Tuple[torch.Tensor, ...]:
-    """Launch K1 on CUDA tensors, through the entry :func:`fused_entry`
+    """Launch K1 on CUDA tensors, through the route :func:`fused_entry`
     names.
 
     Padded mode: returns fresh ``(bx, by, nz)`` outputs.  Margin mode:
     writes the brick interiors of the caller's ``out`` buffers (resident
     extent, no storage shared with an input) and returns them; no output is
-    allocated.  Checks device, dtype, shape and contiguity, allocates the
-    generic entry's k > 1 and hazard scratch with ``torch.empty``, launches
-    on the current stream and raises if the launch was refused.  The k = 1
-    entry also needs the brick inside the global extent (``coords ≥ 0``,
-    ``coords + (bx, by) ≤ (nx, ny)``), which it checks.  Does not
-    synchronise.
+    allocated.  Checks device, dtype, shape and contiguity, launches on the
+    current stream and raises if a launch was refused.  The sweep's scratch
+    is allocated at the kernel's first sweep and held by the kernel (so
+    launches of one kernel on two streams at once would race on it); the
+    generic entry allocates its k > 1 and hazard scratch per launch with
+    ``torch.empty``.  The k = 1 route also needs the brick inside the
+    global extent (``coords ≥ 0``, ``coords + (bx, by) ≤ (nx, ny)``),
+    which it checks.  Does not synchronise.
     """
     if kernel.device.type != "cuda" or kernel.ints_dev is None:
         raise ValueError(f"kernel was built for {kernel.device}, not CUDA")
@@ -499,11 +642,8 @@ def launch_fused(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
                          f"{kernel.by}) leaves the ({kernel.nx}, {kernel.ny}) "
                          "grid")
     lib = _library()
-    k, ph = kernel.k, kernel.pad
-    tx, ty = kernel.tile
-    tiles_x = -(-kernel.bx // tx)
-    tiles_y = -(-kernel.by // ty)
-    max_nz = max(kernel.nz)
+    k = kernel.k
+    f32 = kernel.dtype == torch.float32
     opts = dict(dtype=kernel.dtype, device=dev)
     if kernel.margin:
         outs = dict(zip(kernel.written, out))
@@ -512,27 +652,28 @@ def launch_fused(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
                 for name, nz in zip(kernel.in_names, kernel.nz)
                 if name in kernel.written}
     n = len(kernel.in_names)
-    M = kernel.margin
-    in_off, out_off = (M - ph, M) if M else (0, 0)
-    geom = (ctypes.c_int * 20)(
-        kernel.bx, kernel.by, kernel.nx, kernel.ny, cx, cy, k, kernel.halo,
-        int(kernel.wrap), tx, ty, tiles_x, tiles_y, len(kernel.ints),
-        len(kernel.coefs), max_nz, in_off, kernel.extent[1], out_off,
-        kernel.extent[1] if M else kernel.by)
-    f32 = kernel.dtype == torch.float32
     stream = torch.cuda.current_stream(dev).cuda_stream
     ins = _PTRS(*[t.data_ptr() for t in inputs])
     out_ptrs = _PTRS(*[outs[nm].data_ptr() if nm in outs else None
                        for nm in kernel.in_names])
-    if entry == "k1":
-        (gx, gy), (bz, bty) = k1_launch_shape(kernel)
-        fn = lib.fused_k1_f32 if f32 else lib.fused_k1_f64
-        rc = fn(ins, out_ptrs, _INTS(*kernel.nz), n, kernel.ints_dev.data_ptr(),
-                kernel.coefs_dev.data_ptr(), geom, gx, gy, bz, bty, dev.index,
-                stream)
+    if entry != "generic":
+        (geoms, grids, (bz, bty)), (s0, s1) = _sweep_held(kernel, (cx, cy))
+        fn = lib.fused_sweep_f32 if f32 else lib.fused_sweep_f64
+        rc = fn(ins, out_ptrs, s0, s1, _INTS(*kernel.nz), n,
+                kernel.ints_dev.data_ptr(), kernel.coefs_dev.data_ptr(), geoms,
+                grids, k, bz, bty, dev.index, stream)
     else:
+        tx, ty = kernel.tile
+        tiles_x = -(-kernel.bx // tx)
+        tiles_y = -(-kernel.by // ty)
+        in_off, out_off, out_py = _origins(kernel)
+        geom = (ctypes.c_int * len(Geom._fields))(*Geom(
+            kernel.bx, kernel.by, kernel.nx, kernel.ny, cx, cy, k, kernel.halo,
+            int(kernel.wrap), tx, ty, tiles_x, tiles_y, len(kernel.ints),
+            len(kernel.coefs), max(kernel.nz), in_off, kernel.extent[1],
+            out_off, out_py))
         grid = min(tiles_x * tiles_y, MAX_SCRATCH_BLOCKS)
-        win = (tx + 2 * ph) * (ty + 2 * ph)
+        win = (tx + 2 * kernel.pad) * (ty + 2 * kernel.pad)
         # `keep` holds the scratch tensors until the launch is enqueued (the
         # loop rebinds b0/b1); after that the caching allocator orders their
         # reuse on this stream behind the kernel
@@ -547,8 +688,8 @@ def launch_fused(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
             else:
                 bufs0.append(None)
                 bufs1.append(None)
-        tmp = (torch.empty(grid * win * max_nz, **opts) if kernel.hazard
-               else None)
+        tmp = (torch.empty(grid * win * max(kernel.nz), **opts)
+               if kernel.hazard else None)
         fn = lib.fused_stencil_f32 if f32 else lib.fused_stencil_f64
         rc = fn(ins, out_ptrs, _PTRS(*bufs0), _PTRS(*bufs1),
                 None if tmp is None else tmp.data_ptr(),
@@ -561,11 +702,15 @@ def launch_fused(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
             f"fused_stencil {entry} launch failed: "
             f"{lib.fused_stencil_error(rc).decode()} (cudaError {rc})")
     launch_fused.launches += 1
-    launch_fused.margin_launches += bool(M)
+    launch_fused.margin_launches += bool(kernel.margin)
     launch_fused.k1_launches += entry == "k1"
+    launch_fused.sweep_launches += entry == "sweep"
+    launch_fused.sweep_substeps += k if entry == "sweep" else 0
     return tuple(outs[nm] for nm in kernel.written)
 
 
 launch_fused.launches = 0
 launch_fused.margin_launches = 0
 launch_fused.k1_launches = 0
+launch_fused.sweep_launches = 0
+launch_fused.sweep_substeps = 0

@@ -32,7 +32,12 @@ Without a card every test skips.  Tolerances:
 * K1's k = 1 entry against ``fused_step_ref``, in the padded mode and the
   margin mode (M = h and h + 1), at float32 and float64: bitwise (one body
   evaluator with the generic entry, ``--fmad=false``), margins of the
-  output left alone, one ``k1_launches`` per launch.
+  output left alone, one ``k1_launches`` per launch;
+* K1's sweep (the column entry k times) against ``fused_step_ref`` at
+  k = 2, 3 and 8, both modes, float32 and float64, bricks at the grid's
+  corners: bitwise, one ``sweep_launches`` and k ``sweep_substeps`` per
+  launch; a second launch allocates nothing; ``make`` at the auto tile
+  (all sweeps) equals ``time_tile=1``, resident and repacking, bitwise.
 
 The bodies of :data:`K1_BODIES` are shared with ``test_torch_k1.py``, which
 holds their plain version against the JAX reference on the CPU.
@@ -346,8 +351,9 @@ def k1_body(m, name, dtype, steps=2, seed=0):
     return wse, env
 
 
-def k1_kernel(name, dtype, device, margin=0):
-    """``(kernel, env)`` of body ``name`` at k = 1 on ``device``."""
+def k1_kernel(name, dtype, device, margin=0, k=1, brick=None):
+    """``(kernel, env)`` of body ``name`` at time tile ``k`` on ``device``,
+    for the whole grid or a ``brick=(bx, by)`` of it."""
     wse, env = k1_body(port_core, name, dtype)
     prog = wse.program
     wse.__exit__()
@@ -355,10 +361,22 @@ def k1_kernel(name, dtype, device, margin=0):
     specs, (nx, ny) = _field_specs(
         group, {n: f.shape for n, f in prog.fields.items()},
         {n: f.dtype for n, f in prog.fields.items()})
-    kern, _ = build_fused_call(group.updates, specs, group.halo, nx, ny, nx,
-                               ny, time_tile=1, wrap=True, device=device,
+    bx, by = brick or (nx, ny)
+    kern, _ = build_fused_call(group.updates, specs, group.halo, bx, by, nx,
+                               ny, time_tile=k, wrap=True, device=device,
                                margin=margin)
     return kern, env
+
+
+def brick_window(field, coords, bx, by, pad):
+    """The ``(bx + 2·pad, by + 2·pad)`` window around the brick at
+    ``coords`` of the global ``field``, wrapped periodically to any depth:
+    a padded-mode input (``pad = k·h``) or a refreshed resident buffer
+    (``pad = M``)."""
+    nx, ny = field.shape[:2]
+    xs = np.arange(coords[0] - pad, coords[0] + bx + pad) % nx
+    ys = np.arange(coords[1] - pad, coords[1] + by + pad) % ny
+    return np.ascontiguousarray(field[xs][:, ys])
 
 
 @pytest.mark.cuda
@@ -394,3 +412,89 @@ def test_cuda_k1_entry_bitwise_vs_plain(name):
             for g, p, w in zip(outs["kernel"], outs["plain"], want):
                 assert torch.equal(g, p), (name, dtype, M)
                 assert torch.equal(g[M:-M, M:-M], w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", K1_BODIES)
+def test_cuda_sweep_entry_bitwise_vs_plain(name):
+    """K1's sweep equals fused_step_ref bit for bit at k = 2, 3 and 8, in
+    the padded mode and the margin mode (M = k·h and k·h + 1, output
+    margins untouched), at float32 and float64, for bricks of about half
+    the grid at its low and high corners (regions wrap past both edges)."""
+    _need_card()
+    for dtype in (np.float32, np.float64):
+        whole, env = k1_kernel(name, dtype, "cpu")
+        nx, ny, h = whole.nx, whole.ny, whole.halo
+        bx, by = nx // 2 + 1, ny // 2 + 1
+        for k in (2, 3, 8):
+            for M in (0, k * h, k * h + 1):
+                kern, _ = k1_kernel(name, dtype, "cuda", margin=M, k=k,
+                                    brick=(bx, by))
+                assert fused_entry(kern) == "sweep"
+                for coords in ((0, 0), (nx - bx, ny - by)):
+                    ins = [torch.tensor(brick_window(env[n], coords, bx, by,
+                                                     M or kern.pad),
+                                        device="cuda")
+                           for n in kern.in_names]
+                    outs = {}
+                    for how in ("kernel", "plain"):
+                        out = ([torch.full_like(ins[kern.in_names.index(n)],
+                                                -7.0)
+                                for n in kern.written] if M else None)
+                        before = (launch_fused.sweep_launches,
+                                  launch_fused.sweep_substeps)
+                        call = launch_fused if how == "kernel" else fused_step_ref
+                        outs[how] = call(kern, ins, coords, out=out)
+                        assert (launch_fused.sweep_launches - before[0],
+                                launch_fused.sweep_substeps - before[1]) == (
+                                    (1, k) if how == "kernel" else (0, 0))
+                    for g, w in zip(outs["kernel"], outs["plain"]):
+                        assert torch.equal(g, w), (name, dtype, k, M, coords)
+
+
+@pytest.mark.cuda
+def test_cuda_sweep_second_launch_allocates_nothing():
+    """The sweep's scratch is allocated at the kernel's first launch and
+    held: a second margin-mode launch makes no device allocation."""
+    _need_card()
+    kern, env = k1_kernel("heat", np.float32, "cuda", margin=8, k=8)
+    lay = HaloLayout(pad=8, shapes={})
+    ins = [wrap_refresh(lay.enter({"T": torch.tensor(env["T"], device="cuda")}
+                                  )["T"], 8, kern.pad)]
+    out = [torch.full_like(ins[0], -7.0)]
+    first = launch_fused(kern, ins, out=out)[0].clone()
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_stats()["allocation.all.allocated"]
+    again = launch_fused(kern, ins, out=out)[0]
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == allocated
+    assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+def test_cuda_make_auto_tile_equals_k1():
+    """make(backend="pallas") with time_tile=None picks k = 8 here and runs
+    every launch through the sweep; it equals time_tile=1 bit for bit, on
+    the resident layout and repacking."""
+    _need_card()
+    T0 = np.random.default_rng(10).uniform(300.0, 500.0,
+                                           (40, 36, 12)).astype(np.float32)
+    out = {}
+    for tt in (None, 1):
+        for resident in (True, False):
+            before = (launch_fused.launches, launch_fused.sweep_launches,
+                      launch_fused.sweep_substeps)
+            wse = port_core.WSE_Interface()
+            T = port_core.WSE_Array("T", init_data=T0, dtype=T0.dtype)
+            with port_core.WSE_For_Loop("t", 16):
+                T[1:-1, 0, 0] = 0.4 * T[1:-1, 0, 0] + 0.1 * (
+                    T[2:, 0, 0] + T[:-2, 0, 0] + T[1:-1, 1, 0]
+                    + T[1:-1, 0, -1] + T[1:-1, -1, 0] + T[1:-1, 0, 1])
+            out[tt, resident] = wse.make(answer=T, options=RunOptions(
+                backend="pallas", time_tile=tt, resident=resident))
+            launched = (launch_fused.launches - before[0],
+                        launch_fused.sweep_launches - before[1],
+                        launch_fused.sweep_substeps - before[2])
+            assert launched == ((2, 2, 16) if tt is None else (16, 0, 0))
+    for key, got in out.items():
+        np.testing.assert_array_equal(got, out[1, True], err_msg=str(key))

@@ -7,7 +7,8 @@ plain version of the bodies it serves against the JAX reference.
   cells at a time), and raises
   ``ValueError`` past CUDA's grid limits;
 * :func:`fused_entry` routes exactly the ``k == 1``, hazard-free kernels
-  to the k = 1 entry, in both modes;
+  to the k = 1 route, the ``k > 1`` hazard-free ones to the sweep, and
+  hazard bodies to the generic entry, in both modes;
 * ``fused_step_ref`` at k = 1 equals the reference kernel's arithmetic
   **bitwise** at float32 and float64 on the k = 1 bodies of
   ``test_torch_cuda.py`` (which holds the entry itself against
@@ -99,7 +100,7 @@ def _hazard_kernel(k):
 @pytest.mark.parametrize("body,k,entry", [
     ("heat", 1, "k1"), ("advdiff_dz", 1, "k1"),
     ("wide_halo2_mixed_nz", 1, "k1"), ("hazard", 1, "generic"),
-    ("heat", 2, "generic"), ("advdiff_dz", 2, "generic"),
+    ("heat", 2, "sweep"), ("advdiff_dz", 2, "sweep"),
     ("hazard", 2, "generic")])
 def test_router_picks_the_k1_entry_for_k1_without_hazard(body, k, entry,
                                                           margin):
