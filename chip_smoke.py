@@ -68,10 +68,16 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          514×514×128 brick (1×1 mesh), the padded 258×258×128
                          brick (2×2 mesh) and the reference's test shapes, K7
                          with random planes on the 1×1 mesh's brick and on
-                         each brick of a 2×2 mesh; K5's ``Ap`` bitwise and its
+                         each brick of a 2×2 mesh; K5's ``Ap`` bitwise, its
                          dot within ``1e-5·Σ|c·Ap|`` (f32) / ``1e-13·Σ|c·Ap|``
-                         (f64) of the plain version in float64, and bitwise
-                         deterministic, on the same bricks;
+                         (f64) of the plain version in float64, each of its
+                         per-tile partials within the same share of its
+                         tile's ``Σ|c·Ap|`` of ``spmv_dot_tiles_ref`` in
+                         float64, as many as ``spmv_launch_shape`` says, and
+                         bitwise deterministic, on the same bricks and a
+                         ragged 72×39×130 one; K5 timed on the 514×514×128
+                         and the 258×258×128 padded bricks (the 1×1 and 2×2
+                         meshes' bricks), beside ``PREDICTED``;
 9. ``legacy_ftcs``     — ``HeatConfig()`` through ``make_sharded_ftcs`` with
                          all five variants on a 1×1 mesh, then a random field
                          from ``--seed`` on 1×1 and 2×2 meshes: every variant
@@ -87,15 +93,17 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          with ‖r‖ above 1e-6·‖r₀‖, chebyshev bitwise at the
                          20th — one K5 per brick per iteration
                          and one K2 per brick per pipecg iteration; ms per
-                         iteration; one ``btcs_solve`` cg step with its
-                         independent float64 residual;
+                         iteration on both meshes; one ``btcs_solve`` cg
+                         step with its independent float64 residual;
 11. ``kernels``        — one JSON line describing every kernel of the paths
                          (K1 on four rows: the k = 1 entry in the padded and
                          the margin mode, the sweep at the auto tile, and
                          the generic entry on the hazard body; no main path
                          records a hazard body, so that row's ``launches``
                          are 0 and its ``check_launches`` are
-                         ``kernel_vs_ref``'s).
+                         ``kernel_vs_ref``'s; K5's row adds its launches by
+                         mesh, its partial count and its times on the 2×2
+                         mesh's brick).
 
 Each main path (``heat3d``, ``solve_heat3d``, ``mg_poisson``, ``legacy_ftcs``,
 ``legacy_btcs``) runs with the launch counters set to 0 just before it and
@@ -119,12 +127,13 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-#: what K1's sweep (k > 1 through the column entry) was predicted to give
-#: on one NVIDIA H100 80GB HBM3 at 700 W, written before its first run on a
-#: card (PERF.md §6): a k = 8 sweep ≈ 8 × the 0.3139 ms margin-mode k = 1
-#: launch × 1.028 (the regions' mean area over the brick's); the k = 1
-#: numbers are the last measured ones, which the change must keep; phase
-#: ``heat3d`` prints it beside what it measures
+#: what K1's sweep (k > 1 through the column entry) and K5's x-marching
+#: kernel were predicted to give on one NVIDIA H100 80GB HBM3 at 700 W,
+#: each written before its first run on a card (PERF.md §6): a k = 8 sweep
+#: ≈ 8 × the 0.3139 ms margin-mode k = 1 launch × 1.028 (the regions' mean
+#: area over the brick's); the k = 1 numbers are the last measured ones,
+#: which the change must keep; phases ``heat3d`` and
+#: ``legacy_kernels_vs_ref`` print it beside what they measure
 PREDICTED = {
     "card": "NVIDIA H100 80GB HBM3, 700 W",
     "k1_entry_ms": {"padded": 0.3148, "margin": 0.3139},
@@ -133,6 +142,11 @@ PREDICTED = {
                     "auto_repack": 0.36},
     "host_us_per_step": {"auto": 30.0},
     "allocations_per_step": {"k1": 0, "auto": 0},
+    # K5 marching along x (written before its first run; PERF.md §6):
+    # no slower than K6 (0.1340 ms), about 1.4x its bound at 514x514x128;
+    # the partial sum within 5 us of the kernel alone
+    "k5_ms": {"514x514x128": 0.11, "258x258x128": 0.030},
+    "k5_with_partial_sum_over_ms_us": 5.0,
 }
 #: H100 SXM device-memory rate and float32 / float64 (non-tensor) peaks
 HBM_BYTES_PER_S = 3.35e12
@@ -162,9 +176,11 @@ JIT_SHORT_ATOL = 2e-4
 #: may round differently; over the same number of iterations they stay
 #: within this many float32 ulp of the field's magnitude per iteration
 SOLVE_JIT_ULPS = 4
-#: K5's dot vs the plain version in float64: |K5 − exact| ≤ REL · Σ|c·Ap|
-#: (one product per cell, a 256-thread tree per block, then torch.sum over
-#: the partials: shallower than K2's sum, so K2's bound holds)
+#: K5's dot vs the plain version in float64: |K5 − exact| ≤ REL · Σ|c·Ap|,
+#: and each per-tile partial within REL of its tile's Σ|c·Ap| (a serial
+#: chain of at most 128 products per thread, a 256-thread tree per block,
+#: then torch.sum over the partials: at most about 140 roundings deep,
+#: 140·u = 8.4e-6 at f32, so K2's bound holds)
 K5_REL = K2_REL
 #: the legacy Krylov iterations of each make_sharded_iteration run
 LEGACY_ITERS = 20
@@ -204,6 +220,37 @@ def cuda_time_ms(fn, repeats: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / repeats
+
+
+def queued_ms(fn, repeats: int) -> float:
+    """Device time of ``fn()`` over ``repeats`` calls enqueued behind a
+    sleep kernel, so that the host's launch cost does not pace the card (a
+    kernel of tens of µs takes about as long as its Python launch path):
+    the sleep is doubled until the start event is still pending when the
+    last call has been enqueued."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_us_per_call = (time.perf_counter() - t0) * 1e6
+    torch.cuda.synchronize()
+    cycles = int(4e3 * (2 * repeats * host_us_per_call + 1e3))  # ≥ 2 GHz
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(repeats):
+            fn()
+        queued = not start.query()
+        end.record()
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / repeats
+        cycles *= 2
+    raise AssertionError("queued_ms: the card caught up with the host")
 
 
 def host_us(fn, samples: int = 5) -> float:
@@ -1273,6 +1320,8 @@ LEGACY_TEST_SHAPES = ((3, 7, 9), (6, 10, 5), (7, 130, 12))
 #: K5/K6 bricks: the 1×1 and 2×2 meshes' bricks of 512×512×128, then the
 #: reference's test shapes
 LEGACY_BRICKS = ((512, 512, 128), (256, 256, 128)) + LEGACY_TEST_SHAPES
+#: K5's extra brick: ragged in x, y and z, with Z > 128 (two z chunks)
+K5_EXTRA_BRICKS = ((70, 37, 130),)
 #: the make_sharded_ftcs variants, in the reference's order of precedence
 FTCS_VARIANTS = (("baseline", {}), ("overlap", {"overlap": True}),
                  ("halo_depth4", {"halo_depth": 4}),
@@ -1322,7 +1371,9 @@ def phase_legacy_kernels_vs_ref(seed: int):
 
     from repro_torch.configs.heat3d import HeatConfig
     from repro_torch.kernels import ops
-    from repro_torch.kernels.spmv import launch_spmv_dot, spmv_dot_ref
+    from repro_torch.kernels.spmv import (launch_spmv_dot, spmv_dot_ref,
+                                          spmv_dot_tiles_ref, spmv_launch_shape,
+                                          tile_sums)
     from repro_torch.kernels.stencil7 import (affine_stencil_ref, launch_stencil7,
                                               launch_stencil_planes,
                                               stencil_planes_ref)
@@ -1338,17 +1389,20 @@ def phase_legacy_kernels_vs_ref(seed: int):
     k6, k5, k7, main = [], [], [], {}
     for dtype in (torch.float32, torch.float64):
         name = str(dtype).removeprefix("torch.")
-        for bx, by, nz in LEGACY_BRICKS:
+        for bx, by, nz in LEGACY_BRICKS + K5_EXTRA_BRICKS:
             P = rnd((bx + 2, by + 2, nz), dtype)
-            got, want = launch_stencil7(P, a, w), affine_stencil_ref(P, a, w)
+            if (bx, by, nz) in LEGACY_BRICKS:
+                got, want = launch_stencil7(P, a, w), affine_stencil_ref(P, a, w)
+                torch.cuda.synchronize()
+                err6 = float((got.double() - want.double()).abs().max())
+                if not torch.equal(got, want):
+                    raise AssertionError(f"K6 differs from affine_stencil_ref at "
+                                         f"{(bx, by, nz)} {name} (max {err6})")
+                k6.append({"brick": [bx, by, nz], "dtype": name, "max_abs_err": err6})
             av, parts = launch_spmv_dot(P, 1.0, -wpsi)
             av2, parts2 = launch_spmv_dot(P, 1.0, -wpsi)
             want_av, plain_dot = spmv_dot_ref(P, 1.0, -wpsi)
             torch.cuda.synchronize()
-            err6 = float((got.double() - want.double()).abs().max())
-            if not torch.equal(got, want):
-                raise AssertionError(f"K6 differs from affine_stencil_ref at "
-                                     f"{(bx, by, nz)} {name} (max {err6})")
             prod = P[1:-1, 1:-1].double() * want_av.double()
             dot, dot2 = torch.sum(parts), torch.sum(parts2)
             dot_err = abs(float(dot) - float(prod.sum()))
@@ -1356,18 +1410,32 @@ def phase_legacy_kernels_vs_ref(seed: int):
             if not torch.equal(av, want_av):
                 raise AssertionError(f"K5's Ap differs from spmv_dot_ref at "
                                      f"{(bx, by, nz)} {name}")
-            if not (torch.equal(av, av2) and torch.equal(dot, dot2)):
+            if not (torch.equal(av, av2) and torch.equal(parts, parts2)):
                 raise AssertionError(f"K5 is not deterministic at {(bx, by, nz)} {name}")
             if not bool(torch.isfinite(dot)) or ratio > K5_REL[name]:
                 raise AssertionError(f"K5 dot {name} {(bx, by, nz)}: |err|/Σ|c·Ap| "
                                      f"= {ratio} > {K5_REL[name]}")
-            k6.append({"brick": [bx, by, nz], "dtype": name, "max_abs_err": err6})
+            # each tile's partial against its float64 plain version, within
+            # K5_REL of the tile's Σ|c·Ap|
+            shape = spmv_launch_shape(bx, by, nz)
+            exact = spmv_dot_tiles_ref(P, 1.0, -wpsi, dtype=torch.float64)
+            tile_ratio = float(((parts.double() - exact).abs()
+                                / tile_sums(prod.abs(), shape)).max())
+            if parts.numel() != shape.partials or not tile_ratio <= K5_REL[name]:
+                raise AssertionError(f"K5 partials {name} {(bx, by, nz)}: "
+                                     f"{parts.numel()} of {shape.partials}, max "
+                                     f"|err|/Σ|c·Ap| per tile {tile_ratio} > "
+                                     f"{K5_REL[name]}")
             k5.append({"brick": [bx, by, nz], "dtype": name, "ap_max_abs_err": 0.0,
                        "dot_abs_err": dot_err, "dot_err_over_sum_abs": ratio,
                        "plain_dot_abs_err": abs(float(plain_dot) - float(prod.sum())),
+                       "partials": parts.numel(), "xc": shape.xc,
+                       "tile_err_over_tile_sum_abs_max": tile_ratio,
                        "bound": K5_REL[name]})
-            if dtype == torch.float32 and bx == cfg.nx:
+            if dtype == torch.float32 and (bx, by) == (cfg.nx, cfg.ny):
                 main.update(P=P, k5_err=dot_err)
+            if dtype == torch.float32 and (bx, by) == (cfg.nx // 2, cfg.ny // 2):
+                main["P_small"] = P
         for mesh_shape in ((1, 1), (2, 2)):
             bx, by = cfg.nx // mesh_shape[0], cfg.ny // mesh_shape[1]
             for cx in range(mesh_shape[0]):
@@ -1412,6 +1480,26 @@ def phase_legacy_kernels_vs_ref(seed: int):
                      "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes}
     rows["K5"]["with_partial_sum_ms"] = cuda_time_ms(
         lambda: ops.spmv_hex_dot(P, 1.0, -wpsi), repeats=50)
+    rows["K5"]["partials"] = blocks
+    rows["K5"]["queued_ms"] = queued_ms(lambda: launch_spmv_dot(P, 1.0, -wpsi),
+                                        repeats=50)
+    # K5 on the 2×2 mesh's brick, which carries most of legacy_btcs's launches
+    Ps = main["P_small"]
+    small_blocks = launch_spmv_dot(Ps, 1.0, -wpsi)[1].numel()
+    small_cells = Ps[1:-1, 1:-1].numel()
+    small_bytes = 4 * (Ps.numel() + small_cells + small_blocks)
+    sb_ms, sb_by = roofline(small_bytes, 10 * small_cells, "float32")
+    rows["K5"]["small_brick"] = {
+        "padded": list(Ps.shape), "partials": small_blocks,
+        "timed": "queued behind a sleep kernel (queued_ms)",
+        "ms": queued_ms(lambda: launch_spmv_dot(Ps, 1.0, -wpsi), repeats=200),
+        "with_partial_sum_ms": queued_ms(lambda: ops.spmv_hex_dot(Ps, 1.0, -wpsi),
+                                         repeats=200),
+        "host_paced_ms": cuda_time_ms(lambda: launch_spmv_dot(Ps, 1.0, -wpsi),
+                                      repeats=200),
+        "plain_ms": cuda_time_ms(lambda: spmv_dot_ref(Ps, 1.0, -wpsi), repeats=10),
+        "library_ms": cuda_time_ms(lambda: spmv_conv(Ps, W5), repeats=10),
+        "bound_ms": sb_ms, "bound_by": sb_by, "bound_bytes": small_bytes}
     rows["K6"]["err"] = max(c["max_abs_err"] for c in k6)
     rows["K7"]["err"] = max(c["max_abs_err"] for c in k7)
     rows["K5"]["err"] = main["k5_err"]
@@ -1425,6 +1513,8 @@ def phase_legacy_kernels_vs_ref(seed: int):
                       "K5": "the same + torch.dot",
                       "K7": None},
           "library_vs_plain_max_abs_err": {"K6": lib6_err},
+          "predicted": {k: PREDICTED[k] for k in ("card", "k5_ms",
+                                                  "k5_with_partial_sum_over_ms_us")},
           **{k: {kk: vv for kk, vv in v.items() if kk != "err"} for k, v in rows.items()}})
     return rows
 
@@ -1620,6 +1710,8 @@ def phase_legacy_btcs(seed: int):
                              "launches": {k: d[k] for k in ("K2", "K5")}})
     main_counts = read_counts()
     # -----------------------------------------------------------------------
+    k5_by_mesh = {m: sum(r["launches"]["K5"] for r in runs if r["mesh"] == m)
+                  for m in meshes}
     checks = []
     for method in methods:
         n = check_at[method]
@@ -1654,10 +1746,9 @@ def phase_legacy_btcs(seed: int):
                                      "relative")
     timing = {}
     for (method, m, use_kernel), (step, specs) in steps.items():
-        if m != "1x1":
-            continue
         s = state_from_numpy(states[method], specs[0].sharding)
-        timing[f"{method} kernel={use_kernel}"] = {
+        key = f"{method} kernel={use_kernel}" + ("" if m == "1x1" else f" mesh={m}")
+        timing[key] = {
             "ms_per_iteration": cuda_time_ms(lambda: step(s), repeats=20),
             **device_breakdown(lambda: step(s))}
     # one legacy BTCS time step with cg, on one device
@@ -1679,12 +1770,13 @@ def phase_legacy_btcs(seed: int):
           "iterations": iters, "seed": seed, "compared_at": check_at,
           "residual_history_over_r0": history, "krylov_floor": KRYLOV_FLOOR,
           "runs": runs, "checks": checks,
-          "main_path_launches": main_counts, "timing": timing,
+          "main_path_launches": main_counts, "k5_launches_by_mesh": k5_by_mesh,
+          "timing": timing,
           "btcs_solve": {"method": "cg", "tol": tol, "iterations": int(its[0]),
                          "residual_reported": float(res[0]),
                          "independent_f64_relative_residual": rel,
                          "ms_host_clock": solve_ms}})
-    return main_counts
+    return main_counts, k5_by_mesh
 
 
 def device_breakdown(fn, top: int = 4) -> dict:
@@ -1759,7 +1851,7 @@ def main() -> int:
     mg_counts = phase_mg_poisson(args.seed)
     legacy = phase_legacy_kernels_vs_ref(args.seed)
     ftcs_counts = phase_legacy_ftcs(args.steps, args.seed)
-    btcs_counts = phase_legacy_btcs(args.seed)
+    btcs_counts, k5_by_mesh = phase_legacy_btcs(args.seed)
     csrc = "src/repro_torch/kernels/csrc/"
     # the solves apply their operators through the k = 1 entry, padded
     solve_k1 = solve_counts["K1k1"] + mg_counts["K1k1"]
@@ -1787,7 +1879,8 @@ def main() -> int:
             ("K4 prolong", "transfer.cu", "src/repro/kernels/transfer.py:126",
              dict(transfers["K4"], launches=solve_counts["K4"])),
             ("K5 spmv_dot", "stencil7.cu", "src/repro/kernels/spmv.py:52",
-             dict(legacy["K5"], launches=btcs_counts["K5"])),
+             dict(legacy["K5"], launches=btcs_counts["K5"],
+                  launches_by_mesh=k5_by_mesh)),
             ("K6 affine_stencil", "stencil7.cu", "src/repro/kernels/stencil7.py:62",
              dict(legacy["K6"], launches=ftcs_counts["K6"])),
             ("K7 stencil_planes", "stencil7.cu", "src/repro/kernels/stencil7.py:140",
@@ -1804,8 +1897,8 @@ def main() -> int:
         "launches": r["launches"], "max_abs_err": r["err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]},
-        **({"check_launches": r["check_launches"]}
-           if "check_launches" in r else {}))
+        **{k: r[k] for k in ("check_launches", "launches_by_mesh", "partials",
+                             "small_brick") if k in r})
         for name, src, where, r in rows]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -12,19 +12,16 @@
 //
 // where the z neighbours are edge-replicated (z+ = c on the top face, z- = c
 // on the bottom face), as the reference's concatenations make them.  FTCS
-// passes (1 - 6w, w), the BTCS operator (1, -w*psi).  One templated body,
-// affine_stencil_kernel<T, kDot>, serves both: with kDot it also reduces
-// c*out over the block and writes one partial per block.
+// passes (1 - 6w, w), the BTCS operator (1, -w*psi).  K5 also sums c*out
+// over each block's tile and writes one partial per block.
 //
 // K5's dot runs over the UNMASKED out, Moat and z faces included, exactly as
 // the reference's kernel does before make_sharded_iteration masks Ap.  It
 // accumulates in promote(type, float32) — the brick's own type here, float
 // or double (the TPU kernel always used float32 partials; the port widens
-// with the operands, as K2 does).  No atomics: a block reduces its cells'
-// products by warp shuffles and one shared-memory pass in a fixed tree, and
-// the block count depends on the extents only, so two runs give the same
-// bits.  The wrapper (repro_torch/kernels/ops.py::spmv_hex_dot) sums the
-// partials with one torch.sum.
+// with the operands, as K2 does).  The wrapper
+// (repro_torch/kernels/ops.py::spmv_hex_dot) sums the partials with one
+// torch.sum.
 //
 // K7 replaces repro/kernels/stencil7.py::stencil_planes.  It takes the
 // UNPADDED (bx, by, Z) brick T and the planes xlo, xhi (1, by, Z) and ylo,
@@ -41,28 +38,55 @@
 // steps bit for bit.  The coefficients arrive already rounded to the
 // field's type.
 //
-// Tiling: one thread per output cell, z the contiguous axis.  A block is
-// min(128, Z rounded up to 32) threads along z by 256/that rows along y; the
-// grid is (z blocks, y blocks, bx).  Offsets come from the extents, and the
-// ragged z and y edges are guarded.
+// K6 and K7 tiling: one thread per output cell, z the contiguous axis.  A
+// block is min(128, Z rounded up to 32) threads along z by 256/that rows
+// along y; the grid is (z blocks, y blocks, bx).  Offsets come from the
+// extents, and the ragged z and y edges are guarded.  Each thread loads
+// its six neighbours straight from device memory and leans on L1/L2 for
+// the reuse.
+//
+// K5 (spmv_dot_march_kernel) has its own mapping, which marches along x:
+// - a block is 32 z lanes x kSpmvTY = 8 y rows; each thread owns
+//   kSpmvCells = 4 z cells, 32 apart, so a block covers kSpmvZC = 128 z
+//   (larger Z takes more blocks along grid z) and a warp reads and writes
+//   consecutive z;
+// - a block owns a tile of 8 rows x 128 z and xc consecutive x planes and
+//   walks them in order.  Each thread keeps its cells' x-1, x and x+1
+//   values in registers (and the x+2 plane in flight), so every centre
+//   value is read from device memory once per block;
+// - the y and z neighbours come from a shared-memory stage of the current
+//   plane, (8+2) rows x (128+2) z with the halo rows and z columns,
+//   double-buffered: the threads write their x+1 values and the halo cells
+//   of the next plane into the other buffer, so one __syncthreads() per
+//   plane separates the writes from the reads (10.4 KB at float);
+// - each thread adds its products c*out to one register in a fixed order
+//   (plane by plane, cell by cell): at most xc * 4 <= 128 products, so the
+//   float32 chain stays far inside K5_REL = 1e-5 of sum |c*out|.  The block
+//   then reduces once, by warp shuffles and one shared-memory pass in a
+//   fixed tree, and writes one partial per block.  No atomics; the grid
+//   depends on the extents only, so two runs give the same bits;
+// - the launch shape (grid, block, xc) has one owner,
+//   repro_torch/kernels/spmv.py::spmv_launch_shape; the launcher checks it
+//   covers every output cell once with no empty tile, and refuses it
+//   otherwise.  The partial of block (y tile, x tile, z chunk) is at
+//   (z chunk * x tiles + x tile) * y tiles + y tile.
 //
 // Bound: bytes.  K6 and K5 read the padded brick once and write the brick
 // (about 2*bx*by*Z values; K5 adds one partial per block); K7 reads the
 // brick and four planes and writes the brick.  8 to 10 operations per cell
-// are far below the card's float rate.  The design does nothing more about
-// the bound yet: each thread loads its six neighbours straight from device
-// memory and leans on L1/L2 for the reuse.
+// are far below the card's float rate.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC -o libstencil7.so
 // The C entries return cudaGetLastError() after the launch; 0 is success.
+
+#include <climits>
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxGrid = 65535;  // gridDim.y and gridDim.z limit
 
 struct Shape {
@@ -83,24 +107,14 @@ Shape shape_for(int bx, int by, int nz) {
   return s;
 }
 
+// K6
 template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// K6 (kDot false) and K5 (kDot true, one partial of sum c*out per block)
-template <typename T, bool kDot>
 __global__ void __launch_bounds__(kThreads)
-affine_stencil_kernel(const T* __restrict__ P, T* __restrict__ out,
-                      T* __restrict__ partials, int bx, int by, int nz,
-                      T c_diag, T c_off) {
+affine_stencil_kernel(const T* __restrict__ P, T* __restrict__ out, int bx,
+                      int by, int nz, T c_diag, T c_off) {
   const int z = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   const int i = blockIdx.z;
-  T prod = T(0);
   if (z < nz && j < by) {
     const long long sy = nz;                        // padded strides
     const long long sx = (long long)(by + 2) * nz;
@@ -111,30 +125,158 @@ affine_stencil_kernel(const T* __restrict__ P, T* __restrict__ out,
     s = s + p[sy];
     s = s + (z + 1 < nz ? p[1] : c);
     s = s + (z > 0 ? p[-1] : c);
-    const T v = c_diag * c + c_off * s;
-    out[((long long)i * by + j) * nz + z] = v;
-    prod = c * v;
+    out[((long long)i * by + j) * nz + z] = c_diag * c + c_off * s;
   }
-  if constexpr (kDot) {
-    // every thread of the block takes part in the fixed reduction tree
-    __shared__ T s_part[kWarps];
-    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    const int nwarps = (blockDim.x * blockDim.y) >> 5;
-    prod = warp_sum(prod);
-    if (lane == 0) s_part[warp] = prod;
-    __syncthreads();
-    if (warp == 0) {
-      T v = lane < nwarps ? s_part[lane] : T(0);
-      v = warp_sum(v);
-      if (lane == 0) {
-        const long long bid =
-            ((long long)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
-            blockIdx.x;
-        partials[bid] = v;
+}
+
+// K5: the x-marching SpMV + dot (see the note at the top)
+constexpr int kSpmvTY = 8;                     // y rows per block
+constexpr int kSpmvCells = 4;                  // z cells per thread
+constexpr int kSpmvZC = 32 * kSpmvCells;       // z per block
+constexpr int kSpmvXCMax = 32;                 // x planes per block
+constexpr int kSpmvThreads = 32 * kSpmvTY;
+constexpr int kSpmvW = kSpmvZC + 2;            // stage row width
+// halo cells of a plane's stage: two y rows of 128 z, two z columns of 8
+// rows; thread tid stages halo cells tid and tid + 256
+constexpr int kSpmvHalo = 2 * kSpmvZC + 2 * kSpmvTY;
+constexpr int kSpmvHaloPer = (kSpmvHalo + kSpmvThreads - 1) / kSpmvThreads;
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSpmvThreads)
+spmv_dot_march_kernel(const T* __restrict__ P, T* __restrict__ out,
+                      T* __restrict__ partials, int bx, int by, int nz,
+                      int xc, T c_diag, T c_off) {
+  // stage[b][r][w]: padded row y0 + r (r = 0 .. 9), z = z0 - 1 + w
+  __shared__ T stage[2][kSpmvTY + 2][kSpmvW];
+  __shared__ T s_part[kSpmvTY];
+  const int lane = threadIdx.x;
+  const int ty = threadIdx.y;
+  const int tid = ty * 32 + lane;
+  const int y0 = blockIdx.x * kSpmvTY;  // padded row of stage row 0
+  const int x0 = blockIdx.y * xc;       // first output plane of the tile
+  const int x1 = min(x0 + xc, bx);      // one past its last
+  const int z0 = blockIdx.z * kSpmvZC;
+  const int j = y0 + ty;                // output row; padded row j + 1
+  // padded strides; the launcher keeps a plane's offsets inside an int
+  const int sy = nz;
+  const long long sx = (long long)(by + 2) * nz;
+  // padded row j + 1 exists for j <= by: the last one is the y+ halo of
+  // row by - 1, staged by the first thread past the brick's y edge
+  const bool row_in = j <= by;
+  const bool live = j < by;
+  const int col = (j + 1) * sy + z0 + lane;  // first cell, in a plane
+
+  // this thread's halo cells of a stage: offset in a plane and stage slot,
+  // slot -1 for none.  A halo cell outside the padded brick (a row past
+  // by + 1, z outside [0, nz)) is never read, so it is not staged
+  int h_off[kSpmvHaloPer], h_slot[kSpmvHaloPer];
+#pragma unroll
+  for (int h = 0; h < kSpmvHaloPer; ++h) {
+    const int q = tid + h * kSpmvThreads;
+    int r = 0, w = 0;
+    if (q < 2 * kSpmvZC) {
+      r = q < kSpmvZC ? 0 : kSpmvTY + 1;
+      w = 1 + q % kSpmvZC;
+    } else if (q < kSpmvHalo) {
+      r = 1 + (q - 2 * kSpmvZC) / 2;
+      w = (q & 1) ? kSpmvW - 1 : 0;
+    }
+    const int z = z0 - 1 + w;
+    const bool ok = q < kSpmvHalo && y0 + r <= by + 1 && z >= 0 && z < nz;
+    h_slot[h] = ok ? r * kSpmvW + w : -1;
+    h_off[h] = ok ? (y0 + r) * sy + z : 0;
+  }
+  auto load_cells = [&](int plane, T(&v)[kSpmvCells]) {
+    const T* p = P + (long long)plane * sx + col;
+#pragma unroll
+    for (int c = 0; c < kSpmvCells; ++c)
+      v[c] = row_in && z0 + lane + 32 * c < nz ? p[32 * c] : T(0);
+  };
+  auto load_halo = [&](int plane, T(&v)[kSpmvHaloPer]) {
+    const T* p = P + (long long)plane * sx;
+#pragma unroll
+    for (int h = 0; h < kSpmvHaloPer; ++h)
+      v[h] = h_slot[h] >= 0 ? p[h_off[h]] : T(0);
+  };
+  auto put = [&](int b, const T(&v)[kSpmvCells], const T(&hv)[kSpmvHaloPer]) {
+    T* st = &stage[b][0][0];
+#pragma unroll
+    for (int c = 0; c < kSpmvCells; ++c)
+      st[(ty + 1) * kSpmvW + 1 + lane + 32 * c] = v[c];
+#pragma unroll
+    for (int h = 0; h < kSpmvHaloPer; ++h)
+      if (h_slot[h] >= 0) st[h_slot[h]] = hv[h];
+  };
+
+  // padded planes i (prev), i + 1 (cur, staged), i + 2 (nxt) and i + 3
+  // (far, in flight) for output plane i
+  T prev[kSpmvCells], cur[kSpmvCells], nxt[kSpmvCells], far[kSpmvCells];
+  T h_nxt[kSpmvHaloPer], h_far[kSpmvHaloPer];
+  load_cells(x0, prev);
+  load_cells(x0 + 1, cur);
+  load_halo(x0 + 1, h_far);
+  put(0, cur, h_far);
+  load_cells(x0 + 2, nxt);
+  load_halo(x0 + 2, h_nxt);
+  T acc = T(0);
+  int b = 0;
+  for (int i = x0; i < x1; ++i) {
+    __syncthreads();  // stage b holds plane i + 1; stage b ^ 1 is free
+    if (i + 1 < x1) {
+      put(b ^ 1, nxt, h_nxt);
+      load_cells(i + 3, far);
+      load_halo(i + 3, h_far);
+    }
+    if (live) {
+      const T* st = &stage[b][0][0];
+      T* o = out + ((long long)i * by + j) * nz + (z0 + lane);
+#pragma unroll
+      for (int c = 0; c < kSpmvCells; ++c) {
+        const int z = z0 + lane + 32 * c;
+        if (z < nz) {
+          const int w = 1 + lane + 32 * c;
+          const T ctr = cur[c];
+          T s = prev[c] + nxt[c];
+          s = s + st[ty * kSpmvW + w];
+          s = s + st[(ty + 2) * kSpmvW + w];
+          s = s + (z + 1 < nz ? st[(ty + 1) * kSpmvW + w + 1] : ctr);
+          s = s + (z > 0 ? st[(ty + 1) * kSpmvW + w - 1] : ctr);
+          const T v = c_diag * ctr + c_off * s;
+          o[32 * c] = v;
+          acc = acc + ctr * v;
+        }
       }
     }
+    if (i + 1 < x1) {
+#pragma unroll
+      for (int c = 0; c < kSpmvCells; ++c) {
+        prev[c] = cur[c];
+        cur[c] = nxt[c];
+        nxt[c] = far[c];
+      }
+#pragma unroll
+      for (int h = 0; h < kSpmvHaloPer; ++h) h_nxt[h] = h_far[h];
+    }
+    b ^= 1;
+  }
+  // one fixed tree over the block: each warp by shuffles, then warp 0
+  acc = warp_sum(acc);
+  if (lane == 0) s_part[ty] = acc;
+  __syncthreads();
+  if (ty == 0) {
+    T v = lane < kSpmvTY ? s_part[lane] : T(0);
+    v = warp_sum(v);
+    if (lane == 0)
+      partials[((long long)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
+               blockIdx.x] = v;
   }
 }
 
@@ -187,17 +329,45 @@ struct DeviceGuard {
   }
 };
 
-template <typename T, bool kDot>
-int launch_stencil7(const void* P, void* out, void* partials, int bx, int by,
-                    int nz, T c_diag, T c_off, int device,
-                    cudaStream_t stream) {
+template <typename T>
+int launch_stencil7(const void* P, void* out, int bx, int by, int nz,
+                    T c_diag, T c_off, int device, cudaStream_t stream) {
   const Shape s = shape_for(bx, by, nz);
   if (!s.ok) return (int)cudaErrorInvalidValue;
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
-  affine_stencil_kernel<T, kDot><<<s.grid, s.block, 0, stream>>>(
+  affine_stencil_kernel<T><<<s.grid, s.block, 0, stream>>>(
+      static_cast<const T*>(P), static_cast<T*>(out), bx, by, nz, c_diag,
+      c_off);
+  return (int)cudaGetLastError();
+}
+
+// True if `tiles` tiles of `size` cover [0, extent) with none empty.
+bool covers(long long tiles, long long size, long long extent) {
+  return tiles >= 1 && tiles * size >= extent && (tiles - 1) * size < extent;
+}
+
+// K5 with the launch shape spmv.py::spmv_launch_shape computed: grid
+// (y tiles, x tiles, z chunks), block (32, 8), xc x planes per tile and
+// n_partials = the grid's blocks, the length of `partials`.
+template <typename T>
+int launch_spmv(const void* P, void* out, void* partials, int bx, int by,
+                int nz, int grid_x, int grid_y, int grid_z, int block_x,
+                int block_y, int xc, long long n_partials, T c_diag, T c_off,
+                int device, cudaStream_t stream) {
+  if (bx < 1 || by < 1 || nz < 1 || (long long)(by + 2) * nz > INT_MAX ||
+      block_x != 32 || block_y != kSpmvTY ||
+      xc < 1 || xc > kSpmvXCMax || grid_y > kMaxGrid || grid_z > kMaxGrid ||
+      !covers(grid_x, kSpmvTY, by) || !covers(grid_y, xc, bx) ||
+      !covers(grid_z, kSpmvZC, nz) ||
+      n_partials != (long long)grid_x * grid_y * grid_z)
+    return (int)cudaErrorInvalidValue;
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  spmv_dot_march_kernel<T><<<dim3(grid_x, grid_y, grid_z),
+                             dim3(block_x, block_y), 0, stream>>>(
       static_cast<const T*>(P), static_cast<T*>(out),
-      static_cast<T*>(partials), bx, by, nz, c_diag, c_off);
+      static_cast<T*>(partials), bx, by, nz, xc, c_diag, c_off);
   return (int)cudaGetLastError();
 }
 
@@ -224,39 +394,32 @@ extern "C" {
 
 int stencil7_f32(const void* P, void* out, int bx, int by, int nz,
                  float c_diag, float c_off, int device, void* stream) {
-  return launch_stencil7<float, false>(P, out, nullptr, bx, by, nz, c_diag,
-                                       c_off, device,
-                                       static_cast<cudaStream_t>(stream));
+  return launch_stencil7<float>(P, out, bx, by, nz, c_diag, c_off, device,
+                                static_cast<cudaStream_t>(stream));
 }
 
 int stencil7_f64(const void* P, void* out, int bx, int by, int nz,
                  double c_diag, double c_off, int device, void* stream) {
-  return launch_stencil7<double, false>(P, out, nullptr, bx, by, nz, c_diag,
-                                        c_off, device,
-                                        static_cast<cudaStream_t>(stream));
-}
-
-// Number of partials (blocks) one K5 launch on a (bx, by, nz) brick writes;
-// -1 if the brick is empty or too large for the grid.
-long long spmv_dot_blocks(int bx, int by, int nz) {
-  const Shape s = shape_for(bx, by, nz);
-  if (!s.ok) return -1;
-  return (long long)s.grid.x * s.grid.y * s.grid.z;
+  return launch_stencil7<double>(P, out, bx, by, nz, c_diag, c_off, device,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 int spmv_dot_f32(const void* P, void* out, void* partials, int bx, int by,
-                 int nz, float c_diag, float c_off, int device, void* stream) {
-  return launch_stencil7<float, true>(P, out, partials, bx, by, nz, c_diag,
-                                      c_off, device,
-                                      static_cast<cudaStream_t>(stream));
+                 int nz, int grid_x, int grid_y, int grid_z, int block_x,
+                 int block_y, int xc, long long n_partials, float c_diag,
+                 float c_off, int device, void* stream) {
+  return launch_spmv<float>(P, out, partials, bx, by, nz, grid_x, grid_y,
+                            grid_z, block_x, block_y, xc, n_partials, c_diag,
+                            c_off, device, static_cast<cudaStream_t>(stream));
 }
 
 int spmv_dot_f64(const void* P, void* out, void* partials, int bx, int by,
-                 int nz, double c_diag, double c_off, int device,
-                 void* stream) {
-  return launch_stencil7<double, true>(P, out, partials, bx, by, nz, c_diag,
-                                       c_off, device,
-                                       static_cast<cudaStream_t>(stream));
+                 int nz, int grid_x, int grid_y, int grid_z, int block_x,
+                 int block_y, int xc, long long n_partials, double c_diag,
+                 double c_off, int device, void* stream) {
+  return launch_spmv<double>(P, out, partials, bx, by, nz, grid_x, grid_y,
+                             grid_z, block_x, block_y, xc, n_partials, c_diag,
+                             c_off, device, static_cast<cudaStream_t>(stream));
 }
 
 int stencil_planes_f32(const void* t, const void* xlo, const void* xhi,

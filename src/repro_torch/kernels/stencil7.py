@@ -32,7 +32,7 @@ import torch
 
 #: the dtypes the kernels are built for
 DTYPES = (torch.float32, torch.float64)
-#: gridDim.y / gridDim.z limit of the launch shape (see csrc/stencil7.cu)
+#: gridDim.y / gridDim.z limit of the launch shapes (see csrc/stencil7.cu)
 MAX_GRID = 65535
 
 
@@ -113,11 +113,10 @@ def library():
             fn.restype = ctypes.c_int
         for fn, real in ((lib.spmv_dot_f32, ctypes.c_float),
                          (lib.spmv_dot_f64, ctypes.c_double)):
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-                real, real, ctypes.c_int, ctypes.c_void_p]
+            # P, Ap, partials; bx, by, nz; grid, block, xc; n_partials
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [
+                ctypes.c_longlong, real, real, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        lib.spmv_dot_blocks.argtypes = [ctypes.c_int] * 3
-        lib.spmv_dot_blocks.restype = ctypes.c_longlong
         for fn, real in ((lib.stencil_planes_f32, ctypes.c_float),
                          (lib.stencil_planes_f64, ctypes.c_double)):
             fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
@@ -146,9 +145,9 @@ def check_operand(t: torch.Tensor, shape, what: str, like: torch.Tensor = None) 
 
 
 def check_brick(bx: int, by: int, nz: int, what: str) -> None:
-    """Raise for an empty brick or one whose launch grid (one block of
-    ``min(128, ⌈Z⌉₃₂) × 256/that`` threads per z/y tile, ``bx`` tiles deep)
-    the card refuses."""
+    """Raise for an empty brick or one whose K6/K7 launch grid (one block
+    of ``min(128, ⌈Z⌉₃₂) × 256/that`` threads per z/y tile, ``bx`` tiles
+    deep) the card refuses."""
     if min(bx, by, nz) < 1:
         raise ValueError(f"{what} of an empty brick ({bx}, {by}, {nz})")
     rows = 256 // min(128, -(-nz // 32) * 32)

@@ -21,8 +21,15 @@ Without a card every test skips.  Tolerances:
 * K6, K7 and K5's ``Ap`` against ``affine_stencil_ref`` /
   ``stencil_planes_ref`` / ``spmv_dot_ref``: bitwise (the same association,
   every operation rounded on its own); K5's dot within ``1e-5·Σ|c·Ap|``
-  (f32) / ``1e-13·Σ|c·Ap|`` (f64) of the plain version in float64, and the
-  same bits on two runs;
+  (f32) / ``1e-13·Σ|c·Ap|`` (f64) of the plain version in float64, each
+  of its per-tile partials within the same share of its tile's
+  ``Σ|c·Ap|`` of ``spmv_dot_tiles_ref`` in float64, as many partials as
+  ``spmv_launch_shape`` says, and the same bits on two runs;
+* ``make_sharded_iteration`` cg and pipecg with K5 (and K2) on 1×1 and 2×2
+  meshes against the plain iteration on the card, 5 iterations: within 4
+  float32 ulp of the field per iteration, the recurrence scalars within
+  1e-4 relative (``chip_smoke.py``'s bounds; the dots sum in other
+  orders);
 * every ``make_sharded_ftcs`` variant on the card, on 1×1 and 2×2 meshes:
   bitwise equal to the plain step on the CPU;
 * K1's margin mode (resident inputs, ping-pong outputs) against
@@ -59,7 +66,11 @@ from repro_torch.kernels import transfer as port_transfer
 from repro_torch.kernels.dotprod import dual_dot_ref, launch_dual_dot
 from repro_torch.core.explicit import make_sharded_ftcs
 from repro_torch.core.mesh import device_get, make_mesh
-from repro_torch.kernels.spmv import launch_spmv_dot, spmv_dot_ref
+from repro_torch.convert import state_from_numpy, state_to_numpy
+from repro_torch.core.implicit import make_sharded_iteration
+from repro_torch.kernels.spmv import (launch_spmv_dot, spmv_dot_ref,
+                                      spmv_dot_tiles_ref, spmv_launch_shape,
+                                      tile_sums)
 from repro_torch.kernels.stencil7 import (affine_stencil_ref,
                                           launch_stencil7,
                                           launch_stencil_planes,
@@ -166,24 +177,93 @@ def test_cuda_legacy_stencils_bitwise_vs_plain():
                                    stencil_planes_ref(*args))
 
 
+#: K5's bricks: the K6/K7 shapes, a ragged brick with Z > 128, and the
+#: 2×2 and 1×1 meshes' bricks of 512×512×128
+SPMV_SHAPES = LEGACY_SHAPES + [(70, 37, 130), (256, 256, 128), (512, 512, 128)]
+
+
 @pytest.mark.cuda
-def test_cuda_spmv_dot_vs_plain():
-    """K5's Ap bitwise; its dot within its bound of the float64 plain
-    version and deterministic."""
+@pytest.mark.parametrize("brick", SPMV_SHAPES)
+def test_cuda_spmv_dot_vs_plain(brick):
+    """K5's Ap bitwise; its dot and each per-tile partial within their
+    bounds of the float64 plain version; one partial per tile of
+    spmv_launch_shape; the same bits on two runs."""
     _need_card()
-    g = torch.Generator(device="cuda").manual_seed(6)
+    bx, by, nz = brick
+    g = torch.Generator(device="cuda").manual_seed(6 + sum(brick))
     for dtype, rel in ((torch.float32, 1e-5), (torch.float64, 1e-13)):
-        for bx, by, nz in LEGACY_SHAPES:
-            P = torch.randn(bx + 2, by + 2, nz, device="cuda", generator=g,
-                            dtype=dtype)
-            av, dot = ops.spmv_hex_dot(P, 1.0, -0.0625)
-            av2, dot2 = ops.spmv_hex_dot(P, 1.0, -0.0625)
-            want, _ = spmv_dot_ref(P, 1.0, -0.0625)
-            assert torch.equal(av, want) and torch.equal(av2, av)
-            assert torch.equal(dot, dot2)
-            prod = P[1:-1, 1:-1].double() * av.double()
-            assert abs(float(dot) - float(prod.sum())) <= rel * float(prod.abs().sum())
-            assert launch_spmv_dot(P, 1.0, -0.0625)[1].dtype == dtype
+        P = torch.randn(bx + 2, by + 2, nz, device="cuda", generator=g,
+                        dtype=dtype)
+        av, dot = ops.spmv_hex_dot(P, 1.0, -0.0625)
+        av2, dot2 = ops.spmv_hex_dot(P, 1.0, -0.0625)
+        want, _ = spmv_dot_ref(P, 1.0, -0.0625)
+        assert torch.equal(av, want) and torch.equal(av2, av)
+        assert torch.equal(dot, dot2)
+        prod = P[1:-1, 1:-1].double() * av.double()
+        assert abs(float(dot) - float(prod.sum())) <= rel * float(prod.abs().sum())
+        _, parts = launch_spmv_dot(P, 1.0, -0.0625)
+        shape = spmv_launch_shape(bx, by, nz)
+        assert parts.dtype == dtype and parts.shape == (shape.partials,)
+        exact = spmv_dot_tiles_ref(P, 1.0, -0.0625, dtype=torch.float64)
+        scale = tile_sums(prod.abs(), shape)
+        assert bool(((parts.double() - exact).abs() <= rel * scale).all())
+
+
+def _iteration_state(method, x0, w=0.1):
+    """A seeded make_sharded_iteration state in float64, rounded to
+    float32: the start of the method on ``A x = b``, ``b = rhs(x0)``."""
+    wpsi = w / (1.0 + 6.0 * w)
+
+    def A(x):
+        Ax = x.copy()
+        c = (slice(1, -1),) * 3
+        s = 0.0
+        for ax in range(3):
+            lo, hi = list(c), list(c)
+            lo[ax], hi[ax] = slice(0, -2), slice(2, None)
+            s = s + x[tuple(lo)] + x[tuple(hi)]
+        Ax[c] = x[c] - wpsi * s
+        return Ax
+
+    x = x0.astype(np.float64)
+    b = x.copy()
+    b[1:-1, 1:-1, 1:-1] *= 1.0 / (1.0 + 6.0 * w)
+    r = b - A(x)
+    f32 = lambda *a: tuple(np.asarray(v, np.float32) for v in a)  # noqa: E731
+    if method == "cg":
+        return f32(x, r, r, (r * r).sum())
+    z = np.zeros_like(x)
+    return f32(x, r, A(r), z, z, z, 1e30, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape", [(1, 1), (2, 2)])
+@pytest.mark.parametrize("method", ["cg", "pipecg"])
+def test_cuda_legacy_iteration_kernel_vs_plain(method, mesh_shape):
+    """cg and pipecg through K5 (and K2) equal the plain iteration on the
+    card within chip_smoke.py's bounds, one K5 per brick per iteration."""
+    _need_card()
+    n = 5
+    x0 = np.random.default_rng(9).uniform(300.0, 500.0, (64, 48, 130))
+    state = _iteration_state(method, x0)
+    ulp = float(np.spacing(np.float32(np.abs(x0).max())))
+    mesh = make_mesh(mesh_shape, ("data", "model"))
+    runs = {}
+    for use_kernel in (False, True):
+        step, specs = make_sharded_iteration(mesh, x0.shape, 0.1, method=method,
+                                             use_kernel=use_kernel)
+        s = state_from_numpy(state, specs[0].sharding)
+        before = launch_spmv_dot.launches
+        for _ in range(n):
+            s = step(s)
+        runs[use_kernel] = state_to_numpy(s)
+        assert launch_spmv_dot.launches - before == (n * mesh.size if use_kernel
+                                                      else 0)
+    for got, want in zip(runs[True], runs[False]):
+        if got.ndim:
+            assert np.abs(got - want).max() <= 4 * n * ulp
+        else:
+            assert abs(float(got) / float(want) - 1.0) <= 1e-4
 
 
 @pytest.mark.cuda

@@ -1,0 +1,250 @@
+#!/usr/bin/env python3
+"""Device time of the legacy 7-point kernels K5, K6 and K7 on one card.
+
+Imports the port from ``--src`` (default: this checkout's ``src``), so that
+one machine can time two trees of the port, one process each.  On the
+padded bricks of ``HeatConfig()``'s 512×512×128 float32 grid on a 1×1 mesh
+(514×514×128) and on a 2×2 mesh (258×258×128) it measures the mean device
+time (CUDA events around ``--repeats`` launches after a warm-up, enqueued
+behind a sleep kernel so that the host's launch cost does not pace the
+card; K5 also back to back, ``K5_paced_ms``):
+
+* of one K5 launch (``launch_spmv_dot``) and of K5 with its partials summed
+  (``ops.spmv_hex_dot``), with K5's partial count;
+* of one K6 launch (``launch_stencil7``) and one K7 launch
+  (``launch_stencil_planes``) on the same bricks;
+
+beside each kernel's bytes bound (each input read once, each output
+written once, at 3.35 TB/s), and with ``--xc`` K5's time at other tile
+depths (x planes per block; skipped on trees whose ``spmv.py`` has no
+``spmv_launch_shape``).  With ``--iterations`` it also times the legacy
+Krylov iteration that launches K5 (``make_sharded_iteration``: cg, pipecg
+and chebyshev with kernels, on 1×1 and 2×2 meshes of the 512×512×128
+grid): ms per iteration by CUDA events around 20 iterations, back to back
+as a caller runs them, the median and the spread of ``--runs`` runs, and
+the median host ms to enqueue one iteration (5 iterations after a
+synchronise).  K5's host µs per launch is the median of 50 launches on an
+idle card.
+Prints one JSON line and the ``ptxas`` lines of K5's kernels.  Exits 2
+without a CUDA device.
+
+    python3 tools/k5_time.py [--src DIR] [--repeats 200] [--xc 4,8,16]
+                             [--iterations] [--runs 7]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: H100 SXM device-memory rate
+HBM_BYTES_PER_S = 3.35e12
+
+
+def device_ms(fn, n: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def queued_ms(fn, n: int) -> float:
+    """:func:`device_ms` with the ``n`` calls enqueued behind a sleep
+    kernel, doubled until the start event is still pending when the last
+    call has been enqueued."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_us = (time.perf_counter() - t0) * 1e6
+    torch.cuda.synchronize()
+    cycles = int(4e3 * (2 * n * host_us + 1e3))
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(n):
+            fn()
+        queued = not start.query()
+        end.record()
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / n
+        cycles *= 2
+    raise RuntimeError("queued_ms: the card caught up with the host")
+
+
+def iteration_ms(shape, w: float, runs: int) -> dict:
+    """ms per iteration of make_sharded_iteration with kernels, by method
+    and mesh: the median, min and max of ``runs`` runs of 20 iterations
+    from a seeded state (x 300–500 K, r standard normal)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.convert import state_from_numpy
+    from repro_torch.core.implicit import make_sharded_iteration
+    from repro_torch.core.mesh import make_mesh
+
+    # the iteration's time does not depend on its values: seeded vectors
+    rng = np.random.default_rng(0)
+    x = rng.uniform(300.0, 500.0, shape).astype(np.float32)
+    r = rng.normal(size=shape).astype(np.float32)
+    z = np.zeros_like(x)
+    rr = np.float32((r.astype(np.float64) ** 2).sum())
+    states = {"cg": (x, r, r, rr),
+              "pipecg": (x, r, r, z, z, z, np.float32(1e30), np.float32(1.0)),
+              "chebyshev": (x, r, r, np.float32(0.375))}
+    out = {}
+    for dims in ((1, 1), (2, 2)):
+        mesh = make_mesh(dims, ("data", "model"))
+        for method, state in states.items():
+            step, specs = make_sharded_iteration(mesh, shape, w, method=method,
+                                                  use_kernel=True)
+            s0 = state_from_numpy(state, specs[0].sharding)
+
+            def twenty(s=s0, step=step):
+                for _ in range(20):
+                    s = step(s)
+                return s
+
+            ms = [device_ms(twenty, 1) / 20 for _ in range(runs)]
+            host = []
+            for _ in range(runs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s = s0
+                for _ in range(5):
+                    s = step(s)
+                host.append((time.perf_counter() - t0) * 1e3 / 5)
+            torch.cuda.synchronize()
+            out[f"{method} {dims[0]}x{dims[1]}"] = {
+                "median": statistics.median(ms), "min": min(ms), "max": max(ms),
+                "host_ms_median": statistics.median(host)}
+    return out
+
+
+def host_us(fn, n: int = 50) -> float:
+    """Median host µs of one ``fn()`` call, the card idle before each."""
+    import statistics
+
+    import torch
+
+    fn()
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(out)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", default=os.path.join(ROOT, "src"),
+                    help="the directory that holds repro_torch")
+    ap.add_argument("--repeats", type=int, default=200,
+                    help="launches timed per kernel (default 200)")
+    ap.add_argument("--xc", default="",
+                    help="comma-separated tile depths to time K5 at besides "
+                         "the shape's own")
+    ap.add_argument("--iterations", action="store_true",
+                    help="also time make_sharded_iteration with kernels")
+    ap.add_argument("--runs", type=int, default=7,
+                    help="runs of 20 iterations per method and mesh (default 7)")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.src))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("k5_time: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.configs.heat3d import HeatConfig
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import spmv
+    from repro_torch.kernels.spmv import launch_spmv_dot
+    from repro_torch.kernels.stencil7 import launch_stencil7, launch_stencil_planes
+
+    cfg = HeatConfig()
+    w = cfg.omega
+    a, wpsi = 1.0 - 6.0 * w, w / (1.0 + 6.0 * w)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for mesh in (1, 2):
+        bx, by, nz = cfg.nx // mesh, cfg.ny // mesh, cfg.nz
+        P = torch.randn((bx + 2, by + 2, nz), device="cuda", generator=g)
+        T = torch.randn((bx, by, nz), device="cuda", generator=g)
+        planes = [torch.randn(s, device="cuda", generator=g)
+                  for s in ((1, by, nz), (1, by, nz), (bx, 1, nz), (bx, 1, nz))]
+        cells = bx * by * nz
+        partials = launch_spmv_dot(P, 1.0, -wpsi)[1].numel()
+        k5_bytes = 4 * (P.numel() + cells + partials)
+        k6_bytes = 4 * (P.numel() + cells)
+        k7_bytes = 4 * (2 * cells + 2 * (bx + by) * nz)
+        out[f"{bx + 2}x{by + 2}x{nz}"] = {
+            "K5_ms": queued_ms(lambda: launch_spmv_dot(P, 1.0, -wpsi), args.repeats),
+            "K5_paced_ms": device_ms(lambda: launch_spmv_dot(P, 1.0, -wpsi),
+                                     args.repeats),
+            "K5_with_partial_sum_ms": queued_ms(
+                lambda: ops.spmv_hex_dot(P, 1.0, -wpsi), args.repeats),
+            "K5_partials": partials,
+            "K5_host_us": host_us(lambda: launch_spmv_dot(P, 1.0, -wpsi)),
+            "K5_with_partial_sum_host_us": host_us(
+                lambda: ops.spmv_hex_dot(P, 1.0, -wpsi)),
+            "K5_bound_ms": k5_bytes / HBM_BYTES_PER_S * 1e3,
+            "K6_ms": queued_ms(lambda: launch_stencil7(P, a, w), args.repeats),
+            "K6_bound_ms": k6_bytes / HBM_BYTES_PER_S * 1e3,
+            "K7_ms": queued_ms(lambda: launch_stencil_planes(
+                T, *planes, (0, 0), a, w, bx * mesh, by * mesh), args.repeats),
+            "K7_bound_ms": k7_bytes / HBM_BYTES_PER_S * 1e3,
+        }
+        if args.xc and hasattr(spmv, "spmv_launch_shape"):
+            own = spmv.spmv_launch_shape
+            sweep = {}
+            for xc in map(int, args.xc.split(",")):
+                def shaped(bx, by, nz, xc=xc):
+                    s = own(bx, by, nz)
+                    x_t = -(-bx // xc)
+                    return s._replace(grid=(s.grid[0], x_t, s.grid[2]), xc=xc,
+                                      partials=s.grid[0] * x_t * s.grid[2])
+                spmv.spmv_launch_shape = shaped
+                sweep[xc] = {"partials": launch_spmv_dot(P, 1.0, -wpsi)[1].numel(),
+                             "K5_ms": queued_ms(lambda: launch_spmv_dot(P, 1.0, -wpsi),
+                                                args.repeats)}
+            spmv.spmv_launch_shape = own
+            out[f"{bx + 2}x{by + 2}x{nz}"]["K5_ms_by_xc"] = sweep
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().splitlines()
+    iters = (iteration_ms((cfg.nx, cfg.ny, cfg.nz), w, args.runs)
+             if args.iterations else None)
+    print(json.dumps({"src": args.src, "card": card[0] if card else None,
+                      "dtype": "float32", "bricks": out,
+                      "iteration_ms": iters}), flush=True)
+    for ln in build.build_log.get("stencil7", "").splitlines():
+        if "spmv" in ln or "Used" in ln:
+            print(ln.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
