@@ -67,8 +67,12 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          versions at float32 and float64: K6 on the padded
                          514×514×128 brick (1×1 mesh), the padded 258×258×128
                          brick (2×2 mesh) and the reference's test shapes, K7
-                         with random planes on the 1×1 mesh's brick and on
-                         each brick of a 2×2 mesh; K5's ``Ap`` bitwise, its
+                         with random planes on the 1×1 mesh's brick, on
+                         each brick of a 2×2 mesh and, as the middle brick
+                         of a 3×3 mesh, on the reference's test shapes and
+                         a ragged 70×37×130 one (two runs the same bits);
+                         K7 timed on the 512×512×128 and 256×256×128 bricks
+                         with its grid and tile depth; K5's ``Ap`` bitwise, its
                          dot within ``1e-5·Σ|c·Ap|`` (f32) / ``1e-13·Σ|c·Ap|``
                          (f64) of the plain version in float64, each of its
                          per-tile partials within the same share of its
@@ -118,6 +122,7 @@ non-zero before printing anything.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import subprocess
@@ -127,13 +132,14 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-#: what K1's sweep (k > 1 through the column entry) and K5's x-marching
-#: kernel were predicted to give on one NVIDIA H100 80GB HBM3 at 700 W,
-#: each written before its first run on a card (PERF.md §6): a k = 8 sweep
-#: ≈ 8 × the 0.3139 ms margin-mode k = 1 launch × 1.028 (the regions' mean
-#: area over the brick's); the k = 1 numbers are the last measured ones,
-#: which the change must keep; phases ``heat3d`` and
-#: ``legacy_kernels_vs_ref`` print it beside what they measure
+#: what K1's sweep (k > 1 through the column entry) and K5's and K7's
+#: x-marching kernels were predicted to give on one NVIDIA H100 80GB HBM3
+#: at 700 W, each written before its first run on a card (PERF.md §6): a
+#: k = 8 sweep ≈ 8 × the 0.3139 ms margin-mode k = 1 launch × 1.028 (the
+#: regions' mean area over the brick's); the k = 1 numbers are the last
+#: measured ones, which the change must keep; phases ``heat3d``,
+#: ``legacy_kernels_vs_ref`` and ``legacy_ftcs`` print it beside what they
+#: measure
 PREDICTED = {
     "card": "NVIDIA H100 80GB HBM3, 700 W",
     "k1_entry_ms": {"padded": 0.3148, "margin": 0.3139},
@@ -147,6 +153,13 @@ PREDICTED = {
     # the partial sum within 5 us of the kernel alone
     "k5_ms": {"514x514x128": 0.11, "258x258x128": 0.030},
     "k5_with_partial_sum_over_ms_us": 5.0,
+    # K7 marching along x as K5 does (written before its first run;
+    # PERF.md §6), from the one-thread-per-cell kernel's 0.1700 ms and
+    # 0.1836 ms/step: no slower than K6 (0.1327); the 2x2 step
+    # host-bound, within its spread
+    "k7_ms": {"512x512x128": [0.10, 0.115], "256x256x128": 0.030},
+    "legacy_ftcs_planes_ms_per_step": {
+        "1x1": 0.13, "2x2": "within the spread of 0.4775 (host-bound)"},
 }
 #: H100 SXM device-memory rate and float32 / float64 (non-tensor) peaks
 HBM_BYTES_PER_S = 3.35e12
@@ -1374,7 +1387,8 @@ def phase_legacy_kernels_vs_ref(seed: int):
     from repro_torch.kernels.spmv import (launch_spmv_dot, spmv_dot_ref,
                                           spmv_dot_tiles_ref, spmv_launch_shape,
                                           tile_sums)
-    from repro_torch.kernels.stencil7 import (affine_stencil_ref, launch_stencil7,
+    from repro_torch.kernels.stencil7 import (affine_stencil_ref, k7_launch_shape,
+                                              launch_stencil7,
                                               launch_stencil_planes,
                                               stencil_planes_ref)
 
@@ -1385,6 +1399,29 @@ def phase_legacy_kernels_vs_ref(seed: int):
 
     def rnd(shape, dtype):
         return torch.randn(shape, device="cuda", generator=g, dtype=dtype)
+
+    def check_k7(brick, mesh_shape, coords, dtype):
+        """K7 on a random brick and planes at ``coords`` of ``mesh_shape``,
+        bitwise against stencil_planes_ref and on a second run; returns
+        the case's record and its arguments."""
+        bx, by, nz = brick
+        T = rnd(brick, dtype)
+        planes = [rnd(s, dtype) for s in ((1, by, nz), (1, by, nz),
+                                          (bx, 1, nz), (bx, 1, nz))]
+        args = (T, *planes, coords, a, w, mesh_shape[0] * bx, mesh_shape[1] * by)
+        got, again = launch_stencil_planes(*args), launch_stencil_planes(*args)
+        want = stencil_planes_ref(*args)
+        torch.cuda.synchronize()
+        err = float((got.double() - want.double()).abs().max())
+        name = str(dtype).removeprefix("torch.")
+        if not torch.equal(got, want):
+            raise AssertionError(f"K7 differs from stencil_planes_ref on brick "
+                                 f"{coords} of {mesh_shape}, {brick} {name} "
+                                 f"(max {err})")
+        if not torch.equal(got, again):
+            raise AssertionError(f"K7 is not deterministic at {brick} {name}")
+        return {"mesh": list(mesh_shape), "coords": list(coords),
+                "brick": list(brick), "dtype": name, "max_abs_err": err}, args
 
     k6, k5, k7, main = [], [], [], {}
     for dtype in (torch.float32, torch.float64):
@@ -1437,25 +1474,16 @@ def phase_legacy_kernels_vs_ref(seed: int):
             if dtype == torch.float32 and (bx, by) == (cfg.nx // 2, cfg.ny // 2):
                 main["P_small"] = P
         for mesh_shape in ((1, 1), (2, 2)):
-            bx, by = cfg.nx // mesh_shape[0], cfg.ny // mesh_shape[1]
-            for cx in range(mesh_shape[0]):
-                for cy in range(mesh_shape[1]):
-                    T = rnd((bx, by, cfg.nz), dtype)
-                    planes = [rnd(s, dtype) for s in ((1, by, cfg.nz), (1, by, cfg.nz),
-                                                      (bx, 1, cfg.nz), (bx, 1, cfg.nz))]
-                    args = (T, *planes, (cx, cy), a, w, cfg.nx, cfg.ny)
-                    got, want = launch_stencil_planes(*args), stencil_planes_ref(*args)
-                    torch.cuda.synchronize()
-                    err = float((got.double() - want.double()).abs().max())
-                    if not torch.equal(got, want):
-                        raise AssertionError(f"K7 differs from stencil_planes_ref on "
-                                             f"brick {(cx, cy)} of {mesh_shape} "
-                                             f"{name} (max {err})")
-                    k7.append({"mesh": list(mesh_shape), "coords": [cx, cy],
-                               "brick": [bx, by, cfg.nz], "dtype": name,
-                               "max_abs_err": err})
-                    if dtype == torch.float32 and mesh_shape == (1, 1):
-                        main["planes"] = args
+            brick = (cfg.nx // mesh_shape[0], cfg.ny // mesh_shape[1], cfg.nz)
+            for coords in itertools.product(range(mesh_shape[0]),
+                                            range(mesh_shape[1])):
+                case, args = check_k7(brick, mesh_shape, coords, dtype)
+                k7.append(case)
+                if dtype == torch.float32 and coords == (0, 0):
+                    main["planes" if mesh_shape == (1, 1) else "planes_small"] = args
+        # the middle brick of a 3×3 mesh reads all four planes
+        for brick in LEGACY_TEST_SHAPES + K5_EXTRA_BRICKS:
+            k7.append(check_k7(brick, (3, 3), (1, 1), dtype)[0])
 
     # time at the main path's float32 shapes
     P, args = main["P"], main["planes"]
@@ -1500,6 +1528,25 @@ def phase_legacy_kernels_vs_ref(seed: int):
         "plain_ms": cuda_time_ms(lambda: spmv_dot_ref(Ps, 1.0, -wpsi), repeats=10),
         "library_ms": cuda_time_ms(lambda: spmv_conv(Ps, W5), repeats=10),
         "bound_ms": sb_ms, "bound_by": sb_by, "bound_bytes": small_bytes}
+    # K7 queued on both meshes' bricks, with its launch shape
+    for key, targs in (("queued", args), ("small_brick", main["planes_small"])):
+        T = targs[0]
+        s7 = k7_launch_shape(*T.shape)
+        n7 = T.numel()
+        k7_bytes = 4 * (2 * n7 + 2 * (T.shape[0] + T.shape[1]) * T.shape[2])
+        k7_ms, k7_by = roofline(k7_bytes, 8 * n7, "float32")
+        timed = {"brick": list(T.shape), "grid": list(s7.grid), "block": list(s7.block),
+                 "xc": s7.xc, "timed": "queued behind a sleep kernel (queued_ms)",
+                 "ms": queued_ms(lambda: launch_stencil_planes(*targs), repeats=200),
+                 "bound_ms": k7_ms, "bound_by": k7_by, "bound_bytes": k7_bytes}
+        if key == "queued":
+            rows["K7"]["queued"] = timed
+        else:
+            rows["K7"]["small_brick"] = dict(
+                timed, host_paced_ms=cuda_time_ms(
+                    lambda: launch_stencil_planes(*targs), repeats=200),
+                plain_ms=cuda_time_ms(lambda: stencil_planes_ref(*targs), repeats=10),
+                library_ms=None)
     rows["K6"]["err"] = max(c["max_abs_err"] for c in k6)
     rows["K7"]["err"] = max(c["max_abs_err"] for c in k7)
     rows["K5"]["err"] = main["k5_err"]
@@ -1514,7 +1561,8 @@ def phase_legacy_kernels_vs_ref(seed: int):
                       "K7": None},
           "library_vs_plain_max_abs_err": {"K6": lib6_err},
           "predicted": {k: PREDICTED[k] for k in ("card", "k5_ms",
-                                                  "k5_with_partial_sum_over_ms_us")},
+                                                  "k5_with_partial_sum_over_ms_us",
+                                                  "k7_ms")},
           **{k: {kk: vv for kk, vv in v.items() if kk != "err"} for k, v in rows.items()}})
     return rows
 
@@ -1605,7 +1653,9 @@ def phase_legacy_ftcs(steps: int, seed: int):
           "random_field": {"seed": seed, "steps": rand_steps,
                            "meshes": list(meshes), "bitwise": True},
           "ftcs_solve_vs_sharded": {"max_abs_err": solve_err, "atol": solve_atol},
-          "timing": timing})
+          "timing": timing,
+          "predicted": {k: PREDICTED[k] for k in ("card",
+                                                  "legacy_ftcs_planes_ms_per_step")}})
     return main_counts
 
 

@@ -28,8 +28,12 @@ import numpy as np
 from repro_torch.core import Field, ForLoop, WFAInterface
 from repro_torch.core.program import Program, release_program
 from repro_torch.engine import RunOptions, stats
+from repro_torch.solver import (NumericalFault, Operator, RecoveryPolicy, Rhs,
+                                SolveInfo, solve)
 
-__all__ = ["Field", "ForLoop", "RunOptions", "WFAInterface", "make", "stats"]
+__all__ = ["Field", "ForLoop", "NumericalFault", "Operator", "RecoveryPolicy",
+           "Rhs", "RunOptions", "SolveInfo", "WFAInterface", "make", "solve",
+           "stats"]
 
 
 def make(target, answer, options=None) -> np.ndarray:

@@ -38,12 +38,11 @@
 // steps bit for bit.  The coefficients arrive already rounded to the
 // field's type.
 //
-// K6 and K7 tiling: one thread per output cell, z the contiguous axis.  A
-// block is min(128, Z rounded up to 32) threads along z by 256/that rows
-// along y; the grid is (z blocks, y blocks, bx).  Offsets come from the
-// extents, and the ragged z and y edges are guarded.  Each thread loads
-// its six neighbours straight from device memory and leans on L1/L2 for
-// the reuse.
+// K6 tiling: one thread per output cell, z the contiguous axis.  A block
+// is min(128, Z rounded up to 32) threads along z by 256/that rows along y;
+// the grid is (z blocks, y blocks, bx).  Offsets come from the extents,
+// and the ragged z and y edges are guarded.  Each thread loads its six
+// neighbours straight from device memory and leans on L1/L2 for the reuse.
 //
 // K5 (spmv_dot_march_kernel) has its own mapping, which marches along x:
 // - a block is 32 z lanes x kSpmvTY = 8 y rows; each thread owns
@@ -71,10 +70,30 @@
 //   otherwise.  The partial of block (y tile, x tile, z chunk) is at
 //   (z chunk * x tiles + x tile) * y tiles + y tile.
 //
+// K7 (stencil_planes_march_kernel) marches on K5's tile and pipeline, with
+// the planes in place of the pad:
+// - a thread's x-1 value at the brick's first plane is xlo's cell, its x+1
+//   value at the last plane xhi's; the stage's halo row above the brick's
+//   first row is ylo's row of the plane, and the first thread past the
+//   brick's last row stages yhi's row (the halo row below it).  In-plane
+//   offsets are j*Z + z in the x planes and i*Z + z in the y planes;
+//   nothing outside the brick or the planes is read (no corner, no row past
+//   yhi's, no z outside [0, Z));
+// - the Moat is kept out of the loads' way: a Moat cell stores its
+//   register c and skips the sum.  The y test is made once a thread, the z
+//   test falls on fixed cells (lane 0 of the first z chunk, the lane of
+//   Z - 1), the x test once a plane, so only the z faces split a warp;
+// - K7 writes no partials, so nothing ties its xc to K5's 32: the launch
+//   shape has one owner, repro_torch/kernels/stencil7.py::k7_launch_shape,
+//   and the launcher refuses a shape that does not cover every cell once
+//   with no empty tile.
+//
 // Bound: bytes.  K6 and K5 read the padded brick once and write the brick
 // (about 2*bx*by*Z values; K5 adds one partial per block); K7 reads the
-// brick and four planes and writes the brick.  8 to 10 operations per cell
-// are far below the card's float rate.
+// brick and four planes and writes the brick.  K5 and K7 read each centre
+// value once per tile and the two planes around it (xc + 2 planes for a
+// tile of xc).  8 to 10 operations per cell are far below the card's float
+// rate.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC -o libstencil7.so
@@ -280,39 +299,162 @@ spmv_dot_march_kernel(const T* __restrict__ P, T* __restrict__ out,
   }
 }
 
+// K7: the x-marching FTCS step from a brick and its halo planes (see the
+// note at the top)
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-stencil_planes_kernel(const T* __restrict__ t, const T* __restrict__ xlo,
-                      const T* __restrict__ xhi, const T* __restrict__ ylo,
-                      const T* __restrict__ yhi, T* __restrict__ out, int bx,
-                      int by, int nz, int gx0, int gy0, int nx, int ny,
-                      T c_diag, T c_off) {
-  const int z = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y * blockDim.y + threadIdx.y;
-  const int i = blockIdx.z;
-  if (z >= nz || j >= by) return;
-  const long long sy = nz;
+__global__ void __launch_bounds__(kSpmvThreads)
+stencil_planes_march_kernel(const T* __restrict__ t, const T* __restrict__ xlo,
+                            const T* __restrict__ xhi,
+                            const T* __restrict__ ylo,
+                            const T* __restrict__ yhi, T* __restrict__ out,
+                            int bx, int by, int nz, int xc, int gx0, int gy0,
+                            int nx, int ny, T c_diag, T c_off) {
+  // stage[b][r][w]: brick row y0 - 1 + r (r = 0 .. 9), z = z0 - 1 + w
+  __shared__ T stage[2][kSpmvTY + 2][kSpmvW];
+  const int lane = threadIdx.x;
+  const int ty = threadIdx.y;
+  const int tid = ty * 32 + lane;
+  const int y0 = blockIdx.x * kSpmvTY;  // brick row of stage row 1
+  const int x0 = blockIdx.y * xc;       // first plane of the tile
+  const int x1 = min(x0 + xc, bx);      // one past its last
+  const int z0 = blockIdx.z * kSpmvZC;
+  const int j = y0 + ty;
+  // in-plane strides; the launcher keeps a plane's offsets inside an int
+  const int sy = nz;
   const long long sx = (long long)by * nz;
-  const long long q = (long long)i * sx + (long long)j * sy + z;
-  const T c = t[q];
-  const int gx = gx0 + i;
+  const bool live = j < by;
+  // the Moat: the y test once a thread, the z test on fixed cells (bit c of
+  // `inner`: cell c is off the z faces and its row off the y faces), the x
+  // test once a plane
   const int gy = gy0 + j;
-  const bool interior = gx > 0 && gx < nx - 1 && gy > 0 && gy < ny - 1 &&
-                        z > 0 && z < nz - 1;
-  if (!interior) {  // the Moat keeps its value
-    out[q] = c;
-    return;
+  const bool y_in = live && gy > 0 && gy < ny - 1;
+  unsigned in_z = 0, inner = 0;
+#pragma unroll
+  for (int c = 0; c < kSpmvCells; ++c) {
+    const int z = z0 + lane + 32 * c;
+    in_z |= (unsigned)(z < nz) << c;
+    inner |= (unsigned)(y_in && z > 0 && z < nz - 1) << c;
   }
-  const T xm = i > 0 ? t[q - sx] : xlo[(long long)j * nz + z];
-  const T xp = i + 1 < bx ? t[q + sx] : xhi[(long long)j * nz + z];
-  const T ym = j > 0 ? t[q - sy] : ylo[(long long)i * nz + z];
-  const T yp = j + 1 < by ? t[q + sy] : yhi[(long long)i * nz + z];
-  T s = xm + xp;
-  s = s + ym;
-  s = s + yp;
-  s = s + t[q + 1];  // interior: 0 < z < nz - 1
-  s = s + t[q - 1];
-  out[q] = c_diag * c + c_off * s;
+
+  // this thread's halo cells of a stage: source at plane 0, its step from
+  // plane to plane and its stage slot (-1: none).  Row y0 - 1 is ylo's at
+  // the brick's first row, the row past the brick's last is yhi's; a row
+  // beyond that, and z outside [0, nz), is never read and not staged; the
+  // z columns are staged on live rows only
+  const T* h_src[kSpmvHaloPer];
+  int h_step[kSpmvHaloPer], h_slot[kSpmvHaloPer];
+#pragma unroll
+  for (int h = 0; h < kSpmvHaloPer; ++h) {
+    const int q = tid + h * kSpmvThreads;
+    int r = 0, w = 0;
+    if (q < 2 * kSpmvZC) {
+      r = q < kSpmvZC ? 0 : kSpmvTY + 1;
+      w = 1 + q % kSpmvZC;
+    } else if (q < kSpmvHalo) {
+      r = 1 + (q - 2 * kSpmvZC) / 2;
+      w = (q & 1) ? kSpmvW - 1 : 0;
+    }
+    const int z = z0 - 1 + w;
+    const int row = y0 - 1 + r;
+    const T* src = nullptr;
+    int step = 0;
+    if (q < kSpmvHalo && z >= 0 && z < nz) {
+      if (row < 0) {
+        src = ylo + z;
+        step = nz;
+      } else if (row < by) {
+        src = t + row * sy + z;
+        step = (int)sx;
+      } else if (row == by && q < 2 * kSpmvZC) {
+        src = yhi + z;
+        step = nz;
+      }
+    }
+    h_src[h] = src;
+    h_step[h] = step;
+    h_slot[h] = src ? r * kSpmvW + w : -1;
+  }
+  // this thread's cells of brick plane p, p = -1 and bx being the x
+  // planes: its row while live; yhi's cells on the first row past the
+  // brick (the stage's y halo of row by - 1); nothing otherwise
+  const int col = live ? j * sy + z0 + lane : 0;
+  auto load_cells = [&](int p, T(&v)[kSpmvCells]) {
+    const T* src = nullptr;
+    if (live)
+      src = p < 0 ? xlo + col : p < bx ? t + p * sx + col : xhi + col;
+    else if (j == by && p >= 0 && p < bx)
+      src = yhi + (long long)p * nz + z0 + lane;
+#pragma unroll
+    for (int c = 0; c < kSpmvCells; ++c)
+      v[c] = src && (in_z >> c & 1u) ? src[32 * c] : T(0);
+  };
+  auto load_halo = [&](int p, T(&v)[kSpmvHaloPer]) {
+#pragma unroll
+    for (int h = 0; h < kSpmvHaloPer; ++h)
+      v[h] = h_slot[h] >= 0 ? h_src[h][(long long)p * h_step[h]] : T(0);
+  };
+  auto put = [&](int b, const T(&v)[kSpmvCells], const T(&hv)[kSpmvHaloPer]) {
+    T* st = &stage[b][0][0];
+#pragma unroll
+    for (int c = 0; c < kSpmvCells; ++c)
+      st[(ty + 1) * kSpmvW + 1 + lane + 32 * c] = v[c];
+#pragma unroll
+    for (int h = 0; h < kSpmvHaloPer; ++h)
+      if (h_slot[h] >= 0) st[h_slot[h]] = hv[h];
+  };
+
+  // planes i - 1 (prev), i (cur, staged), i + 1 (nxt) and i + 2 (far, in
+  // flight) for plane i
+  T prev[kSpmvCells], cur[kSpmvCells], nxt[kSpmvCells], far[kSpmvCells];
+  T h_nxt[kSpmvHaloPer], h_far[kSpmvHaloPer];
+  load_cells(x0 - 1, prev);
+  load_cells(x0, cur);
+  load_halo(x0, h_far);
+  put(0, cur, h_far);
+  load_cells(x0 + 1, nxt);
+  if (x0 + 1 < x1) load_halo(x0 + 1, h_nxt);
+  int b = 0;
+  for (int i = x0; i < x1; ++i) {
+    __syncthreads();  // stage b holds plane i; stage b ^ 1 is free
+    if (i + 1 < x1) {
+      put(b ^ 1, nxt, h_nxt);
+      load_cells(i + 2, far);
+      if (i + 2 < x1) load_halo(i + 2, h_far);
+    }
+    if (live) {
+      const int gx = gx0 + i;
+      const unsigned mid = gx > 0 && gx < nx - 1 ? inner : 0u;
+      const T* st = &stage[b][0][0];
+      T* o = out + (long long)i * sx + col;
+#pragma unroll
+      for (int c = 0; c < kSpmvCells; ++c) {
+        if (in_z >> c & 1u) {
+          T v = cur[c];  // the Moat keeps its value
+          if (mid >> c & 1u) {
+            const int w = 1 + lane + 32 * c;
+            T s = prev[c] + nxt[c];
+            s = s + st[ty * kSpmvW + w];
+            s = s + st[(ty + 2) * kSpmvW + w];
+            s = s + st[(ty + 1) * kSpmvW + w + 1];
+            s = s + st[(ty + 1) * kSpmvW + w - 1];
+            v = c_diag * v + c_off * s;
+          }
+          o[32 * c] = v;
+        }
+      }
+    }
+    if (i + 1 < x1) {
+#pragma unroll
+      for (int c = 0; c < kSpmvCells; ++c) {
+        prev[c] = cur[c];
+        cur[c] = nxt[c];
+        nxt[c] = far[c];
+      }
+#pragma unroll
+      for (int h = 0; h < kSpmvHaloPer; ++h) h_nxt[h] = h_far[h];
+    }
+    b ^= 1;
+  }
 }
 
 // Launch on the tensors' card, and give the calling thread back its own.
@@ -371,20 +513,28 @@ int launch_spmv(const void* P, void* out, void* partials, int bx, int by,
   return (int)cudaGetLastError();
 }
 
+// K7 with the launch shape stencil7.py::k7_launch_shape computed: grid
+// (y tiles, x tiles, z chunks), block (32, 8) and xc x planes per tile.
 template <typename T>
 int launch_planes(const void* t, const void* xlo, const void* xhi,
                   const void* ylo, const void* yhi, void* out, int bx, int by,
-                  int nz, int gx0, int gy0, int nx, int ny, T c_diag, T c_off,
-                  int device, cudaStream_t stream) {
-  const Shape s = shape_for(bx, by, nz);
-  if (!s.ok) return (int)cudaErrorInvalidValue;
+                  int nz, int gx0, int gy0, int nx, int ny, int grid_x,
+                  int grid_y, int grid_z, int block_x, int block_y, int xc,
+                  T c_diag, T c_off, int device, cudaStream_t stream) {
+  if (bx < 1 || by < 1 || nz < 1 ||
+      (long long)by * nz + kSpmvZC > INT_MAX || block_x != 32 ||
+      block_y != kSpmvTY || xc < 1 || grid_y > kMaxGrid ||
+      grid_z > kMaxGrid || !covers(grid_x, kSpmvTY, by) ||
+      !covers(grid_y, xc, bx) || !covers(grid_z, kSpmvZC, nz))
+    return (int)cudaErrorInvalidValue;
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
-  stencil_planes_kernel<T><<<s.grid, s.block, 0, stream>>>(
+  stencil_planes_march_kernel<T><<<dim3(grid_x, grid_y, grid_z),
+                                   dim3(block_x, block_y), 0, stream>>>(
       static_cast<const T*>(t), static_cast<const T*>(xlo),
       static_cast<const T*>(xhi), static_cast<const T*>(ylo),
-      static_cast<const T*>(yhi), static_cast<T*>(out), bx, by, nz, gx0, gy0,
-      nx, ny, c_diag, c_off);
+      static_cast<const T*>(yhi), static_cast<T*>(out), bx, by, nz, xc, gx0,
+      gy0, nx, ny, c_diag, c_off);
   return (int)cudaGetLastError();
 }
 
@@ -425,18 +575,24 @@ int spmv_dot_f64(const void* P, void* out, void* partials, int bx, int by,
 int stencil_planes_f32(const void* t, const void* xlo, const void* xhi,
                        const void* ylo, const void* yhi, void* out, int bx,
                        int by, int nz, int gx0, int gy0, int nx, int ny,
-                       float c_diag, float c_off, int device, void* stream) {
+                       int grid_x, int grid_y, int grid_z, int block_x,
+                       int block_y, int xc, float c_diag, float c_off,
+                       int device, void* stream) {
   return launch_planes<float>(t, xlo, xhi, ylo, yhi, out, bx, by, nz, gx0,
-                              gy0, nx, ny, c_diag, c_off, device,
+                              gy0, nx, ny, grid_x, grid_y, grid_z, block_x,
+                              block_y, xc, c_diag, c_off, device,
                               static_cast<cudaStream_t>(stream));
 }
 
 int stencil_planes_f64(const void* t, const void* xlo, const void* xhi,
                        const void* ylo, const void* yhi, void* out, int bx,
                        int by, int nz, int gx0, int gy0, int nx, int ny,
-                       double c_diag, double c_off, int device, void* stream) {
+                       int grid_x, int grid_y, int grid_z, int block_x,
+                       int block_y, int xc, double c_diag, double c_off,
+                       int device, void* stream) {
   return launch_planes<double>(t, xlo, xhi, ylo, yhi, out, bx, by, nz, gx0,
-                               gy0, nx, ny, c_diag, c_off, device,
+                               gy0, nx, ny, grid_x, grid_y, grid_z, block_x,
+                               block_y, xc, c_diag, c_off, device,
                                static_cast<cudaStream_t>(stream));
 }
 

@@ -38,24 +38,19 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels.dotprod import acc_dtype
-from repro_torch.kernels.stencil7 import (MAX_GRID, affine_stencil_ref,
-                                          check_operand, library,
-                                          raise_on_error)
+from repro_torch.kernels.stencil7 import (  # noqa: F401 (CELLS)
+    CELLS, MAX_GRID, MAX_GRID_X, TY, ZC, affine_stencil_ref, check_operand,
+    library, raise_on_error)
 
-#: y rows per block (blockDim.y; the block is 32 z lanes × TY)
-TY = 8
-#: z cells per thread, 32 apart, and the z extent of a block
-CELLS = 4
-ZC = 32 * CELLS
 #: at most this many x planes per block: a thread's serial chain of
 #: products stays at ≤ XC_MAX·CELLS = 128
 XC_MAX = 32
 #: 4 blocks on each of the H100's 132 SMs: ``xc`` shrinks until a grid
 #: holds at least this many blocks, where the brick allows
 TARGET_BLOCKS = 4 * 132
-#: gridDim.x limit, and the most cells a padded (by+2, Z) plane may hold
-#: (the kernel keeps in-plane offsets in an int)
-MAX_GRID_X = MAX_PLANE = 2 ** 31 - 1
+#: the most cells a padded (by+2, Z) plane may hold (the kernel keeps
+#: in-plane offsets in an int)
+MAX_PLANE = 2 ** 31 - 1
 
 
 class SpmvShape(NamedTuple):

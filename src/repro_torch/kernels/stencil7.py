@@ -9,7 +9,9 @@ The port of ``repro/kernels/stencil7.py``:
   operator with ``(1, −ωψ)``;
 * K7, ``stencil_planes``: one FTCS step from an *unpadded* ``(bx, by, Z)``
   brick and the four halo planes its neighbours sent, the Dirichlet Moat
-  (global x/y faces and the z faces) kept in the kernel.
+  (global x/y faces and the z faces) kept in the kernel.  On the card it
+  marches along x on K5's tile (:mod:`repro_torch.kernels.spmv`), and
+  :func:`k7_launch_shape` is the one owner of its launch shape.
 
 :func:`affine_stencil_ref` and :func:`stencil_planes_ref` are the plain
 PyTorch versions, the reference's ``repro/kernels/ref.py`` oracles with the
@@ -19,14 +21,15 @@ rounded to the field's dtype first, as JAX rounds the reference's weakly
 typed Python floats.  :func:`launch_stencil7` / :func:`launch_stencil_planes`
 count their launches in ``.launches``; :mod:`repro_torch.kernels.ops` picks
 kernel or plain version by the tensors' device.  The reference's TPU
-``block=`` tile has no counterpart: the kernel picks its own.
+``block=`` tile has no counterpart: K6 picks its own, K7 takes
+:func:`k7_launch_shape`'s.
 
 Bound on the card: bytes (each input read once, the brick written once).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -34,6 +37,23 @@ import torch
 DTYPES = (torch.float32, torch.float64)
 #: gridDim.y / gridDim.z limit of the launch shapes (see csrc/stencil7.cu)
 MAX_GRID = 65535
+#: the x-marching tile of K5 and K7 (``kSpmv*`` in csrc/stencil7.cu): a
+#: block of 32 z lanes × TY y rows, CELLS z cells per thread 32 apart, so
+#: ZC z per block
+TY = 8
+CELLS = 4
+ZC = 32 * CELLS
+#: gridDim.x limit
+MAX_GRID_X = 2 ** 31 - 1
+#: K7's tile depth, x planes per block: the depth that timed fastest, or
+#: tied, on both the 1×1 and the 2×2 meshes' bricks of 512×512×128 in a
+#: sweep of 1–32 (PERF.md §6).  At 64 registers a thread an SM holds 4
+#: blocks (528 on the card); deeper tiles leave the 2×2 brick's grid with
+#: fewer blocks than that, or a short last wave
+K7_XC = 4
+#: the most cells a (by, Z) plane of K7 may hold, a z chunk to spare (the
+#: kernel keeps in-plane offsets in an int)
+K7_MAX_PLANE = 2 ** 31 - 1 - ZC
 
 
 def coef(v: float, dtype: torch.dtype) -> float:
@@ -91,6 +111,34 @@ def stencil_planes_ref(T, xlo, xhi, ylo, yhi, coords, c_diag: float,
     return torch.where(interior(bx, by, nz, coords, nx, ny, T.device), out, T)
 
 
+class K7Shape(NamedTuple):
+    """One K7 launch: ``grid = (y tiles, x tiles, z chunks)``, ``block =
+    (32, TY)``, and ``xc`` x planes per tile."""
+
+    grid: Tuple[int, int, int]
+    block: Tuple[int, int]
+    xc: int
+
+
+def k7_launch_shape(bx: int, by: int, nz: int) -> K7Shape:
+    """The launch shape of K7 on a ``(bx, by, nz)`` brick: tiles of
+    :data:`TY` rows × :data:`ZC` z × ``xc`` x planes, ``xc`` =
+    :data:`K7_XC` evened out over its ``⌈bx / K7_XC⌉`` x tiles.  Raises
+    ``ValueError`` for an empty brick, a grid over CUDA's limits or a
+    plane over :data:`K7_MAX_PLANE` cells.
+    """
+    if min(bx, by, nz) < 1:
+        raise ValueError(f"stencil_planes of an empty brick ({bx}, {by}, {nz})")
+    y_tiles, z_tiles = -(-by // TY), -(-nz // ZC)
+    x_tiles = -(-bx // K7_XC)
+    xc = -(-bx // x_tiles)
+    if (x_tiles > MAX_GRID or z_tiles > MAX_GRID or y_tiles > MAX_GRID_X
+            or by * nz > K7_MAX_PLANE):
+        raise ValueError(f"stencil_planes: brick ({bx}, {by}, {nz}) exceeds "
+                         "the launch grid")
+    return K7Shape((y_tiles, x_tiles, z_tiles), (32, TY), xc)
+
+
 # ---------------------------------------------------------------------------
 # the CUDA launchers
 # ---------------------------------------------------------------------------
@@ -119,7 +167,9 @@ def library():
             fn.restype = ctypes.c_int
         for fn, real in ((lib.stencil_planes_f32, ctypes.c_float),
                          (lib.stencil_planes_f64, ctypes.c_double)):
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+            # T, xlo, xhi, ylo, yhi, out; bx, by, nz, gx0, gy0, nx, ny;
+            # grid, block, xc
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [
                 real, real, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.stencil7_error.argtypes = [ctypes.c_int]
@@ -145,7 +195,7 @@ def check_operand(t: torch.Tensor, shape, what: str, like: torch.Tensor = None) 
 
 
 def check_brick(bx: int, by: int, nz: int, what: str) -> None:
-    """Raise for an empty brick or one whose K6/K7 launch grid (one block
+    """Raise for an empty brick or one whose K6 launch grid (one block
     of ``min(128, ⌈Z⌉₃₂) × 256/that`` threads per z/y tile, ``bx`` tiles
     deep) the card refuses."""
     if min(bx, by, nz) < 1:
@@ -184,14 +234,15 @@ def launch_stencil7(P: torch.Tensor, c_diag: float, c_off: float) -> torch.Tenso
 def launch_stencil_planes(T, xlo, xhi, ylo, yhi, coords, c_diag: float,
                           c_off: float, nx: int, ny: int) -> torch.Tensor:
     """Launch K7 on the CUDA brick ``T`` and its planes ``xlo``/``xhi``
-    ``(1, by, Z)`` and ``ylo``/``yhi`` ``(bx, 1, Z)``; ``coords`` are the
-    brick's mesh coordinates, ``nx, ny`` the global extent.  Returns the
-    fresh stepped brick; does not synchronise."""
+    ``(1, by, Z)`` and ``ylo``/``yhi`` ``(bx, 1, Z)``, with the shape of
+    :func:`k7_launch_shape`; ``coords`` are the brick's mesh coordinates,
+    ``nx, ny`` the global extent.  Returns the fresh stepped brick; does not
+    synchronise."""
     if T.ndim != 3:
         raise ValueError(f"stencil_planes brick must be 3-D, got {tuple(T.shape)}")
     check_operand(T, T.shape, "stencil_planes")
     bx, by, nz = T.shape
-    check_brick(bx, by, nz, "stencil_planes")
+    launch = k7_launch_shape(bx, by, nz)
     for plane, shape in ((xlo, (1, by, nz)), (xhi, (1, by, nz)),
                          (ylo, (bx, 1, nz)), (yhi, (bx, 1, nz))):
         check_operand(plane, shape, "stencil_planes", like=T)
@@ -201,7 +252,8 @@ def launch_stencil_planes(T, xlo, xhi, ylo, yhi, coords, c_diag: float,
     fn = lib.stencil_planes_f32 if T.dtype == torch.float32 else lib.stencil_planes_f64
     rc = fn(T.data_ptr(), xlo.data_ptr(), xhi.data_ptr(), ylo.data_ptr(),
             yhi.data_ptr(), out.data_ptr(), bx, by, nz, cx * bx, cy * by,
-            int(nx), int(ny), c_diag, c_off, T.device.index,
+            int(nx), int(ny), *launch.grid, *launch.block, launch.xc, c_diag,
+            c_off, T.device.index,
             torch.cuda.current_stream(T.device).cuda_stream)
     raise_on_error(lib, rc, "stencil_planes")
     launch_stencil_planes.launches += 1

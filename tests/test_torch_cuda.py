@@ -20,7 +20,8 @@ Without a card every test skips.  Tolerances:
   eigenvalue is ≥ 0.625);
 * K6, K7 and K5's ``Ap`` against ``affine_stencil_ref`` /
   ``stencil_planes_ref`` / ``spmv_dot_ref``: bitwise (the same association,
-  every operation rounded on its own); K5's dot within ``1e-5·Σ|c·Ap|``
+  every operation rounded on its own), K7 on every coords of a 3×3 mesh
+  and at forced tile depths too; K5's dot within ``1e-5·Σ|c·Ap|``
   (f32) / ``1e-13·Σ|c·Ap|`` (f64) of the plain version in float64, each
   of its per-tile partials within the same share of its tile's
   ``Σ|c·Ap|`` of ``spmv_dot_tiles_ref`` in float64, as many partials as
@@ -49,6 +50,8 @@ Without a card every test skips.  Tolerances:
 The bodies of :data:`K1_BODIES` are shared with ``test_torch_k1.py``, which
 holds their plain version against the JAX reference on the CPU.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -71,6 +74,7 @@ from repro_torch.core.implicit import make_sharded_iteration
 from repro_torch.kernels.spmv import (launch_spmv_dot, spmv_dot_ref,
                                       spmv_dot_tiles_ref, spmv_launch_shape,
                                       tile_sums)
+from repro_torch.kernels import stencil7 as port_stencil7
 from repro_torch.kernels.stencil7 import (affine_stencil_ref,
                                           launch_stencil7,
                                           launch_stencil_planes,
@@ -175,6 +179,62 @@ def test_cuda_legacy_stencils_bitwise_vs_plain():
                 args = (T, *planes, coords, 0.4, 0.1, 2 * bx, 2 * by)
                 assert torch.equal(launch_stencil_planes(*args),
                                    stencil_planes_ref(*args))
+
+
+#: K7's bricks: the reference's kernel test shapes, a ragged brick with
+#: Z > 128, and the 2×2 and 1×1 meshes' bricks of 512×512×128
+PLANES_SHAPES = [(3, 7, 9), (6, 10, 5), (7, 130, 12), (70, 37, 130),
+                 (256, 256, 128), (512, 512, 128)]
+
+
+def _planes_args(g, brick, coords, mesh, dtype):
+    """A random brick, its four planes, ``coords`` and the global extent of
+    a ``mesh`` of such bricks, as ``stencil_planes_ref`` takes them."""
+    bx, by, nz = brick
+    T = torch.randn(bx, by, nz, device="cuda", generator=g, dtype=dtype)
+    planes = [torch.randn(s, device="cuda", generator=g, dtype=dtype)
+              for s in ((1, by, nz), (1, by, nz), (bx, 1, nz), (bx, 1, nz))]
+    return (T, *planes, coords, 0.4, 0.1, mesh[0] * bx, mesh[1] * by)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("brick", PLANES_SHAPES)
+def test_cuda_stencil_planes_bitwise_on_a_3x3_mesh(brick):
+    """K7 equals stencil_planes_ref bit for bit at float32 and float64 on
+    every coords of a 3×3 mesh (every combination of Moat face and plane),
+    the same bits on two runs, one launch each."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(8 + sum(brick))
+    for dtype in (torch.float32, torch.float64):
+        for coords in itertools.product(range(3), range(3)):
+            args = _planes_args(g, brick, coords, (3, 3), dtype)
+            before = launch_stencil_planes.launches
+            got, again = launch_stencil_planes(*args), launch_stencil_planes(*args)
+            assert launch_stencil_planes.launches - before == 2
+            assert torch.equal(got, stencil_planes_ref(*args)), (coords, dtype)
+            assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xc", [1, 2, 3, 5, 32])
+def test_cuda_stencil_planes_any_tile_depth(xc, monkeypatch):
+    """K7 at a forced tile depth (ragged in x against it) equals
+    stencil_planes_ref bit for bit: the march's pipeline does not depend
+    on k7_launch_shape's pick."""
+    _need_card()
+    own = port_stencil7.k7_launch_shape
+
+    def forced(bx, by, nz):
+        s = own(bx, by, nz)
+        return s._replace(grid=(s.grid[0], -(-bx // xc), s.grid[2]), xc=xc)
+
+    monkeypatch.setattr(port_stencil7, "k7_launch_shape", forced)
+    g = torch.Generator(device="cuda").manual_seed(xc)
+    for brick in ((70, 37, 130), (33, 17, 129), (7, 130, 12)):
+        for coords in ((0, 0), (1, 1), (2, 2)):
+            args = _planes_args(g, brick, coords, (3, 3), torch.float32)
+            assert torch.equal(launch_stencil_planes(*args),
+                               stencil_planes_ref(*args)), (brick, coords)
 
 
 #: K5's bricks: the K6/K7 shapes, a ragged brick with Z > 128, and the

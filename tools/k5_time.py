@@ -12,24 +12,32 @@ card; K5 also back to back, ``K5_paced_ms``):
 * of one K5 launch (``launch_spmv_dot``) and of K5 with its partials summed
   (``ops.spmv_hex_dot``), with K5's partial count;
 * of one K6 launch (``launch_stencil7``) and one K7 launch
-  (``launch_stencil_planes``) on the same bricks;
+  (``launch_stencil_planes``) on the same bricks, with K7's host µs per
+  launch;
 
 beside each kernel's bytes bound (each input read once, each output
-written once, at 3.35 TB/s), and with ``--xc`` K5's time at other tile
+written once, at 3.35 TB/s), with ``--xc`` K5's time at other tile
 depths (x planes per block; skipped on trees whose ``spmv.py`` has no
-``spmv_launch_shape``).  With ``--iterations`` it also times the legacy
+``spmv_launch_shape``) and with ``--k7-xc`` K7's (skipped on trees whose
+``stencil7.py`` has no ``k7_launch_shape``), each with its grid.  With
+``--ftcs`` it times the legacy FTCS step that launches K7
+(``make_sharded_ftcs(use_kernel="planes")`` on 1×1 and 2×2 meshes of the
+512×512×128 grid): ms per step by CUDA events around a 20-step call,
+the median and the spread of ``--runs`` calls.  With ``--iterations`` it also times the legacy
 Krylov iteration that launches K5 (``make_sharded_iteration``: cg, pipecg
 and chebyshev with kernels, on 1×1 and 2×2 meshes of the 512×512×128
 grid): ms per iteration by CUDA events around 20 iterations, back to back
 as a caller runs them, the median and the spread of ``--runs`` runs, and
 the median host ms to enqueue one iteration (5 iterations after a
 synchronise).  K5's host µs per launch is the median of 50 launches on an
-idle card.
-Prints one JSON line and the ``ptxas`` lines of K5's kernels.  Exits 2
-without a CUDA device.
+idle card, and so is K7's.
+Prints one JSON line and the ``ptxas`` lines of the ``stencil7`` library
+(each kernel's entry, registers and spills).  Exits 2 without a CUDA
+device.
 
     python3 tools/k5_time.py [--src DIR] [--repeats 200] [--xc 4,8,16]
-                             [--iterations] [--runs 7]
+                             [--k7-xc 2,4,8,16,32] [--ftcs] [--iterations]
+                             [--runs 7]
 """
 from __future__ import annotations
 
@@ -140,6 +148,44 @@ def iteration_ms(shape, w: float, runs: int) -> dict:
     return out
 
 
+def ftcs_ms(shape, w: float, runs: int) -> dict:
+    """ms per step of make_sharded_ftcs(use_kernel="planes") by mesh: the
+    median, min and max of ``runs`` 20-step calls on a seeded 300–500 K
+    field."""
+    import statistics
+
+    import torch
+
+    from repro_torch.core.explicit import make_sharded_ftcs
+    from repro_torch.core.mesh import make_mesh
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    T0 = 300.0 + 200.0 * torch.rand(shape, device="cuda", generator=g)
+    out = {}
+    for dims in ((1, 1), (2, 2)):
+        step, sharding = make_sharded_ftcs(make_mesh(dims, ("data", "model")),
+                                           shape, w, steps_per_call=20,
+                                           use_kernel="planes")
+        x = sharding.shard(T0)
+        ms = [device_ms(lambda: step(x), 1) / 20 for _ in range(runs)]
+        out[f"planes {dims[0]}x{dims[1]}"] = {
+            "median": statistics.median(ms), "min": min(ms), "max": max(ms)}
+    return out
+
+
+def with_xc(own, xc: int):
+    """``own`` (a launch-shape function) with its tile depth forced to
+    ``xc`` and its x tiles recounted."""
+    def shaped(bx, by, nz):
+        s = own(bx, by, nz)
+        x_t = -(-bx // xc)
+        fields = dict(grid=(s.grid[0], x_t, s.grid[2]), xc=xc)
+        if hasattr(s, "partials"):
+            fields["partials"] = s.grid[0] * x_t * s.grid[2]
+        return s._replace(**fields)
+    return shaped
+
+
 def host_us(fn, n: int = 50) -> float:
     """Median host µs of one ``fn()`` call, the card idle before each."""
     import statistics
@@ -166,10 +212,16 @@ def main() -> int:
     ap.add_argument("--xc", default="",
                     help="comma-separated tile depths to time K5 at besides "
                          "the shape's own")
+    ap.add_argument("--k7-xc", default="",
+                    help="comma-separated tile depths to time K7 at besides "
+                         "the shape's own")
+    ap.add_argument("--ftcs", action="store_true",
+                    help="also time make_sharded_ftcs(use_kernel='planes')")
     ap.add_argument("--iterations", action="store_true",
                     help="also time make_sharded_iteration with kernels")
     ap.add_argument("--runs", type=int, default=7,
-                    help="runs of 20 iterations per method and mesh (default 7)")
+                    help="runs of 20 iterations per method and mesh, and of "
+                         "20-step FTCS calls per mesh (default 7)")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
 
@@ -180,7 +232,7 @@ def main() -> int:
         return 2
     from repro_torch.configs.heat3d import HeatConfig
     from repro_torch.kernels import build, ops
-    from repro_torch.kernels import spmv
+    from repro_torch.kernels import spmv, stencil7
     from repro_torch.kernels.spmv import launch_spmv_dot
     from repro_torch.kernels.stencil7 import launch_stencil7, launch_stencil_planes
 
@@ -200,6 +252,8 @@ def main() -> int:
         k5_bytes = 4 * (P.numel() + cells + partials)
         k6_bytes = 4 * (P.numel() + cells)
         k7_bytes = 4 * (2 * cells + 2 * (bx + by) * nz)
+        k7 = lambda: launch_stencil_planes(T, *planes, (0, 0), a, w,  # noqa: E731
+                                           bx * mesh, by * mesh)
         out[f"{bx + 2}x{by + 2}x{nz}"] = {
             "K5_ms": queued_ms(lambda: launch_spmv_dot(P, 1.0, -wpsi), args.repeats),
             "K5_paced_ms": device_ms(lambda: launch_spmv_dot(P, 1.0, -wpsi),
@@ -213,35 +267,45 @@ def main() -> int:
             "K5_bound_ms": k5_bytes / HBM_BYTES_PER_S * 1e3,
             "K6_ms": queued_ms(lambda: launch_stencil7(P, a, w), args.repeats),
             "K6_bound_ms": k6_bytes / HBM_BYTES_PER_S * 1e3,
-            "K7_ms": queued_ms(lambda: launch_stencil_planes(
-                T, *planes, (0, 0), a, w, bx * mesh, by * mesh), args.repeats),
+            "K7_ms": queued_ms(k7, args.repeats),
+            "K7_host_us": host_us(k7),
             "K7_bound_ms": k7_bytes / HBM_BYTES_PER_S * 1e3,
         }
+        if hasattr(stencil7, "k7_launch_shape"):
+            s7 = stencil7.k7_launch_shape(bx, by, nz)
+            out[f"{bx + 2}x{by + 2}x{nz}"]["K7_shape"] = {"grid": s7.grid,
+                                                          "xc": s7.xc}
         if args.xc and hasattr(spmv, "spmv_launch_shape"):
             own = spmv.spmv_launch_shape
             sweep = {}
             for xc in map(int, args.xc.split(",")):
-                def shaped(bx, by, nz, xc=xc):
-                    s = own(bx, by, nz)
-                    x_t = -(-bx // xc)
-                    return s._replace(grid=(s.grid[0], x_t, s.grid[2]), xc=xc,
-                                      partials=s.grid[0] * x_t * s.grid[2])
-                spmv.spmv_launch_shape = shaped
+                spmv.spmv_launch_shape = with_xc(own, xc)
                 sweep[xc] = {"partials": launch_spmv_dot(P, 1.0, -wpsi)[1].numel(),
                              "K5_ms": queued_ms(lambda: launch_spmv_dot(P, 1.0, -wpsi),
                                                 args.repeats)}
             spmv.spmv_launch_shape = own
             out[f"{bx + 2}x{by + 2}x{nz}"]["K5_ms_by_xc"] = sweep
+        if args.k7_xc and hasattr(stencil7, "k7_launch_shape"):
+            own = stencil7.k7_launch_shape
+            sweep = {}
+            for xc in map(int, args.k7_xc.split(",")):
+                stencil7.k7_launch_shape = with_xc(own, xc)
+                sweep[xc] = {"grid": stencil7.k7_launch_shape(bx, by, nz).grid,
+                             "K7_ms": queued_ms(k7, args.repeats)}
+            stencil7.k7_launch_shape = own
+            out[f"{bx + 2}x{by + 2}x{nz}"]["K7_ms_by_xc"] = sweep
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()
     iters = (iteration_ms((cfg.nx, cfg.ny, cfg.nz), w, args.runs)
              if args.iterations else None)
+    ftcs = ftcs_ms((cfg.nx, cfg.ny, cfg.nz), w, args.runs) if args.ftcs else None
     print(json.dumps({"src": args.src, "card": card[0] if card else None,
                       "dtype": "float32", "bricks": out,
-                      "iteration_ms": iters}), flush=True)
+                      "iteration_ms": iters, "ftcs_ms_per_step": ftcs}),
+          flush=True)
     for ln in build.build_log.get("stencil7", "").splitlines():
-        if "spmv" in ln or "Used" in ln:
+        if "entry function" in ln or "Used" in ln or "spill" in ln:
             print(ln.strip())
     return 0
 
