@@ -32,7 +32,10 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          and bitwise deterministic;
 4. ``transfer_vs_ref`` — K3 and K4 bitwise against their plain versions at
                          every level pair of the 512×512×128 hierarchy, at
-                         float32 and float64;
+                         float32 and float64 (random coarse levels, Moat
+                         included); each pair's float32 time queued behind
+                         a sleep kernel beside its bytes bound, and K4's
+                         beside ``PREDICTED``;
 5. ``heat3d``          — ``HeatConfig()`` (512×512×128 float32) through
                          ``make(backend="pallas")`` at ``time_tile=1`` and at
                          the auto pick, each on the halo-resident layout (the
@@ -107,7 +110,9 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          are 0 and its ``check_launches`` are
                          ``kernel_vs_ref``'s; K5's row adds its launches by
                          mesh, its partial count and its times on the 2×2
-                         mesh's brick).
+                         mesh's brick; K3's and K4's rows count the launches
+                         of ``solve_heat3d`` and ``mg_poisson``, in all and
+                         by level pair, with each pair's time).
 
 Each main path (``heat3d``, ``solve_heat3d``, ``mg_poisson``, ``legacy_ftcs``,
 ``legacy_btcs``) runs with the launch counters set to 0 just before it and
@@ -133,13 +138,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 #: what K1's sweep (k > 1 through the column entry) and K5's and K7's
-#: x-marching kernels were predicted to give on one NVIDIA H100 80GB HBM3
-#: at 700 W, each written before its first run on a card (PERF.md §6): a
-#: k = 8 sweep ≈ 8 × the 0.3139 ms margin-mode k = 1 launch × 1.028 (the
-#: regions' mean area over the brick's); the k = 1 numbers are the last
-#: measured ones, which the change must keep; phases ``heat3d``,
-#: ``legacy_kernels_vs_ref`` and ``legacy_ftcs`` print it beside what they
-#: measure
+#: x-marching kernels (K4's, K5's and K7's) were predicted to give on one
+#: NVIDIA H100 80GB HBM3 at 700 W, each written before its first run on a
+#: card (PERF.md §6): a k = 8 sweep ≈ 8 × the 0.3139 ms margin-mode k = 1
+#: launch × 1.028 (the regions' mean area over the brick's); the k = 1
+#: numbers are the last measured ones, which the change must keep; phases
+#: ``heat3d``, ``transfer_vs_ref``, ``legacy_kernels_vs_ref`` and
+#: ``legacy_ftcs`` print it beside what they measure
 PREDICTED = {
     "card": "NVIDIA H100 80GB HBM3, 700 W",
     "k1_entry_ms": {"padded": 0.3148, "margin": 0.3139},
@@ -160,6 +165,13 @@ PREDICTED = {
     "k7_ms": {"512x512x128": [0.10, 0.115], "256x256x128": 0.030},
     "legacy_ftcs_planes_ms_per_step": {
         "1x1": 0.13, "2x2": "within the spread of 0.4775 (host-bound)"},
+    # K4 marching along x (written before its first timed run; PERF.md §6),
+    # from the grid-stride kernel's 0.1831 ms: 1.2-1.45x the 0.0452 ms
+    # bound at 257x257x65 -> 512x512x128 float32; each coarser pair no
+    # slower than before; K3 within 3 %; the solves' iteration counts and
+    # bits unchanged
+    "k4_ms": {"512x512x128": [0.055, 0.065]},
+    "k3_ms_within": 0.03,
 }
 #: H100 SXM device-memory rate and float32 / float64 (non-tensor) peaks
 HBM_BYTES_PER_S = 3.35e12
@@ -950,13 +962,33 @@ def kernel_counters():
 
 def reset_counts() -> None:
     from repro_torch.kernels.fused import launch_fused
+    from repro_torch.kernels.transfer import launch_prolong, launch_restrict
 
     for fn in kernel_counters().values():
         fn.launches = 0
+    launch_restrict.by_level.clear()
+    launch_prolong.by_level.clear()
     launch_fused.margin_launches = 0
     launch_fused.k1_launches = 0
     launch_fused.sweep_launches = 0
     launch_fused.sweep_substeps = 0
+
+
+def level_counts() -> dict:
+    """K3's and K4's launches by level pair, keyed by the fine shape
+    ``"NXxNYxNZ"``."""
+    from repro_torch.kernels.transfer import launch_prolong, launch_restrict
+
+    return {k: {"x".join(map(str, shape)): n for shape, n in fn.by_level.items()}
+            for k, fn in (("K3", launch_restrict), ("K4", launch_prolong))}
+
+
+def add_levels(total: dict, levels: dict) -> dict:
+    """``total`` (K3/K4 launches by level pair) plus ``levels``."""
+    for k, by in levels.items():
+        for pair, n in by.items():
+            total.setdefault(k, {})[pair] = total.get(k, {}).get(pair, 0) + n
+    return total
 
 
 def generic_launches(counts) -> int:
@@ -1069,7 +1101,7 @@ def phase_transfer_vs_ref(seed: int):
 
     cfg = HeatConfig()
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
-    pairs = []
+    pairs, by_pair = [], {"K3": {}, "K4": {}}
     for dtype in (torch.float32, torch.float64):
         for fine in hierarchy_shapes((cfg.nx, cfg.ny, cfg.nz)):
             coarse = coarsen_shape(fine)
@@ -1086,6 +1118,16 @@ def phase_transfer_vs_ref(seed: int):
             pairs.append({"fine": list(fine), "coarse": list(coarse),
                           "dtype": str(dtype).removeprefix("torch."),
                           "k3_max_abs_err": errs[0], "k4_max_abs_err": errs[1]})
+            if dtype == torch.float32:
+                # every level pair's time, queued (the coarse pairs take
+                # microseconds, less than their Python launch path)
+                nbytes = 4 * (f.numel() + c.numel())
+                key = "x".join(map(str, fine))
+                by_pair["K3"][key] = {"ms": queued_ms(lambda: launch_restrict(f), 50),
+                                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+                by_pair["K4"][key] = {
+                    "ms": queued_ms(lambda: launch_prolong(c, fine), 50),
+                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
     # time at the finest pair, float32 (the main path's)
     fine = (cfg.nx, cfg.ny, cfg.nz)
     coarse = coarsen_shape(fine)
@@ -1119,11 +1161,13 @@ def phase_transfer_vs_ref(seed: int):
                      "plain_ms": cuda_time_ms(plain, repeats=10),
                      "library_ms": cuda_time_ms(lib, repeats=20),
                      "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
-                     "err": max(p[f"{key.lower()}_max_abs_err"] for p in pairs)}
+                     "err": max(p[f"{key.lower()}_max_abs_err"] for p in pairs),
+                     "ms_by_level_pair": by_pair[key]}
     emit({"phase": "transfer_vs_ref", "tolerance": "bitwise", "pairs": pairs,
           "timed": {"fine": list(fine), "coarse": list(coarse), "dtype": "float32"},
           "K3": {k: v for k, v in rows["K3"].items() if k != "err"},
           "K4": {k: v for k, v in rows["K4"].items() if k != "err"},
+          "predicted": {k: PREDICTED[k] for k in ("card", "k4_ms", "k3_ms_within")},
           "library_vs_plain_max_abs_err": {"conv3d": lib_r_err,
                                            "conv_transpose3d": lib_p_err}})
     return rows
@@ -1194,6 +1238,7 @@ def run_solve_path(record, method, precondition, tol, maxiter):
                         maxiter=maxiter, options=RunOptions(backend="pallas"),
                         return_info=True)
     counts = read_counts()
+    counts["by_level"] = level_counts()
     return x, info, counts, {"fallbacks": compiler.stats.fallbacks,
                              "kernels_built": compiler.stats.kernels_built,
                              "mg_level_log": [[list(shape), f, r] for shape, f, r
@@ -1216,6 +1261,7 @@ def phase_solve_heat3d():
     tol = SOLVE_REL_TOL * norm_b
     x0 = torch.tensor(T0, device="cuda")
     runs, total = [], dict.fromkeys(read_counts(), 0)
+    levels = {}
     for method, pc in (("cg", None), ("pipecg", None), ("cg", "mg")):
         x, info, counts, comp = run_solve_path(
             lambda: record_implicit(cfg), method, pc, tol, cfg.maxiter)
@@ -1267,6 +1313,8 @@ def phase_solve_heat3d():
             raise AssertionError(f"solve {method}/{pc}: {missing} never launched")
         for k in total:
             total[k] += counts[k]
+        add_levels(levels, counts["by_level"])
+    total["by_level"] = levels
     emit({"phase": "solve_heat3d", "shape": [cfg.nx, cfg.ny, cfg.nz],
           "dtype": cfg.dtype, "norm_b": norm_b, "tol": tol,
           "tol_relative": SOLVE_REL_TOL, "runs": runs, "launches": total})
@@ -1290,6 +1338,7 @@ def phase_mg_poisson(seed: int):
     tol = SOLVE_REL_TOL
     x0 = torch.zeros(shape, device="cuda")
     runs, total = [], dict.fromkeys(read_counts(), 0)
+    levels = {}
     for method, pc, maxiter in (("mg", None, 60), ("cg", "mg", 200)):
         x, info, counts, comp = run_solve_path(
             lambda: record_poisson(F), method, pc, tol, maxiter)
@@ -1318,6 +1367,8 @@ def phase_mg_poisson(seed: int):
             raise AssertionError(f"poisson {method}/{pc}: {missing} never launched")
         for k in total:
             total[k] += counts[k]
+        add_levels(levels, counts["by_level"])
+    total["by_level"] = levels
     emit({"phase": "mg_poisson", "shape": list(shape), "seed": seed,
           "rhs": "unit-norm standard normal interior", "tol_relative": tol,
           "runs": runs, "launches": total})
@@ -1903,7 +1954,11 @@ def main() -> int:
     ftcs_counts = phase_legacy_ftcs(args.steps, args.seed)
     btcs_counts, k5_by_mesh = phase_legacy_btcs(args.seed)
     csrc = "src/repro_torch/kernels/csrc/"
-    # the solves apply their operators through the k = 1 entry, padded
+    # the solves apply their operators through the k = 1 entry, padded;
+    # K2 (cg + mg), K3 and K4 run in the multigrid solves of both solve
+    # phases
+    mg_levels = add_levels(add_levels({}, solve_counts["by_level"]),
+                           mg_counts["by_level"])
     solve_k1 = solve_counts["K1k1"] + mg_counts["K1k1"]
     generic = k1["generic"]["launches"] + sum(
         generic_launches(c) for c in (solve_counts, mg_counts, ftcs_counts,
@@ -1923,11 +1978,14 @@ def main() -> int:
              "mode", "fused_stencil.cu", "src/repro/kernels/fused.py:245",
              dict(k1["generic"], library_ms=None, launches=generic)),
             ("K2 dual_dot", "dual_dot.cu", "src/repro/kernels/dotprod.py:39",
-             dict(k2, launches=solve_counts["K2"] + btcs_counts["K2"])),
+             dict(k2, launches=solve_counts["K2"] + mg_counts["K2"]
+                  + btcs_counts["K2"])),
             ("K3 restrict", "transfer.cu", "src/repro/kernels/transfer.py:119",
-             dict(transfers["K3"], launches=solve_counts["K3"])),
+             dict(transfers["K3"], launches=solve_counts["K3"] + mg_counts["K3"],
+                  launches_by_level_pair=mg_levels["K3"])),
             ("K4 prolong", "transfer.cu", "src/repro/kernels/transfer.py:126",
-             dict(transfers["K4"], launches=solve_counts["K4"])),
+             dict(transfers["K4"], launches=solve_counts["K4"] + mg_counts["K4"],
+                  launches_by_level_pair=mg_levels["K4"])),
             ("K5 spmv_dot", "stencil7.cu", "src/repro/kernels/spmv.py:52",
              dict(legacy["K5"], launches=btcs_counts["K5"],
                   launches_by_mesh=k5_by_mesh)),
@@ -1948,7 +2006,8 @@ def main() -> int:
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]},
         **{k: r[k] for k in ("check_launches", "launches_by_mesh", "partials",
-                             "small_brick") if k in r})
+                             "small_brick", "launches_by_level_pair",
+                             "ms_by_level_pair") if k in r})
         for name, src, where, r in rows]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

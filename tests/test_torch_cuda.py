@@ -12,7 +12,10 @@ Without a card every test skips.  Tolerances:
   sums in another order than ``torch.sum`` (about 50 roundings deep), and
   is deterministic (no atomics), so two runs give the same bits;
 * K3/K4 against ``restrict_ref``/``prolong_ref``: bitwise (both round
-  every operation on its own, in the same separable order);
+  every operation on its own, in the same separable order), on
+  :data:`SHAPES` and every level pair of the 512×512×128 hierarchy, K4
+  also at forced tile depths, with random coarse Moat values, the same
+  bits on two runs;
 * a solve on the card against the same solve on the CPU, at ``tol =
   1e-5·‖T0‖``: the same outcome word, iteration counts within ±1 (the dots
   sum in different orders) and solutions within ``3.2·tol`` (each lies
@@ -82,6 +85,9 @@ from repro_torch.kernels.stencil7 import (affine_stencil_ref,
 from repro_torch.solver import record_btcs
 
 SHAPES = [(9, 9, 9), (17, 17, 5), (16, 12, 10), (8, 7, 6), (257, 129, 33)]
+#: the fine shapes of the level pairs of the 512×512×128 hierarchy
+LEVEL_PAIRS = [(512, 512, 128), (257, 257, 65), (129, 129, 33), (65, 65, 17),
+               (33, 33, 9), (17, 17, 5)]
 
 
 def _need_card():
@@ -125,6 +131,54 @@ def test_cuda_transfers_bitwise_vs_plain():
                                port_transfer.restrict_ref(fine))
             assert torch.equal(port_transfer.launch_prolong(coarse, shape),
                                port_transfer.prolong_ref(coarse, shape))
+
+
+@pytest.mark.cuda
+def test_cuda_transfers_bitwise_on_every_level_pair():
+    """K3 and K4 equal restrict_ref / prolong_ref bit for bit at float32 and
+    float64 on every level pair of the 512×512×128 hierarchy, the same bits
+    on two runs, one count a launch at the pair's fine shape."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for dtype in (torch.float32, torch.float64):
+        for shape in LEVEL_PAIRS:
+            fine = torch.randn(shape, device="cuda", generator=g, dtype=dtype)
+            coarse = torch.randn(port_transfer.coarsen_shape(shape),
+                                 device="cuda", generator=g, dtype=dtype)
+            before = port_transfer.launch_prolong.by_level.get(shape, 0)
+            up, again = (port_transfer.launch_prolong(coarse, shape)
+                         for _ in range(2))
+            assert port_transfer.launch_prolong.by_level[shape] == before + 2
+            assert torch.equal(up, port_transfer.prolong_ref(coarse, shape))
+            assert torch.equal(up, again)
+            down, again = (port_transfer.launch_restrict(fine) for _ in range(2))
+            assert torch.equal(down, port_transfer.restrict_ref(fine))
+            assert torch.equal(down, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xc", [1, 2, 4, 8, 16])
+def test_cuda_prolong_any_tile_depth(xc, monkeypatch):
+    """K4 at a forced tile depth (ragged in x against it) equals prolong_ref
+    bit for bit at float32 and float64 on every shape of SHAPES and every
+    level pair: the march does not depend on k4_launch_shape's pick."""
+    _need_card()
+    own = port_transfer.k4_launch_shape
+
+    def forced(nx, ny, nz):
+        s = own(nx, ny, nz)
+        return s._replace(grid=(s.grid[0], -(-(-(-nx // 2)) // xc), s.grid[2]),
+                          xc=xc)
+
+    monkeypatch.setattr(port_transfer, "k4_launch_shape", forced)
+    g = torch.Generator(device="cuda").manual_seed(40 + xc)
+    for dtype in (torch.float32, torch.float64):
+        for shape in SHAPES + LEVEL_PAIRS:
+            coarse = torch.randn(port_transfer.coarsen_shape(shape),
+                                 device="cuda", generator=g, dtype=dtype)
+            assert torch.equal(port_transfer.launch_prolong(coarse, shape),
+                               port_transfer.prolong_ref(coarse, shape)), (
+                                   shape, dtype)
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Device time of the legacy 7-point kernels K5, K6 and K7 on one card.
+"""Device time of the legacy 7-point kernels K5, K6 and K7 (and, with
+``--k4``, of the multigrid transfers K3 and K4) on one card.
 
 Imports the port from ``--src`` (default: this checkout's ``src``), so that
 one machine can time two trees of the port, one process each.  On the
@@ -31,19 +32,40 @@ as a caller runs them, the median and the spread of ``--runs`` runs, and
 the median host ms to enqueue one iteration (5 iterations after a
 synchronise).  K5's host µs per launch is the median of 50 launches on an
 idle card, and so is K7's.
+
+With ``--k4`` it times K4 (``launch_prolong``) and K3 (``launch_restrict``)
+at float32 on every level pair of the 512×512×128 hierarchy, queued behind
+a sleep kernel: the median, min and max of ``--runs`` means of
+``--repeats`` launches, beside each pair's bytes bound (the coarse level
+read once, the fine one written once, or the reverse), with K4's launch
+shape where the tree has ``k4_launch_shape``; ``--k4-xc`` adds K4's
+medians at other tile depths (coarse x steps per block).  It also prints
+a digest of the SASS of each ``restrict_kernel`` instantiation (``cuobjdump
+-sass``, the anonymous-namespace hash stripped from the names) and its
+instruction count, so that two trees' K3 can be compared.  With
+``--mg-solves`` it runs the multigrid solves of ``chip_smoke.py`` through
+``solve(backend="pallas")`` — ``record_implicit(HeatConfig())`` with cg +
+mg at ``tol = 1e-5·‖b‖``, and the 512×512×128 Poisson system (unit-norm
+random interior right-hand side, seed 0) with mg and cg + mg at 1e-5 —
+and prints each one's outcome, iterations, K3/K4 launches by level pair,
+the sha256 of its solution's bytes and ms per solve (CUDA events around a
+``make_solver`` call after a warm-up; median, min and max of ``--runs``).
 Prints one JSON line and the ``ptxas`` lines of the ``stencil7`` library
-(each kernel's entry, registers and spills).  Exits 2 without a CUDA
-device.
+(and, with ``--k4``, of ``transfer``): each kernel's entry, registers and
+spills.  Exits 2 without a CUDA device.
 
     python3 tools/k5_time.py [--src DIR] [--repeats 200] [--xc 4,8,16]
                              [--k7-xc 2,4,8,16,32] [--ftcs] [--iterations]
+                             [--k4] [--k4-xc 1,2,4,8,16] [--mg-solves]
                              [--runs 7]
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -203,6 +225,135 @@ def host_us(fn, n: int = 50) -> float:
     return statistics.median(out)
 
 
+def transfer_ms(repeats: int, runs: int, k4_xc: str) -> dict:
+    """K4 and K3 device ms at every level pair of the 512×512×128 hierarchy
+    (float32, seeded operands): median, min and max of ``runs`` queued
+    means, the bytes bound, and K4's shape and depth sweep where the tree
+    has ``k4_launch_shape``."""
+    import statistics
+
+    import torch
+
+    from repro_torch.compiler.ir import coarsen_shape, coarsenable
+    from repro_torch.kernels import transfer
+    from repro_torch.kernels.transfer import launch_prolong, launch_restrict
+
+    def spread(fn):
+        ms = [queued_ms(fn, repeats) for _ in range(runs)]
+        return {"median": statistics.median(ms), "min": min(ms), "max": max(ms)}
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out, fine = {}, (512, 512, 128)
+    while coarsenable(fine):
+        coarse = coarsen_shape(fine)
+        f = torch.randn(fine, device="cuda", generator=g)
+        c = torch.randn(coarse, device="cuda", generator=g)
+        nbytes = 4 * (f.numel() + c.numel())
+        row = {"coarse": list(coarse),
+               "K4_ms": spread(lambda: launch_prolong(c, fine)),
+               "K3_ms": spread(lambda: launch_restrict(f)),
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_bytes": nbytes}
+        own = getattr(transfer, "k4_launch_shape", None)
+        if own is not None:
+            s4 = own(*fine)
+            row["K4_shape"] = {"grid": s4.grid, "xc": s4.xc}
+            sweep = {}
+            for xc in (map(int, k4_xc.split(",")) if k4_xc else ()):
+                def forced(nx, ny, nz, xc=xc):
+                    s = own(nx, ny, nz)
+                    x_t = -(-(-(-nx // 2)) // xc)
+                    return s._replace(grid=(s.grid[0], x_t, s.grid[2]), xc=xc)
+                transfer.k4_launch_shape = forced
+                sweep[xc] = {"grid": forced(*fine).grid,
+                             "K4_ms": spread(lambda: launch_prolong(c, fine))}
+            transfer.k4_launch_shape = own
+            if sweep:
+                row["K4_ms_by_xc"] = sweep
+        out["x".join(map(str, fine))] = row
+        fine = coarse
+    return out
+
+
+def mg_solves(runs: int) -> dict:
+    """Outcome, iterations, K3/K4 launches by level pair, solution digest
+    and ms per solve of the multigrid solves of ``chip_smoke.py``."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.heat3d import HeatConfig, make_field, record_implicit
+    from repro_torch.engine import RunOptions
+    from repro_torch.kernels.transfer import launch_prolong, launch_restrict
+    from repro_torch.solver import make_solver, poisson_program, record_poisson
+
+    cfg = HeatConfig()
+    shape = (cfg.nx, cfg.ny, cfg.nz)
+    T0 = make_field(cfg)
+    b = T0.astype(np.float64)
+    b[1:-1, 1:-1, 1:-1] *= 1.0 / (1.0 + 6.0 * cfg.omega)
+    btcs_tol = 1e-5 * float(np.linalg.norm(b))
+    rng = np.random.default_rng(0)
+    F = np.zeros(shape, np.float32)
+    F[1:-1, 1:-1, 1:-1] = rng.normal(
+        size=tuple(n - 2 for n in shape)).astype(np.float32)
+    F /= np.linalg.norm(F)
+    cases = (("btcs cg+mg", lambda: record_implicit(cfg), "cg", "mg", btcs_tol,
+              cfg.maxiter, T0),
+             ("poisson mg", lambda: record_poisson(F), "mg", None, 1e-5, 60,
+              np.zeros(shape, np.float32)),
+             ("poisson cg+mg", lambda: record_poisson(F), "cg", "mg", 1e-5, 200,
+              np.zeros(shape, np.float32)))
+    out = {}
+    for name, record, method, pc, tol, maxiter, x0 in cases:
+        for fn in (launch_prolong, launch_restrict):
+            fn.launches = 0
+            getattr(fn, "by_level", {}).clear()
+        wse, T = record()
+        x, info = wse.solve(T, method=method, precondition=pc, tol=tol,
+                            maxiter=maxiter, options=RunOptions(backend="pallas"),
+                            return_info=True)
+        levels = {k: {"x".join(map(str, sh)): n
+                      for sh, n in getattr(fn, "by_level", {}).items()}
+                  for k, fn in (("K3", launch_restrict), ("K4", launch_prolong))}
+        launched = {"K3": launch_restrict.launches, "K4": launch_prolong.launches}
+        wse, T = record()
+        prog = wse.program
+        wse.__exit__()
+        step = make_solver(prog, "T", method=method, precondition=pc,
+                           backend="pallas", tol=tol, maxiter=maxiter)
+        xd = torch.tensor(x0, device="cuda")
+        ms = [device_ms(lambda: step(xd), 1) for _ in range(runs)]
+        out[name] = {"outcome": str(info.outcomes[0]),
+                     "iterations": int(info.iterations[0]),
+                     **launched, "by_level": levels,
+                     "sha256": hashlib.sha256(
+                         np.ascontiguousarray(x).tobytes()).hexdigest(),
+                     "ms_median": statistics.median(ms), "ms_min": min(ms),
+                     "ms_max": max(ms)}
+    return out
+
+
+def restrict_sass(lib_path: str) -> dict:
+    """sha256 and instruction count of the SASS of each restrict_kernel
+    instantiation in ``lib_path``, the anonymous-namespace hash stripped."""
+    from repro_torch.kernels.build import find_nvcc
+
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    text = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_transfer_cu_[0-9a-f]+", "", text)
+    out = {}
+    for sec in text.split("Function : ")[1:]:
+        name = sec.splitlines()[0].strip()
+        if "restrict_kernel" not in name:
+            continue
+        body = sec.split(".......")[0]
+        out[name] = {"sha256": hashlib.sha256(body.encode()).hexdigest(),
+                     "instructions": len(re.findall(r"/\*[0-9a-f]{4}\*/", body))}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "src"),
@@ -219,9 +370,19 @@ def main() -> int:
                     help="also time make_sharded_ftcs(use_kernel='planes')")
     ap.add_argument("--iterations", action="store_true",
                     help="also time make_sharded_iteration with kernels")
+    ap.add_argument("--k4", action="store_true",
+                    help="also time K4 and K3 at every level pair of "
+                         "512x512x128, and digest K3's SASS")
+    ap.add_argument("--k4-xc", default="",
+                    help="comma-separated tile depths to time K4 at besides "
+                         "the shape's own (with --k4)")
+    ap.add_argument("--mg-solves", action="store_true",
+                    help="also run the multigrid solves: iterations, "
+                         "solution digest, ms per solve")
     ap.add_argument("--runs", type=int, default=7,
-                    help="runs of 20 iterations per method and mesh, and of "
-                         "20-step FTCS calls per mesh (default 7)")
+                    help="runs of 20 iterations per method and mesh, of "
+                         "20-step FTCS calls per mesh and of queued K3/K4 "
+                         "means per level pair (default 7)")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
 
@@ -300,13 +461,21 @@ def main() -> int:
     iters = (iteration_ms((cfg.nx, cfg.ny, cfg.nz), w, args.runs)
              if args.iterations else None)
     ftcs = ftcs_ms((cfg.nx, cfg.ny, cfg.nz), w, args.runs) if args.ftcs else None
+    transfers = sass = None
+    solves = mg_solves(args.runs) if args.mg_solves else None
+    if args.k4:
+        transfers = transfer_ms(args.repeats, args.runs, args.k4_xc)
+        sass = restrict_sass(build.load_library("transfer")._name)
     print(json.dumps({"src": args.src, "card": card[0] if card else None,
                       "dtype": "float32", "bricks": out,
-                      "iteration_ms": iters, "ftcs_ms_per_step": ftcs}),
+                      "iteration_ms": iters, "ftcs_ms_per_step": ftcs,
+                      "transfers": transfers, "restrict_sass": sass,
+                      "mg_solves": solves}),
           flush=True)
-    for ln in build.build_log.get("stencil7", "").splitlines():
-        if "entry function" in ln or "Used" in ln or "spill" in ln:
-            print(ln.strip())
+    for lib in ("stencil7", "transfer") if args.k4 else ("stencil7",):
+        for ln in build.build_log.get(lib, "").splitlines():
+            if "entry function" in ln or "Used" in ln or "spill" in ln:
+                print(ln.strip())
     return 0
 
 
