@@ -7,18 +7,20 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a),
                          one nvcc per source, all started together;
 2. ``kernel_vs_ref``   — holds K1 bitwise against its plain PyTorch version
-                         on the card, at float32 and float64, through every
-                         route (without a hazard the column entry: once at
-                         k = 1, k times — the sweep — at k > 1; hazard
-                         bodies the generic entry; every launch checked to
-                         go through the route ``fused_entry`` names): the
-                         heat3d body at its full main-path shapes (k = 1 and
-                         the auto tile, a sweep), in the padded mode and in
-                         the margin mode (resident inputs, ping-pong outputs;
-                         M = k·h and k·h + 1, interiors also equal to the
-                         padded mode's, margins untouched), the hazard body
-                         of ``record_coupled`` at 512×512×128 float32 and its
-                         auto tile in margin mode (the generic entry's row),
+                         on the card, at float32 and float64, through both
+                         routes of the column entry (once at k = 1, k times
+                         — the sweep — at k > 1; a hazard body through its
+                         hazard instantiation; every launch checked to go
+                         through the route ``fused_entry`` names and to
+                         count as a hazard launch exactly for a hazard
+                         body): the heat3d body at its full main-path shapes
+                         (k = 1 and the auto tile, a sweep), in the padded
+                         mode and in the margin mode (resident inputs,
+                         ping-pong outputs; M = k·h and k·h + 1, interiors
+                         also equal to the padded mode's, margins
+                         untouched), the hazard body of ``record_coupled``
+                         at 512×512×128 at k = 1 and its auto tile, padded
+                         and margin (M = k·h), float32 and float64,
                          small multi-field, off-axis, multi-update bodies at
                          k = 1 and k = 2 in both modes (one with a hazard),
                          the column entry's edge cases (a second update
@@ -54,6 +56,16 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          the bytes bound and beside ``PREDICTED``; the device
                          allocations per step of the resident k = 1 and auto
                          loops (must be 0);
+5b. ``hazard_make``    — ``record_coupled`` (the hazard body) at
+                         ``HeatConfig()``'s 512×512×128 float32 grid through
+                         ``make(backend="pallas")`` at the auto tile,
+                         resident and ``resident=False``: bitwise equal,
+                         within the ``jit`` tolerance of ``heat3d`` against
+                         the roll interpreter, every launch a hazard sweep,
+                         0 device allocations per resident step; ms per step
+                         by CUDA events, and the hazard kernel's k = 8 and
+                         k = 1 margin launches timed beside their bounds and
+                         ``PREDICTED``;
 6. ``solve_heat3d``    — ``record_implicit(HeatConfig())`` through
                          ``solve(backend="pallas")`` with ``cg``, ``pipecg``
                          and ``cg`` + ``precondition="mg"`` at
@@ -105,19 +117,19 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
 11. ``kernels``        — one JSON line describing every kernel of the paths
                          (K1 on four rows: the k = 1 entry in the padded and
                          the margin mode, the sweep at the auto tile, and
-                         the generic entry on the hazard body; no main path
-                         records a hazard body, so that row's ``launches``
-                         are 0 and its ``check_launches`` are
-                         ``kernel_vs_ref``'s; K5's row adds its launches by
+                         the column entry on the hazard body — its launches
+                         those of ``hazard_make``, its k = 8 time beside the
+                         sweep schedule's bound, its k = 1 time beside its
+                         own; K5's row adds its launches by
                          mesh, its partial count and its times on the 2×2
                          mesh's brick; K3's and K4's rows count the launches
                          of ``solve_heat3d`` and ``mg_poisson``, in all and
                          by level pair, with each pair's time).
 
-Each main path (``heat3d``, ``solve_heat3d``, ``mg_poisson``, ``legacy_ftcs``,
-``legacy_btcs``) runs with the launch counters set to 0 just before it and
-read just after, and fails if one of its kernels was not launched (the
-generic entry: if ``kernel_vs_ref`` did not launch it).  Then the card's name and power limit,
+Each main path (``heat3d``, ``hazard_make``, ``solve_heat3d``, ``mg_poisson``,
+``legacy_ftcs``, ``legacy_btcs``) runs with the launch counters set to 0 just
+before it and read just after, and fails if one of its kernels was not
+launched.  Then the card's name and power limit,
 and last the result line.  Any failed check raises: the script exits
 non-zero and prints no result line.  Without a CUDA device it exits
 non-zero before printing anything.
@@ -172,14 +184,26 @@ PREDICTED = {
     # bits unchanged
     "k4_ms": {"512x512x128": [0.055, 0.065]},
     "k3_ms_within": 0.03,
+    # K1's hazard bodies through the column entry's hazard instantiation
+    # (written before its first timed run; PERF.md §6), from the generic
+    # entry's 52.58 ms: the coupled body at 512x512x128 float32, margin
+    # mode, has about 2.5x heat3d's taps a cell and 2.5x its bytes, and
+    # heat3d's sweep takes 3.9x its schedule bound, so the k = 8 launch
+    # takes 3-5.5x its 1.65 ms schedule bound; the k = 1 launch 3-5.5x its
+    # 0.2013 ms bound; heat3d's k = 1 and sweep launches unchanged within
+    # 1 % (their code is the same)
+    "hazard_k8_margin_ms": [5.0, 9.0],
+    "hazard_k1_margin_ms": [0.6, 1.1],
+    "hazard_make_ms_per_step": [0.65, 1.2],
+    "hazard_allocations_per_step": 0,
 }
 #: H100 SXM device-memory rate and float32 / float64 (non-tensor) peaks
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 #: the kernel libraries of the main paths (csrc/<stem>.cu)
 LIBRARIES = ("fused_stencil", "dual_dot", "transfer", "stencil7")
-#: the ``kernels`` row of K1's generic entry, which serves hazard bodies only
-GENERIC_ROW = "K1 fused_stencil, generic entry, hazard body"
+#: the ``kernels`` row of K1's column entry on a hazard body
+HAZARD_ROW = "K1 fused_stencil, column entry, hazard body"
 #: K2 vs the plain version in float64: |K2 − exact| ≤ REL · Σ|aᵢbᵢ|.  The
 #: kernel sums 32 terms per thread, then a 256-thread tree, then the block
 #: partials: about 50 roundings deep, so 50·u (u = 6e-8 at f32, 1.1e-16 at
@@ -336,8 +360,8 @@ def record_coupled(mod, A0, C0, B0, steps, hazard=True):
     """A small multi-field, off-axis, multi-update body: advection–diffusion
     of A with a variable-coefficient cross term (2-tap products), B reading
     A's new value at dz = ±1, and with ``hazard`` A re-written from its own
-    new value at dz = -1 (the generic entry's in-place hazard path; without
-    it the k = 1 entry serves the body at k = 1)."""
+    new value at dz = -1 (a hazard: the column entry's hazard
+    instantiation serves the body)."""
     wse = mod.WFAInterface()
     A = mod.Field("A", init_data=A0, dtype=A0.dtype)
     C = mod.Field("C", init_data=C0, dtype=C0.dtype)
@@ -409,30 +433,31 @@ def _padded_inputs(kernel, env, device):
 
 
 def route_counts():
-    """``(k1_launches, sweep_launches, sweep_substeps)`` of K1 so far."""
+    """``(k1_launches, sweep_launches, sweep_substeps, hazard_launches)`` of
+    K1 so far."""
     from repro_torch.kernels.fused import launch_fused
 
     return (launch_fused.k1_launches, launch_fused.sweep_launches,
-            launch_fused.sweep_substeps)
+            launch_fused.sweep_substeps, launch_fused.hazard_launches)
 
 
 def launch_via_entry(kernel, inputs, out=None):
     """``launch_fused`` that fails unless the launch went through the route
-    ``fused_entry`` names: one ``k1_launches`` for the k = 1 route, one
-    ``sweep_launches`` and k ``sweep_substeps`` for the sweep, none of them
-    for the generic entry."""
+    ``fused_entry`` names — one ``k1_launches`` for the k = 1 route, one
+    ``sweep_launches`` and k ``sweep_substeps`` for the sweep — and counted
+    one ``hazard_launches`` exactly for a hazard body."""
     from repro_torch.kernels.fused import fused_entry, launch_fused
 
     before = route_counts()
     got = launch_fused(kernel, inputs, out=out)
     entry = fused_entry(kernel)
-    want = {"k1": (1, 0, 0), "sweep": (0, 1, kernel.k),
-            "generic": (0, 0, 0)}[entry]
+    want = {"k1": (1, 0, 0), "sweep": (0, 1, kernel.k)}[entry] + (
+        int(kernel.hazard),)
     moved = tuple(a - b for a, b in zip(route_counts(), before))
     if moved != want:
         raise AssertionError(f"k = {kernel.k} hazard={kernel.hazard}: route "
-                             f"counts (k1, sweep, sub-steps) moved by {moved}, "
-                             f"expected {want} for {entry!r}")
+                             f"counts (k1, sweep, sub-steps, hazard) moved by "
+                             f"{moved}, expected {want} for {entry!r}")
     return got
 
 
@@ -648,49 +673,58 @@ def phase_kernel_vs_ref(steps_heat: int, seed: int):
                     heat["margin" if k == 1 else "sweep"] = {
                         "kernel": kern_m, "inputs": ins, "err": err}
             del padded_out
-    # the generic entry's row: the hazard body at full width and its auto
-    # tile (no main path runs a hazard body)
+    # the hazard body at full width, k = 1 and its auto tile, through the
+    # column entry's hazard instantiation; the float32 margin-mode kernels
+    # are the hazard row's, timed in hazard_make
     shape = (cfg.nx, cfg.ny, cfg.nz)
-    rng = np.random.default_rng(seed)
-    env = {"A": rng.random(shape, dtype=np.float32),
-           "C": np.float32(0.05) * rng.random(shape, dtype=np.float32),
-           "B": rng.random(shape, dtype=np.float32)}
-    wse = record_coupled(rt, env["A"], env["C"], env["B"], steps_heat)[0]
-    prog = wse.program
-    wse.__exit__()
-    shapes = {n: f.shape for n, f in prog.fields.items()}
-    dtypes = {n: f.dtype for n, f in prog.fields.items()}
-    k = auto_tile(lower_group(prog.ops), (cfg.nx, cfg.ny), steps_heat)
-    kern = _build_kernel(prog.ops, shapes, dtypes, k, dev)
-    if fused_entry(kern) != "generic":
-        raise AssertionError("the coupled hazard body does not route to the "
-                             "generic entry")
-    padded = _padded_inputs(kern, env, dev)
-    err = compare_kernel(kern, padded)
-    case = {"body": "coupled_advdiff_hazard", "shape": list(shape),
-            "dtype": "float32", "k": k, "entry": "generic"}
-    cases.append(dict(case, max_abs_err=err))
-    padded_out = launch_fused(kern, padded)
-    del padded
-    kern_m = _build_kernel(prog.ops, shapes, dtypes, k, dev, margin=kern.pad)
-    ins = _resident_inputs(kern_m, env, dev)
-    err = compare_margin(kern_m, ins, padded_out)
-    cases.append(dict(case, mode="margin", margin=kern.pad, max_abs_err=err))
-    heat["generic"] = {"kernel": kern_m, "inputs": ins, "err": err}
-    del padded_out
+    heat["hazard"] = {}
+    for dtype in ("float32", "float64"):
+        rng = np.random.default_rng(seed)
+        env = {"A": rng.random(shape, dtype=np.float32),
+               "C": np.float32(0.05) * rng.random(shape, dtype=np.float32),
+               "B": rng.random(shape, dtype=np.float32)}
+        env = {n: a.astype(dtype) for n, a in env.items()}
+        wse = record_coupled(rt, env["A"], env["C"], env["B"], steps_heat)[0]
+        prog = wse.program
+        wse.__exit__()
+        shapes = {n: f.shape for n, f in prog.fields.items()}
+        dtypes = {n: f.dtype for n, f in prog.fields.items()}
+        k_auto = auto_tile(lower_group(prog.ops), (cfg.nx, cfg.ny), steps_heat)
+        for k in (1, k_auto):
+            kern = _build_kernel(prog.ops, shapes, dtypes, k, dev)
+            if not kern.hazard:
+                raise AssertionError("the coupled body has no hazard")
+            padded = _padded_inputs(kern, env, dev)
+            err = compare_kernel(kern, padded)
+            case = {"body": "coupled_advdiff_hazard", "shape": list(shape),
+                    "dtype": dtype, "k": k, "entry": fused_entry(kern)}
+            cases.append(dict(case, max_abs_err=err))
+            padded_out = launch_fused(kern, padded)
+            del padded
+            kern_m = _build_kernel(prog.ops, shapes, dtypes, k, dev,
+                                   margin=kern.pad)
+            ins = _resident_inputs(kern_m, env, dev)
+            err = compare_margin(kern_m, ins, padded_out)
+            cases.append(dict(case, mode="margin", margin=kern.pad,
+                              max_abs_err=err))
+            del padded_out
+            if dtype == cfg.dtype:
+                heat["hazard"][k] = {"kernel": kern_m, "inputs": ins,
+                                     "err": err}
+            del ins
     cases += small_body_cases()
     moved = [a - b for a, b in zip((launch_fused.launches, *route_counts()),
                                    start)]
-    heat["generic"]["check_launches"] = moved[0] - moved[1] - moved[2]
     emit({"phase": "kernel_vs_ref", "tolerance": "bitwise", "cases": cases,
           "launches_by_route": {"k1": moved[1], "sweep": moved[2],
                                 "sweep_substeps": moved[3],
-                                "generic": heat["generic"]["check_launches"]}})
+                                "hazard": moved[4]}})
     return heat
 
 
-def allocations_per_step(cfg, steps: int, time_tile) -> dict:
-    """Device allocations per step of the resident loop at ``time_tile``:
+def allocations_per_step(record, steps: int, time_tile) -> dict:
+    """Device allocations per step of the resident loop at ``time_tile`` of
+    the program ``record(n)`` records for ``n`` steps (``(wse, answer)``):
     the growth of ``allocation.all.allocated`` over a ``2·steps`` run less
     that over a ``steps`` run, divided by ``steps`` (what a run allocates
     once — the layout's enter and exit, the ping-pong spares — cancels; a
@@ -698,18 +732,18 @@ def allocations_per_step(cfg, steps: int, time_tile) -> dict:
     the warm-up run)."""
     import torch
 
-    from repro_torch.configs.heat3d import record_heat
     from repro_torch.convert import env_from_numpy
     from repro_torch.engine import RunOptions, plan, single_runner
 
     grown = {}
     for n in (steps, 2 * steps):
-        wse, T = record_heat(cfg, n)
-        p = plan(wse.program, RunOptions(backend="pallas",
-                                         time_tile=time_tile))
+        wse, _ = record(n)
+        prog = wse.program
+        p = plan(prog, RunOptions(backend="pallas", time_tile=time_tile))
         wse.__exit__()
         run = single_runner(p)
-        env = env_from_numpy({"T_n": T.init_data}, "cuda")
+        env = env_from_numpy({name: f.init_data
+                              for name, f in prog.fields.items()}, "cuda")
         run(env)
         torch.cuda.synchronize()
         a0 = torch.cuda.memory_stats()["allocation.all.allocated"]
@@ -831,7 +865,8 @@ def phase_heat3d(steps: int, heat):
     if jit_err > jit_atol:
         raise AssertionError(f"pallas vs jit over {steps} steps: {jit_err} > "
                              f"{jit_atol} (1 ulp per step)")
-    allocs = {tag: allocations_per_step(cfg, steps, tt)
+    allocs = {tag: allocations_per_step(lambda n: record_heat(cfg, n), steps,
+                                        tt)
               for tag, tt in (("k1", 1), ("auto", None))}
     for tag, a in allocs.items():
         if a["allocations_per_step"] != 0:
@@ -863,12 +898,6 @@ def phase_heat3d(steps: int, heat):
                                repeats=2)
     bs_ms, bs_by = bound_ms(ks, cfg.dtype)
     bs_sched_ms, bs_sched_by = sweep_bound_ms(ks, cfg.dtype)
-    kg, gins = heat["generic"]["kernel"], heat["generic"]["inputs"]
-    gout = margin_outputs(kg, gins)
-    kg_ms = cuda_time_ms(lambda: launch_fused(kg, gins, out=gout), repeats=5)
-    kg_plain_ms = cuda_time_ms(lambda: fused_step_ref(kg, gins, out=gout),
-                               repeats=2)
-    bg_ms, bg_by = bound_ms(kg, cfg.dtype)
     measured = {tag: {"ms_per_step": t["ms_per_step"],
                       "device_idle_share_unprofiled":
                           t["device_idle_share_unprofiled"],
@@ -910,11 +939,7 @@ def phase_heat3d(steps: int, heat):
           "sweep_margin_plain_ms": ks_plain_ms,
           "sweep_margin_bound_ms": bs_ms,
           "sweep_schedule_bound_ms": bs_sched_ms,
-          "sweep_schedule_bound_by": bs_sched_by,
-          "generic_body": "coupled_advdiff_hazard", "generic_k": kg.k,
-          "generic_margin_kernel_ms": kg_ms,
-          "generic_margin_plain_ms": kg_plain_ms,
-          "generic_margin_bound_ms": bg_ms})
+          "sweep_schedule_bound_by": bs_sched_by})
     emit({"phase": "heat3d_predicted_vs_measured", "card": card_line(),
           "predicted": PREDICTED, "measured": measured,
           "k1_entry_ms": {"padded": k1_ms, "margin": km_ms},
@@ -934,12 +959,128 @@ def phase_heat3d(steps: int, heat):
             "sweep": {"launches": counts["K1sw"],
                       "err": heat["sweep"]["err"], "ms": ks_ms,
                       "plain_ms": ks_plain_ms, "bound_ms": bs_ms,
-                      "bound_by": bs_by},
-            "generic": {"launches": generic_launches(counts),
-                        "check_launches": heat["generic"]["check_launches"],
-                        "err": heat["generic"]["err"], "ms": kg_ms,
-                        "plain_ms": kg_plain_ms, "bound_ms": bg_ms,
-                        "bound_by": bg_by}}
+                      "bound_by": bs_by}}
+
+
+def phase_hazard_make(steps: int, seed: int, heat):
+    """The hazard body through ``make`` at 512×512×128 float32 and the auto
+    tile, and the hazard kernel's times (``kernel_vs_ref`` built and held
+    its float32 margin-mode kernels at k = 1 and the auto tile)."""
+    import numpy as np
+
+    import repro_torch as rt
+    from repro_torch import compiler
+    from repro_torch.configs.heat3d import HeatConfig
+    from repro_torch.convert import env_from_numpy
+    from repro_torch.engine import RunOptions, plan, single_runner
+    from repro_torch.kernels.fused import fused_step_ref, launch_fused
+
+    cfg = HeatConfig()
+    shape = (cfg.nx, cfg.ny, cfg.nz)
+    rng = np.random.default_rng(seed)
+    A0 = rng.random(shape, dtype=np.float32)
+    C0 = np.float32(0.05) * rng.random(shape, dtype=np.float32)
+    B0 = rng.random(shape, dtype=np.float32)
+
+    def record(n):
+        return record_coupled(rt, A0, C0, B0, n)[:2]
+
+    outs = {}
+    # --- the main path: counters to 0 just before, read just after -------
+    compiler.reset_stats()
+    reset_counts()
+    for tag, resident in (("auto", True), ("auto_repack", False)):
+        wse, A = record(steps)
+        outs[tag] = wse.make(answer=A, options=RunOptions(
+            backend="pallas", time_tile=None, resident=resident))
+    counts = read_counts()
+    fallbacks = compiler.stats.fallbacks
+    # -----------------------------------------------------------------------
+    if fallbacks != 0:
+        raise AssertionError(f"{fallbacks} interpreter fallbacks on the "
+                             "hazard make path")
+    if (counts["K1"] == 0 or counts["K1sw"] != counts["K1"]
+            or counts["K1hz"] != counts["K1"]
+            or counts["K1sub"] != 2 * steps):
+        raise AssertionError(f"hazard make: K1 launches {counts['K1']}, "
+                             f"sweeps {counts['K1sw']}, hazard "
+                             f"{counts['K1hz']}, sub-steps {counts['K1sub']} "
+                             f"for 2 × {steps} steps")
+    wse, A = record(steps)
+    outs["jit"] = wse.make(answer=A, options=RunOptions(backend="jit"))
+    short = {}
+    for backend in ("pallas", "jit"):
+        wse, A = record(min(steps, JIT_SHORT_STEPS))
+        short[backend] = wse.make(answer=A, options=RunOptions(
+            backend=backend))
+    for tag, out in outs.items():
+        if out.shape != shape or not np.isfinite(out).all():
+            raise AssertionError(f"hazard make {tag}: bad shape {out.shape} "
+                                 "or non-finite")
+    if not np.array_equal(outs["auto"], outs["auto_repack"]):
+        raise AssertionError("hazard make: resident and repacking runs "
+                             "disagree")
+    short_err = float(np.abs(short["pallas"].astype(np.float64)
+                             - short["jit"]).max())
+    if short_err > JIT_SHORT_ATOL:
+        raise AssertionError(f"hazard make, pallas vs jit over "
+                             f"{JIT_SHORT_STEPS} steps: {short_err} > "
+                             f"{JIT_SHORT_ATOL}")
+    jit_err = float(np.abs(outs["auto"].astype(np.float64)
+                           - outs["jit"]).max())
+    jit_atol = steps * float(np.spacing(np.abs(outs["jit"]).max()))
+    if jit_err > jit_atol:
+        raise AssertionError(f"hazard make, pallas vs jit over {steps} steps: "
+                             f"{jit_err} > {jit_atol} (1 ulp per step)")
+    allocs = allocations_per_step(record, steps, None)
+    if allocs["allocations_per_step"] != 0:
+        raise AssertionError(f"the resident hazard loop allocates: {allocs}")
+    wse, A = record(steps)
+    prog = wse.program
+    p = plan(prog, RunOptions(backend="pallas", time_tile=None))
+    wse.__exit__()
+    run = single_runner(p)
+    env = env_from_numpy({"A": A0, "C": C0, "B": B0}, "cuda")
+    timing = {"ms_per_step": cuda_time_ms(lambda: run(env), repeats=3) / steps,
+              "time_tile": p.segments[0].time_tile, "margin": p.layout.pad,
+              "host_us_per_step": host_us(lambda: run(env)) / steps,
+              **device_breakdown(lambda: run(env))}
+    del env, run
+    hz = heat.pop("hazard")
+    k_auto = max(hz)
+    times = {}
+    for k in sorted(hz):
+        kern, ins = hz[k]["kernel"], hz[k]["inputs"]
+        out = margin_outputs(kern, ins)
+        b_ms, b_by = bound_ms(kern, cfg.dtype)
+        times[k] = {"ms": cuda_time_ms(lambda: launch_fused(kern, ins, out=out),
+                                       repeats=20),
+                    "plain_ms": cuda_time_ms(
+                        lambda: fused_step_ref(kern, ins, out=out), repeats=2),
+                    "bound_ms": b_ms, "bound_by": b_by, "err": hz[k]["err"]}
+        if k > 1:
+            times[k]["sweep_schedule_bound_ms"] = sweep_bound_ms(kern,
+                                                                 cfg.dtype)[0]
+        del kern, ins, out
+    emit({"phase": "hazard_make", "card": card_line(),
+          "body": "coupled_advdiff_hazard", "shape": list(shape),
+          "dtype": cfg.dtype, "steps": steps, "launches": counts,
+          "fallbacks": fallbacks,
+          "pallas_vs_jit": {"steps": steps, "max_abs_err": jit_err,
+                            "atol": jit_atol},
+          "pallas_vs_jit_short": {"steps": min(steps, JIT_SHORT_STEPS),
+                                  "max_abs_err": short_err,
+                                  "atol": JIT_SHORT_ATOL},
+          "resident_allocations": allocs, "timing": timing,
+          "margin_launch": {str(k): t for k, t in times.items()},
+          "predicted": {k: PREDICTED[k] for k in (
+              "card", "hazard_k8_margin_ms", "hazard_k1_margin_ms",
+              "hazard_make_ms_per_step", "hazard_allocations_per_step")}})
+    row = dict(times[k_auto], launches=counts["K1hz"], k=k_auto)
+    if 1 in times:
+        row.update({f"k1_{key}": times[1][key]
+                    for key in ("ms", "plain_ms", "bound_ms", "err")})
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -972,6 +1113,7 @@ def reset_counts() -> None:
     launch_fused.k1_launches = 0
     launch_fused.sweep_launches = 0
     launch_fused.sweep_substeps = 0
+    launch_fused.hazard_launches = 0
 
 
 def level_counts() -> dict:
@@ -991,16 +1133,10 @@ def add_levels(total: dict, levels: dict) -> dict:
     return total
 
 
-def generic_launches(counts) -> int:
-    """K1's generic-entry launches in ``counts``: the launches that went
-    through neither the k = 1 route nor the sweep."""
-    return counts["K1"] - counts["K1k1"] - counts["K1sw"]
-
-
 def read_counts() -> dict:
     """Launches by kernel; ``K1m`` is K1's margin-mode share of ``K1``,
-    ``K1k1`` the k = 1 route's share, ``K1sw`` the sweep's share and
-    ``K1sub`` the sweep's sub-steps."""
+    ``K1k1`` the k = 1 route's share, ``K1sw`` the sweep's share,
+    ``K1sub`` the sweep's sub-steps and ``K1hz`` the hazard bodies' share."""
     from repro_torch.kernels.fused import launch_fused
 
     counts = {k: fn.launches for k, fn in kernel_counters().items()}
@@ -1008,6 +1144,7 @@ def read_counts() -> dict:
     counts["K1k1"] = launch_fused.k1_launches
     counts["K1sw"] = launch_fused.sweep_launches
     counts["K1sub"] = launch_fused.sweep_substeps
+    counts["K1hz"] = launch_fused.hazard_launches
     return counts
 
 
@@ -1948,6 +2085,7 @@ def main() -> int:
     k2 = phase_dual_dot_vs_ref(args.seed)
     transfers = phase_transfer_vs_ref(args.seed)
     k1 = phase_heat3d(args.steps, heat)
+    hazard = phase_hazard_make(args.steps, args.seed, heat)
     solve_counts = phase_solve_heat3d()
     mg_counts = phase_mg_poisson(args.seed)
     legacy = phase_legacy_kernels_vs_ref(args.seed)
@@ -1960,9 +2098,6 @@ def main() -> int:
     mg_levels = add_levels(add_levels({}, solve_counts["by_level"]),
                            mg_counts["by_level"])
     solve_k1 = solve_counts["K1k1"] + mg_counts["K1k1"]
-    generic = k1["generic"]["launches"] + sum(
-        generic_launches(c) for c in (solve_counts, mg_counts, ftcs_counts,
-                                      btcs_counts))
     rows = [("K1 fused_stencil, k = 1 entry, padded mode", "fused_stencil.cu",
              "src/repro/kernels/fused.py:245",
              dict(k1["k1_padded"], library_ms=None,
@@ -1974,9 +2109,9 @@ def main() -> int:
              f"k = {heat['sweep']['kernel'].k}, margin mode",
              "fused_stencil.cu", "src/repro/kernels/fused.py:245",
              dict(k1["sweep"], library_ms=None)),
-            (GENERIC_ROW + f", k = {heat['generic']['kernel'].k}, margin "
-             "mode", "fused_stencil.cu", "src/repro/kernels/fused.py:245",
-             dict(k1["generic"], library_ms=None, launches=generic)),
+            (HAZARD_ROW + f", k = {hazard['k']}, margin mode",
+             "fused_stencil.cu", "src/repro/kernels/fused.py:245",
+             dict(hazard, library_ms=None)),
             ("K2 dual_dot", "dual_dot.cu", "src/repro/kernels/dotprod.py:39",
              dict(k2, launches=solve_counts["K2"] + mg_counts["K2"]
                   + btcs_counts["K2"])),
@@ -1993,11 +2128,7 @@ def main() -> int:
              dict(legacy["K6"], launches=ftcs_counts["K6"])),
             ("K7 stencil_planes", "stencil7.cu", "src/repro/kernels/stencil7.py:140",
              dict(legacy["K7"], launches=ftcs_counts["K7"]))]
-    # no main path records a hazard body, so the generic entry is held to
-    # its kernel_vs_ref launches instead (check_launches in its row)
-    missing = [name for name, _, _, r in rows if r["launches"] == 0
-               and not (name.startswith(GENERIC_ROW)
-                        and r["check_launches"] > 0)]
+    missing = [name for name, _, _, r in rows if r["launches"] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on their main paths: {missing}")
     emit({"kernels": [dict({
@@ -2005,9 +2136,11 @@ def main() -> int:
         "launches": r["launches"], "max_abs_err": r["err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]},
-        **{k: r[k] for k in ("check_launches", "launches_by_mesh", "partials",
-                             "small_brick", "launches_by_level_pair",
-                             "ms_by_level_pair") if k in r})
+        **{k: r[k] for k in ("launches_by_mesh", "partials", "small_brick",
+                             "launches_by_level_pair", "ms_by_level_pair",
+                             "sweep_schedule_bound_ms", "k1_ms",
+                             "k1_plain_ms", "k1_bound_ms", "k1_err")
+           if k in r})
         for name, src, where, r in rows]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -11,21 +11,18 @@
 //   reference writes in place through input_output_aliases, which is valid
 //   only while blocks run one at a time.
 // The two modes differ only in the origins and row strides of Geom.  Instead
-// of a source generated per program, both kernels read the body's canonical
+// of a source generated per program, the kernel reads the body's canonical
 // tap form from a small descriptor that the host flattens from the
-// LoweredGroup (repro_torch/kernels/fused.py, _encode), and both are
-// templated on float / double.
+// LoweredGroup (repro_torch/kernels/fused.py, _encode), and is templated on
+// float / double.
 //
-// Two kernels; repro_torch/kernels/fused.py::fused_entry picks one per
-// launch:
-// - fused_column_kernel, the column entry: one launch evaluates ONE
-//   sub-step over a rectangular region of the window.  It serves every
-//   body without a hazard: at k = 1 one launch over the brick (the make step
-//   at time_tile=1 in margin mode, every solver operator application in
-//   padded mode); at k > 1 the sweep, k launches enqueued by one C call
-//   (fused_sweep_*), sub-step s over the trapezoid's region s;
-// - fused_stencil_kernel, the generic entry: hazard bodies, at any k (the
-//   trapezoid on block-private scratch windows).
+// One kernel, fused_column_kernel (the column entry): one launch evaluates
+// ONE sub-step over a rectangular region of the window.  At k = 1 one launch
+// covers the brick (the make step at time_tile=1 in margin mode, every
+// solver operator application in padded mode); at k > 1 the sweep, k
+// launches enqueued by one C call (fused_sweep_*), sub-step s over the
+// trapezoid's region s.  A body with a hazard (below) takes the kernel's
+// kHazard instantiation, on the same routes.
 //
 // What it computes, per launch: for each AffineUpdate, in program order,
 //     field[z0:z0+zlen] = const + sum_g c_g * (sum_p prod_t tap_{g,p,t})
@@ -38,8 +35,8 @@
 // Association: taps that share a coefficient are summed first, in recorded
 // order, and multiplied once; the groups are then added in order of first
 // appearance, then `const` — the association of the Pallas body.  One
-// __device__ function, eval_update, holds it, and both kernels call it, so
-// they agree with each other and with fused_step_ref by construction.
+// __device__ function, eval_update, holds it, so both instantiations agree
+// with each other and with fused_step_ref by construction.
 //
 // Bound: bytes.  At k = 1 a launch reads each input window once and writes
 // each output once: for the heat3d body at 512 x 512 x 128 float, about
@@ -79,7 +76,7 @@
 // L1/L2.  Left for a later K1 change: staging the (x, y) neighbourhood in
 // shared memory.
 //
-// The sweep (k > 1 without a hazard).  Sub-step s (0 <= s < k) evaluates
+// The sweep (k > 1).  Sub-step s (0 <= s < k) evaluates
 // region s of the trapezoid, extent (bx + 2(k-s-1)h, by + 2(k-s-1)h) at
 // global origin (cx, cy) - (k-s-1)h, over the whole region in one launch:
 // - a written field is read from the input at s = 0 and from scratch
@@ -91,8 +88,8 @@
 //   cell sits at the same (x, y) in the input, in both scratch buffers and
 //   in the window, so only the origins move per sub-step (Geom, one per
 //   sub-step, computed by fused.py::sweep_geoms).
-// - each cell's arithmetic is the trapezoid's, so the sweep equals the
-//   generic entry and fused_step_ref bit for bit.
+// - each cell's arithmetic is the trapezoid's, so the sweep equals
+//   fused_step_ref bit for bit.
 // - bytes: k launches, each reading its region's window and writing its
 //   region: about k x the k = 1 launch's bytes (0.66 ms of HBM at heat3d
 //   512 x 512 x 128 float, k = 8), against the TPU kernel's one read and
@@ -105,23 +102,25 @@
 // about 1.6x the cells to save half the bytes.  The k = 1 launch is bound
 // by issue and latency, not bytes, so that would be slower per step.
 //
-// Generic entry (fused_stencil_kernel), hazard bodies, right first:
-// - One thread per (x, y, z) cell of the tile's current region, z the
-//   contiguous axis, block-stride over the region.  Layout stays (X, Y, Z).
-// - k > 1: sub-steps run on block-private scratch windows in global memory
-//   (two per written field, ping-pong), with __syncthreads() between them.
-//   No block reads another block's output inside a launch.  The Moat mask
-//   wraps global coordinates mod (nx, ny) when `wrap`.
-// - __syncthreads() separates the updates of one sub-step, because a later
-//   update may read an earlier one's result at another z.  An update that
-//   re-writes a field while reading that field's new value at dz != 0 first
-//   writes to a block-private temporary (the host flags it as a hazard).
-// - The descriptor is copied into shared memory once per block.
+// Hazards.  An update that re-writes a field already written in this
+// sub-step while reading that field's new value at dz != 0 would read cells
+// that other threads of its column are writing (the host flags it:
+// hd[5]).  All of its new values must be computed before any is stored, so
+// the kHazard instantiation evaluates such an update with the same walk,
+// parks each interior cell's value in a shared-memory stage of BY x zlen
+// elements (row threadIdx.y, index z - z0), reaches a barrier that every
+// thread of the block reaches, and then copies the stage to the
+// destination.  A hazard update is never a field's first write, so only
+// interior cells of [z0, z0 + zlen) move.  The stage sits after the
+// descriptor, 16-byte aligned, and holds the largest zlen of the body's
+// hazard updates (fused.py::hazard_stage_bytes; launch_sweep checks it
+// against the descriptor); every other update, in a hazard body too, runs
+// as in the hazard-free instantiation, whose code is unchanged by it.
 //
 // FMA contraction: build with --fmad=false.  Every multiply and add then
 // rounds on its own, as the plain PyTorch version's separate elementwise
-// kernels do, so both kernels are held *bitwise* against fused_step_ref on
-// the card at float and double.  Turning contraction on is a decision for a
+// kernels do, so both instantiations are held *bitwise* against
+// fused_step_ref on the card at float and double.  Turning contraction on is a decision for a
 // later performance change.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
@@ -145,34 +144,44 @@ constexpr int kK1Cells = 4;
 constexpr int kGeomInts = 20;
 constexpr int kMaxSweep = 64;
 
+// buf0, buf1 and written are unused (a removed kernel's); they stay so that
+// the kernel's parameter layout, and with it its code, does not move.
 template <typename T>
 struct Fields {
   const T* in[kMaxFields];   // inputs, padded or resident (see Geom)
   T* out[kMaxFields];        // outputs of the written fields (see Geom)
-  T* buf0[kMaxFields];       // scratch windows (k > 1), written fields
-  T* buf1[kMaxFields];
+  T* buf0[kMaxFields];       // unused
+  T* buf1[kMaxFields];       // unused
   int nz[kMaxFields];
-  int written[kMaxFields];
+  int written[kMaxFields];   // unused
 };
 
-// One launch's geometry.  The generic entry reads the brick and its k
-// sub-steps from it; a column-entry launch evaluates one sub-step over a
-// region: bx, by, cx, cy are then the region's extent and global origin,
-// in_off the origin of its h-deep read window in the inputs, and
-// out_off, out_py where it lands in its destination (k and the tile
-// fields unused).
+// One launch's geometry: one sub-step over a region.  bx, by, cx, cy are
+// the region's extent and global origin, in_off the origin of its h-deep
+// read window in the inputs, and out_off, out_py where it lands in its
+// destination.  k, max_nz and the four tile fields are unused (a removed
+// kernel's); they keep their places so that the parameter layout, and with
+// it the kernel's code, does not move.
 struct Geom {
-  int bx, by;            // brick (column entry: region) extent
+  int bx, by;            // region extent
   int nx, ny;            // global extent (Moat)
-  int cx, cy;            // global origin of the brick (region)
+  int cx, cy;            // global origin of the region
   int k, h, wrap;
-  int tile_x, tile_y;    // output tile of one block (generic entry)
-  int tiles_x, tiles_y;
+  int tile_x, tile_y;    // unused
+  int tiles_x, tiles_y;  // unused
   int n_ints, n_coefs;
   int max_nz;
   int in_off, in_py;     // window origin (x and y) and row stride of inputs
-  int out_off, out_py;   // brick origin (x and y) and row stride of outputs
+  int out_off, out_py;   // region origin (x and y) and row stride of outputs
 };
+
+// Bytes of dynamic shared memory before the hazard stage: the coefficients
+// (as double and as T) and the descriptor, rounded up to 16 bytes.
+template <typename T>
+__host__ __device__ inline size_t stage_offset(int n_coefs, int n_ints) {
+  return ((size_t)n_coefs * (sizeof(double) + sizeof(T)) +
+          (size_t)n_ints * sizeof(int) + 15) & ~(size_t)15;
+}
 
 // N cells of one thread, evaluated side by side: every operation acts on
 // each cell alone, rounded as the scalar one is, so a cell's value does not
@@ -257,141 +266,9 @@ __device__ __forceinline__ V eval_update(const int* desc, int q, int n_groups,
   return acc;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(256)
-fused_stencil_kernel(Fields<T> f, Geom g, T* tmp,
-                     const int* __restrict__ desc_g,
-                     const double* __restrict__ coef_g) {
-  extern __shared__ double smem[];
-  double* coefs = smem;
-  int* desc = reinterpret_cast<int*>(smem + g.n_coefs);
-  __shared__ const T* s_in[kMaxFields];
-  __shared__ T* s_out[kMaxFields];
-  __shared__ T* s_buf[2][kMaxFields];
-  __shared__ int s_nz[kMaxFields];
-  __shared__ int s_wr[kMaxFields];
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int q = 0; q < kMaxFields; ++q) {
-      s_in[q] = f.in[q];
-      s_out[q] = f.out[q];
-      s_buf[0][q] = f.buf0[q];
-      s_buf[1][q] = f.buf1[q];
-      s_nz[q] = f.nz[q];
-      s_wr[q] = f.written[q];
-    }
-  }
-  for (int q = threadIdx.x; q < g.n_coefs; q += blockDim.x) coefs[q] = coef_g[q];
-  for (int q = threadIdx.x; q < g.n_ints; q += blockDim.x) desc[q] = desc_g[q];
-  __syncthreads();
-
-  const int kh = g.k * g.h;
-  const int WX = g.tile_x + 2 * kh;     // scratch window extent (max)
-  const int WY = g.tile_y + 2 * kh;
-  const int n_tiles = g.tiles_x * g.tiles_y;
-  const int n_updates = desc[0];
-  const size_t win = (size_t)WX * WY;
-
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    // tile origin in brick coordinates; window cell (0, 0) sits k*h below
-    const int x0 = (tile / g.tiles_y) * g.tile_x;
-    const int y0 = (tile % g.tiles_y) * g.tile_y;
-    const int wx = min(g.tile_x, g.bx - x0) + 2 * kh;
-    const int wy = min(g.tile_y, g.by - y0) + 2 * kh;
-    const int gx_w = g.cx + x0 - kh;
-    const int gy_w = g.cy + y0 - kh;
-
-    // value of field `fl` as sub-step s found it, at window cell (i, j, z)
-    auto src = [&](int fl, int s, int i, int j, int z) -> T {
-      const int nz = s_nz[fl];
-      if (s == 0 || !s_wr[fl])
-        return s_in[fl][((size_t)(g.in_off + x0 + i) * g.in_py +
-                         (g.in_off + y0 + j)) * nz + z];
-      return s_buf[(s - 1) & 1][fl][(size_t)blockIdx.x * win * nz +
-                                    ((size_t)i * WY + j) * nz + z];
-    };
-    // where sub-step s writes field `fl` at window cell (i, j, z)
-    auto dst = [&](int fl, int s, int i, int j, int z) -> T* {
-      const int nz = s_nz[fl];
-      if (s == g.k - 1)
-        return s_out[fl] + ((size_t)(g.out_off + x0 + i - kh) * g.out_py +
-                            (g.out_off + y0 + j - kh)) * nz + z;
-      return s_buf[s & 1][fl] + (size_t)blockIdx.x * win * nz +
-             ((size_t)i * WY + j) * nz + z;
-    };
-    auto tap = [&](const int* t, int s, int i, int j, int z) -> T {
-      // t: field, dz, dx, dy, from_center
-      if (t[4]) return *dst(t[0], s, i, j, z + t[1]);
-      return src(t[0], s, i + t[2], j + t[3], z + t[1]);
-    };
-    auto interior = [&](int i, int j) -> bool {
-      int gx = gx_w + i, gy = gy_w + j;
-      if (g.wrap) {
-        gx = ((gx % g.nx) + g.nx) % g.nx;
-        gy = ((gy % g.ny) + g.ny) % g.ny;
-      }
-      return gx > 0 && gx < g.nx - 1 && gy > 0 && gy < g.ny - 1;
-    };
-
-    for (int s = 0; s < g.k; ++s) {
-      const int lo = (s + 1) * g.h;     // output region [lo, w - lo)
-      const int ox = wx - 2 * lo;
-      const int oy = wy - 2 * lo;
-      int pos = 1;
-      for (int u = 0; u < n_updates; ++u) {
-        const int* hd = desc + pos;
-        const int fl = hd[0], z0 = hd[1], zlen = hd[2], nz = hd[3];
-        const int first = hd[4], hazard = hd[5], n_groups = hd[6], cb = hd[7];
-        const int body = pos + kUpdHeader;
-        // the first write of a field in a sub-step also carries the
-        // unwritten z planes and the Moat cells through
-        const int zb = first ? 0 : z0;
-        const int zn = first ? nz : zlen;
-        const long long ncell = (long long)ox * oy * zn;
-        for (long long c = threadIdx.x; c < ncell; c += blockDim.x) {
-          const int z = zb + (int)(c % zn);
-          const long long r = c / zn;
-          const int j = lo + (int)(r % oy);
-          const int i = lo + (int)(r / oy);
-          T val;
-          if (z >= z0 && z < z0 + zlen && interior(i, j)) {
-            val = eval_update<T>(
-                desc, body, n_groups, coefs + cb,
-                [&](int c) { return static_cast<T>(coefs[cb + c]); },
-                [&](const int* t) { return tap(t, s, i, j, z); });
-          } else if (first) {
-            val = src(fl, s, i, j, z);
-          } else {
-            continue;  // earlier update's value already in place
-          }
-          if (hazard)
-            tmp[(size_t)blockIdx.x * win * g.max_nz +
-                ((size_t)i * WY + j) * g.max_nz + z] = val;
-          else
-            *dst(fl, s, i, j, z) = val;
-        }
-        if (hazard) {
-          __syncthreads();
-          const long long nwin = (long long)ox * oy * zlen;
-          for (long long c = threadIdx.x; c < nwin; c += blockDim.x) {
-            const int z = z0 + (int)(c % zlen);
-            const long long r = c / zlen;
-            const int j = lo + (int)(r % oy);
-            const int i = lo + (int)(r / oy);
-            if (interior(i, j))
-              *dst(fl, s, i, j, z) =
-                  tmp[(size_t)blockIdx.x * win * g.max_nz +
-                      ((size_t)i * WY + j) * g.max_nz + z];
-          }
-        }
-        __syncthreads();
-        pos = hd[8];
-      }
-    }
-  }
-}
-
-template <typename T>
+// kHazard: the instantiation for a body with a hazard update (the note on
+// hazards above); false: every other body, whose code does not depend on it.
+template <typename T, bool kHazard>
 __global__ void __launch_bounds__(256)
 fused_column_kernel(Fields<T> f, Geom g, const int* __restrict__ desc_g,
                     const double* __restrict__ coef_g) {
@@ -399,6 +276,10 @@ fused_column_kernel(Fields<T> f, Geom g, const int* __restrict__ desc_g,
   double* coefs = smem;                                   // n_coefs
   T* coefs_t = reinterpret_cast<T*>(smem + g.n_coefs);    // n_coefs, as T
   int* desc = reinterpret_cast<int*>(coefs_t + g.n_coefs);
+  T* const stage = kHazard ? reinterpret_cast<T*>(
+                                 reinterpret_cast<char*>(smem) +
+                                 stage_offset<T>(g.n_coefs, g.n_ints))
+                           : nullptr;     // BY x (largest hazard zlen)
   __shared__ const T* s_in[kMaxFields];
   __shared__ T* s_out[kMaxFields];
   __shared__ long long s_sx[kMaxFields];   // input x stride, in_py * nz
@@ -487,7 +368,25 @@ fused_column_kernel(Fields<T> f, Geom g, const int* __restrict__ desc_g,
 #pragma unroll
         for (int c = 0; c < kK1Cells; ++c) {
           const int z = zc + c * blockDim.x;
+          if constexpr (kHazard) {
+            if (hd[5]) {   // interior, inside the window: park the value
+              if (z < ze) stage[threadIdx.y * zlen + (z - z0)] = val.v[c];
+              continue;
+            }
+          }
           if (z < ze) dst[z] = win[c] ? val.v[c] : own[z];
+        }
+      }
+    }
+    if constexpr (kHazard) {
+      if (hd[5]) {
+        // every new value of the window is in the stage: store them
+        __syncthreads();
+        if (live && interior) {
+          T* dst = s_out[fl] + r_out * nz;
+          const T* row = stage + threadIdx.y * zlen;
+          for (int z = (int)threadIdx.x; z < zlen; z += blockDim.x)
+            dst[z0 + z] = row[z];
         }
       }
     }
@@ -536,30 +435,20 @@ Geom read_geom(const int* geom) {
   return g;
 }
 
-template <typename T>
-int launch(const void* const* ins, void* const* outs, void* const* buf0,
-           void* const* buf1, void* tmp, const int* nz, const int* written,
-           int n_fields, const int* desc, const double* coefs,
-           const int* geom, int grid, int threads, int device,
-           cudaStream_t stream) {
-  if (n_fields < 1 || n_fields > kMaxFields) return (int)cudaErrorInvalidValue;
-  DeviceScope scope(device);
-  if (scope.err != cudaSuccess) return (int)scope.err;
-  Fields<T> f = {};
-  for (int q = 0; q < n_fields; ++q) {
-    f.in[q] = static_cast<const T*>(ins[q]);
-    f.out[q] = static_cast<T*>(outs[q]);
-    f.buf0[q] = static_cast<T*>(buf0[q]);
-    f.buf1[q] = static_cast<T*>(buf1[q]);
-    f.nz[q] = nz[q];
-    f.written[q] = written[q];
+// The largest zlen of the hazard updates in the host copy `desc` of a
+// descriptor of n_ints ints, 0 if none is flagged, or -1 if the update
+// headers' chain leaves the descriptor.
+int hazard_zlen(const int* desc, int n_ints) {
+  if (n_ints < 1) return -1;
+  int zmax = 0, pos = 1;
+  for (int u = 0; u < desc[0]; ++u) {
+    if (pos < 1 || pos > n_ints - kUpdHeader) return -1;
+    const int* hd = desc + pos;
+    if (hd[5]) zmax = hd[2] > zmax ? hd[2] : zmax;
+    if (hd[8] <= pos) return -1;
+    pos = hd[8];
   }
-  const Geom g = read_geom(geom);
-  const size_t smem = (size_t)g.n_coefs * sizeof(double) +
-                      (size_t)g.n_ints * sizeof(int);
-  fused_stencil_kernel<T><<<grid, threads, smem, stream>>>(
-      f, g, static_cast<T*>(tmp), desc, coefs);
-  return (int)cudaGetLastError();
+  return zmax;
 }
 
 // The column entry over k sub-steps (k = 1: one launch over the brick):
@@ -569,14 +458,19 @@ int launch(const void* const* ins, void* const* outs, void* const* buf0,
 // its region (grid y = bx_s, grid x * block_y >= by_s).  A written
 // field (outs[q] != null) is read from ins[q] at s = 0, else from scratch
 // (s-1) & 1, and written to scratch s & 1, or to outs[q] at s = k - 1;
-// scratch0 must be set for k > 1, scratch1 for k > 2.  Returns the first
-// error; launches after it are not enqueued.
+// scratch0 must be set for k > 1, scratch1 for k > 2.  `hazard` picks the
+// kHazard instantiation, with a stage of `stage_bytes`: both are checked
+// against host_desc, the host's copy of the descriptor `desc` (a hazard
+// update flagged, and block_y x its largest zlen elements of T; 0 bytes
+// without a hazard).  Returns the first error; launches after it are not
+// enqueued.
 template <typename T>
 int launch_sweep(const void* const* ins, void* const* outs,
                  void* const* scratch0, void* const* scratch1, const int* nz,
                  int n_fields, const int* desc, const double* coefs,
                  const int* geoms, const int* grids, int k, int block_z,
-                 int block_y, int device, cudaStream_t stream) {
+                 int block_y, const int* host_desc, int hazard,
+                 long long stage_bytes, int device, cudaStream_t stream) {
   if (n_fields < 1 || n_fields > kMaxFields || k < 1 || k > kMaxSweep ||
       block_z < 32 || block_z % 32 != 0 || block_y < 1 ||
       block_z * block_y > 256)
@@ -599,14 +493,21 @@ int launch_sweep(const void* const* ins, void* const* outs,
   for (int q = 0; q < n_fields; ++q)
     if (outs[q] && ((k > 1 && !scratch0[q]) || (k > 2 && !scratch1[q])))
       return (int)cudaErrorInvalidValue;
+  const int zmax = host_desc ? hazard_zlen(host_desc, g0.n_ints) : -1;
+  if (zmax < 0 || hazard != (zmax > 0 ? 1 : 0) ||
+      stage_bytes != (long long)block_y * zmax * (long long)sizeof(T))
+    return (int)cudaErrorInvalidValue;
   DeviceScope scope(device);
   if (scope.err != cudaSuccess) return (int)scope.err;
-  const size_t smem = (size_t)g0.n_coefs * (sizeof(double) + sizeof(T)) +
-                      (size_t)g0.n_ints * sizeof(int);
+  const auto kernel =
+      hazard ? fused_column_kernel<T, true> : fused_column_kernel<T, false>;
+  const size_t smem =
+      hazard ? stage_offset<T>(g0.n_coefs, g0.n_ints) + (size_t)stage_bytes
+             : (size_t)g0.n_coefs * (sizeof(double) + sizeof(T)) +
+                   (size_t)g0.n_ints * sizeof(int);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fused_column_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   void* const* scratch[2] = {scratch0, scratch1};
@@ -621,9 +522,8 @@ int launch_sweep(const void* const* ins, void* const* outs,
           !wr ? nullptr : s == k - 1 ? outs[q] : scratch[s & 1][q]);
       f.nz[q] = nz[q];
     }
-    fused_column_kernel<T><<<dim3(grids[2 * s], grids[2 * s + 1]),
-                             dim3(block_z, block_y), smem, stream>>>(
-        f, g, desc, coefs);
+    kernel<<<dim3(grids[2 * s], grids[2 * s + 1]), dim3(block_z, block_y),
+             smem, stream>>>(f, g, desc, coefs);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -634,46 +534,30 @@ int launch_sweep(const void* const* ins, void* const* outs,
 
 extern "C" {
 
-int fused_stencil_f32(const void* const* ins, void* const* outs,
-                      void* const* buf0, void* const* buf1, void* tmp,
-                      const int* nz, const int* written, int n_fields,
-                      const int* desc, const double* coefs, const int* geom,
-                      int grid, int threads, int device, void* stream) {
-  return launch<float>(ins, outs, buf0, buf1, tmp, nz, written, n_fields, desc,
-                       coefs, geom, grid, threads, device,
-                       static_cast<cudaStream_t>(stream));
-}
-
-int fused_stencil_f64(const void* const* ins, void* const* outs,
-                      void* const* buf0, void* const* buf1, void* tmp,
-                      const int* nz, const int* written, int n_fields,
-                      const int* desc, const double* coefs, const int* geom,
-                      int grid, int threads, int device, void* stream) {
-  return launch<double>(ins, outs, buf0, buf1, tmp, nz, written, n_fields,
-                        desc, coefs, geom, grid, threads, device,
-                        static_cast<cudaStream_t>(stream));
-}
-
 int fused_sweep_f32(const void* const* ins, void* const* outs,
                     void* const* scratch0, void* const* scratch1,
                     const int* nz, int n_fields, const int* desc,
                     const double* coefs, const int* geoms, const int* grids,
-                    int k, int block_z, int block_y, int device,
+                    int k, int block_z, int block_y, const int* host_desc,
+                    int hazard, long long stage_bytes, int device,
                     void* stream) {
   return launch_sweep<float>(ins, outs, scratch0, scratch1, nz, n_fields,
                              desc, coefs, geoms, grids, k, block_z, block_y,
-                             device, static_cast<cudaStream_t>(stream));
+                             host_desc, hazard, stage_bytes, device,
+                             static_cast<cudaStream_t>(stream));
 }
 
 int fused_sweep_f64(const void* const* ins, void* const* outs,
                     void* const* scratch0, void* const* scratch1,
                     const int* nz, int n_fields, const int* desc,
                     const double* coefs, const int* geoms, const int* grids,
-                    int k, int block_z, int block_y, int device,
+                    int k, int block_z, int block_y, const int* host_desc,
+                    int hazard, long long stage_bytes, int device,
                     void* stream) {
   return launch_sweep<double>(ins, outs, scratch0, scratch1, nz, n_fields,
                               desc, coefs, geoms, grids, k, block_z, block_y,
-                              device, static_cast<cudaStream_t>(stream));
+                              host_desc, hazard, stage_bytes, device,
+                              static_cast<cudaStream_t>(stream));
 }
 
 const char* fused_stencil_error(int code) {

@@ -1,10 +1,10 @@
-"""K1 — the generic fused stencil for one loop body, on Hopper.
+"""K1 — the fused stencil of one loop body, on Hopper.
 
 The port of ``repro/kernels/fused.py::build_fused_call``.  The Pallas body
-there is unrolled in Python for each tap set; here CUDA kernels
-(``csrc/fused_stencil.cu``, built for ``sm_90a`` at first use) read the same
-structure from a descriptor that :func:`build_fused_call` flattens from the
-lowered updates:
+there is unrolled in Python for each tap set; here one CUDA kernel
+(``csrc/fused_stencil.cu``, built for ``sm_90a`` at first use) reads the
+same structure from a descriptor that :func:`build_fused_call` flattens
+from the lowered updates:
 
 * per update: the written field, ``z0``, ``zlen``, ``const``, and its
   coefficient groups — taps sharing a coefficient, in first-appearance
@@ -27,35 +27,40 @@ memory by every block.  Two modes are ported:
   valid only while blocks run one at a time, and on the card they do not,
   so the engine ping-pongs two resident buffers per written field.
 
-Both modes launch one of two CUDA kernels, which share one body evaluator
-(the association) and so give the same bits; :func:`fused_entry` names the
-route of each kernel:
+Both modes launch the column entry (``fused_column_kernel``), one sub-step
+over a region per launch, through one of two routes that
+:func:`fused_entry` names:
 
-* ``"k1"`` — the column entry (``fused_column_kernel``) once over the brick,
-  for ``k == 1`` without a hazard: every ``make`` step at ``time_tile=1``
-  and every solver operator application.  Each block owns whole z columns
-  of a ``(BZ, BY)`` thread block, laid out by :func:`k1_launch_shape`, with
-  no division per cell and no scratch;
-* ``"sweep"`` — the column entry k times, for ``k > 1`` without a hazard
-  (``make``'s auto pick): sub-step ``s`` over region ``s`` of the
-  trapezoid, as :func:`sweep_geoms` lays out, from and into two
-  full-extent scratch buffers per written field that the kernel holds from
-  its first launch on; one C call enqueues the k launches;
-* ``"generic"`` (``fused_stencil_kernel``) for hazard bodies at any k (the
-  trapezoid on block-private scratch windows).
+* ``"k1"`` — once over the brick, for ``k == 1``: every ``make`` step at
+  ``time_tile=1`` and every solver operator application.  Each block owns
+  whole z columns of a ``(BZ, BY)`` thread block, laid out by
+  :func:`k1_launch_shape`, with no division per cell and no scratch;
+* ``"sweep"`` — k times, for ``k > 1`` (``make``'s auto pick): sub-step
+  ``s`` over region ``s`` of the trapezoid, as :func:`sweep_geoms` lays
+  out, from and into two full-extent scratch buffers per written field
+  that the kernel holds from its first launch on; one C call enqueues the
+  k launches.
+
+A body with a hazard — an update that re-writes a field already written in
+the sub-step while reading that field's new value at ``dz ≠ 0`` — takes the
+same routes through the kernel's hazard instantiation, which computes such
+an update's new z window into a shared-memory stage of
+:func:`hazard_stage_bytes` before storing any of it.  A body whose stage
+and descriptor pass :data:`MAX_SHARED_BYTES` is refused at build.
 
 The region mode (overlap) and the batch axis (ensembles) come with later
 slices.
 
 Entry points:
 
-* :func:`launch_fused` launches a CUDA entry on CUDA tensors and counts its
-  launches in ``launch_fused.launches`` (both modes, every entry),
-  ``launch_fused.margin_launches`` (the margin mode's share),
+* :func:`launch_fused` launches the column entry on CUDA tensors and
+  counts its launches in ``launch_fused.launches`` (both modes, every
+  route), ``launch_fused.margin_launches`` (the margin mode's share),
   ``launch_fused.k1_launches`` (the k = 1 route's share),
   ``launch_fused.sweep_launches`` (the sweep's share, one per k-step
-  launch) and ``launch_fused.sweep_substeps`` (the sweep's column-entry
-  launches, k per sweep);
+  launch), ``launch_fused.sweep_substeps`` (the sweep's column-entry
+  launches, k per sweep) and ``launch_fused.hazard_launches`` (the share of
+  hazard bodies, either route);
 * :func:`fused_step_ref` is the plain PyTorch version: the same trapezoid,
   the same Moat mask and the same association, over the whole window at
   once.  The CPU path and the tests use it;
@@ -83,11 +88,11 @@ import torch
 MAX_FIELDS = 16
 #: shared-memory budget for the descriptor (ints + doubles), bytes
 MAX_DESC_BYTES = 40 * 1024
+#: the column entry's dynamic shared memory (coefficients, descriptor and
+#: hazard stage): an H100 block's 227 KB less 1 KB for its static arrays
+MAX_SHARED_BYTES = 227 * 1024 - 1024
 #: threads per block
 THREADS = 256
-#: scratch windows exist for at most this many blocks; a larger grid of
-#: tiles is walked by a block-stride loop
-MAX_SCRATCH_BLOCKS = 512
 #: the dtypes the kernel is built for
 DTYPES = (torch.float32, torch.float64)
 #: z cells one thread of the column entry evaluates at once (``kK1Cells`` in
@@ -97,10 +102,12 @@ K1_CELLS = 4
 MAX_GRID_X = 2 ** 31 - 1
 MAX_GRID_Y = 65535
 
-#: one launch's geometry, the CUDA source's ``Geom`` field for field.  For
-#: the column entry ``bx, by`` and ``cx, cy`` are the region's extent and
-#: global origin, ``in_off`` the origin of its ``h``-deep read window in the
-#: inputs, ``out_off, out_py`` where it lands in its destination
+#: one launch's geometry, the CUDA source's ``Geom`` field for field:
+#: ``bx, by`` and ``cx, cy`` are the region's extent and global origin,
+#: ``in_off`` the origin of its ``h``-deep read window in the inputs,
+#: ``out_off, out_py`` where it lands in its destination.  ``k``,
+#: ``max_nz`` and the four tile fields are unused; they keep their places
+#: in the kernel's parameters
 Geom = collections.namedtuple(
     "Geom", "bx by nx ny cx cy k h wrap tile_x tile_y tiles_x tiles_y n_ints "
             "n_coefs max_nz in_off in_py out_off out_py")
@@ -122,7 +129,6 @@ class FusedKernel:
     nx: int
     ny: int
     wrap: bool
-    tile: Tuple[int, int]
     ints: Tuple[int, ...]
     coefs: Tuple[float, ...]
     hazard: bool
@@ -188,21 +194,45 @@ def _encode(updates, in_names, nz_of):
     return tuple(ints), tuple(coefs), any_hazard
 
 
-def default_tile(k: int, bx: int, by: int) -> Tuple[int, int]:
-    """Output tile of one block of the generic entry, which serves only
-    hazard bodies: 16×16 at k = 1, 32×32 when k > 1 (a wider tile keeps the
-    trapezoid's recompute share down).  The column entry has no tile."""
-    t = 16 if k == 1 else 32
-    return min(t, bx), min(t, by)
-
-
 def fused_entry(kernel: FusedKernel) -> str:
-    """The route that serves ``kernel``'s launches: ``"generic"`` for a
-    hazard body, else the column entry — ``"k1"`` for ``k == 1``,
-    ``"sweep"`` for ``k > 1``."""
-    if kernel.hazard:
-        return "generic"
+    """The route that serves ``kernel``'s launches, with or without a
+    hazard: ``"k1"`` (the column entry once) for ``k == 1``, ``"sweep"``
+    (the column entry k times) for ``k > 1``."""
     return "k1" if kernel.k == 1 else "sweep"
+
+
+def k1_block(max_nz: int) -> Tuple[int, int]:
+    """``(BZ, BY)``, the column entry's block for fields of at most
+    ``max_nz`` z cells: ``BZ = min(128, ⌈max_nz / K1_CELLS⌉ rounded up to
+    32)`` threads along z, ``BY = THREADS // BZ`` columns."""
+    per_thread = -(-max_nz // K1_CELLS)
+    bz = min(128, -(-per_thread // 32) * 32)
+    return bz, THREADS // bz
+
+
+def hazard_stage_bytes(kernel: FusedKernel, block_y: int) -> int:
+    """Bytes of the hazard instantiation's shared-memory stage for blocks
+    of ``block_y`` columns: ``block_y`` × the largest ``zlen`` of the body's
+    hazard updates, in the kernel's dtype; 0 for a body without a hazard.
+    Read from the descriptor, as the CUDA side checks it."""
+    ints, zmax, pos = kernel.ints, 0, 1
+    for _ in range(ints[0]):
+        if ints[pos + 5]:
+            zmax = max(zmax, ints[pos + 2])
+        pos = ints[pos + 8]
+    itemsize = torch.finfo(kernel.dtype).bits // 8
+    return block_y * zmax * itemsize
+
+
+def column_shared_bytes(kernel: FusedKernel, block_y: int) -> int:
+    """Dynamic shared memory of one column-entry block: the coefficients as
+    double and as the dtype and the descriptor, then (hazard bodies) the
+    stage at the next 16 bytes (``stage_offset`` in the CUDA source)."""
+    itemsize = torch.finfo(kernel.dtype).bits // 8
+    head = len(kernel.coefs) * (8 + itemsize) + 4 * len(kernel.ints)
+    if not kernel.hazard:
+        return head
+    return -(-head // 16) * 16 + hazard_stage_bytes(kernel, block_y)
 
 
 def k1_launch_shape(kernel: FusedKernel,
@@ -220,9 +250,7 @@ def k1_launch_shape(kernel: FusedKernel,
     grid over CUDA's limits.
     """
     rx, ry = extent or (kernel.bx, kernel.by)
-    per_thread = -(-max(kernel.nz) // K1_CELLS)
-    bz = min(128, -(-per_thread // 32) * 32)
-    by_threads = THREADS // bz
+    bz, by_threads = k1_block(max(kernel.nz))
     grid = (-(-ry // by_threads), rx)
     if (rx < 1 or ry < 1 or min(kernel.nz) < 1
             or grid[0] > MAX_GRID_X or grid[1] > MAX_GRID_Y):
@@ -300,8 +328,9 @@ def build_fused_call(updates: Sequence, field_specs: Dict[str, Tuple[int, object
     first-written order.  Raises ``ValueError``, on every device and before
     touching CUDA, for a body outside the kernel's limits: another dtype
     than float32/float64, more than one dtype, more than ``MAX_FIELDS``
-    fields, or a descriptor over ``MAX_DESC_BYTES``; and for a margin
-    below ``k·halo``.
+    fields, a descriptor over ``MAX_DESC_BYTES``, or a hazard body whose
+    stage and descriptor pass ``MAX_SHARED_BYTES``
+    (:func:`column_shared_bytes`); and for a margin below ``k·halo``.
     """
     if margin and margin < time_tile * halo:
         raise ValueError(
@@ -325,16 +354,23 @@ def build_fused_call(updates: Sequence, field_specs: Dict[str, Tuple[int, object
         raise ValueError(
             f"loop body descriptor is {desc_bytes} bytes > {MAX_DESC_BYTES} "
             f"(shared-memory budget)")
-    tile = default_tile(time_tile, bx, by)
     device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
     kern = FusedKernel(
         updates=tuple(updates), in_names=in_names, written=tuple(written),
         nz=tuple(nz_of[n] for n in in_names), dtype=next(iter(dtypes)),
         halo=int(halo), k=int(time_tile), bx=bx, by=by, nx=nx, ny=ny,
-        wrap=bool(wrap), tile=tile, ints=ints, coefs=coefs, hazard=hazard,
+        wrap=bool(wrap), ints=ints, coefs=coefs, hazard=hazard,
         device=device, margin=int(margin))
+    if hazard:
+        smem = column_shared_bytes(kern, k1_block(max(kern.nz))[1])
+        if smem > MAX_SHARED_BYTES:
+            raise ValueError(
+                f"the hazard stage and descriptor take {smem} bytes of shared "
+                f"memory > {MAX_SHARED_BYTES} (a hazard update's z window is "
+                "too long)")
+    if device.type == "cuda" and device.index is None:
+        kern.device = device = torch.device("cuda",
+                                            torch.cuda.current_device())
     if device.type == "cuda":
         kern.ints_dev = torch.tensor(ints, dtype=torch.int32, device=device)
         kern.coefs_dev = torch.tensor(coefs, dtype=torch.float64, device=device)
@@ -544,17 +580,12 @@ def _library():
         lib = load_library("fused_stencil")
         ptrs = ctypes.POINTER(ctypes.c_void_p)
         ints = ctypes.POINTER(ctypes.c_int)
-        for fn in (lib.fused_stencil_f32, lib.fused_stencil_f64):
-            fn.argtypes = [ptrs, ptrs, ptrs, ptrs, ctypes.c_void_p, ints, ints,
-                           ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ints,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
         for fn in (lib.fused_sweep_f32, lib.fused_sweep_f64):
             fn.argtypes = [ptrs, ptrs, ptrs, ptrs, ints, ctypes.c_int,
                            ctypes.c_void_p, ctypes.c_void_p, ints, ints,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_void_p]
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int, ints,
+                           ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                           ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.fused_stencil_error.argtypes = [ctypes.c_int]
         lib.fused_stencil_error.restype = ctypes.c_char_p
@@ -583,22 +614,25 @@ def _check_inputs(kernel: FusedKernel, inputs) -> torch.device:
 
 
 def _sweep_held(kernel: FusedKernel, coords: Tuple[int, int]):
-    """What the sweep keeps between launches of ``kernel``: the ctypes
-    geometry of the brick at ``coords`` with each sub-step's grid and the
-    column entry's block (:func:`k1_launch_shape` of each region), built at
-    their first launch, and the scratch pointer tables over two buffers per
-    written field at the inputs' extent (``min(k − 1, 2)`` of them),
+    """What the column entry keeps between launches of ``kernel``: the
+    ctypes geometry of the brick at ``coords`` with each sub-step's grid,
+    the block (:func:`k1_launch_shape` of each region) and the hazard
+    stage's bytes (:func:`hazard_stage_bytes`), built at their first
+    launch; the host copy of the descriptor, which C checks the stage
+    against; and the scratch pointer tables over two buffers per written
+    field at the inputs' extent (``min(k − 1, 2)`` of them, none at k = 1),
     allocated once (``torch.empty``) and reused by every later launch."""
     held = kernel.held
     key = ("geoms", coords)
     if key not in held:
         geoms = sweep_geoms(kernel, coords)
         shapes = [k1_launch_shape(kernel, (g.bx, g.by)) for g in geoms]
+        block = shapes[0][1]
         held[key] = ((ctypes.c_int * (len(Geom._fields) * len(geoms)))(
             *itertools.chain.from_iterable(geoms)),
             (ctypes.c_int * (2 * len(geoms)))(
                 *itertools.chain.from_iterable(g for g, _ in shapes)),
-            shapes[0][1])
+            block, hazard_stage_bytes(kernel, block[1]))
     if "scratch" not in held:
         ex, ey = kernel.extent
         bufs = [[torch.empty((ex, ey, nz), dtype=kernel.dtype,
@@ -608,15 +642,17 @@ def _sweep_held(kernel: FusedKernel, coords: Tuple[int, int]):
                 for b in range(2)]
         held["scratch"] = (bufs, [_PTRS(*[None if t is None else t.data_ptr()
                                           for t in ts]) for ts in bufs])
-    return held[key], held["scratch"][1]
+        held["ints"] = (ctypes.c_int * len(kernel.ints))(*kernel.ints)
+    return held[key], held["scratch"][1], held["ints"]
 
 
 def launch_fused(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
                  coords: Tuple[int, int] = (0, 0),
                  out: Optional[Sequence[torch.Tensor]] = None
                  ) -> Tuple[torch.Tensor, ...]:
-    """Launch K1 on CUDA tensors, through the route :func:`fused_entry`
-    names.
+    """Launch K1's column entry on CUDA tensors, through the route
+    :func:`fused_entry` names (a hazard body through the kernel's hazard
+    instantiation).
 
     Padded mode: returns fresh ``(bx, by, nz)`` outputs.  Margin mode:
     writes the brick interiors of the caller's ``out`` buffers (resident
@@ -624,11 +660,10 @@ def launch_fused(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
     allocated.  Checks device, dtype, shape and contiguity, launches on the
     current stream and raises if a launch was refused.  The sweep's scratch
     is allocated at the kernel's first sweep and held by the kernel (so
-    launches of one kernel on two streams at once would race on it); the
-    generic entry allocates its k > 1 and hazard scratch per launch with
-    ``torch.empty``.  The k = 1 route also needs the brick inside the
-    global extent (``coords ≥ 0``, ``coords + (bx, by) ≤ (nx, ny)``),
-    which it checks.  Does not synchronise.
+    launches of one kernel on two streams at once would race on it).  The
+    k = 1 route also needs the brick inside the global extent (``coords ≥
+    0``, ``coords + (bx, by) ≤ (nx, ny)``), which it checks.  Does not
+    synchronise.
     """
     if kernel.device.type != "cuda" or kernel.ints_dev is None:
         raise ValueError(f"kernel was built for {kernel.device}, not CUDA")
@@ -643,60 +678,25 @@ def launch_fused(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
                          "grid")
     lib = _library()
     k = kernel.k
-    f32 = kernel.dtype == torch.float32
-    opts = dict(dtype=kernel.dtype, device=dev)
     if kernel.margin:
         outs = dict(zip(kernel.written, out))
     else:
-        outs = {name: torch.empty((kernel.bx, kernel.by, nz), **opts)
+        outs = {name: torch.empty((kernel.bx, kernel.by, nz),
+                                  dtype=kernel.dtype, device=dev)
                 for name, nz in zip(kernel.in_names, kernel.nz)
                 if name in kernel.written}
-    n = len(kernel.in_names)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ins = _PTRS(*[t.data_ptr() for t in inputs])
     out_ptrs = _PTRS(*[outs[nm].data_ptr() if nm in outs else None
                        for nm in kernel.in_names])
-    if entry != "generic":
-        (geoms, grids, (bz, bty)), (s0, s1) = _sweep_held(kernel, (cx, cy))
-        fn = lib.fused_sweep_f32 if f32 else lib.fused_sweep_f64
-        rc = fn(ins, out_ptrs, s0, s1, _INTS(*kernel.nz), n,
-                kernel.ints_dev.data_ptr(), kernel.coefs_dev.data_ptr(), geoms,
-                grids, k, bz, bty, dev.index, stream)
-    else:
-        tx, ty = kernel.tile
-        tiles_x = -(-kernel.bx // tx)
-        tiles_y = -(-kernel.by // ty)
-        in_off, out_off, out_py = _origins(kernel)
-        geom = (ctypes.c_int * len(Geom._fields))(*Geom(
-            kernel.bx, kernel.by, kernel.nx, kernel.ny, cx, cy, k, kernel.halo,
-            int(kernel.wrap), tx, ty, tiles_x, tiles_y, len(kernel.ints),
-            len(kernel.coefs), max(kernel.nz), in_off, kernel.extent[1],
-            out_off, out_py))
-        grid = min(tiles_x * tiles_y, MAX_SCRATCH_BLOCKS)
-        win = (tx + 2 * kernel.pad) * (ty + 2 * kernel.pad)
-        # `keep` holds the scratch tensors until the launch is enqueued (the
-        # loop rebinds b0/b1); after that the caching allocator orders their
-        # reuse on this stream behind the kernel
-        bufs0, bufs1, keep = [], [], []
-        for name, nz in zip(kernel.in_names, kernel.nz):
-            if name in kernel.written and k > 1:
-                b0 = torch.empty(grid * win * nz, **opts)
-                b1 = torch.empty(grid * win * nz, **opts)
-                keep += [b0, b1]
-                bufs0.append(b0.data_ptr())
-                bufs1.append(b1.data_ptr())
-            else:
-                bufs0.append(None)
-                bufs1.append(None)
-        tmp = (torch.empty(grid * win * max(kernel.nz), **opts)
-               if kernel.hazard else None)
-        fn = lib.fused_stencil_f32 if f32 else lib.fused_stencil_f64
-        rc = fn(ins, out_ptrs, _PTRS(*bufs0), _PTRS(*bufs1),
-                None if tmp is None else tmp.data_ptr(),
-                _INTS(*kernel.nz),
-                _INTS(*[int(nm in outs) for nm in kernel.in_names]),
-                n, kernel.ints_dev.data_ptr(), kernel.coefs_dev.data_ptr(),
-                geom, grid, THREADS, dev.index, stream)
+    ((geoms, grids, (bz, bty), stage), (s0, s1),
+     host_ints) = _sweep_held(kernel, (cx, cy))
+    fn = (lib.fused_sweep_f32 if kernel.dtype == torch.float32
+          else lib.fused_sweep_f64)
+    rc = fn(ins, out_ptrs, s0, s1, _INTS(*kernel.nz), len(kernel.in_names),
+            kernel.ints_dev.data_ptr(), kernel.coefs_dev.data_ptr(), geoms,
+            grids, k, bz, bty, host_ints, int(kernel.hazard), stage,
+            dev.index, stream)
     if rc != 0:
         raise RuntimeError(
             f"fused_stencil {entry} launch failed: "
@@ -706,6 +706,7 @@ def launch_fused(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
     launch_fused.k1_launches += entry == "k1"
     launch_fused.sweep_launches += entry == "sweep"
     launch_fused.sweep_substeps += k if entry == "sweep" else 0
+    launch_fused.hazard_launches += kernel.hazard
     return tuple(outs[nm] for nm in kernel.written)
 
 
@@ -714,3 +715,4 @@ launch_fused.margin_launches = 0
 launch_fused.k1_launches = 0
 launch_fused.sweep_launches = 0
 launch_fused.sweep_substeps = 0
+launch_fused.hazard_launches = 0

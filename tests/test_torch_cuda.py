@@ -39,16 +39,19 @@ Without a card every test skips.  Tolerances:
 * K1's margin mode (resident inputs, ping-pong outputs) against
   ``fused_step_ref`` in margin mode: bitwise, margins of the output left
   alone; ``make`` on the resident layout equal to ``resident=False`` on the
-  card, bitwise;
+  card, bitwise, for a hazard body;
 * K1's k = 1 entry against ``fused_step_ref``, in the padded mode and the
-  margin mode (M = h and h + 1), at float32 and float64: bitwise (one body
-  evaluator with the generic entry, ``--fmad=false``), margins of the
-  output left alone, one ``k1_launches`` per launch;
+  margin mode (M = h and h + 1), at float32 and float64: bitwise
+  (``--fmad=false``), margins of the output left alone, one ``k1_launches``
+  per launch, on :data:`K1_BODIES` and :data:`HAZARD_BODIES` (the hazard
+  instantiation: two hazard updates, ``z0 > 0``, nz = 200 and 600);
 * K1's sweep (the column entry k times) against ``fused_step_ref`` at
-  k = 2, 3 and 8, both modes, float32 and float64, bricks at the grid's
-  corners: bitwise, one ``sweep_launches`` and k ``sweep_substeps`` per
-  launch; a second launch allocates nothing; ``make`` at the auto tile
-  (all sweeps) equals ``time_tile=1``, resident and repacking, bitwise.
+  k = 2, 3 and 8, both modes, float32 and float64, ragged bricks at the
+  grid's corners, the same bodies: bitwise, one ``sweep_launches`` and k
+  ``sweep_substeps`` per launch, one ``hazard_launches`` per launch of a
+  hazard body; a second launch allocates nothing, nor does a step of a
+  resident hazard ``make`` at the auto tile; ``make`` at the auto tile (all
+  sweeps) equals ``time_tile=1``, resident and repacking, bitwise.
 
 The bodies of :data:`K1_BODIES` are shared with ``test_torch_k1.py``, which
 holds their plain version against the JAX reference on the CPU.
@@ -432,7 +435,8 @@ def test_cuda_fused_margin_mode_bitwise_vs_plain():
     """K1 in margin mode equals fused_step_ref in margin mode bit for bit,
     at float32 and float64, k = 1 and 2, M = k·h and k·h + 1, writes only
     the brick interiors of its outputs, and equals the padded mode's
-    outputs there (chip_smoke.py runs the heat body at full width)."""
+    outputs there, on a hazard body (chip_smoke.py runs the heat body and
+    the hazard body at full width)."""
     _need_card()
     rng = np.random.default_rng(8)
     for dtype in (np.float32, np.float64):
@@ -462,11 +466,13 @@ def test_cuda_fused_margin_mode_bitwise_vs_plain():
                 ins = [wrap_refresh(lay.enter({n: env[n]})[n], M, kern.pad)
                        for n in kern.in_names]
                 outs = {}
+                before = launch_fused.hazard_launches
                 for how in ("kernel", "plain"):
                     out = [torch.full_like(ins[kern.in_names.index(n)], -7.0)
                            for n in kern.written]
                     call = launch_fused if how == "kernel" else fused_step_ref
                     outs[how] = call(kern, ins, out=out)
+                assert launch_fused.hazard_launches == before + 1
                 for g, p, w in zip(outs["kernel"], outs["plain"], want):
                     assert torch.equal(g, p), (dtype, k, M)
                     assert torch.equal(g[M:-M, M:-M], w)
@@ -476,30 +482,41 @@ def test_cuda_fused_margin_mode_bitwise_vs_plain():
 
 @pytest.mark.cuda
 def test_cuda_resident_make_equals_repack_make():
-    """make(backend="pallas") on the card: the resident layout (margin-mode
-    launches only) equals the repacking step bitwise, with a remainder."""
+    """make(backend="pallas") of a hazard body on the card: the resident
+    layout (margin-mode launches only) equals the repacking step bitwise,
+    with a remainder; every launch a hazard launch."""
     _need_card()
     rng = np.random.default_rng(9)
     A0, C0, B0 = (rng.uniform(0.0, 1.0, (37, 29, 11)).astype(np.float32)
                   for _ in range(3))
     out = {}
     for resident in (True, False):
-        before = (launch_fused.launches, launch_fused.margin_launches)
+        before = (launch_fused.launches, launch_fused.margin_launches,
+                  launch_fused.hazard_launches)
         wse, A = _hazard_body(A0, C0, B0, 5)
         out[resident] = wse.make(answer=A, options=RunOptions(
             backend="pallas", time_tile=2, resident=resident))
         launched = (launch_fused.launches - before[0],
-                    launch_fused.margin_launches - before[1])
-        assert launched == ((3, 3) if resident else (3, 0))
+                    launch_fused.margin_launches - before[1],
+                    launch_fused.hazard_launches - before[2])
+        assert launched == ((3, 3, 3) if resident else (3, 0, 3))
     np.testing.assert_array_equal(out[True], out[False])
 
 
 #: bodies the k = 1 entry serves: heat; advection–diffusion with off-axis
 #: taps and a second update reading the first's new value at dz = ±1 (not a
 #: hazard); halo 2 with fields of different nz; one field with nz = 200 >
-#: BZ; a 3×3×2 brick, the shape of a coarse multigrid level
+#: BZ; a 3×3×2 brick, the shape of a coarse multigrid level; and the
+#: coupled body with a hazard (A re-written from its own new value at
+#: dz = -1)
 K1_BODIES = ("heat", "advdiff_dz", "wide_halo2_mixed_nz", "nz200",
-             "coarse_3x3x2")
+             "coarse_3x3x2", "hazard")
+#: more hazard bodies: two hazard updates in one body, the second with
+#: z0 = 4 and zlen = nz - 7; and a heat update followed by a hazard one at
+#: nz = 200 and 600 (at 600 a column's z walk takes two passes of its
+#: 4·BZ = 512 cells, so the stage spans both)
+HAZARD_BODIES = ("hazard", "hazard_two_updates", "hazard_nz200",
+                 "hazard_nz600")
 
 
 def k1_body(m, name, dtype, steps=2, seed=0):
@@ -516,6 +533,31 @@ def k1_body(m, name, dtype, steps=2, seed=0):
             T[1:-1, 0, 0] = 0.4 * T[1:-1, 0, 0] + 0.1 * (
                 T[2:, 0, 0] + T[:-2, 0, 0] + T[1:-1, 1, 0] + T[1:-1, 0, -1]
                 + T[1:-1, -1, 0] + T[1:-1, 0, 1])
+    elif name in ("hazard", "hazard_two_updates"):
+        nz = 9 if name == "hazard" else 16
+        env = {n: rng.uniform(0.0, hi, (13, 11, nz)).astype(dtype)
+               for n, hi in (("A", 1.0), ("C", 0.05), ("B", 1.0))}
+        A, C, B = (m.WSE_Array(n, init_data=env[n], dtype=env[n].dtype)
+                   for n in ("A", "C", "B"))
+        with m.WSE_For_Loop("t", steps):
+            A[1:-1, 0, 0] = A[1:-1, 0, 0] + 0.05 * (
+                A[2:, 0, 0] + A[:-2, 0, 0] + A[1:-1, 1, 0] + A[1:-1, -1, 0]
+                - 4.0 * A[1:-1, 0, 0]) + C[1:-1, 0, 0] * (
+                A[1:-1, 1, 1] + A[1:-1, -1, -1] - 2.0 * A[1:-1, 0, 0])
+            B[1:-1, 0, 0] = 0.5 * B[1:-1, 0, 0] + 0.25 * (
+                A[2:, 0, 0] + A[:-2, 0, 0]) + 0.125
+            A[2:-1, 0, 0] = A[2:-1, 0, 0] - 0.01 * A[1:-2, 0, 0]
+            if name == "hazard_two_updates":
+                A[4:-3, 0, 0] = A[4:-3, 0, 0] + 0.02 * A[5:-2, 0, 0]
+    elif name in ("hazard_nz200", "hazard_nz600"):
+        shape = (9, 7, 200) if name == "hazard_nz200" else (6, 5, 600)
+        env = {"T": rng.uniform(300.0, 500.0, shape).astype(dtype)}
+        T = m.WSE_Array("T", init_data=env["T"], dtype=env["T"].dtype)
+        with m.WSE_For_Loop("t", steps):
+            T[1:-1, 0, 0] = 0.4 * T[1:-1, 0, 0] + 0.1 * (
+                T[2:, 0, 0] + T[:-2, 0, 0] + T[1:-1, 1, 0] + T[1:-1, 0, -1]
+                + T[1:-1, -1, 0] + T[1:-1, 0, 1])
+            T[2:-1, 0, 0] = T[2:-1, 0, 0] - 0.01 * T[1:-2, 0, 0]
     elif name == "advdiff_dz":
         env = {n: rng.uniform(0.0, hi, (13, 11, 9)).astype(dtype)
                for n, hi in (("A", 1.0), ("C", 0.05), ("B", 1.0))}
@@ -574,11 +616,12 @@ def brick_window(field, coords, bx, by, pad):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", K1_BODIES)
+@pytest.mark.parametrize("name", K1_BODIES + HAZARD_BODIES[1:])
 def test_cuda_k1_entry_bitwise_vs_plain(name):
     """K1's k = 1 entry equals fused_step_ref bit for bit in the padded mode
     and in the margin mode (M = h and h + 1, output margins untouched), at
-    float32 and float64, and counts one k1 launch per launch."""
+    float32 and float64, and counts one k1 launch per launch (and one
+    hazard launch for a hazard body)."""
     _need_card()
     for dtype in (np.float32, np.float64):
         kern, env = k1_kernel(name, dtype, "cuda")
@@ -586,8 +629,10 @@ def test_cuda_k1_entry_bitwise_vs_plain(name):
         padded = [_wrap_pad(torch.tensor(env[n], device="cuda"), kern.pad)
                   for n in kern.in_names]
         before = launch_fused.k1_launches
+        hazards = launch_fused.hazard_launches
         got = launch_fused(kern, padded)
         assert launch_fused.k1_launches == before + 1
+        assert launch_fused.hazard_launches == hazards + kern.hazard
         want = fused_step_ref(kern, padded)
         for g, w in zip(got, want):
             assert torch.equal(g, w), (name, dtype)
@@ -609,12 +654,13 @@ def test_cuda_k1_entry_bitwise_vs_plain(name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", K1_BODIES)
+@pytest.mark.parametrize("name", K1_BODIES + HAZARD_BODIES[1:])
 def test_cuda_sweep_entry_bitwise_vs_plain(name):
     """K1's sweep equals fused_step_ref bit for bit at k = 2, 3 and 8, in
     the padded mode and the margin mode (M = k·h and k·h + 1, output
     margins untouched), at float32 and float64, for bricks of about half
-    the grid at its low and high corners (regions wrap past both edges)."""
+    the grid at its low and high corners (regions wrap past both edges),
+    hazard bodies through the hazard instantiation."""
     _need_card()
     for dtype in (np.float32, np.float64):
         whole, env = k1_kernel(name, dtype, "cpu")
@@ -636,12 +682,15 @@ def test_cuda_sweep_entry_bitwise_vs_plain(name):
                                                 -7.0)
                                 for n in kern.written] if M else None)
                         before = (launch_fused.sweep_launches,
-                                  launch_fused.sweep_substeps)
+                                  launch_fused.sweep_substeps,
+                                  launch_fused.hazard_launches)
                         call = launch_fused if how == "kernel" else fused_step_ref
                         outs[how] = call(kern, ins, coords, out=out)
                         assert (launch_fused.sweep_launches - before[0],
-                                launch_fused.sweep_substeps - before[1]) == (
-                                    (1, k) if how == "kernel" else (0, 0))
+                                launch_fused.sweep_substeps - before[1],
+                                launch_fused.hazard_launches - before[2]) == (
+                                    (1, k, int(kern.hazard)) if how == "kernel"
+                                    else (0, 0, 0))
                     for g, w in zip(outs["kernel"], outs["plain"]):
                         assert torch.equal(g, w), (name, dtype, k, M, coords)
 
@@ -692,3 +741,41 @@ def test_cuda_make_auto_tile_equals_k1():
             assert launched == ((2, 2, 16) if tt is None else (16, 0, 0))
     for key, got in out.items():
         np.testing.assert_array_equal(got, out[1, True], err_msg=str(key))
+
+
+@pytest.mark.cuda
+def test_cuda_resident_hazard_make_allocates_nothing_per_step():
+    """A resident make of a hazard body at the auto tile: every launch a
+    hazard sweep, and no device allocation per step — a run's growth of
+    ``allocation.all.allocated`` (after a warm-up run, which allocates the
+    kernel's scratch) is the same over 16 steps as over 8 (what a run
+    allocates once, the layout's enter and exit and its spares, cancels)."""
+    _need_card()
+    from repro_torch.convert import env_from_numpy
+    from repro_torch.engine import plan, single_runner
+
+    rng = np.random.default_rng(11)
+    A0, C0, B0 = (rng.uniform(0.0, 1.0, (40, 36, 12)).astype(np.float32)
+                  for _ in range(3))
+    grown = {}
+    for steps in (8, 16):
+        wse, _ = _hazard_body(A0, C0, B0, steps)
+        p = plan(wse.program, RunOptions(backend="pallas", time_tile=None))
+        wse.__exit__()
+        run = single_runner(p)
+        env = env_from_numpy({"A": A0, "C": C0, "B": B0}, "cuda")
+        run(env)
+        torch.cuda.synchronize()
+        before = (torch.cuda.memory_stats()["allocation.all.allocated"],
+                  launch_fused.launches, launch_fused.sweep_launches,
+                  launch_fused.hazard_launches)
+        run(env)
+        torch.cuda.synchronize()
+        after = (torch.cuda.memory_stats()["allocation.all.allocated"],
+                 launch_fused.launches, launch_fused.sweep_launches,
+                 launch_fused.hazard_launches)
+        launched = after[1] - before[1]
+        assert launched > 0
+        assert after[2] - before[2] == after[3] - before[3] == launched
+        grown[steps] = after[0] - before[0]
+    assert grown[16] == grown[8], grown

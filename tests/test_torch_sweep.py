@@ -9,10 +9,11 @@ against the trapezoid and against the JAX reference.
 * :func:`fused_sweep_ref` (one plain sub-step per geometry, through
   NaN-filled full-extent scratch) equals :func:`fused_step_ref` **bitwise**
   at float32 and float64, in both modes, on the bodies of
-  ``test_torch_cuda.K1_BODIES`` (halo 2 and mixed nz among them), for
+  ``test_torch_cuda.K1_BODIES`` and ``HAZARD_BODIES`` (halo 2, mixed nz
+  and hazard updates among them; the hazard bodies at k = 8 too), for
   bricks at the grid's low and high edges with ``wrap``;
 * at k = 2 it equals the reference kernel's arithmetic (``_apply_updates``
-  op by op) bitwise;
+  op by op) bitwise, hazard bodies included;
 * the grids the launcher holds for the sweep (one per sub-step, from
   :func:`k1_launch_shape`, the only grid the C entry launches) cover each
   sub-step's region exactly once.
@@ -34,7 +35,8 @@ from repro_torch.kernels.fused import (K1_CELLS, _sweep_held, fused_entry,
                                        fused_step_ref, fused_sweep_ref,
                                        k1_launch_shape, sweep_geoms)
 from test_torch_compiler import _ref_kernel_eager
-from test_torch_cuda import K1_BODIES, brick_window, k1_body, k1_kernel
+from test_torch_cuda import (HAZARD_BODIES, K1_BODIES, brick_window, k1_body,
+                             k1_kernel)
 from test_torch_k1 import _heat_kernel
 
 
@@ -89,15 +91,16 @@ def test_sweep_geoms_write_the_trapezoid_and_read_inside(k, h, extra, bx, by):
 
 @pytest.mark.parametrize("mode", ["padded", "margin"])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("name", K1_BODIES)
+@pytest.mark.parametrize("name", K1_BODIES + HAZARD_BODIES[1:])
 def test_sweep_plain_schedule_equals_fused_step_ref_bitwise(name, dtype, mode):
     """Bricks of about half the grid at its low and high corners, k = 2
-    and 3, margins k·h and k·h + 1 in margin mode: the schedule's result is
-    the trapezoid's, bit for bit (margins of the outputs left alone)."""
+    and 3 (and 8 for a hazard body), margins k·h and k·h + 1 in margin
+    mode: the schedule's result is the trapezoid's, bit for bit (margins of
+    the outputs left alone)."""
     whole, env = k1_kernel(name, dtype, "cpu")
     nx, ny, h = whole.nx, whole.ny, whole.halo
     bx, by = nx // 2 + 1, ny // 2 + 1
-    for k in (2, 3):
+    for k in (2, 3, 8) if whole.hazard else (2, 3):
         for M in ((k * h, k * h + 1) if mode == "margin" else (0,)):
             kern, _ = k1_kernel(name, dtype, "cpu", margin=M, k=k,
                                 brick=(bx, by))
@@ -116,7 +119,7 @@ def test_sweep_plain_schedule_equals_fused_step_ref_bitwise(name, dtype, mode):
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("name", K1_BODIES)
+@pytest.mark.parametrize("name", K1_BODIES + HAZARD_BODIES[1:])
 def test_sweep_plain_schedule_matches_reference_kernel_at_k2(name, dtype):
     """The same seeded fields through the reference kernel's two sub-steps
     (``_apply_updates`` op by op) and through ``fused_sweep_ref``."""
@@ -146,7 +149,7 @@ def test_sweep_held_grids_cover_each_region_once(k, h, nz):
     kern = dataclasses.replace(_heat_kernel(5, 7, nz), k=k, halo=h,
                                nx=9, ny=11, margin=k * h)
     geoms = sweep_geoms(kern, (3, 4))
-    (_, grids, (bz, bty)), _ = _sweep_held(kern, (3, 4))
+    (_, grids, (bz, bty), _), _, _ = _sweep_held(kern, (3, 4))
     assert len(grids) == 2 * k
     for s, g in enumerate(geoms):
         gx, gy = grids[2 * s], grids[2 * s + 1]

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Device time of the legacy 7-point kernels K5, K6 and K7 (and, with
-``--k4``, of the multigrid transfers K3 and K4) on one card.
+``--k4``, of the multigrid transfers K3 and K4, with ``--k1-hazard`` of
+K1 on a hazard body and on heat3d) on one card.
 
 Imports the port from ``--src`` (default: this checkout's ``src``), so that
 one machine can time two trees of the port, one process each.  On the
@@ -54,9 +55,22 @@ Prints one JSON line and the ``ptxas`` lines of the ``stencil7`` library
 (and, with ``--k4``, of ``transfer``): each kernel's entry, registers and
 spills.  Exits 2 without a CUDA device.
 
+With ``--k1-hazard`` it times K1 (``launch_fused``) at float32 on
+``HeatConfig()``'s 512×512×128 grid, margin mode, queued behind a sleep
+kernel (median, min and max of ``--runs`` means, each of enough launches
+for 0.2 s of device time, at most ``--repeats``): the hazard body of
+``chip_smoke.py::record_coupled`` at k = 1 and at k = 8 beside their
+bytes bounds and the k = 8 sweep schedule's, and heat3d's k = 1 launch
+(padded and margin) and k = 8 sweep — whatever route the tree gives each.
+``--k1-block`` adds the hazard launches at forced column-entry blocks
+``BZxBY`` (trees with ``hazard_stage_bytes`` only).  It prints a digest of
+the SASS of each ``fused_column_kernel`` instantiation (as for K3), so
+that two trees' hazard-free column entry can be compared.
+
     python3 tools/k5_time.py [--src DIR] [--repeats 200] [--xc 4,8,16]
                              [--k7-xc 2,4,8,16,32] [--ftcs] [--iterations]
                              [--k4] [--k4-xc 1,2,4,8,16] [--mg-solves]
+                             [--k1-hazard] [--k1-block 32x8,64x4,128x2]
                              [--runs 7]
 """
 from __future__ import annotations
@@ -334,23 +348,157 @@ def mg_solves(runs: int) -> dict:
     return out
 
 
-def restrict_sass(lib_path: str) -> dict:
-    """sha256 and instruction count of the SASS of each restrict_kernel
-    instantiation in ``lib_path``, the anonymous-namespace hash stripped."""
+def kernel_sass(lib_path: str, stem: str, kernel: str) -> dict:
+    """sha256 and instruction count of the SASS of each instantiation of
+    ``kernel`` in ``lib_path`` (built from ``csrc/<stem>.cu``), keyed by its
+    name with the anonymous-namespace hash stripped; the digest covers the
+    code without the name, so two spellings of one instantiation (an added
+    template argument) compare equal."""
     from repro_torch.kernels.build import find_nvcc
 
     tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
     text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                           text=True, check=True).stdout
-    text = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_transfer_cu_[0-9a-f]+", "", text)
+    text = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_" + stem + r"_cu_[0-9a-f]{8}", "",
+                  text)
     out = {}
     for sec in text.split("Function : ")[1:]:
         name = sec.splitlines()[0].strip()
-        if "restrict_kernel" not in name:
+        if kernel not in name:
             continue
-        body = sec.split(".......")[0]
+        body = "\n".join(sec.split(".......")[0].splitlines()[1:])
         out[name] = {"sha256": hashlib.sha256(body.encode()).hexdigest(),
                      "instructions": len(re.findall(r"/\*[0-9a-f]{4}\*/", body))}
+    return out
+
+
+def _record_coupled(A0, C0, B0, steps):
+    """``chip_smoke.py::record_coupled``'s hazard body (a copy: importing
+    ``chip_smoke`` would put this checkout's ``src`` ahead of ``--src``)."""
+    import repro_torch as rt
+
+    wse = rt.WFAInterface()
+    A = rt.Field("A", init_data=A0, dtype=A0.dtype)
+    C = rt.Field("C", init_data=C0, dtype=C0.dtype)
+    B = rt.Field("B", init_data=B0, dtype=B0.dtype)
+    with rt.ForLoop("t", steps):
+        A[1:-1, 0, 0] = A[1:-1, 0, 0] \
+            + 0.05 * (A[2:, 0, 0] + A[:-2, 0, 0] + A[1:-1, 1, 0]
+                      + A[1:-1, -1, 0] + A[1:-1, 0, 1] + A[1:-1, 0, -1]
+                      - 6.0 * A[1:-1, 0, 0]) \
+            - 0.1 * (A[1:-1, 0, 0] - A[1:-1, -1, 0]) \
+            + C[1:-1, 0, 0] * (A[1:-1, 1, 1] + A[1:-1, -1, -1]
+                               - 2.0 * A[1:-1, 0, 0])
+        B[1:-1, 0, 0] = 0.5 * B[1:-1, 0, 0] + 0.25 * (A[2:, 0, 0]
+                                                     + A[:-2, 0, 0]) + 0.125
+        A[2:-1, 0, 0] = A[2:-1, 0, 0] - 0.01 * A[1:-2, 0, 0]
+    return wse
+
+
+def k1_ms(repeats: int, runs: int, blocks: str) -> dict:
+    """K1's device ms at float32 on 512×512×128, margin mode (and heat3d's
+    k = 1 launch padded too): the hazard body at k = 1 and 8, heat3d at
+    k = 1 and 8, each through the route the tree gives it, with bounds;
+    the hazard launches at forced blocks ``blocks`` ("BZxBY,...")."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.compiler.codegen import _field_specs, _wrap_pad
+    from repro_torch.compiler.ir import lower_group
+    from repro_torch.configs.heat3d import HeatConfig, make_field, record_heat
+    from repro_torch.engine.layout import HaloLayout, wrap_refresh
+    from repro_torch.kernels import fused
+
+    cfg = HeatConfig()
+    shape = (cfg.nx, cfg.ny, cfg.nz)
+    rng = np.random.default_rng(0)
+    hazard_env = {"A": rng.random(shape, dtype=np.float32),
+                  "C": np.float32(0.05) * rng.random(shape, dtype=np.float32),
+                  "B": rng.random(shape, dtype=np.float32)}
+    bodies = {}
+    for body, record, env in (
+            ("hazard", lambda: _record_coupled(hazard_env["A"], hazard_env["C"],
+                                               hazard_env["B"], 8), hazard_env),
+            ("heat3d", lambda: record_heat(cfg, 8)[0],
+             {"T_n": make_field(cfg)})):
+        wse = record()
+        bodies[body] = (wse.program, env)
+        wse.__exit__()
+
+    def spread(fn):
+        one = max(queued_ms(fn, 1), 1e-3)
+        n = max(3, min(repeats, int(200.0 / one)))
+        ms = [queued_ms(fn, n) for _ in range(runs)]
+        return {"median": statistics.median(ms), "min": min(ms),
+                "max": max(ms), "launches_per_mean": n}
+
+    def kernel_for(prog, k, resident=True):
+        """``prog``'s kernel at time tile k, in margin mode (M = k·h) or
+        padded."""
+        group = lower_group(prog.ops)
+        specs, (nx, ny) = _field_specs(
+            group, {n: f.shape for n, f in prog.fields.items()},
+            {n: f.dtype for n, f in prog.fields.items()})
+        return fused.build_fused_call(
+            group.updates, specs, group.halo, nx, ny, nx, ny, time_tile=k,
+            wrap=True, device="cuda",
+            margin=k * group.halo if resident else 0)[0]
+
+    def margin_launch(kern, env):
+        lay = HaloLayout(pad=kern.margin, shapes={})
+        ins = [wrap_refresh(lay.enter({n: torch.tensor(env[n], device="cuda")}
+                                      )[n], kern.margin, kern.pad)
+               for n in kern.in_names]
+        out = [torch.empty_like(ins[kern.in_names.index(n)])
+               for n in kern.written]
+        return lambda: fused.launch_fused(kern, ins, out=out)
+
+    def bytes_ms(kern, regions):
+        nbytes = 0
+        for rx, ry, pad in regions:
+            for name, nz in zip(kern.in_names, kern.nz):
+                nbytes += (rx + 2 * pad) * (ry + 2 * pad) * nz * 4
+                if name in kern.written:
+                    nbytes += rx * ry * nz * 4
+        return nbytes / HBM_BYTES_PER_S * 1e3
+
+    out = {}
+    for body, (prog, env) in bodies.items():
+        for k in (1, 8):
+            kern = kernel_for(prog, k)
+            row = {"route": fused.fused_entry(kern), "hazard": kern.hazard,
+                   "ms": spread(margin_launch(kern, env)),
+                   "bound_ms": bytes_ms(kern, [(kern.bx, kern.by, kern.pad)])}
+            if k > 1:
+                h = kern.halo
+                row["sweep_schedule_bound_ms"] = bytes_ms(kern, [
+                    (kern.bx + 2 * (k - s - 1) * h,
+                     kern.by + 2 * (k - s - 1) * h, h) for s in range(k)])
+            if kern.hazard and blocks and hasattr(fused, "hazard_stage_bytes"):
+                own = fused.k1_launch_shape
+                by_block = {}
+                for spec in blocks.split(","):
+                    bz, bty = map(int, spec.split("x"))
+
+                    def forced(kernel, extent=None, bz=bz, bty=bty):
+                        rx, ry = extent or (kernel.bx, kernel.by)
+                        return (-(-ry // bty), rx), (bz, bty)
+
+                    fused.k1_launch_shape = forced
+                    by_block[spec] = spread(margin_launch(
+                        kernel_for(prog, k), env))
+                fused.k1_launch_shape = own
+                row["ms_by_block"] = by_block
+            out[f"{body} k={k} margin"] = row
+    kern = kernel_for(bodies["heat3d"][0], 1, resident=False)
+    padded = [_wrap_pad(torch.tensor(bodies["heat3d"][1]["T_n"],
+                                     device="cuda"), kern.pad)]
+    out["heat3d k=1 padded"] = {
+        "route": fused.fused_entry(kern),
+        "ms": spread(lambda: fused.launch_fused(kern, padded)),
+        "bound_ms": bytes_ms(kern, [(kern.bx, kern.by, kern.pad)])}
     return out
 
 
@@ -379,6 +527,13 @@ def main() -> int:
     ap.add_argument("--mg-solves", action="store_true",
                     help="also run the multigrid solves: iterations, "
                          "solution digest, ms per solve")
+    ap.add_argument("--k1-hazard", action="store_true",
+                    help="also time K1 on the hazard body and on heat3d, "
+                         "and digest the column entry's SASS")
+    ap.add_argument("--k1-block", default="",
+                    help="comma-separated BZxBY column-entry blocks to time "
+                         "the hazard launches at besides the shape's own "
+                         "(with --k1-hazard)")
     ap.add_argument("--runs", type=int, default=7,
                     help="runs of 20 iterations per method and mesh, of "
                          "20-step FTCS calls per mesh and of queued K3/K4 "
@@ -461,18 +616,26 @@ def main() -> int:
     iters = (iteration_ms((cfg.nx, cfg.ny, cfg.nz), w, args.runs)
              if args.iterations else None)
     ftcs = ftcs_ms((cfg.nx, cfg.ny, cfg.nz), w, args.runs) if args.ftcs else None
-    transfers = sass = None
+    transfers = sass = k1 = k1_sass = None
     solves = mg_solves(args.runs) if args.mg_solves else None
+    if args.k1_hazard:
+        k1 = k1_ms(args.repeats, args.runs, args.k1_block)
+        k1_sass = kernel_sass(build.load_library("fused_stencil")._name,
+                              "fused_stencil", "fused_column_kernel")
     if args.k4:
         transfers = transfer_ms(args.repeats, args.runs, args.k4_xc)
-        sass = restrict_sass(build.load_library("transfer")._name)
+        sass = kernel_sass(build.load_library("transfer")._name, "transfer",
+                           "restrict_kernel")
     print(json.dumps({"src": args.src, "card": card[0] if card else None,
                       "dtype": "float32", "bricks": out,
                       "iteration_ms": iters, "ftcs_ms_per_step": ftcs,
                       "transfers": transfers, "restrict_sass": sass,
-                      "mg_solves": solves}),
+                      "mg_solves": solves, "k1": k1,
+                      "column_sass": k1_sass}),
           flush=True)
-    for lib in ("stencil7", "transfer") if args.k4 else ("stencil7",):
+    libs = (("stencil7",) + ("transfer",) * args.k4
+            + ("fused_stencil",) * args.k1_hazard)
+    for lib in libs:
         for ln in build.build_log.get(lib, "").splitlines():
             if "entry function" in ln or "Used" in ln or "spill" in ln:
                 print(ln.strip())
