@@ -66,6 +66,20 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          by CUDA events, and the hazard kernel's k = 8 and
                          k = 1 margin launches timed beside their bounds and
                          ``PREDICTED``;
+5c. ``ensemble_make``  — ``HeatConfig()`` with 8 members from ``--seed``
+                         (the interior moved by up to ±50 K) through
+                         ``Ensemble.make`` at k = 1 and the auto tile,
+                         resident and ``resident=False``: the four runs
+                         bitwise equal, each member bitwise its own single
+                         ``make``, every K1 launch a batched one through the
+                         route its tile names, as many as the engine's,
+                         0 fallbacks, 0 device allocations per resident
+                         step; K1 built for 8 members (k = 1 and the auto
+                         tile, margin and padded mode) bitwise against its
+                         plain version and against 8 single launches; ms
+                         per step and per member-step by CUDA events, host
+                         µs per member-step, idle share, the batched
+                         launches' times beside ``PREDICTED``;
 6. ``solve_heat3d``    — ``record_implicit(HeatConfig())`` through
                          ``solve(backend="pallas")`` with ``cg``, ``pipecg``
                          and ``cg`` + ``precondition="mg"`` at
@@ -75,6 +89,13 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          the difference from ``backend="jit"``, ms per solve
                          and per iteration, the device time by kernel and
                          the device idle share;
+6b. ``ensemble_solve`` — BTCS at 512×512×128 float32 with 4 members through
+                         ``solve(ensemble, …)``: cg and pipecg from
+                         per-member states from ``--seed``, bicgstab with
+                         per-member diffusivities (``record_varcoef_btcs``);
+                         every member ``CONVERGED``, its float64 relative
+                         residual ≤ 1e-5 and within 10·tol of its own
+                         single solve; every K1 launch a batched one;
 7. ``mg_poisson``      — ``record_poisson`` at 512×512×128 with a unit-norm
                          random interior right-hand side from ``--seed``,
                          ``method="mg"`` and ``cg`` + ``precondition="mg"``;
@@ -115,19 +136,23 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          iteration on both meshes; one ``btcs_solve`` cg
                          step with its independent float64 residual;
 11. ``kernels``        — one JSON line describing every kernel of the paths
-                         (K1 on four rows: the k = 1 entry in the padded and
+                         (K1 on six rows: the k = 1 entry in the padded and
                          the margin mode, the sweep at the auto tile, and
                          the column entry on the hazard body — its launches
                          those of ``hazard_make``, its k = 8 time beside the
                          sweep schedule's bound, its k = 1 time beside its
-                         own; K5's row adds its launches by
+                         own; two rows for K1 built for 8 members, the
+                         k = 1 entry (the ensemble phases' k = 1 launches)
+                         and the sweep, timed in margin mode beside 8 ×
+                         the single bound; K5's row adds its launches by
                          mesh, its partial count and its times on the 2×2
                          mesh's brick; K3's and K4's rows count the launches
                          of ``solve_heat3d`` and ``mg_poisson``, in all and
                          by level pair, with each pair's time).
 
-Each main path (``heat3d``, ``hazard_make``, ``solve_heat3d``, ``mg_poisson``,
-``legacy_ftcs``, ``legacy_btcs``) runs with the launch counters set to 0 just
+Each main path (``heat3d``, ``hazard_make``, ``ensemble_make``,
+``solve_heat3d``, ``ensemble_solve``, ``mg_poisson``, ``legacy_ftcs``,
+``legacy_btcs``) runs with the launch counters set to 0 just
 before it and read just after, and fails if one of its kernels was not
 launched.  Then the card's name and power limit,
 and last the result line.  Any failed check raises: the script exits
@@ -196,6 +221,19 @@ PREDICTED = {
     "hazard_k1_margin_ms": [0.6, 1.1],
     "hazard_make_ms_per_step": [0.65, 1.2],
     "hazard_allocations_per_step": 0,
+    # K1's member axis (written before its first timed run; PERF.md §6):
+    # HeatConfig() with B = 8 members, margin mode; B members move B times
+    # the bytes, so each launch about B times the single one (8 x 0.316 ms;
+    # bound 8 x 0.0804 = 0.643 ms, and 8 x 2.59 ms for the k = 8 sweep); a
+    # resident make's ms per member-step as the single run's 0.328 ms; the
+    # host's µs per member-step at most a quarter of the single run's
+    # 158-173 µs per step
+    "ensemble_members": 8,
+    "ensemble_k1_margin_ms": [2.3, 2.7],
+    "ensemble_sweep_margin_ms": [19.0, 22.0],
+    "ensemble_ms_per_member_step": {"k1": [0.30, 0.34]},
+    "ensemble_host_us_per_member_step": {"k1": 43.0},
+    "ensemble_allocations_per_step": {"k1": 0, "auto": 0},
 }
 #: H100 SXM device-memory rate and float32 / float64 (non-tensor) peaks
 HBM_BYTES_PER_S = 3.35e12
@@ -204,6 +242,9 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 LIBRARIES = ("fused_stencil", "dual_dot", "transfer", "stencil7")
 #: the ``kernels`` row of K1's column entry on a hazard body
 HAZARD_ROW = "K1 fused_stencil, column entry, hazard body"
+#: members of the ``ensemble_make`` and ``ensemble_solve`` phases
+ENSEMBLE_MAKE_MEMBERS = 8
+ENSEMBLE_SOLVE_MEMBERS = 4
 #: K2 vs the plain version in float64: |K2 − exact| ≤ REL · Σ|aᵢbᵢ|.  The
 #: kernel sums 32 terms per thread, then a 256-thread tree, then the block
 #: partials: about 50 roundings deep, so 50·u (u = 6e-8 at f32, 1.1e-16 at
@@ -342,7 +383,8 @@ def body_ops(kernel) -> int:
 def bound_ms(kernel, dtype_name: str) -> tuple:
     """(least ms, "bytes" | "operations") for one launch of ``kernel``: each
     padded input read once and each output written once, against the
-    body's operations on the interior cells of k sub-steps."""
+    body's operations on the interior cells of k sub-steps; B times that
+    for a kernel built for B members."""
     itemsize = 4 if dtype_name == "float32" else 8
     ph = kernel.pad
     nbytes = 0
@@ -351,8 +393,8 @@ def bound_ms(kernel, dtype_name: str) -> tuple:
         if name in kernel.written:
             nbytes += kernel.bx * kernel.by * nz * itemsize
     ops = kernel.k * (kernel.nx - 2) * (kernel.ny - 2) * body_ops(kernel)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FLOPS[dtype_name] * 1e3
+    t_bytes = kernel.batch * nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = kernel.batch * ops / PEAK_FLOPS[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -409,7 +451,7 @@ def phase_build():
           "ptxas": ptxas})
 
 
-def _build_kernel(program_ops, shapes, dtypes, k, device, margin=0):
+def _build_kernel(program_ops, shapes, dtypes, k, device, margin=0, batch=1):
     from repro_torch.compiler.codegen import _field_specs
     from repro_torch.compiler.ir import lower_group
     from repro_torch.kernels.fused import build_fused_call
@@ -418,7 +460,7 @@ def _build_kernel(program_ops, shapes, dtypes, k, device, margin=0):
     specs, (nx, ny) = _field_specs(group, shapes, dtypes)
     kernel, _ = build_fused_call(group.updates, specs, group.halo, nx, ny, nx,
                                  ny, time_tile=k, wrap=True, device=device,
-                                 margin=margin)
+                                 margin=margin, batch=batch)
     return kernel
 
 
@@ -722,9 +764,11 @@ def phase_kernel_vs_ref(steps_heat: int, seed: int):
     return heat
 
 
-def allocations_per_step(record, steps: int, time_tile) -> dict:
+def allocations_per_step(record, steps: int, time_tile, members=None) -> dict:
     """Device allocations per step of the resident loop at ``time_tile`` of
-    the program ``record(n)`` records for ``n`` steps (``(wse, answer)``):
+    the program ``record(n)`` records for ``n`` steps (``(wse, answer)``),
+    on its fields' init data or on ``members`` (name -> ``(B, X, Y, Z)``
+    stack, a batched plan):
     the growth of ``allocation.all.allocated`` over a ``2·steps`` run less
     that over a ``steps`` run, divided by ``steps`` (what a run allocates
     once — the layout's enter and exit, the ping-pong spares — cancels; a
@@ -739,11 +783,13 @@ def allocations_per_step(record, steps: int, time_tile) -> dict:
     for n in (steps, 2 * steps):
         wse, _ = record(n)
         prog = wse.program
-        p = plan(prog, RunOptions(backend="pallas", time_tile=time_tile))
+        batch = next(iter(members.values())).shape[0] if members else 1
+        p = plan(prog, RunOptions(backend="pallas", time_tile=time_tile,
+                                  batch=batch))
         wse.__exit__()
         run = single_runner(p)
-        env = env_from_numpy({name: f.init_data
-                              for name, f in prog.fields.items()}, "cuda")
+        env = env_from_numpy(members or {name: f.init_data for name, f
+                                         in prog.fields.items()}, "cuda")
         run(env)
         torch.cuda.synchronize()
         a0 = torch.cuda.memory_stats()["allocation.all.allocated"]
@@ -760,7 +806,8 @@ def sweep_bound_ms(kernel, dtype_name: str) -> tuple:
     """(least ms, "bytes" | "operations") of the sweep's own schedule for
     one launch of ``kernel``: every sub-step reads its region's h-deep
     window of each input once and writes its region of each written field
-    once, against the same operations as :func:`bound_ms`."""
+    once, against the same operations as :func:`bound_ms` (B times that for
+    B members)."""
     from repro_torch.kernels.fused import sweep_geoms
 
     itemsize = 4 if dtype_name == "float32" else 8
@@ -772,8 +819,8 @@ def sweep_bound_ms(kernel, dtype_name: str) -> tuple:
             if name in kernel.written:
                 nbytes += g.bx * g.by * nz * itemsize
     ops = kernel.k * (kernel.nx - 2) * (kernel.ny - 2) * body_ops(kernel)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FLOPS[dtype_name] * 1e3
+    t_bytes = kernel.batch * nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = kernel.batch * ops / PEAK_FLOPS[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1084,6 +1131,335 @@ def phase_hazard_make(steps: int, seed: int, heat):
 
 
 # ---------------------------------------------------------------------------
+# slice 11: ensembles (K1's member axis, masked batched Krylov)
+# ---------------------------------------------------------------------------
+
+def heat_members(cfg, B: int, seed: int):
+    """``B`` heat3d initial fields from ``seed``: ``make_field(cfg)`` with
+    its interior moved by up to ±50 K, as a ``(B, X, Y, Z)`` stack."""
+    import numpy as np
+
+    from repro_torch.configs.heat3d import make_field
+
+    rng = np.random.default_rng(seed)
+    stack = np.broadcast_to(make_field(cfg), (B, cfg.nx, cfg.ny, cfg.nz)).copy()
+    for b in range(B):
+        stack[b, 1:-1, 1:-1, 1:-1] += rng.uniform(
+            -50.0, 50.0, (cfg.nx - 2, cfg.ny - 2, cfg.nz - 2)).astype(
+                stack.dtype)
+    return stack
+
+
+def compare_batched(kernel, single, inputs, margin_mode):
+    """K1 built for B members on ``(B, …)`` card stacks against its plain
+    version (whole outputs, margins included) and against B launches of
+    ``single`` (the same body built for one member): max |diff| (must be
+    0)."""
+    import torch
+
+    from repro_torch.kernels.fused import fused_step_ref, launch_fused
+
+    def outs(xs):
+        return margin_outputs(kernel, xs) if margin_mode else None
+
+    got = launch_via_entry(kernel, inputs, out=outs(inputs))
+    want = fused_step_ref(kernel, inputs, out=outs(inputs))
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, w in zip(got, want):
+        if not torch.isfinite(g).all():
+            raise AssertionError("batched K1 produced non-finite values")
+        err = max(err, (g.double() - w.double()).abs().max().item())
+        if not torch.equal(g, w):
+            raise AssertionError(f"batched K1 differs from fused_step_ref "
+                                 f"(max {err})")
+    del want
+    for b in range(kernel.batch):
+        xs = [t[b] for t in inputs]
+        one = launch_fused(single, xs, out=outs(xs))
+        for g, w in zip(got, one):
+            if not torch.equal(g[b], w):
+                raise AssertionError(f"member {b} of the batched launch "
+                                     "differs from its single launch")
+    return err
+
+
+def phase_ensemble_make(steps: int, seed: int, heat):
+    """``HeatConfig()`` with ``ENSEMBLE_MAKE_MEMBERS`` members from ``seed``
+    through ``Ensemble.make`` at k = 1 and the auto tile, resident and
+    repacking; K1's batched launches against their plain version and the
+    single launches; times beside ``PREDICTED``."""
+    import numpy as np
+    import torch
+
+    import repro_torch as rt
+    from repro_torch import compiler
+    from repro_torch.configs.heat3d import HeatConfig, record_heat
+    from repro_torch.convert import env_from_numpy
+    from repro_torch.engine import RunOptions, plan, single_runner, stats
+    from repro_torch.kernels.fused import fused_step_ref, launch_fused
+
+    cfg = HeatConfig()
+    B = ENSEMBLE_MAKE_MEMBERS
+    members = heat_members(cfg, B, seed)
+    wse, T = record_heat(cfg, steps, init=members[0])
+    ens = rt.Ensemble(wse.program, T, overrides={"T_n": members})
+    modes = {"k1": (1, True), "auto": (None, True),
+             "k1_repack": (1, False), "auto_repack": (None, False)}
+    outs, runs = {}, []
+    # --- the main path: counters to 0 just before, read just after -------
+    compiler.reset_stats()
+    reset_counts()
+    for tag, (tt, resident) in modes.items():
+        stats.max_time_tile = 1
+        before = (read_counts(), stats.launches, stats.ensemble_members)
+        outs[tag] = ens.make(options=RunOptions(
+            backend="pallas", time_tile=tt, resident=resident))
+        after = read_counts()
+        runs.append({"run": tag, "resident": resident,
+                     "time_tile": stats.max_time_tile,
+                     "k1_launches": after["K1"] - before[0]["K1"],
+                     "batch_launches": after["K1b"] - before[0]["K1b"],
+                     "k1_entry_launches": after["K1k1"] - before[0]["K1k1"],
+                     "sweep_launches": after["K1sw"] - before[0]["K1sw"],
+                     "margin_launches": after["K1m"] - before[0]["K1m"],
+                     "engine_launches": stats.launches - before[1],
+                     "members": stats.ensemble_members - before[2]})
+    counts = read_counts()
+    fallbacks = compiler.stats.fallbacks
+    # -----------------------------------------------------------------------
+    if fallbacks:
+        raise AssertionError(f"{fallbacks} interpreter fallbacks on the "
+                             "ensemble make path")
+    for r in runs:
+        n = r["engine_launches"]
+        if (n == 0 or r["k1_launches"] != n or r["batch_launches"] != n
+                or r["members"] != B
+                or r["margin_launches"] != (n if r["resident"] else 0)):
+            raise AssertionError(f"ensemble {r['run']}: K1 launches {r} do "
+                                 "not match the engine's")
+        route = "k1_entry_launches" if r["time_tile"] == 1 else "sweep_launches"
+        if r[route] != n:
+            raise AssertionError(f"ensemble {r['run']}: {r[route]} of {n} "
+                                 f"launches through {route}")
+    for tag, out in outs.items():
+        if out.shape != members.shape or not np.isfinite(out).all():
+            raise AssertionError(f"ensemble {tag}: bad shape {out.shape} or "
+                                 "non-finite")
+        if not np.array_equal(out, outs["k1"]):
+            raise AssertionError(f"ensemble {tag} and k1 disagree")
+    for b in range(B):
+        wse, T = record_heat(cfg, steps, init=members[b])
+        single = wse.make(answer=T, options=RunOptions(backend="pallas",
+                                                       time_tile=1))
+        if not np.array_equal(outs["k1"][b], single):
+            raise AssertionError(f"ensemble member {b} differs from its "
+                                 "single make")
+    del outs, single
+    allocs = {tag: allocations_per_step(lambda n: record_heat(cfg, n), steps,
+                                        tt, members={"T_n": members})
+              for tag, tt in (("k1", 1), ("auto", None))}
+    for tag, a in allocs.items():
+        if a["allocations_per_step"] != 0:
+            raise AssertionError(f"the resident ensemble {tag} loop "
+                                 f"allocates: {a}")
+
+    # --- timing: whole runs on device stacks, CUDA events ---------------
+    timing = {}
+    for tag, (tt, resident) in modes.items():
+        wse, T = record_heat(cfg, steps)
+        p = plan(wse.program, RunOptions(backend="pallas", time_tile=tt,
+                                         resident=resident, batch=B))
+        wse.__exit__()
+        run = single_runner(p)
+        env = env_from_numpy({"T_n": members}, "cuda")
+        ms = cuda_time_ms(lambda: run(env), repeats=2)
+        host = host_us(lambda: run(env), samples=3)
+        timing[tag] = {"ms_per_step": ms / steps,
+                       "ms_per_member_step": ms / steps / B,
+                       "time_tile": p.segments[0].time_tile,
+                       "host_us_per_member_step": host / steps / B,
+                       **device_breakdown(lambda: run(env))}
+        del env, run
+    # --- K1's batched launches at the main path's shapes ----------------
+    wse, T = record_heat(cfg, steps)
+    ops, shapes, dtypes = wse.program.ops, {"T_n": T.shape}, {"T_n": T.dtype}
+    wse.__exit__()
+    dev = torch.device("cuda")
+    env = {"T_n": members}
+    rows, cases = {}, []
+    for tag, k in (("k1", 1), ("sweep", heat["sweep"]["kernel"].k)):
+        for margin_mode in (True, False):
+            single = _build_kernel(ops, shapes, dtypes, k, dev,
+                                   margin=k if margin_mode else 0)
+            kern = _build_kernel(ops, shapes, dtypes, k, dev,
+                                 margin=k if margin_mode else 0, batch=B)
+            ins = (_resident_inputs(kern, env, dev) if margin_mode
+                   else _padded_inputs(kern, env, dev))
+            err = compare_batched(kern, single, ins, margin_mode)
+            cases.append({"route": tag, "k": k, "members": B,
+                          "mode": "margin" if margin_mode else "padded",
+                          "max_abs_err": err})
+            if margin_mode:
+                out = margin_outputs(kern, ins)
+                b_ms, b_by = bound_ms(kern, cfg.dtype)
+                rows[tag] = {
+                    "ms": cuda_time_ms(lambda: launch_fused(kern, ins, out=out),
+                                       repeats=10),
+                    "plain_ms": cuda_time_ms(
+                        lambda: fused_step_ref(kern, ins, out=out), repeats=1),
+                    "bound_ms": b_ms, "bound_by": b_by, "err": err, "k": k,
+                    "single_ms": cuda_time_ms(
+                        lambda: launch_fused(single, [t[0] for t in ins],
+                                             out=[o[0] for o in out]),
+                        repeats=10)}
+                if k > 1:
+                    rows[tag]["sweep_schedule_bound_ms"] = sweep_bound_ms(
+                        kern, cfg.dtype)[0]
+                del out
+            del ins
+    measured = {"k1_margin_ms": rows["k1"]["ms"],
+                "sweep_margin_ms": rows["sweep"]["ms"],
+                "ms_per_member_step": {t: v["ms_per_member_step"]
+                                       for t, v in timing.items()},
+                "host_us_per_member_step": {t: v["host_us_per_member_step"]
+                                            for t, v in timing.items()},
+                "allocations_per_step": {t: a["allocations_per_step"]
+                                         for t, a in allocs.items()}}
+    emit({"phase": "ensemble_make", "card": card_line(),
+          "shape": [cfg.nx, cfg.ny, cfg.nz], "dtype": cfg.dtype,
+          "members": B, "steps": steps, "seed": seed, "runs": runs,
+          "fallbacks": fallbacks, "launches": counts,
+          "kernel_cases": cases, "resident_allocations": allocs,
+          "timing": timing, "launch": rows,
+          "predicted": {k: PREDICTED[k] for k in PREDICTED
+                        if k == "card" or k.startswith("ensemble")},
+          "measured": measured})
+    by_route = {"k1": sum(r["batch_launches"] for r in runs
+                          if r["time_tile"] == 1),
+                "sweep": sum(r["batch_launches"] for r in runs
+                             if r["time_tile"] > 1)}
+    return {tag: dict(rows[tag], launches=by_route[tag],
+                      err=max(c["max_abs_err"] for c in cases
+                              if c["route"] == tag))
+            for tag in rows}
+
+
+def varcoef_relative_residual(x, T0, C, w):
+    """‖b − A x‖ / ‖b‖ of ``record_varcoef_btcs``'s system, in float64 by
+    plain slicing on the card: A = I + ωC·(6I − S) on the written cells
+    (x, y interior, z interior), identity elsewhere; b = T0."""
+    import torch
+
+    x = torch.as_tensor(x, device="cuda").double()
+    b = torch.as_tensor(T0, device="cuda").double()
+    C = torch.as_tensor(C, device="cuda").double()[1:-1, 1:-1, 1:-1]
+    Ax = x.clone()
+    xi = x[1:-1, 1:-1, 1:-1]
+    Ax[1:-1, 1:-1, 1:-1] = xi + w * C * (6.0 * xi - neighbours(x))
+    return float(torch.linalg.vector_norm(b - Ax) / torch.linalg.vector_norm(b))
+
+
+def phase_ensemble_solve(seed: int):
+    """BTCS at ``HeatConfig()`` width with ``ENSEMBLE_SOLVE_MEMBERS``
+    members through ``solve(ensemble, …)``: cg and pipecg from per-member
+    states (guesses) from ``seed``, bicgstab with per-member diffusivities;
+    every member CONVERGED, its float64 residual within
+    ``SOLVE_REL_TOL``, within 10·tol of its own single solve."""
+    import numpy as np
+
+    import repro_torch as rt
+    from repro_torch import compiler
+    from repro_torch.configs.heat3d import HeatConfig, make_field
+    from repro_torch.engine import RunOptions, stats
+    from repro_torch.solver import btcs_program, record_varcoef_btcs
+
+    cfg = HeatConfig()
+    B = ENSEMBLE_SOLVE_MEMBERS
+    shape = (cfg.nx, cfg.ny, cfg.nz)
+    states = heat_members(cfg, B, seed + 1)
+    T0 = make_field(cfg)
+    coefs = np.stack([np.full(shape, 0.2 * (b + 1) ** 2, np.float32)
+                      for b in range(B)])
+    psi = 1.0 / (1.0 + 6.0 * cfg.omega)
+    norms = []
+    for b in range(B):
+        rhs = states[b].astype(np.float64)
+        rhs[1:-1, 1:-1, 1:-1] *= psi
+        norms.append(float(np.linalg.norm(rhs)))
+    norms.append(float(np.linalg.norm(T0.astype(np.float64))))
+    # half the residual bound, so the float64 check has room for the
+    # float32 recurrence's drift from the true residual
+    tol = 0.5 * SOLVE_REL_TOL * min(norms)
+    opts = RunOptions(backend="pallas")
+    cases, total = [], dict.fromkeys(read_counts(), 0)
+    for method in ("cg", "pipecg", "bicgstab"):
+        if method == "bicgstab":
+            wse, T, C = record_varcoef_btcs(T0, coefs[0], cfg.omega)
+            wse.__exit__()
+            ens = rt.Ensemble(wse.program, T, overrides={C.name: coefs})
+        else:
+            ens = rt.Ensemble(btcs_program(shape, cfg.omega, init_data=T0),
+                              "T", overrides={"T": states})
+        # --- the main path: counters to 0 just before, read just after ---
+        compiler.reset_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        x, info = rt.solve(ens, method=method, tol=tol, maxiter=cfg.maxiter,
+                           options=opts, return_info=True)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        fallbacks = compiler.stats.fallbacks
+        member_iterations = list(stats.member_iterations)
+        # -------------------------------------------------------------------
+        for key in total:
+            total[key] += counts[key]
+        outcomes = [str(o) for o in info.outcomes[0]]
+        rel, diff = [], []
+        for b in range(B):
+            if method == "bicgstab":
+                rel.append(varcoef_relative_residual(x[b], T0, coefs[b],
+                                                     cfg.omega))
+                wse, T, _ = record_varcoef_btcs(T0, coefs[b], cfg.omega)
+                single = wse.solve(T, method=method, tol=tol,
+                                   maxiter=cfg.maxiter, options=opts)
+            else:
+                rel.append(btcs_relative_residual(x[b], states[b], cfg.omega))
+                single = rt.solve(btcs_program(shape, cfg.omega,
+                                               init_data=states[b]), "T",
+                                  method=method, tol=tol, maxiter=cfg.maxiter,
+                                  options=opts)
+            diff.append(float(np.abs(x[b].astype(np.float64) - single).max()))
+        case = {"method": method, "members": B, "outcomes": outcomes,
+                "iterations": info.iterations[0].tolist(),
+                "member_iterations": member_iterations,
+                "residual_reported": info.residual[0].tolist(),
+                "independent_f64_relative_residual": rel,
+                "max_abs_diff_from_single_solve": diff,
+                "launches": counts, "fallbacks": fallbacks,
+                "ms_per_solve_host_clock": wall_ms}
+        cases.append(case)
+        if x.shape != (B,) + shape or not np.isfinite(x).all():
+            raise AssertionError(f"ensemble {method}: bad shape or non-finite")
+        if outcomes != ["CONVERGED"] * B:
+            raise AssertionError(f"ensemble {method}: outcomes {outcomes}")
+        if max(rel) > SOLVE_REL_TOL:
+            raise AssertionError(f"ensemble {method}: independent residuals "
+                                 f"{rel} > {SOLVE_REL_TOL}")
+        if max(diff) > 10 * tol:
+            raise AssertionError(f"ensemble {method}: members {diff} from "
+                                 f"their single solves > {10 * tol}")
+        if fallbacks or counts["K1b"] == 0 or counts["K1b"] != counts["K1"]:
+            raise AssertionError(f"ensemble {method}: K1 launches {counts}, "
+                                 f"{fallbacks} fallbacks")
+    emit({"phase": "ensemble_solve", "shape": list(shape), "dtype": cfg.dtype,
+          "members": B, "seed": seed, "tol": tol,
+          "tol_relative": 0.5 * SOLVE_REL_TOL, "cases": cases,
+          "launches": total})
+    return total
+
+
+# ---------------------------------------------------------------------------
 # slice 2: K2, K3, K4 and the implicit solves
 # ---------------------------------------------------------------------------
 
@@ -1114,6 +1490,7 @@ def reset_counts() -> None:
     launch_fused.sweep_launches = 0
     launch_fused.sweep_substeps = 0
     launch_fused.hazard_launches = 0
+    launch_fused.batch_launches = 0
 
 
 def level_counts() -> dict:
@@ -1136,7 +1513,8 @@ def add_levels(total: dict, levels: dict) -> dict:
 def read_counts() -> dict:
     """Launches by kernel; ``K1m`` is K1's margin-mode share of ``K1``,
     ``K1k1`` the k = 1 route's share, ``K1sw`` the sweep's share,
-    ``K1sub`` the sweep's sub-steps and ``K1hz`` the hazard bodies' share."""
+    ``K1sub`` the sweep's sub-steps, ``K1hz`` the hazard bodies' share and
+    ``K1b`` the share of kernels built for more than one member."""
     from repro_torch.kernels.fused import launch_fused
 
     counts = {k: fn.launches for k, fn in kernel_counters().items()}
@@ -1145,6 +1523,7 @@ def read_counts() -> dict:
     counts["K1sw"] = launch_fused.sweep_launches
     counts["K1sub"] = launch_fused.sweep_substeps
     counts["K1hz"] = launch_fused.hazard_launches
+    counts["K1b"] = launch_fused.batch_launches
     return counts
 
 
@@ -2086,7 +2465,9 @@ def main() -> int:
     transfers = phase_transfer_vs_ref(args.seed)
     k1 = phase_heat3d(args.steps, heat)
     hazard = phase_hazard_make(args.steps, args.seed, heat)
+    ensemble = phase_ensemble_make(args.steps, args.seed, heat)
     solve_counts = phase_solve_heat3d()
+    ensemble_solve_counts = phase_ensemble_solve(args.seed)
     mg_counts = phase_mg_poisson(args.seed)
     legacy = phase_legacy_kernels_vs_ref(args.seed)
     ftcs_counts = phase_legacy_ftcs(args.steps, args.seed)
@@ -2112,6 +2493,19 @@ def main() -> int:
             (HAZARD_ROW + f", k = {hazard['k']}, margin mode",
              "fused_stencil.cu", "src/repro/kernels/fused.py:245",
              dict(hazard, library_ms=None)),
+            # the member axis: the ensemble phases' launches (both modes;
+            # the solves' operator applications at k = 1), timed at
+            # ENSEMBLE_MAKE_MEMBERS members in margin mode
+            (f"K1 fused_stencil, k = 1 entry, {ENSEMBLE_MAKE_MEMBERS} members "
+             "per launch, margin mode", "fused_stencil.cu",
+             "src/repro/kernels/fused.py:245",
+             dict(ensemble["k1"], library_ms=None,
+                  launches=ensemble["k1"]["launches"]
+                  + ensemble_solve_counts["K1b"])),
+            (f"K1 fused_stencil, sweep, k = {ensemble['sweep']['k']}, "
+             f"{ENSEMBLE_MAKE_MEMBERS} members per launch, margin mode",
+             "fused_stencil.cu", "src/repro/kernels/fused.py:245",
+             dict(ensemble["sweep"], library_ms=None)),
             ("K2 dual_dot", "dual_dot.cu", "src/repro/kernels/dotprod.py:39",
              dict(k2, launches=solve_counts["K2"] + mg_counts["K2"]
                   + btcs_counts["K2"])),
@@ -2139,7 +2533,8 @@ def main() -> int:
         **{k: r[k] for k in ("launches_by_mesh", "partials", "small_brick",
                              "launches_by_level_pair", "ms_by_level_pair",
                              "sweep_schedule_bound_ms", "k1_ms",
-                             "k1_plain_ms", "k1_bound_ms", "k1_err")
+                             "k1_plain_ms", "k1_bound_ms", "k1_err",
+                             "single_ms")
            if k in r})
         for name, src, where, r in rows]})
     print(card_line(), flush=True)

@@ -7,7 +7,9 @@ kernel K1 (:mod:`repro_torch.kernels.fused`).  It imports neither JAX nor
 ``repro``.  Entry points run on the card by default
 (``RunOptions(device="cuda")``); the caller asks for the host with
 ``RunOptions(device="cpu")``, where every kernel runs as its plain PyTorch
-version.
+version.  :class:`Ensemble` stacks B scenarios behind one program; ``make``
+and ``solve`` accept it and advance all members per kernel launch
+(:mod:`repro_torch.core.ensemble`).
 
 >>> import numpy as np
 >>> import repro_torch as wfa
@@ -23,33 +25,12 @@ version.
 
 from __future__ import annotations
 
-import numpy as np
-
 from repro_torch.core import Field, ForLoop, WFAInterface
-from repro_torch.core.program import Program, release_program
+from repro_torch.core.ensemble import Ensemble, make, solve
 from repro_torch.engine import RunOptions, stats
 from repro_torch.solver import (NumericalFault, Operator, RecoveryPolicy, Rhs,
-                                SolveInfo, solve)
+                                SolveInfo)
 
-__all__ = ["Field", "ForLoop", "NumericalFault", "Operator", "RecoveryPolicy",
-           "Rhs", "RunOptions", "SolveInfo", "WFAInterface", "make", "solve",
-           "stats"]
-
-
-def make(target, answer, options=None) -> np.ndarray:
-    """Module-level ``make``: run the program recorded by ``target`` (a
-    :class:`WFAInterface` or :class:`Program`) and return ``answer``'s final
-    value as a host NumPy array."""
-    prog = target if isinstance(target, Program) else getattr(target, "program", None)
-    if not isinstance(prog, Program):
-        raise TypeError(
-            f"make() expects a WFAInterface or Program; got {type(target).__name__}")
-    if isinstance(target, WFAInterface):
-        return target.make(answer=answer, options=options)
-    from repro_torch.engine import run_program
-
-    try:
-        out = run_program(prog, options=options)
-    finally:
-        release_program(prog)
-    return np.asarray(out[getattr(answer, "name", answer)])
+__all__ = ["Ensemble", "Field", "ForLoop", "NumericalFault", "Operator",
+           "RecoveryPolicy", "Rhs", "RunOptions", "SolveInfo", "WFAInterface",
+           "make", "solve", "stats"]

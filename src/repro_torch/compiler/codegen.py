@@ -4,7 +4,7 @@
 ``step(env) -> env`` function around exactly one launch of the fused stencil
 kernel K1 (built by :func:`repro_torch.kernels.fused.build_fused_call`).
 Kernels are memoized by *program signature* — the lowered tap form plus
-field shapes/dtypes, time tile and device — so re-making an identical
+field shapes/dtypes, time tile, members and device — so re-making an identical
 program (the WFA's repeated ``make_WSE`` workflow) reuses the built kernel;
 :data:`stats` exposes build/hit/fallback counters for tests and benchmarks.
 
@@ -23,7 +23,11 @@ Two single-device steps are ported:
   ``k·h`` (so out-of-domain taps reproduce the interpreter's ``roll``
   semantics) and the kernel writes fresh outputs.
 
-The sharded, overlap and batched steps come with later slices.
+Both take ``batch=B``: every env tensor is then a ``(B, X, Y, Z)`` member
+stack and the one launch per step advances all B members (K1's member
+axis), each member's bits those of its own single run.
+
+The sharded and overlap steps come with later slices.
 """
 from __future__ import annotations
 
@@ -106,12 +110,13 @@ def _field_specs(group: LoweredGroup, shapes: Dict[str, tuple],
 
 
 def _get_kernel(group: LoweredGroup, specs, bx, by, nx, ny, device, time_tile,
-                wrap, margin=0):
+                wrap, margin=0, batch=1):
     from repro_torch.kernels.fused import build_fused_call
 
     device = torch.device(device)
     sig = (group, tuple((n, s[0], dtype_name(s[1])) for n, s in specs.items()),
-           bx, by, nx, ny, str(device), int(time_tile), bool(wrap), int(margin))
+           bx, by, nx, ny, str(device), int(time_tile), bool(wrap), int(margin),
+           int(batch))
     hit = _KERNEL_CACHE.get(sig)
     if hit is not None:
         stats.cache_hits += 1
@@ -121,7 +126,7 @@ def _get_kernel(group: LoweredGroup, specs, bx, by, nx, ny, device, time_tile,
     # failure, so it must not become an interpreter fallback
     built = build_fused_call(group.updates, specs, group.halo, bx, by, nx, ny,
                              time_tile=time_tile, wrap=wrap, device=device,
-                             margin=margin)
+                             margin=margin, batch=batch)
     stats.kernels_built += 1
     _KERNEL_CACHE[sig] = built
     return built
@@ -163,14 +168,16 @@ def compile_transfer(kind: str, fine_shape, coarse_shape, dtype,
 
 
 def _wrap_pad(v: torch.Tensor, ph: int) -> torch.Tensor:
-    """``ph``-deep periodic pad of the (X, Y) axes (``ph`` ≤ extent)."""
-    v = torch.cat([v[-ph:], v, v[:ph]], dim=0)
-    return torch.cat([v[:, -ph:], v, v[:, :ph]], dim=1)
+    """``ph``-deep periodic pad of the (X, Y) axes (``ph`` ≤ extent), the
+    last three axes being (X, Y, Z); leading (member) axes pass through."""
+    v = torch.cat([v[..., -ph:, :, :], v, v[..., :ph, :, :]], dim=-3)
+    return torch.cat([v[..., -ph:, :], v, v[..., :ph, :]], dim=-2)
 
 
 def compile_group(ops, shapes: Dict[str, tuple], dtypes: Dict[str, object],
                   device="cuda", *, time_tile: int = 1,
-                  group: LoweredGroup = None, resident: int = 0):
+                  group: LoweredGroup = None, resident: int = 0,
+                  batch: int = 1):
     """Lower + codegen one loop body for single-device execution.
 
     With ``time_tile=k`` each call advances *k* steps off one halo window of
@@ -185,6 +192,9 @@ def compile_group(ops, shapes: Dict[str, tuple], dtypes: Dict[str, object],
     refreshes every input's margin to depth ``k·h``, launches K1 from the
     current buffers into the spares and swaps the two.  Fields the body
     only reads stay in their (refreshed) buffers.
+
+    ``batch=B > 1`` builds the same steps over ``(B, …)`` member stacks:
+    K1 is built for B members, so each launch advances all of them.
 
     Raises :class:`LoweringError` when the body cannot be fused (the caller
     falls back to the interpreter and logs the reason) or when ``K < k·h``,
@@ -205,7 +215,8 @@ def compile_group(ops, shapes: Dict[str, tuple], dtypes: Dict[str, object],
     if resident and resident < ph:
         raise LoweringError(f"resident margin {resident} < tiled halo {ph}")
     kernel, written = _get_kernel(group, specs, nx, ny, nx, ny, device,
-                                  time_tile, wrap=True, margin=resident)
+                                  time_tile, wrap=True, margin=resident,
+                                  batch=batch)
     in_names = list(specs)
     stats.groups_fused += 1
 

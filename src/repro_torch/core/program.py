@@ -246,21 +246,23 @@ def _group_ops(program: Program):
 
 
 def _apply_op(op: UpdateOp, env, xp, roll):
-    """Apply one update to ``env`` (NumPy arrays or torch tensors); returns
-    the field's new value, a fresh array (the input is left untouched)."""
+    """Apply one update to ``env`` (NumPy arrays or torch tensors, (X, Y, Z)
+    or a (B, X, Y, Z) member stack); returns the field's new value, a fresh
+    array (the input is left untouched)."""
     val = st.evaluate(op.expr, env, op.target_z, xp, roll)
     field = env[op.field_name]
-    nx, ny, _ = field.shape
+    nx, ny, _ = field.shape[-3:]
+    # (X, Y, 1): Moat cells stay fixed; it broadcasts over the members
     if xp is np:
-        mask = interior_mask((nx, ny), np)  # (X, Y, 1): Moat cells stay fixed
+        mask = interior_mask((nx, ny), np)
         new = field.copy()
-        new[:, :, op.target_z] = np.where(mask, val, field[:, :, op.target_z])
+        new[..., op.target_z] = np.where(mask, val, field[..., op.target_z])
         return new
     mask = interior_mask((nx, ny), torch, field.device)
     # index assignment on a clone: the functional update the reference
     # spells with dynamic_update_slice
     new = field.clone()
-    new[:, :, op.target_z] = torch.where(mask, val, field[:, :, op.target_z])
+    new[..., op.target_z] = torch.where(mask, val, field[..., op.target_z])
     return new
 
 

@@ -161,21 +161,22 @@ def evaluate(
 ) -> Any:
     """Evaluate ``expr`` over the target z-slice.
 
-    ``env`` maps field names to (X, Y, Z) arrays.  ``xp`` is the array module
-    (numpy or torch); ``roll(a, shift, axis)`` shifts along X/Y.  The value
-    of term ``(dx, dy)`` at cell x is ``a[x + dx]`` = ``roll(a, -dx)``.
+    ``env`` maps field names to (..., X, Y, Z) arrays: leading (member)
+    axes pass through.  ``xp`` is the array module (numpy or torch);
+    ``roll(a, shift, axis)`` shifts along X/Y (axes -3/-2).  The value of
+    term ``(dx, dy)`` at cell x is ``a[x + dx]`` = ``roll(a, -dx)``.
     """
     if isinstance(expr, Const):
         return expr.value
     if isinstance(expr, Term):
         a = env[expr.field_name]
         if expr.dx:
-            a = roll(a, -expr.dx, 0)
+            a = roll(a, -expr.dx, -3)
         if expr.dy:
-            a = roll(a, -expr.dy, 1)
+            a = roll(a, -expr.dy, -2)
         # shift in z is expressed through the slice itself; the slice is
         # validated (equal length to target) when the update is recorded.
-        return a[:, :, expr.zslice_obj()]
+        return a[..., expr.zslice_obj()]
     if isinstance(expr, BinOp):
         lhs = evaluate(expr.lhs, env, target_z, xp, roll)
         rhs = evaluate(expr.rhs, env, target_z, xp, roll)

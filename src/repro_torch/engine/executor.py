@@ -17,6 +17,11 @@ tensors.  The spares are allocated at the first enter, one per written
 field, so with an all-fused plan at k = 1 the step loop allocates nothing.
 The executor also derives the engine's static communication accounting from
 the plan (see :mod:`repro_torch.engine.stats`).
+
+A batched plan (``plan.batch = B > 1``) steps ``(B, X, Y, Z)`` member
+stacks: :func:`run_program` broadcasts every field the caller left
+unstacked, the device steps (and the spares) carry the member axis, and
+the ``numpy`` backend runs the members one by one and restacks them.
 """
 
 from __future__ import annotations
@@ -136,6 +141,9 @@ def _account(plan: ExecutionPlan) -> None:
         stats.resident_runs += 1
         stats.repacks += sum(
             1 for ev in _layout_schedule(plan) if isinstance(ev, str))
+    if plan.batch > 1:
+        stats.ensemble_runs += 1
+        stats.ensemble_members += plan.batch
     for seg in plan.segments:
         n, k = seg.n_steps, seg.time_tile
         stats.steps_run += n
@@ -153,7 +161,16 @@ def _account(plan: ExecutionPlan) -> None:
 
 
 def _run_numpy(plan: ExecutionPlan, env: Dict[str, np.ndarray]):
-    """Eager host run (one member; the batched form comes with ensembles)."""
+    """Eager host run; a batched plan runs its members one by one (the
+    eager validation backend has nothing to batch through) and restacks."""
+    if plan.batch > 1:
+        outs = [_run_numpy_one(plan, {k: v[b] for k, v in env.items()})
+                for b in range(plan.batch)]
+        return {k: np.stack([o[k] for o in outs]) for k in env}
+    return _run_numpy_one(plan, env)
+
+
+def _run_numpy_one(plan: ExecutionPlan, env: Dict[str, np.ndarray]):
     env = {k: np.asarray(v).copy() for k, v in env.items()}
     roll = lambda a, s, ax: np.roll(a, s, axis=ax)  # noqa: E731
     for seg in plan.segments:
@@ -164,11 +181,17 @@ def _run_numpy(plan: ExecutionPlan, env: Dict[str, np.ndarray]):
 
 
 def execute(plan: ExecutionPlan, env: Dict[str, np.ndarray]):
-    """Run the plan from ``env`` (name -> (X, Y, Z) array); returns the final
-    env as host NumPy arrays.  Updates :data:`repro_torch.engine.stats`.
+    """Run the plan from ``env`` (name -> (X, Y, Z) array, or a (B, X, Y, Z)
+    member stack on a batched plan); returns the final env as host NumPy
+    arrays.  Updates :data:`repro_torch.engine.stats`.
 
     Fires the engine's step hook before any state advances.
     """
+    if plan.batch > 1:
+        for k, v in env.items():
+            if np.ndim(v) != 4 or np.shape(v)[0] != plan.batch:
+                raise ValueError(f"field {k!r} is {np.shape(v)}; a batched "
+                                 f"plan steps ({plan.batch}, X, Y, Z) stacks")
     fire_step_hook(stats.steps_run, tag="execute")
     t0 = time.perf_counter()
     if plan.backend == "numpy":
@@ -184,7 +207,10 @@ def run_program(program, env: Dict[str, np.ndarray] = None, options=None):
     """plan + execute in one call (the ``WFAInterface.make`` entry point).
 
     Policy travels as ``options=RunOptions(...)`` (a bare string is the
-    backend); ``env`` defaults to the fields' recorded initial data.
+    backend); ``env`` defaults to the fields' recorded initial data.  On a
+    batched plan every field the caller left unstacked is broadcast to all
+    members (:class:`~repro_torch.core.ensemble.Ensemble` overrides arrive
+    stacked).
     """
     from repro_torch.engine.options import resolve_options
     from repro_torch.engine.plan import plan as _plan
@@ -192,4 +218,8 @@ def run_program(program, env: Dict[str, np.ndarray] = None, options=None):
     p = _plan(program, resolve_options(options, "run_program"))
     if env is None:
         env = {n: f.init_data for n, f in program.fields.items()}
+    if p.batch > 1:
+        env = {k: (np.broadcast_to(v, (p.batch,) + np.shape(v)).copy()
+                   if np.ndim(v) == 3 else v)
+               for k, v in env.items()}
     return execute(p, env)

@@ -56,8 +56,10 @@ class RunOptions:
     ``resident=False`` keeps the repacking step (a wrap pad per launch,
     fresh kernel outputs); both give the same bits.
     ``overlap="auto"`` keeps the monolithic launch (no cost model yet).
-    ``device`` names the torch device; ``"cuda"`` raises when no card is
-    present instead of running elsewhere.
+    ``batch=B`` steps a B-member ensemble: every field buffer carries a
+    leading member axis and each K1 launch advances all members
+    (:mod:`repro_torch.core.ensemble`).  ``device`` names the torch device;
+    ``"cuda"`` raises when no card is present instead of running elsewhere.
     """
 
     backend: Optional[str] = None
@@ -90,8 +92,6 @@ class RunOptions:
         object.__setattr__(self, "check_finite", int(self.check_finite))
         if self.mesh is not None:
             raise _later("mesh=...", "sharding")
-        if self.batch > 1:
-            raise _later(f"batch={self.batch}", "ensembles")
         if self.overlap is True:
             raise _later("overlap=True", "overlap")
         if self.differentiable:

@@ -27,6 +27,11 @@ only in interpret mode, where blocks run one at a time; ping-pong makes it
 valid on the card, so the port plans it on the CPU and the card alike.
 ``resident=False`` (or ``K = 0``: every fused body halo-free) keeps the
 repacking step: a wrap pad per launch and fresh kernel outputs.
+
+Ensembles: ``RunOptions(batch=B)`` plans the same segments over ``(B, X,
+Y, Z)`` member stacks — fused bodies on K1 built for B members (one launch
+advances all of them), interpreter steps on the whole stack, whose rolls
+and masks act on the trailing three axes.
 """
 
 from __future__ import annotations
@@ -93,6 +98,7 @@ class ExecutionPlan:
     device: Optional[torch.device]  # None for the host-only numpy backend
     segments: List[Segment]
     layout: Optional[HaloLayout] = None
+    batch: int = 1  # leading member axis every env tensor carries (if > 1)
 
 
 def resolve_device(device) -> torch.device:
@@ -120,6 +126,7 @@ def compile_body(
     time_tile: int = 1,
     group=None,
     resident: int = 0,
+    batch: int = 1,
 ) -> Tuple[Callable, bool]:
     """Build one body application ``env -> env`` — THE backend dispatch.
 
@@ -131,7 +138,8 @@ def compile_body(
     halo-resident layout of margin ``K``, ``step(env, spare) -> env`` (see
     :func:`repro_torch.compiler.codegen.compile_group`); the solver keeps
     ``0``, so its vectors stay unpadded.  Steps operate on tensors on
-    ``device`` (the card by default, which must exist).
+    ``device`` (the card by default, which must exist); ``batch=B > 1``
+    builds them over ``(B, X, Y, Z)`` member stacks.
     """
     device = resolve_device(device)
     stats.bodies_compiled += 1
@@ -144,7 +152,7 @@ def compile_body(
             fire_compile_hook(getattr(loop, "name", None))
             return compile_group(ops, shapes, dtypes, device=device,
                                  time_tile=time_tile, group=group,
-                                 resident=resident)
+                                 resident=resident, batch=batch)
 
         step = try_compile(fn, loop)
         if step is not None:
@@ -346,7 +354,7 @@ def plan(
             continue
         step, fused = compile_body(ops, loop, shapes, dtypes, backend,
                                    device=device, time_tile=k, group=group,
-                                   resident=pad)
+                                   resident=pad, batch=options.batch)
         if not fused:
             k = 1
         seg = Segment(
@@ -362,7 +370,8 @@ def plan(
         if fused and k > 1 and seg.n_steps % k:
             seg.step_rem, _ = compile_body(ops, loop, shapes, dtypes, backend,
                                            device=device, time_tile=1,
-                                           group=group, resident=pad)
+                                           group=group, resident=pad,
+                                           batch=options.batch)
         if reason:
             stats.note_tile_reason(reason)
         if fused:
@@ -376,4 +385,4 @@ def plan(
         stats.max_time_tile, max((s.time_tile for s in segments), default=1)
     )
     return ExecutionPlan(program=program, backend=backend, device=device,
-                         segments=segments, layout=layout)
+                         segments=segments, layout=layout, batch=options.batch)

@@ -35,7 +35,7 @@
 // Association: taps that share a coefficient are summed first, in recorded
 // order, and multiplied once; the groups are then added in order of first
 // appearance, then `const` — the association of the Pallas body.  One
-// __device__ function, eval_update, holds it, so both instantiations agree
+// __device__ function, eval_update, holds it, so the instantiations agree
 // with each other and with fused_step_ref by construction.
 //
 // Bound: bytes.  At k = 1 a launch reads each input window once and writes
@@ -84,10 +84,10 @@
 //   writes scratch s & 1, and the outputs at s = k - 1.  The first write of
 //   a field copies its Moat cells and unwritten z planes from that same
 //   source, and from_center taps read the sub-step's own destination.
-// - scratch buffers have the inputs' extent and row stride, and a region
-//   cell sits at the same (x, y) in the input, in both scratch buffers and
-//   in the window, so only the origins move per sub-step (Geom, one per
-//   sub-step, computed by fused.py::sweep_geoms).
+// - scratch buffers have the inputs' extent, row stride and members, and
+//   a region cell sits at the same (x, y) in the input, in both scratch
+//   buffers and in the window, so only the origins move per sub-step
+//   (Geom, one per sub-step, computed by fused.py::sweep_geoms).
 // - each cell's arithmetic is the trapezoid's, so the sweep equals
 //   fused_step_ref bit for bit.
 // - bytes: k launches, each reading its region's window and writing its
@@ -117,9 +117,23 @@
 // against the descriptor); every other update, in a hazard body too, runs
 // as in the hazard-free instantiation, whose code is unchanged by it.
 //
+// Members (an ensemble's batch axis).  A launch over a (B, X, Y, Z) stack
+// of every field runs grid z = B: block (.., .., m) evaluates member m, and
+// thread 0 moves each field's base pointer by m whole members (in_px x in_py
+// x nz elements of an input or scratch buffer, out_px x out_py x nz of a
+// destination) where it fills s_in / s_out.  Nothing else depends on the
+// member: the per-cell code, the descriptor and the hazard stage are those
+// of one member, so a batched launch equals B single launches bit for bit.
+// The reference vmaps its pallas_call over the members
+// (repro/compiler/codegen.py, compile_group); here the axis is the grid's.
+// The offset lives in the kMembers instantiations, which serve B > 1: with
+// it in every launch, the prologue's 16 unrolled 64-bit offsets grew the
+// code from 936 to 1424 instructions at float and the single-member
+// launches by 0.4-1.0 % on an H100, so B = 1 keeps the code it had.
+//
 // FMA contraction: build with --fmad=false.  Every multiply and add then
 // rounds on its own, as the plain PyTorch version's separate elementwise
-// kernels do, so both instantiations are held *bitwise* against
+// kernels do, so every instantiation is held *bitwise* against
 // fused_step_ref on the card at float and double.  Turning contraction on is a decision for a
 // later performance change.
 //
@@ -159,15 +173,17 @@ struct Fields {
 // One launch's geometry: one sub-step over a region.  bx, by, cx, cy are
 // the region's extent and global origin, in_off the origin of its h-deep
 // read window in the inputs, and out_off, out_py where it lands in its
-// destination.  k, max_nz and the four tile fields are unused (a removed
-// kernel's); they keep their places so that the parameter layout, and with
-// it the kernel's code, does not move.
+// destination; in_px and out_px are the x extents of the input and
+// destination buffers, which with the row strides give one member's extent.
+// k, max_nz and the two tile fields are unused (a removed kernel's); they
+// keep their places so that the parameter layout, and with it the kernel's
+// code, does not move.
 struct Geom {
   int bx, by;            // region extent
   int nx, ny;            // global extent (Moat)
   int cx, cy;            // global origin of the region
   int k, h, wrap;
-  int tile_x, tile_y;    // unused
+  int in_px, out_px;     // x extent of the inputs and of the destination
   int tiles_x, tiles_y;  // unused
   int n_ints, n_coefs;
   int max_nz;
@@ -268,7 +284,9 @@ __device__ __forceinline__ V eval_update(const int* desc, int q, int n_groups,
 
 // kHazard: the instantiation for a body with a hazard update (the note on
 // hazards above); false: every other body, whose code does not depend on it.
-template <typename T, bool kHazard>
+// kMembers: a launch over B > 1 members (the note on members above); false:
+// one member, whose code does not depend on it.
+template <typename T, bool kHazard, bool kMembers>
 __global__ void __launch_bounds__(256)
 fused_column_kernel(Fields<T> f, Geom g, const int* __restrict__ desc_g,
                     const double* __restrict__ coef_g) {
@@ -293,6 +311,14 @@ fused_column_kernel(Fields<T> f, Geom g, const int* __restrict__ desc_g,
       s_out[q] = f.out[q];
       s_nz[q] = f.nz[q];
       s_sx[q] = (long long)g.in_py * f.nz[q];
+    }
+    if constexpr (kMembers) {
+      // member blockIdx.z of the stacks: whole members further on
+      const long long m = blockIdx.z;
+      for (int q = 0; q < kMaxFields; ++q) {
+        if (s_in[q]) s_in[q] += m * g.in_px * s_sx[q];
+        if (s_out[q]) s_out[q] += m * g.out_px * g.out_py * (long long)f.nz[q];
+      }
     }
   }
   for (int q = tid; q < g.n_coefs; q += nthreads) {
@@ -421,8 +447,8 @@ Geom read_geom(const int* geom) {
   g.k = geom[6];
   g.h = geom[7];
   g.wrap = geom[8];
-  g.tile_x = geom[9];
-  g.tile_y = geom[10];
+  g.in_px = geom[9];
+  g.out_px = geom[10];
   g.tiles_x = geom[11];
   g.tiles_y = geom[12];
   g.n_ints = geom[13];
@@ -455,8 +481,10 @@ int hazard_zlen(const int* desc, int n_ints) {
 // launch s gets geoms[s * kGeomInts ...], grid (grids[2s], grids[2s + 1])
 // and block (block_z, block_y) of at most 256 threads, as
 // fused.py::k1_launch_shape computes them; each grid is checked to cover
-// its region (grid y = bx_s, grid x * block_y >= by_s).  A written
-// field (outs[q] != null) is read from ins[q] at s = 0, else from scratch
+// its region (grid y = bx_s, grid x * block_y >= by_s), and grid z is
+// `batch`, the members of every field's stack (1 <= batch <= 65535; B > 1
+// picks the kMembers instantiation).  A written field (outs[q] != null) is
+// read from ins[q] at s = 0, else from scratch
 // (s-1) & 1, and written to scratch s & 1, or to outs[q] at s = k - 1;
 // scratch0 must be set for k > 1, scratch1 for k > 2.  `hazard` picks the
 // kHazard instantiation, with a stage of `stage_bytes`: both are checked
@@ -470,10 +498,11 @@ int launch_sweep(const void* const* ins, void* const* outs,
                  int n_fields, const int* desc, const double* coefs,
                  const int* geoms, const int* grids, int k, int block_z,
                  int block_y, const int* host_desc, int hazard,
-                 long long stage_bytes, int device, cudaStream_t stream) {
+                 long long stage_bytes, int batch, int device,
+                 cudaStream_t stream) {
   if (n_fields < 1 || n_fields > kMaxFields || k < 1 || k > kMaxSweep ||
       block_z < 32 || block_z % 32 != 0 || block_y < 1 ||
-      block_z * block_y > 256)
+      block_z * block_y > 256 || batch < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   const Geom g0 = read_geom(geoms);
   for (int s = 0; s < k; ++s) {
@@ -483,6 +512,7 @@ int launch_sweep(const void* const* ins, void* const* outs,
         grid_y > 65535 || (long long)grid_x * block_y < g.by || g.h < 0 ||
         g.nx < 1 || g.ny < 1 || g.in_off < 0 || g.out_off < 0 ||
         g.in_off + 2 * g.h + g.by > g.in_py || g.out_off + g.by > g.out_py ||
+        g.in_off + 2 * g.h + g.bx > g.in_px || g.out_off + g.bx > g.out_px ||
         g.n_ints != g0.n_ints || g.n_coefs != g0.n_coefs)
       return (int)cudaErrorInvalidValue;
   }
@@ -500,7 +530,10 @@ int launch_sweep(const void* const* ins, void* const* outs,
   DeviceScope scope(device);
   if (scope.err != cudaSuccess) return (int)scope.err;
   const auto kernel =
-      hazard ? fused_column_kernel<T, true> : fused_column_kernel<T, false>;
+      batch > 1 ? (hazard ? fused_column_kernel<T, true, true>
+                          : fused_column_kernel<T, false, true>)
+                : (hazard ? fused_column_kernel<T, true, false>
+                          : fused_column_kernel<T, false, false>);
   const size_t smem =
       hazard ? stage_offset<T>(g0.n_coefs, g0.n_ints) + (size_t)stage_bytes
              : (size_t)g0.n_coefs * (sizeof(double) + sizeof(T)) +
@@ -522,8 +555,8 @@ int launch_sweep(const void* const* ins, void* const* outs,
           !wr ? nullptr : s == k - 1 ? outs[q] : scratch[s & 1][q]);
       f.nz[q] = nz[q];
     }
-    kernel<<<dim3(grids[2 * s], grids[2 * s + 1]), dim3(block_z, block_y),
-             smem, stream>>>(f, g, desc, coefs);
+    kernel<<<dim3(grids[2 * s], grids[2 * s + 1], batch),
+             dim3(block_z, block_y), smem, stream>>>(f, g, desc, coefs);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -539,11 +572,11 @@ int fused_sweep_f32(const void* const* ins, void* const* outs,
                     const int* nz, int n_fields, const int* desc,
                     const double* coefs, const int* geoms, const int* grids,
                     int k, int block_z, int block_y, const int* host_desc,
-                    int hazard, long long stage_bytes, int device,
-                    void* stream) {
+                    int hazard, long long stage_bytes, int batch,
+                    int device, void* stream) {
   return launch_sweep<float>(ins, outs, scratch0, scratch1, nz, n_fields,
                              desc, coefs, geoms, grids, k, block_z, block_y,
-                             host_desc, hazard, stage_bytes, device,
+                             host_desc, hazard, stage_bytes, batch, device,
                              static_cast<cudaStream_t>(stream));
 }
 
@@ -552,11 +585,11 @@ int fused_sweep_f64(const void* const* ins, void* const* outs,
                     const int* nz, int n_fields, const int* desc,
                     const double* coefs, const int* geoms, const int* grids,
                     int k, int block_z, int block_y, const int* host_desc,
-                    int hazard, long long stage_bytes, int device,
-                    void* stream) {
+                    int hazard, long long stage_bytes, int batch,
+                    int device, void* stream) {
   return launch_sweep<double>(ins, outs, scratch0, scratch1, nz, n_fields,
                               desc, coefs, geoms, grids, k, block_z, block_y,
-                              host_desc, hazard, stage_bytes, device,
+                              host_desc, hazard, stage_bytes, batch, device,
                               static_cast<cudaStream_t>(stream));
 }
 

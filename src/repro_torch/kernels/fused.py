@@ -48,8 +48,16 @@ an update's new z window into a shared-memory stage of
 :func:`hazard_stage_bytes` before storing any of it.  A body whose stage
 and descriptor pass :data:`MAX_SHARED_BYTES` is refused at build.
 
-The region mode (overlap) and the batch axis (ensembles) come with later
-slices.
+Members: a kernel built with ``batch=B > 1`` takes every input and output
+as a ``(B, …)`` stack of the shapes above (an ensemble, one member per
+leading index) and one launch advances all B members: the column entry's
+member instantiation runs grid z = B, one member per block, each block's
+field pointers moved by whole members (a kernel for one member keeps the
+code without the offset).  Each member's cells are computed as a single
+launch computes them, so a batched launch equals B single launches bit for
+bit.
+
+The region mode (overlap) comes with a later slice.
 
 Entry points:
 
@@ -59,8 +67,9 @@ Entry points:
   ``launch_fused.k1_launches`` (the k = 1 route's share),
   ``launch_fused.sweep_launches`` (the sweep's share, one per k-step
   launch), ``launch_fused.sweep_substeps`` (the sweep's column-entry
-  launches, k per sweep) and ``launch_fused.hazard_launches`` (the share of
-  hazard bodies, either route);
+  launches, k per sweep), ``launch_fused.hazard_launches`` (the share of
+  hazard bodies, either route) and ``launch_fused.batch_launches`` (the
+  share of kernels built for ``batch > 1``, either route);
 * :func:`fused_step_ref` is the plain PyTorch version: the same trapezoid,
   the same Moat mask and the same association, over the whole window at
   once.  The CPU path and the tests use it;
@@ -102,14 +111,19 @@ K1_CELLS = 4
 MAX_GRID_X = 2 ** 31 - 1
 MAX_GRID_Y = 65535
 
+#: CUDA's limit on gridDim.z, the members of one launch
+MAX_BATCH = 65535
+
 #: one launch's geometry, the CUDA source's ``Geom`` field for field:
 #: ``bx, by`` and ``cx, cy`` are the region's extent and global origin,
 #: ``in_off`` the origin of its ``h``-deep read window in the inputs,
-#: ``out_off, out_py`` where it lands in its destination.  ``k``,
-#: ``max_nz`` and the four tile fields are unused; they keep their places
+#: ``out_off, out_py`` where it lands in its destination, ``in_px`` and
+#: ``out_px`` the x extents of the input and destination buffers (one
+#: member's extent, with the row strides ``in_py``, ``out_py``).  ``k``,
+#: ``max_nz`` and the two tile fields are unused; they keep their places
 #: in the kernel's parameters
 Geom = collections.namedtuple(
-    "Geom", "bx by nx ny cx cy k h wrap tile_x tile_y tiles_x tiles_y n_ints "
+    "Geom", "bx by nx ny cx cy k h wrap in_px out_px tiles_x tiles_y n_ints "
             "n_coefs max_nz in_off in_py out_off out_py")
 
 
@@ -134,6 +148,7 @@ class FusedKernel:
     hazard: bool
     device: torch.device
     margin: int = 0                  # resident margin M; 0: padded mode
+    batch: int = 1                   # members per launch (leading axis if > 1)
     ints_dev: Optional[torch.Tensor] = None
     coefs_dev: Optional[torch.Tensor] = None
     #: what the launcher keeps between launches: the sweep's geometry by
@@ -153,6 +168,10 @@ class FusedKernel:
         buffer in margin mode (which the outputs share)."""
         d = 2 * (self.margin or self.pad)
         return self.bx + d, self.by + d
+
+    def stacked(self, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        """``shape`` with the member axis in front when ``batch > 1``."""
+        return (self.batch,) + tuple(shape) if self.batch > 1 else tuple(shape)
 
 
 def _encode(updates, in_names, nz_of):
@@ -260,13 +279,14 @@ def k1_launch_shape(kernel: FusedKernel,
     return grid, (bz, by_threads)
 
 
-def _origins(kernel: FusedKernel) -> Tuple[int, int, int]:
-    """``(in_off, out_off, out_py)``: the window's origin in the inputs, and
-    the brick's origin and row stride in the outputs."""
+def _origins(kernel: FusedKernel) -> Tuple[int, int, int, int]:
+    """``(in_off, out_off, out_px, out_py)``: the window's origin in the
+    inputs, and the brick's origin and x extent and row stride in the
+    outputs."""
     M = kernel.margin
     if M:
-        return M - kernel.pad, M, kernel.extent[1]
-    return 0, 0, kernel.by
+        return (M - kernel.pad, M) + kernel.extent
+    return 0, 0, kernel.bx, kernel.by
 
 
 def sweep_geoms(kernel: FusedKernel, coords: Tuple[int, int] = (0, 0)
@@ -279,11 +299,12 @@ def sweep_geoms(kernel: FusedKernel, coords: Tuple[int, int] = (0, 0)
     r``, read window at ``in_off + s·h`` of the inputs (both modes).  It
     writes the scratch buffers, which share the inputs' extent and row
     stride, at the region's own place in the window (``in_off + (s+1)·h``),
-    and at ``s = k − 1`` the outputs at the brick's origin.
+    and at ``s = k − 1`` the outputs at the brick's origin.  The geometry is
+    one member's: a batched launch runs it on every member.
     """
     k, h = kernel.k, kernel.halo
-    in_off, out_off, out_py = _origins(kernel)
-    ey = kernel.extent[1]
+    in_off, out_off, out_px, out_py = _origins(kernel)
+    ex, ey = kernel.extent
     cx, cy = int(coords[0]), int(coords[1])
     geoms = []
     for s in range(k):
@@ -292,7 +313,8 @@ def sweep_geoms(kernel: FusedKernel, coords: Tuple[int, int] = (0, 0)
         geoms.append(Geom(
             bx=kernel.bx + 2 * r, by=kernel.by + 2 * r, nx=kernel.nx,
             ny=kernel.ny, cx=cx - r, cy=cy - r, k=1, h=h,
-            wrap=int(kernel.wrap), tile_x=0, tile_y=0, tiles_x=0, tiles_y=0,
+            wrap=int(kernel.wrap), in_px=ex, out_px=out_px if last else ex,
+            tiles_x=0, tiles_y=0,
             n_ints=len(kernel.ints), n_coefs=len(kernel.coefs),
             max_nz=max(kernel.nz), in_off=in_off + s * h, in_py=ey,
             out_off=out_off if last else in_off + (s + 1) * h,
@@ -303,7 +325,7 @@ def sweep_geoms(kernel: FusedKernel, coords: Tuple[int, int] = (0, 0)
 def build_fused_call(updates: Sequence, field_specs: Dict[str, Tuple[int, object]],
                      halo: int, bx: int, by: int, nx: int, ny: int,
                      time_tile: int = 1, wrap: bool = False, *, device,
-                     margin: int = 0):
+                     margin: int = 0, batch: int = 1):
     """Build the fused kernel for one loop body.
 
     ``updates``     — :class:`repro_torch.compiler.ir.AffineUpdate`s, in
@@ -322,6 +344,8 @@ def build_fused_call(updates: Sequence, field_specs: Dict[str, Tuple[int, object
                       resident extent ``(bx + 2M, by + 2M, nz)`` with
                       ``M >= k·halo`` (see the module docstring); 0 keeps
                       the padded → fresh-output mode.
+    ``batch``       — members per launch: ``B > 1`` takes every input and
+                      output as a ``(B, …)`` stack (one grid z per member).
 
     Returns ``(kernel, written)``: the :class:`FusedKernel` to pass to
     :func:`repro_torch.kernels.ops.fused_step` and the written fields in
@@ -330,11 +354,14 @@ def build_fused_call(updates: Sequence, field_specs: Dict[str, Tuple[int, object
     than float32/float64, more than one dtype, more than ``MAX_FIELDS``
     fields, a descriptor over ``MAX_DESC_BYTES``, or a hazard body whose
     stage and descriptor pass ``MAX_SHARED_BYTES``
-    (:func:`column_shared_bytes`); and for a margin below ``k·halo``.
+    (:func:`column_shared_bytes`); and for a margin below ``k·halo`` or a
+    ``batch`` outside ``[1, MAX_BATCH]``.
     """
     if margin and margin < time_tile * halo:
         raise ValueError(
             f"resident margin {margin} < window halo {time_tile * halo}")
+    if not 1 <= batch <= MAX_BATCH:
+        raise ValueError(f"batch {batch} outside [1, {MAX_BATCH}]")
     in_names = tuple(field_specs)
     written = []
     for u in updates:
@@ -360,7 +387,7 @@ def build_fused_call(updates: Sequence, field_specs: Dict[str, Tuple[int, object
         nz=tuple(nz_of[n] for n in in_names), dtype=next(iter(dtypes)),
         halo=int(halo), k=int(time_tile), bx=bx, by=by, nx=nx, ny=ny,
         wrap=bool(wrap), ints=ints, coefs=coefs, hazard=hazard,
-        device=device, margin=int(margin))
+        device=device, margin=int(margin), batch=int(batch))
     if hazard:
         smem = column_shared_bytes(kern, k1_block(max(kern.nz))[1])
         if smem > MAX_SHARED_BYTES:
@@ -465,7 +492,7 @@ def _check_outputs(kernel: FusedKernel, inputs, out) -> None:
     ex, ey = kernel.extent
     nz_of = dict(zip(kernel.in_names, kernel.nz))
     for name, o in zip(kernel.written, out):
-        want = (ex, ey, nz_of[name])
+        want = kernel.stacked((ex, ey, nz_of[name]))
         if tuple(o.shape) != want or o.dtype != kernel.dtype:
             raise ValueError(f"output {name!r} is {tuple(o.shape)} {o.dtype}, "
                              f"expected {want} {kernel.dtype}")
@@ -483,6 +510,26 @@ def _check_outputs(kernel: FusedKernel, inputs, out) -> None:
         seen.add(ptr)
 
 
+def _per_member(one, kernel: FusedKernel, inputs, coords, out):
+    """``one(kernel, inputs, coords, out)`` for each member of a batched
+    kernel's ``(B, …)`` stacks, in turn: margin mode writes each member's
+    slice of ``out`` and returns ``out``; padded mode stacks the members'
+    fresh outputs."""
+    _check_outputs(kernel, inputs, out)
+    if kernel.batch == 1:
+        return one(kernel, inputs, coords, out)
+    for name, t in zip(kernel.in_names, inputs):
+        if t.ndim != 4 or t.shape[0] != kernel.batch:
+            raise ValueError(f"input {name!r} is {tuple(t.shape)}, not a stack "
+                             f"of {kernel.batch} members")
+    res = [one(kernel, [t[b] for t in inputs], coords,
+               None if out is None else [o[b] for o in out])
+           for b in range(kernel.batch)]
+    if out is not None:
+        return tuple(out)
+    return tuple(torch.stack(ts) for ts in zip(*res))
+
+
 def fused_step_ref(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
                    coords: Tuple[int, int] = (0, 0),
                    out: Optional[Sequence[torch.Tensor]] = None
@@ -497,9 +544,14 @@ def fused_step_ref(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
     returned (their margins are left as they were).  ``coords`` is the
     brick's global cell origin.  The whole window is one block: each output
     cell's arithmetic is the same whichever block computes it, so this
-    matches the tiled kernel bit for bit.
+    matches the tiled kernel bit for bit.  A batched kernel's stacks run one
+    member at a time.
     """
-    _check_outputs(kernel, inputs, out)
+    return _per_member(_step_member, kernel, inputs, coords, out)
+
+
+def _step_member(kernel, inputs, coords, out):
+    """:func:`fused_step_ref` of one member."""
     k, h = kernel.k, kernel.halo
     if kernel.margin:
         lo = kernel.margin - kernel.pad
@@ -535,9 +587,14 @@ def fused_sweep_ref(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
     previous sub-step's full-extent scratch and writing its region there.
     Scratch starts as NaN, so a read of a cell no sub-step wrote shows in
     the result.  The tests hold it against :func:`fused_step_ref`; nothing
-    on the main path calls it.
+    on the main path calls it.  A batched kernel's stacks run one member at
+    a time.
     """
-    _check_outputs(kernel, inputs, out)
+    return _per_member(_sweep_member, kernel, inputs, coords, out)
+
+
+def _sweep_member(kernel, inputs, coords, out):
+    """:func:`fused_sweep_ref` of one member."""
     h, k = kernel.halo, kernel.k
     nz_of = dict(zip(kernel.in_names, kernel.nz))
     src = dict(zip(kernel.in_names, inputs))
@@ -585,7 +642,7 @@ def _library():
                            ctypes.c_void_p, ctypes.c_void_p, ints, ints,
                            ctypes.c_int, ctypes.c_int, ctypes.c_int, ints,
                            ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                           ctypes.c_void_p]
+                           ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.fused_stencil_error.argtypes = [ctypes.c_int]
         lib.fused_stencil_error.restype = ctypes.c_char_p
@@ -600,7 +657,7 @@ def _check_inputs(kernel: FusedKernel, inputs) -> torch.device:
     dev = kernel.device
     ex, ey = kernel.extent
     for name, nz, t in zip(kernel.in_names, kernel.nz, inputs):
-        want = (ex, ey, nz)
+        want = kernel.stacked((ex, ey, nz))
         if t.device != dev:
             raise ValueError(f"input {name!r} is on {t.device}, kernel on {dev}")
         if t.dtype != kernel.dtype:
@@ -620,8 +677,9 @@ def _sweep_held(kernel: FusedKernel, coords: Tuple[int, int]):
     stage's bytes (:func:`hazard_stage_bytes`), built at their first
     launch; the host copy of the descriptor, which C checks the stage
     against; and the scratch pointer tables over two buffers per written
-    field at the inputs' extent (``min(k − 1, 2)`` of them, none at k = 1),
-    allocated once (``torch.empty``) and reused by every later launch."""
+    field at the inputs' extent and members (``min(k − 1, 2)`` of them,
+    none at k = 1), allocated once (``torch.empty``) and reused by every
+    later launch."""
     held = kernel.held
     key = ("geoms", coords)
     if key not in held:
@@ -635,8 +693,8 @@ def _sweep_held(kernel: FusedKernel, coords: Tuple[int, int]):
             block, hazard_stage_bytes(kernel, block[1]))
     if "scratch" not in held:
         ex, ey = kernel.extent
-        bufs = [[torch.empty((ex, ey, nz), dtype=kernel.dtype,
-                             device=kernel.device)
+        bufs = [[torch.empty(kernel.stacked((ex, ey, nz)),
+                             dtype=kernel.dtype, device=kernel.device)
                  if name in kernel.written and kernel.k > b + 1 else None
                  for name, nz in zip(kernel.in_names, kernel.nz)]
                 for b in range(2)]
@@ -654,7 +712,8 @@ def launch_fused(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
     :func:`fused_entry` names (a hazard body through the kernel's hazard
     instantiation).
 
-    Padded mode: returns fresh ``(bx, by, nz)`` outputs.  Margin mode:
+    Padded mode: returns fresh ``(bx, by, nz)`` outputs (``(B, bx, by,
+    nz)`` for a batched kernel, whose inputs are stacks too).  Margin mode:
     writes the brick interiors of the caller's ``out`` buffers (resident
     extent, no storage shared with an input) and returns them; no output is
     allocated.  Checks device, dtype, shape and contiguity, launches on the
@@ -681,7 +740,7 @@ def launch_fused(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
     if kernel.margin:
         outs = dict(zip(kernel.written, out))
     else:
-        outs = {name: torch.empty((kernel.bx, kernel.by, nz),
+        outs = {name: torch.empty(kernel.stacked((kernel.bx, kernel.by, nz)),
                                   dtype=kernel.dtype, device=dev)
                 for name, nz in zip(kernel.in_names, kernel.nz)
                 if name in kernel.written}
@@ -696,7 +755,7 @@ def launch_fused(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
     rc = fn(ins, out_ptrs, s0, s1, _INTS(*kernel.nz), len(kernel.in_names),
             kernel.ints_dev.data_ptr(), kernel.coefs_dev.data_ptr(), geoms,
             grids, k, bz, bty, host_ints, int(kernel.hazard), stage,
-            dev.index, stream)
+            kernel.batch, dev.index, stream)
     if rc != 0:
         raise RuntimeError(
             f"fused_stencil {entry} launch failed: "
@@ -707,6 +766,7 @@ def launch_fused(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
     launch_fused.sweep_launches += entry == "sweep"
     launch_fused.sweep_substeps += k if entry == "sweep" else 0
     launch_fused.hazard_launches += kernel.hazard
+    launch_fused.batch_launches += kernel.batch > 1
     return tuple(outs[nm] for nm in kernel.written)
 
 
@@ -716,3 +776,4 @@ launch_fused.k1_launches = 0
 launch_fused.sweep_launches = 0
 launch_fused.sweep_substeps = 0
 launch_fused.hazard_launches = 0
+launch_fused.batch_launches = 0

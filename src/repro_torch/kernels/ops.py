@@ -37,7 +37,8 @@ def fused_step(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
                ) -> Tuple[torch.Tensor, ...]:
     """One launch of the fused loop-body kernel K1: on wrap-padded inputs
     into fresh outputs, or (margin mode) on resident buffers into the
-    ``out`` buffers."""
+    ``out`` buffers; ``(B, …)`` member stacks for a kernel built for B
+    members."""
     if _on_card(inputs[0], "fused stencil"):
         return launch_fused(kernel, inputs, coords, out=out)
     return fused_step_ref(kernel, inputs, coords, out=out)

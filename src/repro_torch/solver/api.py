@@ -20,9 +20,12 @@ Entry points:
 * :func:`operator_fns` — just the compiled ``(A, rhs)`` applications.
 
 Every entry point runs on the card unless the caller asks for the host
-(``RunOptions(device="cpu")``, or ``device="cpu"`` for ``make_solver`` and ``operator_fns``).  The
-sharded solver, the batched (ensemble) solver, the adjoint and the recovery
-ladder come with their slices and raise ``NotImplementedError`` here.
+(``RunOptions(device="cpu")``, or ``device="cpu"`` for ``make_solver`` and
+``operator_fns``).  ``RunOptions(batch=B)`` solves a B-member ensemble in
+one masked Krylov loop (:mod:`repro_torch.solver.krylov`'s ``*_batched``
+variants), the operator one K1 launch for all members.  The sharded
+solver, the adjoint and the recovery ladder come with their slices and
+raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -58,13 +61,15 @@ class SolveInfo:
     ``outcomes`` holds the :mod:`repro_torch.solver.health` taxonomy name
     per time step (``CONVERGED`` / ``MAXITER`` / ``NAN_RESIDUAL`` /
     ``BREAKDOWN`` / ``STAGNATED`` / ``DIVERGED``); ``recovery`` stays None
-    until the recovery ladder is ported."""
+    until the recovery ladder is ported.  On a batched solve (``batch=B >
+    1``) ``iterations``, ``residual`` and ``outcomes`` carry a trailing
+    member axis, shape ``(steps, B)``, with each member's own count."""
 
     method: str
     backend: str
-    iterations: np.ndarray  # (steps,) inner iterations per time step
-    residual: np.ndarray  # (steps,) final ‖r‖ per time step
-    outcomes: Optional[np.ndarray] = None  # (steps,) taxonomy names
+    iterations: np.ndarray  # (steps,) or (steps, B) inner iterations
+    residual: np.ndarray  # (steps,) or (steps, B) final ‖r‖
+    outcomes: Optional[np.ndarray] = None  # (steps,) or (steps, B) names
     recovery: Optional["health.RecoveryTrace"] = None
 
 
@@ -295,6 +300,7 @@ def _make_runner(
     jacobi_mask: Optional[torch.Tensor],
     mg=None,
     M: Optional[Callable] = None,
+    batch: int = 1,
 ):
     """Solve loop: ``run(x0, *coefs) -> (x, (iters, res, outcomes))``.
 
@@ -307,6 +313,11 @@ def _make_runner(
     marks the cells the operator writes (``method="jacobi"`` only).  ``iters`` and
     ``outcomes`` are int32 arrays of shape ``(steps,)``, ``res`` the final
     ``‖r‖`` per step in the dots' accumulation dtype.
+
+    ``batch=B > 1`` routes the Krylov methods to their masked batched
+    variants (``dot``/``dot2`` then reduce to ``(B,)`` vectors) and gives
+    the fixed-count methods' shared iteration count to every member, so
+    all three arrays are ``(steps, B)``.
     """
 
     def run_method(A, b, x0, envc):
@@ -320,12 +331,21 @@ def _make_runner(
                 ref2=dot(b, b),
             )
         if method == "cg":
+            if batch > 1:
+                return krylov.cg_batched(A, dot, b, x0, tol=tol,
+                                         maxiter=maxiter)
             return krylov.cg(
                 A, dot, b, x0, tol=tol, maxiter=maxiter, M=M, dot2=dot2
             )
         if method == "pipecg":
+            if batch > 1:
+                return krylov.pipecg_batched(A, dot2, b, x0, tol=tol,
+                                             maxiter=maxiter)
             return krylov.pipecg(A, dot2, b, x0, tol=tol, maxiter=maxiter)
         if method == "bicgstab":
+            if batch > 1:
+                return krylov.bicgstab_batched(A, dot, b, x0, tol=tol,
+                                               maxiter=maxiter)
             return krylov.bicgstab(A, dot, b, x0, tol=tol, maxiter=maxiter, M=M)
         if method == "chebyshev":
             return krylov.chebyshev(
@@ -361,6 +381,13 @@ def _make_runner(
             else:
                 b = x
             x, i, r, outcome = run_method(A, b, x, envc)
+            if batch > 1:
+                # a fixed-count method reports one shared count; make every
+                # method's (iters, res, outcome) per member
+                i = np.broadcast_to(np.asarray(i, np.int32), (batch,))
+                r = torch.broadcast_to(r, (batch,))
+                outcome = np.broadcast_to(np.asarray(outcome, np.int32),
+                                          (batch,))
             iters.append(i)
             res.append(r)
             outcomes.append(outcome)
@@ -371,19 +398,22 @@ def _make_runner(
     return run
 
 
-def _build_step(ops, loop, program: Program, backend: str, device) -> Callable:
+def _build_step(ops, loop, program: Program, backend: str, device,
+                batch: int = 1) -> Callable:
     """One body application ``env -> env`` through the engine's single
     dispatch point (:func:`repro_torch.engine.compile_body`): the fused
     kernel K1 when ``backend="pallas"`` (interpreter fallback on
     LoweringError, counted in ``repro_torch.compiler.stats``), the shared
-    roll interpreter otherwise."""
+    roll interpreter otherwise; over ``(B, X, Y, Z)`` member stacks at
+    ``batch=B > 1``."""
     from repro_torch.engine import compile_body
 
     if backend not in ("jit", "pallas"):
         raise ValueError(f"unknown solver backend {backend!r}")
     shapes = {n: f.shape for n, f in program.fields.items()}
     dtypes = {n: f.dtype for n, f in program.fields.items()}
-    step, _ = compile_body(ops, loop, shapes, dtypes, backend, device=device)
+    step, _ = compile_body(ops, loop, shapes, dtypes, backend, device=device,
+                           batch=batch)
     return step
 
 
@@ -462,17 +492,30 @@ def make_solver(
     caller's array is never touched.  ``x`` comes back as a tensor on
     ``device``, ``iters``/``res``/``outcomes`` as host arrays of shape
     ``(steps,)``.  ``member_env`` overrides coefficient fields' init data.
-    ``batch > 1`` and ``differentiable=True`` come with later slices.
+
+    ``batch=B > 1`` builds an ensemble solver: ``step_fn`` takes and
+    returns a ``(B, X, Y, Z)`` stack, the operator is one K1 launch for all
+    members, dots reduce per member, and the Krylov loops freeze converged
+    members while running to the slowest (see
+    :mod:`repro_torch.solver.krylov`); the three arrays are ``(steps, B)``.
+    ``member_env`` then holds ``(B, X, Y, Z)`` stacks for coefficient fields
+    (the others broadcast from their init data).  Multigrid is not
+    batch-aware: ``method="mg"`` and ``precondition=`` raise ``ValueError``
+    with ``batch > 1``.  ``differentiable=True`` comes with a later slice.
     """
     from repro_torch.engine import resolve_device
 
     if differentiable:
         raise _later("make_solver(differentiable=True)", "adjoint")
-    if batch > 1:
-        raise _later(f"make_solver(batch={batch})", "ensembles")
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; expected one of {METHODS}")
     _check_precondition(method, precondition)
+    if batch > 1 and (method == "mg" or precondition is not None):
+        raise ValueError(
+            "batched solves support the pointwise/Krylov methods only; "
+            "method='mg' and precondition= need batch=1 (the multigrid "
+            "hierarchy is not batch-aware)"
+        )
     name = _answer_name(program, answer)
     release_program(program)
     (op_loop, op_ops), rhs_group = _split(program, name)
@@ -492,34 +535,49 @@ def make_solver(
         mg_opts,
         device,
     )
-    op_step = _build_step(op_ops, op_loop, program, backend, device)
+    op_step = _build_step(op_ops, op_loop, program, backend, device, batch)
     rhs_step = (
-        _build_step(rhs_group[1], rhs_group[0], program, backend, device)
+        _build_step(rhs_group[1], rhs_group[0], program, backend, device,
+                    batch)
         if rhs_group is not None
         else None
     )
     member_env = member_env or {}
     coef_names = [n for n in program.fields if n != name]
-    coefs = [
-        torch.tensor(np.asarray(member_env.get(n, program.fields[n].init_data)),
-                     device=device)
-        for n in coef_names
-    ]
+
+    def _coef(n):
+        v = np.asarray(member_env.get(n, program.fields[n].init_data))
+        if batch > 1 and v.ndim == 3:
+            v = np.broadcast_to(v, (batch,) + v.shape).copy()
+        return torch.tensor(v, device=device)
+
+    coefs = [_coef(n) for n in coef_names]
     shape = program.fields[name].shape
     mask = (torch.tensor(_written_mask(group, shape), device=device)
             if method == "jacobi" else None)
 
     # dots accumulate in promote(dtype, float32), as the reference's do: a
-    # float32 field keeps float32 sums, a float64 one float64 sums
-    def dot(a, b):
-        return torch.sum(a * b, dtype=torch.promote_types(a.dtype, torch.float32))
+    # float32 field keeps float32 sums, a float64 one float64 sums; a
+    # batched solve reduces each member over its (X, Y, Z) axes
+    if batch > 1:
+
+        def dot(a, b):
+            return torch.sum(a * b, dim=(1, 2, 3),
+                             dtype=torch.promote_types(a.dtype, torch.float32))
+
+    else:
+
+        def dot(a, b):
+            return torch.sum(a * b,
+                             dtype=torch.promote_types(a.dtype, torch.float32))
 
     def dot2(a, b, c, d):
         from repro_torch.kernels import ops as kops
 
         # the fused dual-dot kernel K2 on the card (its plain version on the
-        # host); unlike the reference, no interpret-mode switch decides
-        if backend == "pallas":
+        # host); unlike the reference, no interpret-mode switch decides.  A
+        # batched solve sums per member, as the reference's does
+        if backend == "pallas" and batch == 1:
             part = kops.dual_dot(a, b, c, d)  # one fused operand sweep
             return part[0], part[1]
         return dot(a, b), dot(c, d)
@@ -540,6 +598,7 @@ def make_solver(
         jacobi_mask=mask,
         mg=mg,
         M=mg.apply if (mg is not None and precondition == "mg") else None,
+        batch=batch,
     )
 
     def step_fn(x0):
@@ -588,6 +647,12 @@ def solve(
     and forward (backend defaults to ``"pallas"``).  ``options.device``
     names the torch device (``"cuda"`` by default, which raises without a
     card; ``"cpu"`` runs on the host, every kernel as its plain version).
+    ``options.batch=B`` solves a B-member ensemble in one masked Krylov
+    loop: ``member_env`` supplies per-member ``(B, X, Y, Z)`` stacks for the
+    initial guess and/or coefficient fields (the rest broadcast), the
+    solution is the ``(B, X, Y, Z)`` stack, and the per-member iteration
+    counts land in :class:`SolveInfo` (shape ``(steps, B)``) and in
+    ``repro_torch.engine.stats.member_iterations``.
 
     The initial guess is the unknown field's init data (its Moat must carry
     the boundary values, as in the explicit path).  ``tol`` bounds the
@@ -622,6 +687,7 @@ def solve(
         mesh=UNSET if mesh is None else mesh,
     )
     backend = options.resolved_backend("pallas")
+    batch = options.batch
     name = _answer_name(program, answer)
     member_env = member_env or {}
     step_fn = make_solver(
@@ -637,13 +703,20 @@ def solve(
         mg_opts=mg_opts,
         member_env=member_env,
         device=options.device,
+        batch=batch,
     )
     x0 = np.asarray(member_env.get(name, program.fields[name].init_data))
+    if batch > 1 and x0.ndim == 3:
+        x0 = np.broadcast_to(x0, (batch,) + x0.shape).copy()
     x, (iters, res, outs) = step_fn(x0)
     x = x.cpu().numpy()
     engine_stats.solve_outcomes = tuple(
         str(v) for v in np.unique(health.outcome_names(outs))
     )
+    if batch > 1:
+        engine_stats.ensemble_runs += 1
+        engine_stats.ensemble_members += batch
+        engine_stats.member_iterations = tuple(int(v) for v in iters.sum(axis=0))
     if return_info:
         info = SolveInfo(
             method=method,

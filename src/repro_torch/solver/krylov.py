@@ -33,7 +33,19 @@ scalars, in one transfer) to the host, which is one synchronisation per
 iteration — the reference's loop never leaves the device.  The fixed-count
 methods (Chebyshev, Jacobi) never synchronise inside the loop.
 
-The ensembles slice brings the reference's ``*_batched`` variants.
+The ``*_batched`` variants solve B independent systems stacked on a
+leading axis in one masked loop (the reference's ensembles): ``A`` applies
+the operator to the whole ``(B, X, Y, Z)`` stack, ``dot`` reduces per
+member to a ``(B,)`` vector, and every scalar recurrence runs elementwise
+over the members.  The loop runs until the slowest member stops; a member
+that stops early is **frozen bitwise** — all of its carried state is held
+with ``torch.where(active, new, old)``, never an arithmetic no-op — and its
+iteration count stops there.  Each iteration copies one ``(B,)`` residual
+vector to the host (BiCGSTAB: ``(4, B)``, with its breakdown scalars), in
+one transfer, where each member's guard runs; they return per-member
+iteration counts, residuals and outcome words.  The fixed-count methods
+(Chebyshev, Jacobi) take stacks as they are and classify each member's
+end-of-run residual.
 """
 
 from __future__ import annotations
@@ -59,6 +71,15 @@ def _read(*vals: torch.Tensor) -> List[float]:
     if len(vals) == 1:
         return [vals[0].item()]
     return torch.stack(vals).tolist()
+
+
+def _fixed_outcome(rr: torch.Tensor, tol2: float):
+    """:func:`health.classify_fixed` of a 0-d residual, or a list of one
+    word per member of a ``(B,)`` one (one transfer either way)."""
+    vals = rr.tolist()
+    if isinstance(vals, list):
+        return [health.classify_fixed(v, tol2) for v in vals]
+    return health.classify_fixed(vals, tol2)
 
 
 def _as(v: float, like: torch.Tensor) -> float:
@@ -331,9 +352,7 @@ def chebyshev(
         rr = torch.sum(r * r, dtype=torch.promote_types(r.dtype, torch.float32))
     else:
         rr = dot(r, r)
-    (rr_h,) = _read(rr)
-    return x, iters, torch.sqrt(rr), health.classify_fixed(rr_h,
-                                                            _as(tol * tol, rr))
+    return x, iters, torch.sqrt(rr), _fixed_outcome(rr, _as(tol * tol, rr))
 
 
 def jacobi(
@@ -357,9 +376,200 @@ def jacobi(
         x = step(x)
     if rnorm2 is not None:
         rr = rnorm2(x)
-        (rr_h,) = _read(rr)
-        return x, iters, torch.sqrt(rr), health.classify_fixed(
-            rr_h, _as(tol * tol, rr))
+        return x, iters, torch.sqrt(rr), _fixed_outcome(rr, _as(tol * tol, rr))
     finite = bool(torch.isfinite(x).all())
     outcome = health.MAXITER if finite else health.NAN_RESIDUAL
     return x, iters, torch.zeros((), device=x.device), outcome
+
+
+# ---------------------------------------------------------------------------
+# batched ensembles: per-member convergence masking
+# ---------------------------------------------------------------------------
+
+
+def _bc(s: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A ``(B,)`` per-member scalar shaped to broadcast over ``like``."""
+    return s.view(s.shape + (1,) * (like.ndim - 1))
+
+
+class _Members:
+    """The host side of a batched loop: each member's guard, iteration
+    count and last residual, and the device mask of members still running
+    (re-sent only when a guard trips)."""
+
+    def __init__(self, rr: torch.Tensor, tol2: float, guard):
+        self.rr = rr.tolist()
+        self.tol2 = tol2
+        self.guard = guard or health.DEFAULT_GUARD
+        self.g = [health.guard_init(v) for v in self.rr]
+        self.its = [0] * len(self.rr)
+        self.running = torch.ones(len(self.rr), dtype=torch.bool,
+                                  device=rr.device)
+
+    def active(self) -> List[bool]:
+        return [health.running(g) and v > self.tol2
+                for g, v in zip(self.g, self.rr)]
+
+    def mask(self, rr: torch.Tensor) -> torch.Tensor:
+        """The device twin of :meth:`active` for the carried ``rr``."""
+        return (rr > self.tol2) & self.running
+
+    def update(self, active: List[bool], rr_new, breakdown=None) -> None:
+        """Advance each active member's guard with its new residual."""
+        tripped = False
+        for m, a in enumerate(active):
+            if not a:
+                continue
+            self.g[m] = health.guard_update(
+                self.g[m], rr_new[m],
+                breakdown=bool(breakdown and breakdown[m]), config=self.guard)
+            self.rr[m] = rr_new[m]
+            self.its[m] += 1
+            tripped = tripped or not health.running(self.g[m])
+        if tripped:
+            self.running = torch.tensor([health.running(g) for g in self.g],
+                                        device=self.running.device)
+
+    def outcomes(self, rr_final) -> List[int]:
+        return [health.classify(g, v, self.tol2)
+                for g, v in zip(self.g, rr_final)]
+
+
+def cg_batched(A, dot, b, x0, *, tol: float = 1e-6, maxiter: int = 500,
+               guard: health.GuardConfig = None):
+    """Classic CG over a ``(B, …)`` stack; ``dot`` must reduce to ``(B,)``.
+
+    Returns ``(x, iterations, ‖r‖, outcomes)`` with per-member iteration
+    counts, residual norms and outcome words.  A poisoned member (NaN
+    residual) freezes at once and reports ``NAN_RESIDUAL`` while the others
+    run on unperturbed (dots reduce per member and the operator does not
+    couple members).  No preconditioner: multigrid is not batch-aware.
+    """
+    r = b - A(x0)
+    p = r
+    rr = dot(r, r)
+    mem = _Members(rr, _as(tol * tol, rr), guard)
+    x, i = x0, 0
+    while i < maxiter and any(act := mem.active()):
+        active = mem.mask(rr)
+        a4 = _bc(active, x)
+        Ap = A(p)
+        alpha = rr / _nonzero(dot(p, Ap))
+        x = torch.where(a4, x + _bc(alpha, x) * p, x)
+        r_new = r - _bc(alpha, r) * Ap
+        rr_new = dot(r_new, r_new)
+        beta = rr_new / _nonzero(rr)
+        p = torch.where(a4, r_new + _bc(beta, p) * p, p)
+        r = torch.where(a4, r_new, r)
+        rr = torch.where(active, rr_new, rr)
+        mem.update(act, rr_new.tolist())
+        i += 1
+    return x, mem.its, torch.sqrt(rr), mem.outcomes(mem.rr)
+
+
+def pipecg_batched(A, dot2, b, x0, *, tol: float = 1e-6, maxiter: int = 500,
+                   guard: health.GuardConfig = None):
+    """Pipelined CG over a ``(B, …)`` stack; ``dot2`` reduces to two
+    ``(B,)`` vectors.
+
+    The Ghysels–Vanroose recurrences of :func:`pipecg` run elementwise over
+    the members, with the periodic residual replacement on the shared
+    iteration clock, masked so that frozen members keep their state
+    bitwise.  The stop test reads ‖r‖² before the update (``gamma``), the
+    one-iteration lag of :func:`pipecg`.
+    """
+    r = b - A(x0)
+    w_ = A(r)
+    zero = torch.zeros_like(b)
+    rr = dot2(r, r, r, r)[0]  # (B,) true entry residuals
+    replace_every = 25
+    mem = _Members(rr, _as(tol * tol, rr), guard)
+    alpha_prev = torch.ones_like(rr)
+    x, z, p, sv = x0, zero, zero, zero
+    i, fresh = 0, True
+    while i < maxiter and any(act := mem.active()):
+        active = mem.mask(rr)
+        a4 = _bc(active, x)
+        gamma, delta = dot2(r, r, w_, r)
+        n = A(w_)
+        if fresh:
+            beta = torch.zeros_like(gamma)
+            denom = _nonzero(delta - beta * gamma / 1.0)
+        else:
+            beta = gamma / _nonzero(rr)
+            denom = _nonzero(delta - beta * gamma / alpha_prev)
+        alpha = gamma / denom
+        z_new = n + _bc(beta, z) * z
+        p_new = r + _bc(beta, p) * p
+        sv_new = w_ + _bc(beta, sv) * sv
+        x = torch.where(a4, x + _bc(alpha, x) * p_new, x)
+        r_new = r - _bc(alpha, r) * sv_new
+        w_new = w_ - _bc(alpha, w_) * z_new
+        fresh = (i + 1) % replace_every == 0
+        if fresh:
+            r_new = b - A(x)
+            w_new = A(r_new)
+        r = torch.where(a4, r_new, r)
+        w_ = torch.where(a4, w_new, w_)
+        z = torch.where(a4, z_new, z)
+        p = torch.where(a4, p_new, p)
+        sv = torch.where(a4, sv_new, sv)
+        rr = torch.where(active, gamma, rr)
+        alpha_prev = torch.where(active, alpha, alpha_prev)
+        mem.update(act, gamma.tolist())
+        i += 1
+    rr = dot2(r, r, r, r)[0]
+    return x, mem.its, torch.sqrt(rr), mem.outcomes(rr.tolist())
+
+
+def bicgstab_batched(A, dot, b, x0, *, tol: float = 1e-6, maxiter: int = 500,
+                     guard: health.GuardConfig = None):
+    """BiCGSTAB over a ``(B, …)`` stack; ``dot`` must reduce to ``(B,)``.
+
+    The ensemble workhorse: members may carry different coefficients (the
+    operator reads per-member coefficient stacks), so each converges at its
+    own rate and freezes on its own, with per-member ρ/ω breakdown flags.
+    """
+    r = b - A(x0)
+    r0 = r
+    rr = dot(r, r)
+    mem = _Members(rr, _as(tol * tol, rr), guard)
+    one = torch.ones_like(rr)
+    zero_v = torch.zeros_like(b)
+    x, p, v = x0, zero_v, zero_v
+    rho, alpha, omega = one, one, one
+    i = 0
+    while i < maxiter and any(act := mem.active()):
+        active = mem.mask(rr)
+        a4 = _bc(active, x)
+        rho_new = dot(r0, r)
+        beta = (rho_new / _nonzero(rho)) * (alpha / _nonzero(omega))
+        p_new = r + _bc(beta, p) * (p - _bc(omega, v) * v)
+        v_new = A(p_new)
+        r0v = dot(r0, v_new)
+        alpha_new = rho_new / _nonzero(r0v)
+        sv = r - _bc(alpha_new, r) * v_new
+        t = A(sv)
+        tt = dot(t, t)
+        omega_new = torch.where(tt > 0.0, dot(t, sv) / _nonzero(tt),
+                                torch.zeros_like(tt))
+        x = torch.where(a4, x + _bc(alpha_new, x) * p_new
+                        + _bc(omega_new, x) * sv, x)
+        r_new = sv - _bc(omega_new, sv) * t
+        rr_new = dot(r_new, r_new)
+        r = torch.where(a4, r_new, r)
+        p = torch.where(a4, p_new, p)
+        v = torch.where(a4, v_new, v)
+        rho = torch.where(active, rho_new, rho)
+        alpha = torch.where(active, alpha_new, alpha)
+        omega = torch.where(active, omega_new, omega)
+        rr = torch.where(active, rr_new, rr)
+        rr_h, rho_h, r0v_h, omega_h = torch.stack(
+            (rr_new, rho_new, r0v, omega_new)).tolist()
+        breakdown = [abs(rh) <= health.BREAKDOWN_TINY
+                     or abs(rv) <= health.BREAKDOWN_TINY
+                     or (om == 0.0 and rn > mem.tol2)
+                     for rn, rh, rv, om in zip(rr_h, rho_h, r0v_h, omega_h)]
+        mem.update(act, rr_h, breakdown)
+        i += 1
+    return x, mem.its, torch.sqrt(rr), mem.outcomes(mem.rr)

@@ -51,7 +51,14 @@ Without a card every test skips.  Tolerances:
   ``sweep_substeps`` per launch, one ``hazard_launches`` per launch of a
   hazard body; a second launch allocates nothing, nor does a step of a
   resident hazard ``make`` at the auto tile; ``make`` at the auto tile (all
-  sweeps) equals ``time_tile=1``, resident and repacking, bitwise.
+  sweeps) equals ``time_tile=1``, resident and repacking, bitwise;
+* K1 built for B = 1, 3 and 8 members on ``(B, …)`` stacks, k = 1, 2, 3
+  and 8, both modes, float32 and float64, on the heat, halo-2 and hazard
+  bodies: bitwise against its plain version and against B single
+  launches, one ``batch_launches`` per launch; a batched ``make``
+  (``RunOptions(batch=B)``, k = 1 and the auto tile, resident and
+  repacking) bitwise equal to B single runs, its resident loops making no
+  device allocation per step.
 
 The bodies of :data:`K1_BODIES` are shared with ``test_torch_k1.py``, which
 holds their plain version against the JAX reference on the CPU.
@@ -587,9 +594,10 @@ def k1_body(m, name, dtype, steps=2, seed=0):
     return wse, env
 
 
-def k1_kernel(name, dtype, device, margin=0, k=1, brick=None):
+def k1_kernel(name, dtype, device, margin=0, k=1, brick=None, batch=1):
     """``(kernel, env)`` of body ``name`` at time tile ``k`` on ``device``,
-    for the whole grid or a ``brick=(bx, by)`` of it."""
+    for the whole grid or a ``brick=(bx, by)`` of it, built for ``batch``
+    members."""
     wse, env = k1_body(port_core, name, dtype)
     prog = wse.program
     wse.__exit__()
@@ -600,7 +608,7 @@ def k1_kernel(name, dtype, device, margin=0, k=1, brick=None):
     bx, by = brick or (nx, ny)
     kern, _ = build_fused_call(group.updates, specs, group.halo, bx, by, nx,
                                ny, time_tile=k, wrap=True, device=device,
-                               margin=margin)
+                               margin=margin, batch=batch)
     return kern, env
 
 
@@ -779,3 +787,144 @@ def test_cuda_resident_hazard_make_allocates_nothing_per_step():
         assert after[2] - before[2] == after[3] - before[3] == launched
         grown[steps] = after[0] - before[0]
     assert grown[16] == grown[8], grown
+
+
+def _member_inputs(name, dtype, B, kern, coords, pad):
+    """Per-member input lists of body ``name`` from seeds 0..B-1: the
+    window of ``kern``'s brick at ``coords``, ``pad`` deep, on the card."""
+    per = []
+    for seed in range(B):
+        wse, env = k1_body(port_core, name, dtype, seed=seed)
+        wse.__exit__()
+        per.append([torch.tensor(brick_window(env[n], coords, kern.bx,
+                                              kern.by, pad), device="cuda")
+                    for n in kern.in_names])
+    return per
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("name", ["heat", "wide_halo2_mixed_nz", "hazard"])
+def test_cuda_batched_k1_bitwise_vs_plain_and_singles(name, B):
+    """K1 built for B members, on (B, …) stacks (B = 1: the single kernel on
+    one member), equals its plain version and B single launches bit for
+    bit: k = 1 (the brick at the grid's high corner) and the sweep at k =
+    2, 3, 8, padded and margin mode (M = k·h + 1, output margins left as
+    they were), float32 and float64; one batch launch per launch."""
+    _need_card()
+    for dtype in (np.float32, np.float64):
+        whole, _ = k1_kernel(name, dtype, "cpu")
+        nx, ny, h = whole.nx, whole.ny, whole.halo
+        bx, by = nx // 2 + 1, ny // 2 + 1
+        coords = (nx - bx, ny - by)
+        for k in (1, 2, 3, 8):
+            for M in (0, k * h + 1):
+                single, _ = k1_kernel(name, dtype, "cuda", margin=M, k=k,
+                                      brick=(bx, by))
+                kern, _ = k1_kernel(name, dtype, "cuda", margin=M, k=k,
+                                    brick=(bx, by), batch=B)
+                per = _member_inputs(name, dtype, B, kern, coords,
+                                     M or kern.pad)
+                ins = ([torch.stack(ts) for ts in zip(*per)] if B > 1
+                       else per[0])
+
+                def outs(xs):
+                    return ([torch.full_like(xs[kern.in_names.index(n)], -7.0)
+                             for n in kern.written] if M else None)
+
+                before = (launch_fused.launches, launch_fused.batch_launches)
+                got = launch_fused(kern, ins, coords, out=outs(ins))
+                assert (launch_fused.launches - before[0],
+                        launch_fused.batch_launches - before[1]) == (1, B > 1)
+                plain = fused_step_ref(kern, ins, coords, out=outs(ins))
+                for g, p in zip(got, plain):
+                    assert torch.equal(g, p), (name, dtype, B, k, M)
+                for b, xs in enumerate(per):
+                    one = launch_fused(single, xs, coords, out=outs(xs))
+                    for g, w in zip(got, one):
+                        assert torch.equal(g[b] if B > 1 else g, w), (
+                            name, dtype, B, k, M, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("time_tile", [1, None])
+def test_cuda_batched_make_equals_single_runs(time_tile):
+    """make of a 3-member ensemble (RunOptions(batch=3)) on the card, resident
+    and repacking: bitwise each member's single run, every K1 launch a
+    batch launch; the resident loop allocates nothing per step (a run's
+    allocation growth, after a warm-up run, is the same over 16 steps as
+    over 8)."""
+    _need_card()
+    from repro_torch.convert import env_from_numpy
+    from repro_torch.core.ensemble import Ensemble
+    from repro_torch.engine import plan, single_runner
+
+    rng = np.random.default_rng(12)
+    inits = [rng.uniform(300.0, 500.0, (40, 36, 12)).astype(np.float32)
+             for _ in range(3)]
+
+    def member(T0, steps):
+        with port_core.WSE_Interface() as wse:
+            T = port_core.WSE_Array("T", init_data=T0, dtype=T0.dtype)
+            with port_core.WSE_For_Loop("t", steps):
+                T[1:-1, 0, 0] = 0.4 * T[1:-1, 0, 0] + 0.1 * (
+                    T[2:, 0, 0] + T[:-2, 0, 0] + T[1:-1, 1, 0]
+                    + T[1:-1, 0, -1] + T[1:-1, -1, 0] + T[1:-1, 0, 1])
+        return wse, T
+
+    for resident in (True, False):
+        opts = RunOptions(backend="pallas", time_tile=time_tile,
+                          resident=resident)
+        before = (launch_fused.launches, launch_fused.batch_launches)
+        out = Ensemble.from_programs([member(T0, 16) for T0 in inits]).make(
+            options=opts)
+        launched = launch_fused.launches - before[0]
+        assert launched == (16 if time_tile == 1 else 2)
+        assert launch_fused.batch_launches - before[1] == launched
+        for b, T0 in enumerate(inits):
+            wse, T = member(T0, 16)
+            np.testing.assert_array_equal(out[b], wse.make(answer=T,
+                                                           options=opts))
+    grown = {}
+    for steps in (8, 16):
+        wse, _ = member(inits[0], steps)
+        p = plan(wse.program, RunOptions(backend="pallas", time_tile=time_tile,
+                                         batch=3))
+        wse.__exit__()
+        run = single_runner(p)
+        env = env_from_numpy({"T": np.stack(inits)}, "cuda")
+        run(env)
+        torch.cuda.synchronize()
+        a0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+        run(env)
+        torch.cuda.synchronize()
+        grown[steps] = torch.cuda.memory_stats()["allocation.all.allocated"] - a0
+    assert grown[16] == grown[8], grown
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["cg", "pipecg", "bicgstab"])
+def test_cuda_batched_solve_matches_single_solves(method):
+    """A 3-member masked solve on the card (BTCS with per-member guesses):
+    every member CONVERGED, within 10·tol of its own single solve on the
+    card, the operator one batch launch per application."""
+    _need_card()
+    from repro_torch.solver import btcs_program, solve
+
+    shape = (33, 33, 17)
+    T0 = heat_init(shape)
+    tol = 1e-5 * float(np.linalg.norm(T0))
+    rng = np.random.default_rng(13)
+    x0s = np.stack([T0 + rng.uniform(-50.0, 50.0, shape).astype(np.float32)
+                    for _ in range(3)])
+    prog = btcs_program(shape, 0.1, init_data=T0)
+    before = launch_fused.batch_launches
+    x, info = solve(prog, "T", method=method, tol=tol,
+                    options=RunOptions(batch=3), member_env={"T": x0s},
+                    return_info=True)
+    assert launch_fused.batch_launches > before
+    assert list(info.outcomes[0]) == ["CONVERGED"] * 3
+    for b in range(3):
+        xs = solve(prog, "T", method=method, tol=tol,
+                   member_env={"T": x0s[b]})
+        assert np.abs(x[b].astype(np.float64) - xs).max() <= 10 * tol

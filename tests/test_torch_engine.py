@@ -132,7 +132,7 @@ def test_auto_tile_matches_reference():
 
 def test_options_of_later_slices_raise():
     for field, value, later in (
-            ("mesh", object(), "sharding"), ("batch", 2, "ensembles"),
+            ("mesh", object(), "sharding"),
             ("overlap", True, "overlap"), ("differentiable", True, "adjoint"),
             ("check_finite", 5, "health"), ("recovery", object(), "health")):
         with pytest.raises(NotImplementedError, match=f"{later} slice"):

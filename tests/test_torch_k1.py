@@ -194,8 +194,8 @@ def test_build_refuses_a_hazard_stage_over_the_shared_memory_budget(
 def test_launcher_passes_the_hazard_stage_and_holds_its_scratch(
         name, dtype, k, mode, monkeypatch):
     """Through a stand-in library: one C call per launch with the sweep's
-    geometry, the block, the descriptor's host copy, the hazard flag and
-    the stage's bytes; ``hazard_launches`` counts hazard bodies; the
+    geometry, the block, the descriptor's host copy, the hazard flag, the
+    stage's bytes and one member; ``hazard_launches`` counts hazard bodies; the
     scratch is allocated at the first launch only, and a margin-mode
     launch allocates nothing after it (a padded one its fresh outputs)."""
     calls = []
@@ -246,8 +246,8 @@ def test_launcher_passes_the_hazard_stage_and_holds_its_scratch(
     for args in calls:
         assert args[5] == len(kern.in_names) and args[10:13] == (k, bz, by)
         assert list(args[13]) == list(kern.ints)
-        assert args[14:17] == (int(kern.hazard), stage, 0)
-        assert args[17] == 7
+        assert args[14:18] == (int(kern.hazard), stage, 1, 0)
+        assert args[18] == 7
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])

@@ -38,9 +38,9 @@ SHAPE_BRICKS = [(3, 7, 9), (6, 10, 5), (7, 130, 12), (70, 37, 130),
                 (256, 256, 128), (512, 512, 128)]
 #: the ragged bricks, small enough for the reference in interpret mode
 SMALL_BRICKS = SHAPE_BRICKS[:4]
-#: names of ``repro`` that later slices of the port bring (ensembles,
-#: sharding, differentiation)
-LATER_SLICES = {"Ensemble", "run_sharded", "make_differentiable_solver"}
+#: names of ``repro`` that later slices of the port bring (sharding,
+#: differentiation)
+LATER_SLICES = {"run_sharded", "make_differentiable_solver"}
 
 
 def _tiles(extent, size, tiles):
@@ -143,7 +143,11 @@ def test_top_level_exports_cover_the_reference():
     for name in repro_torch.__all__:
         assert getattr(repro_torch, name) is not None, name
     from repro_torch import solver
+    from repro_torch.core import ensemble
 
-    for name in ("solve", "Operator", "Rhs", "SolveInfo", "NumericalFault",
+    for name in ("Operator", "Rhs", "SolveInfo", "NumericalFault",
                  "RecoveryPolicy"):
         assert getattr(repro_torch, name) is getattr(solver, name)
+    # make and solve dispatch on Ensembles first, as the reference's do
+    for name in ("Ensemble", "make", "solve"):
+        assert getattr(repro_torch, name) is getattr(ensemble, name)

@@ -390,8 +390,7 @@ def test_later_slices_raise():
     wse, T = port_solver.record_btcs(heat_init((6, 6, 6)), OMEGA)
     prog = wse.program
     wse.__exit__()
-    for kw, slice_name in (({"batch": 2}, "ensembles"),
-                           ({"differentiable": True}, "adjoint")):
+    for kw, slice_name in (({"differentiable": True}, "adjoint"),):
         with pytest.raises(NotImplementedError, match=slice_name):
             port_solver.make_solver(prog, "T", device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="sharding"):
