@@ -135,6 +135,30 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          and one K2 per brick per pipecg iteration; ms per
                          iteration on both meshes; one ``btcs_solve`` cg
                          step with its independent float64 residual;
+10b. ``sharded_make`` — ``HeatConfig()`` on a 2×2 mesh of the one card
+                         (four 256×256×128 bricks, one process) through
+                         ``make(backend="pallas", mesh=…)`` at k = 1 and the
+                         auto tile, resident and ``resident=False``: all
+                         four bitwise equal to the single-device ``make``,
+                         ``backend="shard_map"`` within ``heat3d``'s 2e-4 of
+                         the single-device ``jit`` over 16 steps, K1
+                         launched 4 × the engine's launch events, each
+                         through the route ``fused_entry`` names, 0 device
+                         allocations per resident step; K1 built for the
+                         bricks (``wrap=False``, the brick's global origin
+                         as coords; k = 1 and the auto tile, margin mode,
+                         float32 and float64) bitwise against its plain
+                         version on every brick's refreshed inputs; ms per
+                         step by CUDA events, host µs per step, idle share,
+                         K1's per-brick time (queued) beside its bound and
+                         ``PREDICTED``;
+10c. ``sharded_solve`` — BTCS 512×512×128 (``record_implicit``) with cg,
+                         pipecg and cg + mg on the 2×2 mesh: ``CONVERGED``,
+                         float64 residual ≤ 1e-5, within 2e-4 (cg, pipecg)
+                         / 1e-4 and ±1 iteration (cg + mg) of the
+                         single-device solve; K1 per brick through its
+                         k = 1 entry, K2 per brick (pipecg, cg + mg), K3/K4
+                         on the gathered hierarchy; ms per solve;
 11. ``kernels``        — one JSON line describing every kernel of the paths
                          (K1 on six rows: the k = 1 entry in the padded and
                          the margin mode, the sweep at the auto tile, and
@@ -147,12 +171,17 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          the single bound; K5's row adds its launches by
                          mesh, its partial count and its times on the 2×2
                          mesh's brick; K3's and K4's rows count the launches
-                         of ``solve_heat3d`` and ``mg_poisson``, in all and
-                         by level pair, with each pair's time).
+                         of ``solve_heat3d``, ``mg_poisson`` and
+                         ``sharded_solve``, in all and by level pair, with
+                         each pair's time; K2's adds ``sharded_solve``'s;
+                         two rows for K1 on the 2×2 mesh's bricks, the k = 1
+                         entry and the sweep, timed per brick in margin
+                         mode, their launches by mesh and by mode).
 
 Each main path (``heat3d``, ``hazard_make``, ``ensemble_make``,
 ``solve_heat3d``, ``ensemble_solve``, ``mg_poisson``, ``legacy_ftcs``,
-``legacy_btcs``) runs with the launch counters set to 0 just
+``legacy_btcs``, ``sharded_make``, ``sharded_solve``) runs with the launch
+counters set to 0 just
 before it and read just after, and fails if one of its kernels was not
 launched.  Then the card's name and power limit,
 and last the result line.  Any failed check raises: the script exits
@@ -234,6 +263,30 @@ PREDICTED = {
     "ensemble_ms_per_member_step": {"k1": [0.30, 0.34]},
     "ensemble_host_us_per_member_step": {"k1": 43.0},
     "ensemble_allocations_per_step": {"k1": 0, "auto": 0},
+    # sharding on a 2x2 mesh of the one card (written before its first
+    # timed run; PERF.md §6): HeatConfig() as four 256x256x128 bricks, one
+    # process.  K1 per brick about a quarter of the 512x512x128 launch
+    # (0.3141 ms k = 1, 2.59 ms k = 8 sweep; a 256-wide brick's regions
+    # are 1.055x its area against 1.028x), so 3.9-4.2x its 0.0201 ms bound;
+    # the resident k = 1 step's four launches 0.32 ms of device time plus 16
+    # slab copies, host-paced at 250-400 us of Python per step (four
+    # launchers, four refreshes of four transfers); the auto (k = 8) step
+    # amortizes it 8x; 0 allocations per resident step
+    "sharded_mesh": [2, 2],
+    "sharded_k1_per_brick_ms": [0.078, 0.086],
+    "sharded_sweep_per_brick_ms": [0.64, 0.72],
+    "sharded_ms_per_step": {"k1": [0.35, 0.45], "auto": [0.33, 0.36],
+                            "k1_repack": [0.60, 0.75],
+                            "auto_repack": [0.36, 0.42]},
+    "sharded_host_us_per_step": {"k1": [250.0, 400.0], "auto": [30.0, 60.0]},
+    "sharded_idle_share": {"k1": [0.05, 0.30], "auto": [0.0, 0.05]},
+    "sharded_allocations_per_step": {"k1": 0, "auto": 0},
+    # the solves on the mesh: each operator application a halo pad and four
+    # K1 launches, each dot four sums and a psum; the host paces them:
+    # cg 10-25 ms per solve (single: 6.97), pipecg 15-35 (11.64), cg + mg
+    # 60-120 (55.69; r gathered and the correction cut back per iteration)
+    "sharded_solve_ms": {"cg": [10.0, 25.0], "pipecg": [15.0, 35.0],
+                         "cg+mg": [60.0, 120.0]},
 }
 #: H100 SXM device-memory rate and float32 / float64 (non-tensor) peaks
 HBM_BYTES_PER_S = 3.35e12
@@ -483,7 +536,7 @@ def route_counts():
             launch_fused.sweep_substeps, launch_fused.hazard_launches)
 
 
-def launch_via_entry(kernel, inputs, out=None):
+def launch_via_entry(kernel, inputs, out=None, coords=(0, 0)):
     """``launch_fused`` that fails unless the launch went through the route
     ``fused_entry`` names — one ``k1_launches`` for the k = 1 route, one
     ``sweep_launches`` and k ``sweep_substeps`` for the sweep — and counted
@@ -491,7 +544,7 @@ def launch_via_entry(kernel, inputs, out=None):
     from repro_torch.kernels.fused import fused_entry, launch_fused
 
     before = route_counts()
-    got = launch_fused(kernel, inputs, out=out)
+    got = launch_fused(kernel, inputs, coords, out=out)
     entry = fused_entry(kernel)
     want = {"k1": (1, 0, 0), "sweep": (0, 1, kernel.k)}[entry] + (
         int(kernel.hazard),)
@@ -1491,6 +1544,7 @@ def reset_counts() -> None:
     launch_fused.sweep_substeps = 0
     launch_fused.hazard_launches = 0
     launch_fused.batch_launches = 0
+    launch_fused.brick_launches = 0
 
 
 def level_counts() -> dict:
@@ -1513,8 +1567,9 @@ def add_levels(total: dict, levels: dict) -> dict:
 def read_counts() -> dict:
     """Launches by kernel; ``K1m`` is K1's margin-mode share of ``K1``,
     ``K1k1`` the k = 1 route's share, ``K1sw`` the sweep's share,
-    ``K1sub`` the sweep's sub-steps, ``K1hz`` the hazard bodies' share and
-    ``K1b`` the share of kernels built for more than one member."""
+    ``K1sub`` the sweep's sub-steps, ``K1hz`` the hazard bodies' share,
+    ``K1b`` the share of kernels built for more than one member and
+    ``K1br`` the share of kernels built for a mesh's bricks."""
     from repro_torch.kernels.fused import launch_fused
 
     counts = {k: fn.launches for k, fn in kernel_counters().items()}
@@ -1524,6 +1579,7 @@ def read_counts() -> dict:
     counts["K1sub"] = launch_fused.sweep_substeps
     counts["K1hz"] = launch_fused.hazard_launches
     counts["K1b"] = launch_fused.batch_launches
+    counts["K1br"] = launch_fused.brick_launches
     return counts
 
 
@@ -2396,6 +2452,411 @@ def phase_legacy_btcs(seed: int):
     return main_counts, k5_by_mesh
 
 
+# ---------------------------------------------------------------------------
+# slice 12: sharded bricks on a 2×2 mesh of the one card
+# ---------------------------------------------------------------------------
+
+#: the mesh of the sharded phases: four bricks, all on the one card
+SHARD_MESH = (2, 2)
+#: a sharded solve vs the single-device one: the same operator arithmetic
+#: per cell (K1 per brick), the dots summed per brick then added in brick
+#: order, so the iterates differ by rounding only (tests/test_solver_api.py
+#: and tests/test_multigrid.py's bounds)
+SHARD_SOLVE_ATOL = {"cg": 2e-4, "pipecg": 2e-4, "cg+mg": 1e-4}
+
+
+def sharded_allocations_per_step(record, steps: int, time_tile, mesh) -> dict:
+    """:func:`allocations_per_step` of the resident sharded loop on
+    ``mesh``: the growth of ``allocation.all.allocated`` over a
+    ``2·steps`` run less that over a ``steps`` run, divided by ``steps``."""
+    import torch
+
+    from repro_torch.core.mesh import NamedSharding
+    from repro_torch.engine import RunOptions, plan, sharded_runner
+
+    grown = {}
+    for n in (steps, 2 * steps):
+        wse, _ = record(n)
+        prog = wse.program
+        p = plan(prog, RunOptions(backend="pallas", time_tile=time_tile,
+                                  mesh=mesh))
+        wse.__exit__()
+        run = sharded_runner(p)
+        sh = NamedSharding(mesh)
+        env = {name: list(sh.shard(f.init_data).bricks)
+               for name, f in prog.fields.items()}
+        run(env)
+        torch.cuda.synchronize()
+        a0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+        run(env)
+        torch.cuda.synchronize()
+        grown[n] = torch.cuda.memory_stats()["allocation.all.allocated"] - a0
+    return {"steps": [steps, 2 * steps], "time_tile": time_tile,
+            "allocations_per_run": [grown[steps], grown[2 * steps]],
+            "allocations_per_step": (grown[2 * steps] - grown[steps]) / steps}
+
+
+def _brick_kernel(ops, shapes, dtypes, k, mesh, margin):
+    """K1 for the bricks of ``mesh`` as the sharded step builds it: the
+    brick extent, the global extent for the Moat, ``wrap=False``."""
+    import torch
+
+    from repro_torch.compiler.codegen import _field_specs
+    from repro_torch.compiler.ir import lower_group
+    from repro_torch.kernels.fused import build_fused_call
+
+    group = lower_group(ops)
+    specs, (nx, ny) = _field_specs(group, shapes, dtypes)
+    mx, my = mesh.dims
+    kernel, _ = build_fused_call(group.updates, specs, group.halo, nx // mx,
+                                 ny // my, nx, ny, time_tile=k, wrap=False,
+                                 device=torch.device("cuda"), margin=margin)
+    return kernel
+
+
+def _brick_inputs(kernel, env, mesh):
+    """Per brick of ``mesh`` (x-major): the margin-mode inputs the resident
+    sharded step gives ``kernel`` — every field cut into bricks, entered to
+    margin ``kernel.margin`` and refreshed to depth ``k·h`` by the halo
+    exchange; and the brick's global origin."""
+    import torch
+
+    from repro_torch.core.halo import halo_refresh
+    from repro_torch.core.mesh import NamedSharding
+    from repro_torch.engine.layout import HaloLayout
+
+    lay = HaloLayout(pad=kernel.margin, shapes={})
+    sh = NamedSharding(mesh)
+    fields = []
+    for n in kernel.in_names:
+        bricks = [lay.enter({n: t})[n] for t in sh.shard(torch.tensor(
+            env[n], device="cuda")).bricks]
+        fields.append(halo_refresh(bricks, kernel.margin, kernel.pad, mesh))
+    coords = [(cx * kernel.bx, cy * kernel.by)
+              for cx, cy in map(mesh.coords, range(mesh.size))]
+    return [list(ins) for ins in zip(*fields)], coords
+
+
+def brick_bound_ms(kernel, dtype_name: str, schedule: bool = False) -> tuple:
+    """(least ms, "bytes" | "operations") of one launch of ``kernel`` on a
+    brick: its window of each input read once and its brick of each output
+    written once (with ``schedule``, the sweep's own schedule: each
+    sub-step's region window read and region written, as
+    :func:`sweep_bound_ms`), against the body's operations on the brick's
+    cells for k sub-steps."""
+    from repro_torch.kernels.fused import sweep_geoms
+
+    itemsize = 4 if dtype_name == "float32" else 8
+    ph = kernel.pad
+    regions = ([(g.bx, g.by, kernel.halo) for g in sweep_geoms(kernel)]
+               if schedule else [(kernel.bx, kernel.by, ph)])
+    nbytes = 0
+    for rx, ry, h in regions:
+        for name, nz in zip(kernel.in_names, kernel.nz):
+            nbytes += (rx + 2 * h) * (ry + 2 * h) * nz * itemsize
+            if name in kernel.written:
+                nbytes += rx * ry * nz * itemsize
+    ops = kernel.k * kernel.bx * kernel.by * body_ops(kernel)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_sharded_make(steps: int, heat):
+    """``HeatConfig()`` on a 2×2 mesh of the card through ``make(mesh=…)``:
+    bitwise the single-device runs, K1 on every brick against its plain
+    version, times beside ``PREDICTED``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import compiler
+    from repro_torch.configs.heat3d import HeatConfig, record_heat
+    from repro_torch.core.mesh import NamedSharding, make_mesh
+    from repro_torch.engine import (RunOptions, plan, reset_stats,
+                                    sharded_runner, stats)
+    from repro_torch.kernels.fused import fused_step_ref, launch_fused
+
+    cfg = HeatConfig()
+    mesh = make_mesh(SHARD_MESH)
+    n_bricks = mesh.size
+    modes = {"k1": (1, True), "auto": (None, True),
+             "k1_repack": (1, False), "auto_repack": (None, False)}
+    outs, runs = {}, []
+    # --- the main path: counters to 0 just before, read just after -------
+    compiler.reset_stats()
+    compiler.clear_cache()
+    reset_stats()
+    reset_counts()
+    for tag, (tt, resident) in modes.items():
+        wse, T = record_heat(cfg, steps)
+        stats.max_time_tile = 1
+        before = (read_counts(), stats.launches, stats.repacks)
+        outs[tag] = wse.make(answer=T, options=RunOptions(
+            backend="pallas", time_tile=tt, resident=resident, mesh=mesh))
+        after = read_counts()
+        runs.append({"run": tag, "resident": resident,
+                     "time_tile": stats.max_time_tile,
+                     "k1_launches": after["K1"] - before[0]["K1"],
+                     "k1_margin_launches": after["K1m"] - before[0]["K1m"],
+                     "k1_entry_launches": after["K1k1"] - before[0]["K1k1"],
+                     "sweep_launches": after["K1sw"] - before[0]["K1sw"],
+                     "sweep_substeps": after["K1sub"] - before[0]["K1sub"],
+                     "brick_launches": after["K1br"] - before[0]["K1br"],
+                     "engine_launches": stats.launches - before[1],
+                     "repacks": stats.repacks - before[2]})
+    counts = read_counts()
+    fallbacks = compiler.stats.fallbacks
+    # -----------------------------------------------------------------------
+    if fallbacks:
+        raise AssertionError(f"{fallbacks} interpreter fallbacks on the "
+                             "sharded make path")
+    for r in runs:
+        n = r["engine_launches"]
+        if (n == 0 or r["k1_launches"] != n_bricks * n
+                or r["brick_launches"] != r["k1_launches"]):
+            raise AssertionError(f"sharded {r['run']}: K1 launches {r} are "
+                                 f"not {n_bricks} × the engine's")
+        if r["k1_margin_launches"] != (r["k1_launches"] if r["resident"]
+                                       else 0):
+            raise AssertionError(f"sharded {r['run']}: margin launches {r}")
+        if r["repacks"] != (2 if r["resident"] else n):
+            raise AssertionError(f"sharded {r['run']}: {r['repacks']} repacks")
+        route = "k1_entry_launches" if r["time_tile"] == 1 else "sweep_launches"
+        if r[route] != r["k1_launches"]:
+            raise AssertionError(f"sharded {r['run']}: {r[route]} of "
+                                 f"{r['k1_launches']} launches through {route}")
+        if r["time_tile"] > 1 and r["sweep_substeps"] != n_bricks * steps:
+            raise AssertionError(f"sharded {r['run']}: {r['sweep_substeps']} "
+                                 f"sub-steps for {steps} steps")
+    wse, T = record_heat(cfg, steps)
+    single = wse.make(answer=T, options=RunOptions(backend="pallas",
+                                                   time_tile=1))
+    diffs = {}
+    for tag, out in outs.items():
+        if out.shape != (cfg.nx, cfg.ny, cfg.nz) or not np.isfinite(out).all():
+            raise AssertionError(f"sharded {tag}: bad shape or non-finite")
+        diffs[tag] = float(np.abs(out.astype(np.float64) - single).max())
+        if not np.array_equal(out, single):
+            raise AssertionError(f"sharded {tag} differs from the single-device"
+                                 f" make (max {diffs[tag]})")
+    short = {}
+    for backend, m in (("shard_map", mesh), ("jit", None)):
+        wse, T = record_heat(cfg, min(steps, JIT_SHORT_STEPS))
+        short[backend] = wse.make(answer=T, options=RunOptions(
+            backend=backend, mesh=m))
+    short_err = float(np.abs(short["shard_map"].astype(np.float64)
+                             - short["jit"]).max())
+    if short_err > JIT_SHORT_ATOL:
+        raise AssertionError(f"shard_map vs jit over {JIT_SHORT_STEPS} steps: "
+                             f"{short_err} > {JIT_SHORT_ATOL}")
+    del outs, single, short
+    allocs = {tag: sharded_allocations_per_step(
+        lambda n: record_heat(cfg, n), steps, tt, mesh)
+        for tag, tt in (("k1", 1), ("auto", None))}
+    for tag, a in allocs.items():
+        if a["allocations_per_step"] != 0:
+            raise AssertionError(f"the resident sharded {tag} loop "
+                                 f"allocates: {a}")
+
+    # --- timing: whole runs on device bricks, CUDA events ---------------
+    timing = {}
+    sh = NamedSharding(mesh)
+    for tag, (tt, resident) in modes.items():
+        wse, T = record_heat(cfg, steps)
+        p = plan(wse.program, RunOptions(backend="pallas", time_tile=tt,
+                                         resident=resident, mesh=mesh))
+        wse.__exit__()
+        run = sharded_runner(p)
+        env = {"T_n": list(sh.shard(T.init_data).bricks)}
+        ms = cuda_time_ms(lambda: run(env), repeats=3)
+        timing[tag] = {"ms_per_step": ms / steps,
+                       "time_tile": p.segments[0].time_tile,
+                       "margin": p.layout.pad,
+                       "host_us_per_step": host_us(lambda: run(env)) / steps,
+                       **device_breakdown(lambda: run(env))}
+        del env, run
+
+    # --- K1 on the bricks at the main path's shapes ---------------------
+    wse, T = record_heat(cfg, steps)
+    ops = wse.program.ops
+    wse.__exit__()
+    k_auto = timing["auto"]["time_tile"]
+    rows, cases = {}, []
+    for dtype in ("float32", "float64"):
+        env = {"T_n": T.init_data.astype(dtype)}
+        for tag, k in (("k1", 1), ("sweep", k_auto)):
+            kern = _brick_kernel(ops, {"T_n": T.shape}, {"T_n": dtype}, k,
+                                 mesh, margin=k)
+            ins, coords = _brick_inputs(kern, env, mesh)
+            err = 0.0
+            for b, (xs, c) in enumerate(zip(ins, coords)):
+                got = launch_via_entry(kern, xs, margin_outputs(kern, xs),
+                                       coords=c)
+                want = fused_step_ref(kern, xs, c, out=margin_outputs(kern, xs))
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    err = max(err, (g.double() - w.double()).abs().max().item())
+                    if not torch.equal(g, w):
+                        raise AssertionError(f"K1 on brick {b} ({tag}, "
+                                             f"{dtype}) differs from its plain "
+                                             f"version (max {err})")
+            cases.append({"route": tag, "k": k, "dtype": dtype,
+                          "bricks": len(ins), "max_abs_err": err})
+            if dtype == "float32":
+                out = [margin_outputs(kern, xs) for xs in ins]
+
+                def all_bricks(call):
+                    for xs, c, o in zip(ins, coords, out):
+                        call(kern, xs, c, out=o)
+
+                b_ms, b_by = brick_bound_ms(kern, dtype)
+                rows[tag] = {
+                    "ms": queued_ms(lambda: all_bricks(launch_fused),
+                                    repeats=10) / n_bricks,
+                    "plain_ms": cuda_time_ms(
+                        lambda: fused_step_ref(kern, ins[0], coords[0],
+                                               out=out[0]), repeats=2),
+                    "bound_ms": b_ms, "bound_by": b_by, "k": k,
+                    "brick": [kern.bx, kern.by, T.shape[2]]}
+                if k > 1:
+                    rows[tag]["sweep_schedule_bound_ms"] = brick_bound_ms(
+                        kern, dtype, schedule=True)[0]
+                del out
+            del ins
+    for tag in rows:
+        rows[tag]["err"] = max(c["max_abs_err"] for c in cases
+                               if c["route"] == tag)
+    measured = {"k1_per_brick_ms": rows["k1"]["ms"],
+                "sweep_per_brick_ms": rows["sweep"]["ms"],
+                "ms_per_step": {t: v["ms_per_step"] for t, v in timing.items()},
+                "host_us_per_step": {t: v["host_us_per_step"]
+                                     for t, v in timing.items()},
+                "idle_share_unprofiled": {
+                    t: v["device_idle_share_unprofiled"]
+                    for t, v in timing.items()},
+                "allocations_per_step": {t: a["allocations_per_step"]
+                                         for t, a in allocs.items()}}
+    emit({"phase": "sharded_make", "card": card_line(),
+          "mesh": list(SHARD_MESH), "bricks_on": [str(d) for d in mesh.devices],
+          "shape": [cfg.nx, cfg.ny, cfg.nz], "dtype": cfg.dtype,
+          "steps": steps, "runs": runs, "fallbacks": fallbacks,
+          "launches": counts, "max_abs_err_vs_single": diffs,
+          "shard_map_vs_jit_short": {"steps": min(steps, JIT_SHORT_STEPS),
+                                     "max_abs_err": short_err,
+                                     "atol": JIT_SHORT_ATOL},
+          "resident_allocations": allocs, "kernel_cases": cases,
+          "timing": timing, "launch": rows,
+          "predicted": {k: PREDICTED[k] for k in PREDICTED
+                        if k == "card" or k.startswith("sharded")},
+          "measured": measured})
+    by_mode = {"k1": {"margin": 0, "padded": 0},
+               "sweep": {"margin": 0, "padded": 0}}
+    for r in runs:
+        by_mode["k1" if r["time_tile"] == 1 else "sweep"][
+            "margin" if r["resident"] else "padded"] += r["k1_launches"]
+    return {tag: dict(rows[tag], launches_by_mode=by_mode[tag])
+            for tag in rows}
+
+
+def phase_sharded_solve():
+    """BTCS 512×512×128 on a 2×2 mesh of the card with cg, pipecg and cg +
+    mg, against the single-device solves."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.heat3d import HeatConfig, make_field, record_implicit
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.engine import RunOptions
+    from repro_torch.solver import make_sharded_solver
+
+    cfg = HeatConfig()
+    mesh = make_mesh(SHARD_MESH)
+    T0 = make_field(cfg)
+    b = T0.astype(np.float64)
+    b[1:-1, 1:-1, 1:-1] *= 1.0 / (1.0 + 6.0 * cfg.omega)
+    norm_b = float(np.linalg.norm(b))
+    tol = SOLVE_REL_TOL * norm_b
+    x0 = torch.tensor(T0, device="cuda")
+    runs, total = [], dict.fromkeys(read_counts(), 0)
+    levels = {}
+    for method, pc in (("cg", None), ("pipecg", None), ("cg", "mg")):
+        key = method + ("+mg" if pc else "")
+        wse, T = record_implicit(cfg)
+        x1, info1 = wse.solve(T, method=method, precondition=pc, tol=tol,
+                              maxiter=cfg.maxiter,
+                              options=RunOptions(backend="pallas"),
+                              return_info=True)
+        # --- the main path: counters to 0 just before, read just after ---
+        reset_counts()
+        wse, T = record_implicit(cfg)
+        x, info = wse.solve(T, method=method, precondition=pc, tol=tol,
+                            maxiter=cfg.maxiter,
+                            options=RunOptions(backend="pallas", mesh=mesh),
+                            return_info=True)
+        counts = read_counts()
+        counts["by_level"] = level_counts()
+        # ------------------------------------------------------------------
+        outcome = str(info.outcomes[0])
+        iters, iters1 = int(info.iterations[0]), int(info1.iterations[0])
+        rel = btcs_relative_residual(x, T0, cfg.omega)
+        err = float(np.abs(x.astype(np.float64) - x1).max())
+        wse, T = record_implicit(cfg)
+        prog = wse.program
+        wse.__exit__()
+        step, _ = make_sharded_solver(prog, "T", mesh, method=method,
+                                      precondition=pc, backend="pallas",
+                                      tol=tol, maxiter=cfg.maxiter)
+        timing = time_solve(step, x0, iters)
+        need = {"K1", "K1k1", "K1br"} | (
+            {"K2"} if method == "pipecg" or pc else set()) | (
+            {"K3", "K4"} if pc else set())
+        runs.append({"method": method, "precondition": pc, "outcome": outcome,
+                     "iterations": iters, "single_iterations": iters1,
+                     "residual_reported": float(info.residual[0]),
+                     "independent_f64_relative_residual": rel,
+                     "vs_single_max_abs_err": err,
+                     "vs_single_atol": SHARD_SOLVE_ATOL[key],
+                     "launches": counts, **timing})
+        if outcome != "CONVERGED":
+            raise AssertionError(f"sharded solve {key} ended {outcome}")
+        if not np.isfinite(x).all() or x.shape != T0.shape:
+            raise AssertionError(f"sharded solve {key}: bad shape or "
+                                 "non-finite")
+        if rel > SOLVE_REL_TOL:
+            raise AssertionError(f"sharded solve {key}: independent residual "
+                                 f"{rel} > {SOLVE_REL_TOL}")
+        if err > SHARD_SOLVE_ATOL[key]:
+            raise AssertionError(f"sharded solve {key}: {err} from the "
+                                 f"single-device solve > "
+                                 f"{SHARD_SOLVE_ATOL[key]}")
+        if pc and abs(iters - iters1) > 1:
+            raise AssertionError(f"sharded solve {key}: {iters} iterations, "
+                                 f"{iters1} on one device")
+        # the operator on the bricks; cg + mg adds the gathered hierarchy's
+        # single-device launches (every one through the k = 1 entry)
+        if (counts["K1k1"] != counts["K1"] or counts["K1br"] == 0
+                or counts["K1br"] % mesh.size
+                or (pc is None and counts["K1br"] != counts["K1"])):
+            raise AssertionError(f"sharded solve {key}: K1 launches {counts}")
+        missing = [k for k in sorted(need) if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"sharded solve {key}: {missing} never "
+                                 "launched")
+        for k in total:
+            total[k] += counts[k]
+        add_levels(levels, counts["by_level"])
+    total["by_level"] = levels
+    emit({"phase": "sharded_solve", "card": card_line(),
+          "mesh": list(SHARD_MESH), "shape": [cfg.nx, cfg.ny, cfg.nz],
+          "dtype": cfg.dtype, "norm_b": norm_b, "tol": tol,
+          "tol_relative": SOLVE_REL_TOL, "runs": runs, "launches": total,
+          "predicted": PREDICTED["sharded_solve_ms"],
+          "measured_ms_per_solve": {
+              r["method"] + ("+mg" if r["precondition"] else ""):
+              r["ms_per_solve"] for r in runs}})
+    return total
+
+
 def device_breakdown(fn, top: int = 4) -> dict:
     """Device time by kernel over one ``fn()`` under ``torch.profiler``, and
     the device's idle share: of the profiled call's wall time
@@ -2472,12 +2933,22 @@ def main() -> int:
     legacy = phase_legacy_kernels_vs_ref(args.seed)
     ftcs_counts = phase_legacy_ftcs(args.steps, args.seed)
     btcs_counts, k5_by_mesh = phase_legacy_btcs(args.seed)
+    sharded = phase_sharded_make(args.steps, heat)
+    sharded_solve_counts = phase_sharded_solve()
     csrc = "src/repro_torch/kernels/csrc/"
     # the solves apply their operators through the k = 1 entry, padded;
     # K2 (cg + mg), K3 and K4 run in the multigrid solves of both solve
     # phases
-    mg_levels = add_levels(add_levels({}, solve_counts["by_level"]),
-                           mg_counts["by_level"])
+    mg_levels = add_levels(add_levels(add_levels(
+        {}, solve_counts["by_level"]), mg_counts["by_level"]),
+        sharded_solve_counts["by_level"])
+    mesh_tag = "x".join(map(str, SHARD_MESH))
+    # the sharded bricks' k = 1 launches: the sharded make's (both modes)
+    # and the sharded solves' operator applications (padded)
+    sharded["k1"]["launches_by_mode"]["padded"] += sharded_solve_counts["K1br"]
+    for tag in ("k1", "sweep"):
+        n = sum(sharded[tag]["launches_by_mode"].values())
+        sharded[tag].update(launches=n, launches_by_mesh={mesh_tag: n})
     solve_k1 = solve_counts["K1k1"] + mg_counts["K1k1"]
     rows = [("K1 fused_stencil, k = 1 entry, padded mode", "fused_stencil.cu",
              "src/repro/kernels/fused.py:245",
@@ -2506,14 +2977,26 @@ def main() -> int:
              f"{ENSEMBLE_MAKE_MEMBERS} members per launch, margin mode",
              "fused_stencil.cu", "src/repro/kernels/fused.py:245",
              dict(ensemble["sweep"], library_ms=None)),
+            # K1 on the 2×2 mesh's bricks (wrap=False, the bricks' global
+            # origins), timed per brick in margin mode
+            (f"K1 fused_stencil, k = 1 entry, {mesh_tag} mesh bricks "
+             "(wrap=False), margin mode", "fused_stencil.cu",
+             "src/repro/kernels/fused.py:245",
+             dict(sharded["k1"], library_ms=None)),
+            (f"K1 fused_stencil, sweep, k = {sharded['sweep']['k']}, "
+             f"{mesh_tag} mesh bricks (wrap=False), margin mode",
+             "fused_stencil.cu", "src/repro/kernels/fused.py:245",
+             dict(sharded["sweep"], library_ms=None)),
             ("K2 dual_dot", "dual_dot.cu", "src/repro/kernels/dotprod.py:39",
              dict(k2, launches=solve_counts["K2"] + mg_counts["K2"]
-                  + btcs_counts["K2"])),
+                  + btcs_counts["K2"] + sharded_solve_counts["K2"])),
             ("K3 restrict", "transfer.cu", "src/repro/kernels/transfer.py:119",
-             dict(transfers["K3"], launches=solve_counts["K3"] + mg_counts["K3"],
+             dict(transfers["K3"], launches=solve_counts["K3"] + mg_counts["K3"]
+                  + sharded_solve_counts["K3"],
                   launches_by_level_pair=mg_levels["K3"])),
             ("K4 prolong", "transfer.cu", "src/repro/kernels/transfer.py:126",
-             dict(transfers["K4"], launches=solve_counts["K4"] + mg_counts["K4"],
+             dict(transfers["K4"], launches=solve_counts["K4"] + mg_counts["K4"]
+                  + sharded_solve_counts["K4"],
                   launches_by_level_pair=mg_levels["K4"])),
             ("K5 spmv_dot", "stencil7.cu", "src/repro/kernels/spmv.py:52",
              dict(legacy["K5"], launches=btcs_counts["K5"],
@@ -2530,7 +3013,8 @@ def main() -> int:
         "launches": r["launches"], "max_abs_err": r["err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]},
-        **{k: r[k] for k in ("launches_by_mesh", "partials", "small_brick",
+        **{k: r[k] for k in ("launches_by_mesh", "launches_by_mode", "brick",
+                             "partials", "small_brick",
                              "launches_by_level_pair", "ms_by_level_pair",
                              "sweep_schedule_bound_ms", "k1_ms",
                              "k1_plain_ms", "k1_bound_ms", "k1_err",

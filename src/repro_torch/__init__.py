@@ -9,7 +9,10 @@ kernel K1 (:mod:`repro_torch.kernels.fused`).  It imports neither JAX nor
 ``RunOptions(device="cpu")``, where every kernel runs as its plain PyTorch
 version.  :class:`Ensemble` stacks B scenarios behind one program; ``make``
 and ``solve`` accept it and advance all members per kernel launch
-(:mod:`repro_torch.core.ensemble`).
+(:mod:`repro_torch.core.ensemble`).  ``RunOptions(mesh=make_mesh(...))``
+and :func:`run_sharded` run a program on a brick mesh
+(:mod:`repro_torch.core.mesh`, :mod:`repro_torch.core.halo`), one process
+driving every brick.
 
 >>> import numpy as np
 >>> import repro_torch as wfa
@@ -27,10 +30,11 @@ from __future__ import annotations
 
 from repro_torch.core import Field, ForLoop, WFAInterface
 from repro_torch.core.ensemble import Ensemble, make, solve
+from repro_torch.core.halo import run_sharded
 from repro_torch.engine import RunOptions, stats
 from repro_torch.solver import (NumericalFault, Operator, RecoveryPolicy, Rhs,
                                 SolveInfo)
 
 __all__ = ["Ensemble", "Field", "ForLoop", "NumericalFault", "Operator",
            "RecoveryPolicy", "Rhs", "RunOptions", "SolveInfo", "WFAInterface",
-           "make", "solve", "stats"]
+           "make", "run_sharded", "solve", "stats"]

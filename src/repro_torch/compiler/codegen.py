@@ -27,7 +27,15 @@ Both take ``batch=B``: every env tensor is then a ``(B, X, Y, Z)`` member
 stack and the one launch per step advances all B members (K1's member
 axis), each member's bits those of its own single run.
 
-The sharded and overlap steps come with later slices.
+:func:`compile_group_sharded` builds the same two steps over the bricks of
+a :class:`~repro_torch.core.mesh.Mesh`: K1 built once for the brick extent
+without wrap (the Moat from each brick's global coordinates), one launch
+per brick, the halos exchanged between bricks
+(:func:`repro_torch.core.halo.halo_refresh` on resident bricks,
+:func:`~repro_torch.core.halo.halo_pad` on the repacking step).
+
+The overlap step (interior and boundary launches) comes with a later
+slice.
 """
 from __future__ import annotations
 
@@ -240,6 +248,89 @@ def compile_group(ops, shapes: Dict[str, tuple], dtypes: Dict[str, object],
         outs = fused_step(kernel, padded)
         for name, out in zip(written, outs):
             env[name] = out
+        return env
+
+    return step
+
+
+def compile_group_sharded(ops, shapes: Dict[str, tuple],
+                          dtypes: Dict[str, object], mesh, *,
+                          time_tile: int = 1, group: LoweredGroup = None,
+                          resident: int = 0, batch: int = 1):
+    """Lower + codegen one loop body for the bricks of ``mesh``.
+
+    ``shapes`` are the global field shapes, which must divide the mesh; the
+    returned step operates on name -> x-major list of brick tensors (each
+    on its brick's device).  K1 is built for the brick extent with
+    ``wrap=False``, once per device of the mesh, and launched once per
+    brick with the brick's global origin ``(cx·bx, cy·by)`` as its
+    coordinates, so the Moat and the out-of-domain cells come from global
+    coordinates.
+
+    ``resident=0``: ``step(env) -> env`` halo-pads every brick to depth
+    ``k·h`` (:func:`repro_torch.core.halo.halo_pad`, ONE exchange per k
+    steps) and launches K1's padded mode into fresh outputs.
+    ``resident=K``: ``step(env, spare) -> env`` on ``(…, bx + 2K, by + 2K,
+    nz)`` resident bricks: the margins are refreshed to depth ``k·h`` in
+    place (:func:`~repro_torch.core.halo.halo_refresh`), K1's margin mode
+    writes each brick's spare, and the step swaps the lists.  Both give the
+    same bits.  ``batch=B`` builds both over ``(B, …)`` member stacks in
+    every brick.
+
+    Raises :class:`LoweringError` when the body cannot be fused, the
+    extent does not divide the mesh, or ``K < k·h``.
+    """
+    from repro_torch.compiler.ir import tile_group
+    from repro_torch.core.halo import halo_pad, halo_refresh
+    from repro_torch.kernels.ops import fused_step
+
+    if group is None:
+        group = lower_group(ops)
+    specs, (nx, ny) = _field_specs(group, shapes, dtypes)
+    mx, my = mesh.dims
+    if nx % mx or ny % my:
+        raise LoweringError(
+            f"global extent ({nx},{ny}) not divisible by mesh ({mx},{my})")
+    bx, by = nx // mx, ny // my
+    tiled = tile_group(group, time_tile, brick_xy=(bx, by))
+    ph = tiled.halo
+    if resident and resident < ph:
+        raise LoweringError(f"resident margin {resident} < tiled halo {ph}")
+    kernels = {}
+    for dev in mesh.devices:
+        if dev not in kernels:
+            kernels[dev], written = _get_kernel(
+                group, specs, bx, by, nx, ny, dev, time_tile, wrap=False,
+                margin=resident, batch=batch)
+    bricks = [(kernels[dev], tuple(c * e for c, e in zip(mesh.coords(b),
+                                                          (bx, by))))
+              for b, dev in enumerate(mesh.devices)]
+    in_names = list(specs)
+    stats.groups_fused += 1
+
+    if resident:
+
+        def step(env, spare):
+            env = dict(env)
+            for n in in_names:
+                halo_refresh(env[n], resident, ph, mesh)
+            for b, (kernel, coords) in enumerate(bricks):
+                fused_step(kernel, [env[n][b] for n in in_names], coords,
+                           out=[spare[n][b] for n in written])
+            for name in written:
+                env[name], spare[name] = spare[name], env[name]
+            return env
+
+        return step
+
+    def step(env):
+        env = dict(env)
+        padded = [halo_pad(env[n], ph, mesh) if ph
+                  else [t.contiguous() for t in env[n]] for n in in_names]
+        outs = [fused_step(kernel, [p[b] for p in padded], coords)
+                for b, (kernel, coords) in enumerate(bricks)]
+        for i, name in enumerate(written):
+            env[name] = [o[i] for o in outs]
         return env
 
     return step

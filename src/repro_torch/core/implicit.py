@@ -13,8 +13,8 @@ surface:
 * :func:`make_brick_operator` / :func:`make_sharded_iteration` — the brick
   operator over a :class:`repro_torch.core.mesh.Mesh` (K5 when
   ``use_kernel``) and one Krylov iteration over it, the roofline harness;
-* :func:`make_sharded_implicit` — forwards to the sharding slice's
-  ``make_sharded_solver``, which is not ported yet.
+* :func:`make_sharded_implicit` — forwards to
+  :func:`repro_torch.solver.api.make_sharded_solver`.
 
 Dots accumulate in ``promote(dtype, float32)`` (the reference's legacy dots
 are float32 sums whatever the dtype); a dot over bricks is the brick-local
@@ -198,11 +198,16 @@ def btcs_solve(T0, w: float, steps: int, method: str = "cg", tol: float = 1e-6,
 def make_sharded_implicit(mesh, shape, w: float, *, method: str = "cg",
                           tol: float = 1e-6, maxiter: int = 500,
                           use_kernel: bool = False, steps: int = 1):
-    """Brick-sharded BTCS solver over ``mesh``.
+    """Brick-sharded BTCS solver over ``mesh``; returns ``(step_fn,
+    sharding)``, ``step_fn(T)`` advancing ``steps`` BTCS steps from the
+    global field (a NumPy array, a tensor or a
+    :class:`~repro_torch.core.mesh.BrickArray` of ``sharding``) to a
+    BrickArray.
 
     .. deprecated:: use ``wfa.solve(..., mesh=...)``; this shim warns once
-       and forwards to ``make_sharded_solver``, which comes with the sharding
-       slice (it raises ``NotImplementedError`` until then).
+       and forwards to :func:`repro_torch.solver.api.make_sharded_solver`
+       (the recorded BTCS body through K1 per brick when ``use_kernel``, the
+       roll interpreter on halo-padded bricks otherwise).
     """
     _warn_legacy("make_sharded_implicit")
     backend = "pallas" if use_kernel else "jit"

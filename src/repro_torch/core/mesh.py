@@ -13,7 +13,11 @@ brick in turn:
   gathers them back;
 * :class:`BrickArray` — a sharded field: one tensor per brick, with the
   element-wise arithmetic the drivers need (a replicated 0-d tensor or a
-  Python number on one side is used on every brick);
+  Python number on one side is used on every brick).  Through
+  ``__torch_function__`` the element-wise torch functions act brick by
+  brick and ``torch.sum`` / ``torch.all`` reduce over the whole field
+  (:func:`psum`), so :mod:`repro_torch.solver.krylov` runs on it
+  unchanged;
 * :func:`device_put` / :func:`device_get` — the JAX spellings.
 
 Bricks exchange data only through :func:`repro_torch.core.halo._ppermute_shift`
@@ -110,25 +114,29 @@ class NamedSharding:
         self.spec = spec
 
     def brick_shape(self, shape) -> Tuple[int, int, int]:
-        (mx, my), (nx, ny, nz) = self.mesh.dims, shape
+        """``(bx, by, nz)`` of the bricks of a global ``(…, X, Y, Z)``
+        shape; raises ``ValueError`` unless X and Y divide the mesh."""
+        (mx, my), (nx, ny, nz) = self.mesh.dims, tuple(shape)[-3:]
         if nx % mx or ny % my:
             raise ValueError(f"global shape {tuple(shape)} does not divide "
                              f"into {mx}×{my} bricks")
         return nx // mx, ny // my, nz
 
     def shard(self, x) -> "BrickArray":
-        """Fresh contiguous bricks of the global ``(X, Y, Z)`` array ``x``
-        (a tensor or NumPy array), each on its brick's device."""
+        """Fresh contiguous bricks of the global ``(…, X, Y, Z)`` array
+        ``x`` (a tensor or NumPy array), each on its brick's device.
+        Leading (member) axes pass through: every brick holds all of
+        them."""
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.ascontiguousarray(x))
-        if x.ndim != 3:
-            raise ValueError(f"expected a global (X, Y, Z) field, got "
+        if x.ndim < 3:
+            raise ValueError(f"expected a global (…, X, Y, Z) field, got "
                              f"{tuple(x.shape)}")
         bx, by, _ = self.brick_shape(x.shape)
         bricks = []
         for b, dev in enumerate(self.mesh.devices):
             cx, cy = self.mesh.coords(b)
-            part = x[cx * bx:(cx + 1) * bx, cy * by:(cy + 1) * by, :]
+            part = x[..., cx * bx:(cx + 1) * bx, cy * by:(cy + 1) * by, :]
             out = torch.empty(part.shape, dtype=x.dtype, device=dev)
             out.copy_(part)
             bricks.append(out)
@@ -157,18 +165,25 @@ class BrickArray:
         return self.bricks[0].dtype
 
     @property
-    def shape(self) -> Tuple[int, int, int]:
-        (mx, my), (bx, by, nz) = self.mesh.dims, self.bricks[0].shape
-        return mx * bx, my * by, nz
+    def shape(self) -> Tuple[int, ...]:
+        (mx, my), shape = self.mesh.dims, tuple(self.bricks[0].shape)
+        bx, by, nz = shape[-3:]
+        return (*shape[:-3], mx * bx, my * by, nz)
+
+    @property
+    def device(self) -> torch.device:
+        """The mesh's home device (where reductions land)."""
+        return self.mesh.home
 
     def gather(self, device=None) -> torch.Tensor:
         """The global tensor, on ``device`` (default the mesh's home)."""
         dev = self.mesh.home if device is None else torch.device(device)
-        bx, by, nz = self.bricks[0].shape
+        bx, by, _ = self.bricks[0].shape[-3:]
         out = torch.empty(self.shape, dtype=self.dtype, device=dev)
         for b, brick in enumerate(self.bricks):
             cx, cy = self.mesh.coords(b)
-            out[cx * bx:(cx + 1) * bx, cy * by:(cy + 1) * by, :].copy_(brick)
+            out[..., cx * bx:(cx + 1) * bx,
+                cy * by:(cy + 1) * by, :].copy_(brick)
         return out
 
     def map(self, fn, *others) -> "BrickArray":
@@ -193,6 +208,50 @@ class BrickArray:
     def __rmul__(self, o):
         return self.map(lambda a, b: b * a, o)
 
+    def __radd__(self, o):
+        return self.map(lambda a, b: b + a, o)
+
+    def __rsub__(self, o):
+        return self.map(lambda a, b: b - a, o)
+
+    def __truediv__(self, o):
+        return self.map(lambda a, b: a / b, o)
+
+    def __neg__(self):
+        return self.map(lambda a: -a)
+
+    def all(self) -> torch.Tensor:
+        """Whether every cell of every brick is true (0-d, on the home
+        device)."""
+        return torch.all(self)
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        """torch functions on BrickArrays: a whole-field reduction
+        (``torch.sum`` / ``torch.all`` without ``dim``) reduces each brick
+        and combines the parts on the home device; any other function runs
+        brick by brick (replicated operands as in :meth:`map`) and must
+        return a tensor of the brick's shape."""
+        kwargs = kwargs or {}
+        ref = next(a for a in (*args, *kwargs.values())
+                   if isinstance(a, BrickArray))
+        combine = _REDUCTIONS.get(func)
+        if combine is not None and (len(args) > 1 or "dim" in kwargs):
+            raise TypeError(f"{func.__name__} over a BrickArray reduces the "
+                            "whole field only (no dim)")
+        parts = []
+        for b, brick in enumerate(ref.bricks):
+            dev = brick.device
+            parts.append(func(*[_on(a, b, dev) for a in args],
+                              **{k: _on(v, b, dev) for k, v in kwargs.items()}))
+        if combine is not None:
+            return combine(parts, ref.mesh)
+        for p, brick in zip(parts, ref.bricks):
+            if not isinstance(p, torch.Tensor) or p.shape != brick.shape:
+                raise TypeError(f"{getattr(func, '__name__', func)} is not "
+                                "element-wise over a BrickArray")
+        return BrickArray(parts, ref.sharding)
+
     def __repr__(self) -> str:
         return (f"BrickArray(shape={self.shape}, dtype={self.dtype}, "
                 f"mesh={self.mesh.dims})")
@@ -215,6 +274,16 @@ def psum(parts: Sequence[torch.Tensor], mesh: Mesh) -> torch.Tensor:
     for p in parts[1:]:
         total = total + p.to(mesh.home)
     return total
+
+
+def _all(parts: Sequence[torch.Tensor], mesh: Mesh) -> torch.Tensor:
+    """Whether every brick's part is true, on the mesh's home device."""
+    return torch.stack([p.to(mesh.home) for p in parts]).all()
+
+
+#: whole-field reductions of :meth:`BrickArray.__torch_function__`
+_REDUCTIONS = {torch.sum: psum, torch.Tensor.sum: psum,
+               torch.all: _all, torch.Tensor.all: _all}
 
 
 def device_put(x, sharding: NamedSharding) -> BrickArray:

@@ -5,8 +5,8 @@ Every way of running a recorded WFA program dispatches through here:
 * :func:`plan` schedules the program's op groups into
   :class:`~repro_torch.engine.plan.Segment`s (fused kernel vs interpreter,
   with a time-tile factor per loop body);
-* :func:`execute` runs a plan eagerly (``numpy``) or on the plan's torch
-  device;
+* :func:`execute` runs a plan eagerly (``numpy``), on the plan's torch
+  device, or on the bricks of its mesh (:func:`sharded_runner`);
 * :func:`compile_body` builds a single body application ``env -> env`` —
   the one backend if/else in the tree;
 * :func:`plan_mg_levels` schedules a multigrid hierarchy (level bodies
@@ -17,7 +17,8 @@ Every way of running a recorded WFA program dispatches through here:
   repacks, tiles fused).
 """
 
-from repro_torch.engine.executor import execute, run_program, single_runner
+from repro_torch.engine.executor import (execute, run_program, sharded_runner,
+                                        single_runner)
 from repro_torch.engine.layout import HaloLayout
 from repro_torch.engine.options import UNSET, RunOptions, resolve_options
 from repro_torch.engine.plan import (
@@ -49,6 +50,7 @@ __all__ = [
     "resolve_device",
     "resolve_options",
     "run_program",
+    "sharded_runner",
     "single_runner",
     "stats",
 ]

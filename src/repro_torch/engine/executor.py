@@ -22,6 +22,11 @@ A batched plan (``plan.batch = B > 1``) steps ``(B, X, Y, Z)`` member
 stacks: :func:`run_program` broadcasts every field the caller left
 unstacked, the device steps (and the spares) carry the member axis, and
 the ``numpy`` backend runs the members one by one and restacks them.
+
+A plan on a mesh (``plan.mesh``) runs every field as an x-major list of
+bricks (:func:`sharded_runner`): each brick is entered, stepped and
+exited on its own device, with its own ping-pong spares, and a batched
+plan bricks the trailing (X, Y) axes, every brick holding all B members.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.convert import env_from_numpy, env_to_numpy
+from repro_torch.core.mesh import BrickArray, NamedSharding
 from repro_torch.core.program import _apply_op
 from repro_torch.engine.hooks import fire_step_hook
 from repro_torch.engine.plan import ExecutionPlan, Segment
@@ -85,11 +91,11 @@ def _layout_schedule(plan: ExecutionPlan):
         yield "exit"
 
 
-def single_runner(plan: ExecutionPlan):
-    """``run(env) -> env`` over tensors on ``plan.device`` (no host copies,
-    no synchronisation — the caller times or reads back the result).  The
-    caller's tensors are never written; on a resident plan the result is
-    fresh tensors from the layout's exit."""
+def _runner(plan: ExecutionPlan, enter, exit_, new_spare):
+    """``run(env) -> env`` over the plan's segments: on a resident plan
+    ``enter`` / ``exit_`` convert the env at the layout's events and
+    ``new_spare(value)`` makes a written field's ping-pong spare at its
+    first enter."""
     if not _resident(plan):
         def run(env):
             env = dict(env)
@@ -99,19 +105,18 @@ def single_runner(plan: ExecutionPlan):
 
         return run
 
-    layout = plan.layout
     written = {n for seg in plan.segments for n in seg.written}
 
     def run(env):
-        spare: Dict[str, torch.Tensor] = {}
+        spare = {}
         for ev in _layout_schedule(plan):
             if ev == "enter":
-                env = layout.enter(env)
+                env = enter(env)
                 for n in written:
                     if n not in spare:
-                        spare[n] = torch.empty_like(env[n])
+                        spare[n] = new_spare(env[n])
             elif ev == "exit":
-                env = layout.exit(env)
+                env = exit_(env)
             elif ev.kind == "fused":
                 env = _apply_segment(ev, env, spare)
             else:
@@ -121,9 +126,48 @@ def single_runner(plan: ExecutionPlan):
     return run
 
 
+def single_runner(plan: ExecutionPlan):
+    """``run(env) -> env`` over tensors on ``plan.device`` (no host copies,
+    no synchronisation — the caller times or reads back the result).  The
+    caller's tensors are never written; on a resident plan the result is
+    fresh tensors from the layout's exit."""
+    return _runner(plan, lambda env: plan.layout.enter(env),
+                   lambda env: plan.layout.exit(env), torch.empty_like)
+
+
+def _per_brick(fn, env):
+    """``fn`` over each brick's env (name -> tensor), regrouped into name ->
+    x-major list of bricks."""
+    size = len(next(iter(env.values())))
+    outs = [fn({n: v[b] for n, v in env.items()}) for b in range(size)]
+    return {n: [o[n] for o in outs] for n in outs[0]}
+
+
+def sharded_runner(plan: ExecutionPlan):
+    """``run(env) -> env`` over name -> x-major list of brick tensors on
+    the bricks of ``plan.mesh`` (no host copies, no synchronisation).  On a
+    resident plan every brick is entered and exited on its own, and each
+    written field holds one ping-pong spare per brick, allocated at the
+    first enter, so a resident step allocates nothing.  The caller's
+    tensors are never written."""
+    return _runner(plan, lambda env: _per_brick(plan.layout.enter, env),
+                   lambda env: _per_brick(plan.layout.exit, env),
+                   lambda bricks: [torch.empty_like(t) for t in bricks])
+
+
 def _run_single(plan: ExecutionPlan, env: Dict[str, np.ndarray]):
     out = single_runner(plan)(env_from_numpy(env, plan.device))
     return env_to_numpy(out)
+
+
+def _run_sharded(plan: ExecutionPlan, env: Dict[str, np.ndarray]):
+    """Cut every global field (a ``(B, …)`` stack on a batched plan) into
+    the mesh's bricks, run them, and gather the result to host NumPy."""
+    sharding = NamedSharding(plan.mesh)
+    bricks = {k: list(sharding.shard(v).bricks) for k, v in env.items()}
+    out = sharded_runner(plan)(bricks)
+    return {k: BrickArray(v, sharding).gather("cpu").numpy()
+            for k, v in out.items()}
 
 
 def _account(plan: ExecutionPlan) -> None:
@@ -134,7 +178,9 @@ def _account(plan: ExecutionPlan) -> None:
     the only repacking conversions are the layout's enter/exit events — two
     for an all-fused plan, plus a pair around each interpreter segment of a
     mixed plan; otherwise one full wrap pad (a repack) per launch.
-    Interpreter segments roll in place.
+    Interpreter segments roll in place on one device and pad per op, per
+    step, on a mesh.  A launch is one event of the plan, however many
+    bricks it covers.
     """
     resident = _resident(plan)
     if resident:
@@ -158,6 +204,9 @@ def _account(plan: ExecutionPlan) -> None:
                     stats.repacks += launches
         else:
             stats.launches += n
+            if plan.mesh is not None:
+                stats.exchanges += n * len(seg.ops)
+                stats.repacks += n * len(seg.ops)
 
 
 def _run_numpy(plan: ExecutionPlan, env: Dict[str, np.ndarray]):
@@ -196,8 +245,10 @@ def execute(plan: ExecutionPlan, env: Dict[str, np.ndarray]):
     t0 = time.perf_counter()
     if plan.backend == "numpy":
         out = _run_numpy(plan, env)
-    else:
+    elif plan.mesh is None:
         out = _run_single(plan, env)
+    else:
+        out = _run_sharded(plan, env)
     stats.elapsed_s += time.perf_counter() - t0
     _account(plan)
     return out

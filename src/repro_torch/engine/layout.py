@@ -105,6 +105,31 @@ def slab_rects(bx: int, by: int, h: int) -> Dict[str, Tuple[int, int, int, int]]
     }
 
 
+def slab_views(resident: torch.Tensor, margin: int,
+               h: int) -> Dict[str, torch.Tensor]:
+    """The four depth-``h`` margin slabs of a resident buffer as views
+    (name -> the :func:`slab_rects` rectangle of the buffer, leading axes
+    whole): where a refresh lands."""
+    K = margin
+    bx = resident.shape[-3] - 2 * K
+    by = resident.shape[-2] - 2 * K
+    return {name: resident[..., K + ox:K + ox + sx, K + oy:K + oy + sy, :]
+            for name, (ox, oy, sx, sy) in slab_rects(bx, by, h).items()}
+
+
+def land_slabs(resident: torch.Tensor, slabs: Dict[str, torch.Tensor],
+               margin: int, h: int) -> torch.Tensor:
+    """Store margin slabs (name -> tensor, as :func:`slab_rects` shapes
+    them) into the resident buffer's margin frame, in place: four
+    ``copy_``s into disjoint rectangles, so their order does not matter.
+    Leading (member) axes pass through whole.  Returns ``resident``."""
+    if h == 0:
+        return resident
+    for name, view in slab_views(resident, margin, h).items():
+        view.copy_(slabs[name])
+    return resident
+
+
 #: where each slab's wrap source lies, in units of the brick extent
 _WRAP_SOURCE = {"lo_x": (1, 0), "hi_x": (-1, 0), "lo_y": (0, 1), "hi_y": (0, -1)}
 

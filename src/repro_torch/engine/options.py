@@ -58,8 +58,11 @@ class RunOptions:
     ``overlap="auto"`` keeps the monolithic launch (no cost model yet).
     ``batch=B`` steps a B-member ensemble: every field buffer carries a
     leading member axis and each K1 launch advances all members
-    (:mod:`repro_torch.core.ensemble`).  ``device`` names the torch device;
-    ``"cuda"`` raises when no card is present instead of running elsewhere.
+    (:mod:`repro_torch.core.ensemble`).  ``mesh`` (a
+    :class:`repro_torch.core.mesh.Mesh`) runs the plan on its bricks, one
+    process driving every brick; its bricks' device type must be
+    ``device``'s.  ``device`` names the torch device; ``"cuda"`` raises
+    when no card is present instead of running elsewhere.
     """
 
     backend: Optional[str] = None
@@ -91,7 +94,12 @@ class RunOptions:
             )
         object.__setattr__(self, "check_finite", int(self.check_finite))
         if self.mesh is not None:
-            raise _later("mesh=...", "sharding")
+            from repro_torch.core.mesh import Mesh
+
+            if not isinstance(self.mesh, Mesh):
+                raise TypeError(
+                    "mesh must be a repro_torch.core.mesh.Mesh (make_mesh); "
+                    f"got {type(self.mesh).__name__}")
         if self.overlap is True:
             raise _later("overlap=True", "overlap")
         if self.differentiable:

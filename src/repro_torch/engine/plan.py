@@ -32,6 +32,15 @@ Ensembles: ``RunOptions(batch=B)`` plans the same segments over ``(B, X,
 Y, Z)`` member stacks — fused bodies on K1 built for B members (one launch
 advances all of them), interpreter steps on the whole stack, whose rolls
 and masks act on the trailing three axes.
+
+Meshes: ``RunOptions(mesh=…)`` (a :class:`repro_torch.core.mesh.Mesh`)
+plans every body for the mesh's bricks — fused bodies through
+:func:`repro_torch.compiler.codegen.compile_group_sharded` (one K1 launch
+per brick), interpreter steps through
+:func:`repro_torch.core.halo.interp_step_sharded` — and tile legality is
+judged on the brick extent.  ``backend="shard_map"`` is the ``jit`` backend
+on a mesh (the default mesh over ``options.device`` when none is given);
+``numpy`` drops the mesh.
 """
 
 from __future__ import annotations
@@ -43,7 +52,9 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from repro_torch.compiler import LoweringError, auto_tile, lower_group, tile_group
-from repro_torch.compiler.codegen import compile_group, try_compile
+from repro_torch.compiler.codegen import (compile_group, compile_group_sharded,
+                                          try_compile)
+from repro_torch.core.mesh import Mesh
 from repro_torch.core.program import Program, _group_ops, _interp_step
 from repro_torch.engine.layout import HaloLayout
 from repro_torch.engine.options import UNSET, resolve_options
@@ -51,8 +62,7 @@ from repro_torch.engine.stats import stats
 
 log = logging.getLogger("repro_torch.engine")
 
-#: user-facing backends (``shard_map`` is accepted by name and raises until
-#: the sharding slice)
+#: user-facing backends (``shard_map`` is ``jit`` on a mesh)
 BACKENDS = ("numpy", "jit", "shard_map", "pallas")
 
 
@@ -84,13 +94,14 @@ class Segment:
 
 @dataclasses.dataclass
 class ExecutionPlan:
-    """Scheduled execution of one recorded program on one device.
+    """Scheduled execution of one recorded program on one device or on the
+    bricks of ``mesh``.
 
     ``layout`` is the halo-resident layout the executor runs the fused
-    segments on: every field entered once to the plan-wide margin
-    ``layout.pad`` (max ``k·h`` over the fused bodies).  ``pad == 0``
-    (``resident=False``, an interpreter backend, or only halo-free bodies)
-    is the repacking path.
+    segments on: every field (every brick, on a mesh) entered once to the
+    plan-wide margin ``layout.pad`` (max ``k·h`` over the fused bodies).
+    ``pad == 0`` (``resident=False``, an interpreter backend, or only
+    halo-free bodies) is the repacking path.
     """
 
     program: Program
@@ -99,6 +110,7 @@ class ExecutionPlan:
     segments: List[Segment]
     layout: Optional[HaloLayout] = None
     batch: int = 1  # leading member axis every env tensor carries (if > 1)
+    mesh: Optional[Mesh] = None  # the bricks' mesh; None on one device
 
 
 def resolve_device(device) -> torch.device:
@@ -127,6 +139,7 @@ def compile_body(
     group=None,
     resident: int = 0,
     batch: int = 1,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[Callable, bool]:
     """Build one body application ``env -> env`` — THE backend dispatch.
 
@@ -139,9 +152,15 @@ def compile_body(
     :func:`repro_torch.compiler.codegen.compile_group`); the solver keeps
     ``0``, so its vectors stay unpadded.  Steps operate on tensors on
     ``device`` (the card by default, which must exist); ``batch=B > 1``
-    builds them over ``(B, X, Y, Z)`` member stacks.
+    builds them over ``(B, X, Y, Z)`` member stacks.  With ``mesh`` the
+    step operates on the mesh's bricks (name -> x-major list of brick
+    tensors, on the bricks' own devices; ``shapes`` stay global): K1 per
+    brick (:func:`repro_torch.compiler.codegen.compile_group_sharded`) or
+    the roll interpreter on halo-padded bricks
+    (:func:`repro_torch.core.halo.interp_step_sharded`).
     """
-    device = resolve_device(device)
+    if mesh is None:
+        device = resolve_device(device)
     stats.bodies_compiled += 1
     if backend == "pallas":
         from repro_torch.engine.hooks import fire_compile_hook
@@ -150,6 +169,10 @@ def compile_body(
             # the hook can raise LoweringError — the injectable stand-in for
             # a lowering failure; try_compile turns it into the fallback
             fire_compile_hook(getattr(loop, "name", None))
+            if mesh is not None:
+                return compile_group_sharded(
+                    ops, shapes, dtypes, mesh, time_tile=time_tile,
+                    group=group, resident=resident, batch=batch)
             return compile_group(ops, shapes, dtypes, device=device,
                                  time_tile=time_tile, group=group,
                                  resident=resident, batch=batch)
@@ -159,6 +182,10 @@ def compile_body(
             return step, True
     elif backend != "jit":
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    if mesh is not None:
+        from repro_torch.core.halo import interp_step_sharded
+
+        return interp_step_sharded(ops, mesh), False
     return _interp_step(ops), False
 
 
@@ -244,11 +271,29 @@ def plan_mg_levels(bodies, backend: str, dtype,
     return segments
 
 
-def _brick_xy(program: Program, group) -> Tuple[int, int]:
-    """(X, Y) extent of the fields ``group`` touches, anchored on its first
-    written field (the convention ``codegen._field_specs`` validates)."""
+def _brick_xy(program: Program, mesh: Optional[Mesh],
+              group) -> Tuple[int, int]:
+    """Per-brick (X, Y) extent of the fields ``group`` touches (the whole
+    grid on one device), anchored on its first written field (the
+    convention ``codegen._field_specs`` validates)."""
     nx, ny, _ = program.fields[group.fields_written()[0]].shape
-    return nx, ny
+    if mesh is None:
+        return nx, ny
+    mx, my = mesh.dims
+    return nx // mx, ny // my
+
+
+def _mesh_device(mesh: Mesh, device) -> torch.device:
+    """The mesh's home device, after checking that ``device`` (the run's
+    ``RunOptions.device``) names the same device type as every brick: a
+    CPU mesh never runs under the card default, nor the reverse."""
+    want = torch.device(device).type
+    types = {d.type for d in mesh.devices}
+    if types != {want}:
+        raise ValueError(
+            f"RunOptions(device={str(device)!r}) but the mesh's bricks are on "
+            f"{sorted(types)}; pass the device type the mesh was built for")
+    return mesh.home
 
 
 def _pick_tile(group, loop, requested: Optional[int], brick_xy) -> Tuple[int, str]:
@@ -303,19 +348,33 @@ def plan(
     )
     backend = options.resolved_backend("jit")
     time_tile = options.time_tile
+    mesh = options.mesh
 
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
     if backend == "shard_map":
-        raise NotImplementedError(
-            "backend='shard_map' is not ported yet: it comes with the "
-            "sharding slice of the PyTorch port")
+        backend = "jit"
+        if mesh is None:
+            from repro_torch.core.halo import default_mesh2d
+
+            mesh = default_mesh2d(options.device)
     # the numpy validation backend is eager and host-only: it never touches
-    # a device, so it needs none
-    device = None if backend == "numpy" else resolve_device(options.device)
+    # a device or a mesh, so it needs none; a mesh's bricks carry their own
+    if backend == "numpy":
+        mesh = device = None
+    elif mesh is not None:
+        device = _mesh_device(mesh, options.device)
+    else:
+        device = resolve_device(options.device)
 
     shapes = {n: f.shape for n, f in program.fields.items()}
     dtypes = {n: f.dtype for n, f in program.fields.items()}
+    if mesh is not None:
+        mx, my = mesh.dims
+        for n, (nx, ny, _) in shapes.items():
+            if nx % mx or ny % my:
+                raise ValueError(f"field {n} shape ({nx},{ny}) not divisible "
+                                 f"by mesh ({mx},{my})")
 
     # pass one: lower + pick tile factors
     scheduled = []
@@ -329,7 +388,7 @@ def plan(
                 group = None  # compile_body repeats the lowering to log/count
             if group is not None:
                 k, reason = _pick_tile(group, loop, time_tile,
-                                       _brick_xy(program, group))
+                                       _brick_xy(program, mesh, group))
         elif backend != "numpy" and time_tile is not None and time_tile != 1:
             # an explicit tile request on an interpreter backend is dropped,
             # not honoured — say so instead of silently running untiled
@@ -354,7 +413,8 @@ def plan(
             continue
         step, fused = compile_body(ops, loop, shapes, dtypes, backend,
                                    device=device, time_tile=k, group=group,
-                                   resident=pad, batch=options.batch)
+                                   resident=pad, batch=options.batch,
+                                   mesh=mesh)
         if not fused:
             k = 1
         seg = Segment(
@@ -371,7 +431,7 @@ def plan(
             seg.step_rem, _ = compile_body(ops, loop, shapes, dtypes, backend,
                                            device=device, time_tile=1,
                                            group=group, resident=pad,
-                                           batch=options.batch)
+                                           batch=options.batch, mesh=mesh)
         if reason:
             stats.note_tile_reason(reason)
         if fused:
@@ -385,4 +445,5 @@ def plan(
         stats.max_time_tile, max((s.time_tile for s in segments), default=1)
     )
     return ExecutionPlan(program=program, backend=backend, device=device,
-                         segments=segments, layout=layout, batch=options.batch)
+                         segments=segments, layout=layout, batch=options.batch,
+                         mesh=mesh)

@@ -7,7 +7,7 @@ counters are the reference's ``EngineStats``, field for field, so the two
 packages' accounting compares directly.  The multigrid counters
 (``mg_hierarchies``, ``mg_levels_built``, ``mg_level_log``) and the solve
 outcome words (``solve_outcomes``) are live for single-device solves; the
-ones for paths not ported yet (overlap, ensembles, the health ladder and
+ones for paths not ported yet (overlap, the health ladder and
 sentinels, service) stay 0.
 
 Exchange counting is *static*: the executor derives the counts from the

@@ -68,8 +68,10 @@ Entry points:
   ``launch_fused.sweep_launches`` (the sweep's share, one per k-step
   launch), ``launch_fused.sweep_substeps`` (the sweep's column-entry
   launches, k per sweep), ``launch_fused.hazard_launches`` (the share of
-  hazard bodies, either route) and ``launch_fused.batch_launches`` (the
-  share of kernels built for ``batch > 1``, either route);
+  hazard bodies, either route), ``launch_fused.batch_launches`` (the
+  share of kernels built for ``batch > 1``, either route) and
+  ``launch_fused.brick_launches`` (the share of kernels built for a
+  mesh's bricks, ``wrap=False``, either route);
 * :func:`fused_step_ref` is the plain PyTorch version: the same trapezoid,
   the same Moat mask and the same association, over the whole window at
   once.  The CPU path and the tests use it;
@@ -767,6 +769,7 @@ def launch_fused(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
     launch_fused.sweep_substeps += k if entry == "sweep" else 0
     launch_fused.hazard_launches += kernel.hazard
     launch_fused.batch_launches += kernel.batch > 1
+    launch_fused.brick_launches += not kernel.wrap
     return tuple(outs[nm] for nm in kernel.written)
 
 
@@ -777,3 +780,4 @@ launch_fused.sweep_launches = 0
 launch_fused.sweep_substeps = 0
 launch_fused.hazard_launches = 0
 launch_fused.batch_launches = 0
+launch_fused.brick_launches = 0

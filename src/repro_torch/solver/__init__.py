@@ -1,6 +1,6 @@
 """repro_torch.solver — implicit field equations as first-class WFA programs.
 
-The port of ``repro.solver`` for one device:
+The port of ``repro.solver``, on one device or the bricks of a mesh:
 
 1. :mod:`~repro_torch.solver.frontend` — ``Operator()``/``Rhs()`` recording
    contexts: the operator stencil ``A(v)`` is written exactly like an
@@ -10,7 +10,8 @@ The port of ``repro.solver`` for one device:
    through :mod:`repro_torch.compiler` (the fused kernel K1, kernel cache,
    stats, logged interpreter fallback) and runs matrix-free iterations on
    the compiled application, with the fused dot pair K2 on
-   ``backend="pallas"``;
+   ``backend="pallas"``; ``make_sharded_solver`` (``solve(mesh=…)``) runs
+   the same iterations on brick-sharded vectors;
 3. :mod:`~repro_torch.solver.krylov` — CG, pipelined CG, BiCGSTAB,
    Chebyshev, Jacobi and the stationary outer loop, guarded by
    :mod:`~repro_torch.solver.health`;
@@ -21,8 +22,7 @@ The port of ``repro.solver`` for one device:
 5. :mod:`~repro_torch.solver.presets` — canonical recorded systems (BTCS
    heat, variable-coefficient diffusion, Dirichlet Poisson).
 
-The adjoint (differentiable solves) comes with its own slice;
-``make_sharded_solver`` raises until the sharding slice.
+The adjoint (differentiable solves) comes with its own slice.
 """
 
 from repro_torch.solver import health, krylov

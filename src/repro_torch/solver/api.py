@@ -23,9 +23,12 @@ Every entry point runs on the card unless the caller asks for the host
 (``RunOptions(device="cpu")``, or ``device="cpu"`` for ``make_solver`` and
 ``operator_fns``).  ``RunOptions(batch=B)`` solves a B-member ensemble in
 one masked Krylov loop (:mod:`repro_torch.solver.krylov`'s ``*_batched``
-variants), the operator one K1 launch for all members.  The sharded
-solver, the adjoint and the recovery ladder come with their slices and
-raise ``NotImplementedError`` here.
+variants), the operator one K1 launch for all members.
+``RunOptions(mesh=…)`` solves on the bricks of a mesh
+(:func:`make_sharded_solver`): the same Krylov loops on
+:class:`~repro_torch.core.mesh.BrickArray` vectors.  The adjoint and the
+recovery ladder come with their slices and raise ``NotImplementedError``
+here.
 """
 
 from __future__ import annotations
@@ -268,14 +271,21 @@ def _jacobi_diag(group, answer: str, env):
     return diag
 
 
+def _z_window(group, nz: int) -> np.ndarray:
+    """(1, 1, Z) bool mask of the z planes the operator body writes."""
+    z = np.zeros((1, 1, nz), dtype=bool)
+    for u in group.updates:
+        z[..., u.z0 : u.z0 + u.zlen] = True
+    return z
+
+
 def _written_mask(group, shape) -> np.ndarray:
     """(X, Y, Z) bool mask of cells the operator body writes (the rest are
     identity rows)."""
     nx, ny, nz = shape
-    m = np.zeros((nx, ny, nz), dtype=bool)
-    for u in group.updates:
-        m[1:-1, 1:-1, u.z0 : u.z0 + u.zlen] = True
-    return m
+    m = np.zeros((nx, ny, 1), dtype=bool)
+    m[1:-1, 1:-1] = True
+    return m & _z_window(group, nz)
 
 
 # ---------------------------------------------------------------------------
@@ -611,9 +621,166 @@ def make_solver(
     return step_fn
 
 
-def make_sharded_solver(program: Program, answer, mesh, **kwargs):
-    """The brick-sharded solver comes with the sharding slice."""
-    raise _later("make_sharded_solver", "sharding")
+def make_sharded_solver(
+    program: Program,
+    answer,
+    mesh,
+    *,
+    method: str = "cg",
+    backend: str = "pallas",
+    tol: float = 1e-6,
+    maxiter: int = 500,
+    steps: int = 1,
+    lambda_bounds: Optional[Tuple[float, float]] = None,
+    precondition: Optional[str] = None,
+    mg_opts=None,
+    member_env=None,
+):
+    """Brick-sharded solver over ``mesh`` (a
+    :class:`repro_torch.core.mesh.Mesh`); returns ``(step_fn, sharding)``.
+
+    ``step_fn(x0) -> (x, (iters, res, outcomes))`` takes the global guess
+    (a NumPy array, a tensor or a :class:`~repro_torch.core.mesh.BrickArray`
+    of ``sharding``) and returns ``x`` as a BrickArray.  The Krylov loops of
+    :mod:`repro_torch.solver.krylov` run unchanged on BrickArray vectors:
+    operator and ``Rhs()`` applications go through the engine's dispatch on
+    the mesh (:func:`repro_torch.engine.compile_body`: K1 per brick on
+    halo-padded bricks, or the roll interpreter); ``dot`` is a local sum
+    per brick in ``promote(dtype, float32)`` and one ``psum``, ``dot2`` K2
+    per brick on ``backend="pallas"`` (its plain version elsewhere) and
+    one ``psum`` of the pairs; the Jacobi mask is each brick's Moat mask
+    and the written z window.
+
+    Multigrid runs gathered, as the reference's does (coarsening stops
+    dividing the mesh): ``precondition="mg"`` gathers ``r`` to the mesh's
+    home device, applies one cycle there (once, since one process holds
+    every brick) and cuts the result back into bricks; ``method="mg"``
+    runs the single-device iteration (:func:`make_solver`) on the gathered
+    field and coefficients.  ``member_env`` overrides coefficient fields'
+    init data with global arrays.
+    """
+    from repro_torch.core.halo import local_moat_mask
+    from repro_torch.core.mesh import BrickArray, Mesh, NamedSharding, psum
+    from repro_torch.engine import compile_body
+    from repro_torch.kernels import ops as kops
+
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a repro_torch.core.mesh.Mesh; got "
+                        f"{type(mesh).__name__}")
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; expected one of {METHODS}")
+    if backend not in ("jit", "pallas"):
+        raise ValueError(f"unknown solver backend {backend!r}")
+    _check_precondition(method, precondition)
+    name = _answer_name(program, answer)
+    release_program(program)
+    (op_loop, op_ops), rhs_group = _split(program, name)
+    group = _lower_operator(op_ops, name)
+    bounds = _resolve_bounds(method, lambda_bounds, group, name)
+    _check_jacobi(method, group)
+
+    mx, my = mesh.dims
+    shapes = {n: f.shape for n, f in program.fields.items()}
+    dtypes = {n: f.dtype for n, f in program.fields.items()}
+    for n, (nx, ny, _) in shapes.items():
+        if nx % mx or ny % my:
+            raise ValueError(
+                f"field {n} shape ({nx},{ny}) not divisible by mesh ({mx},{my})"
+            )
+    nx, ny, nz = shapes[name]
+    bx, by = nx // mx, ny // my
+    sharding = NamedSharding(mesh)
+    member_env = member_env or {}
+
+    def _bricks(x0) -> BrickArray:
+        if isinstance(x0, BrickArray):
+            return x0.map(torch.clone)
+        return sharding.shard(x0)
+
+    if method == "mg":
+        single = make_solver(program, name, method="mg", backend=backend,
+                             tol=tol, maxiter=maxiter, steps=steps,
+                             mg_opts=mg_opts, member_env=member_env,
+                             device=mesh.home)
+
+        def mg_step(x0):
+            if isinstance(x0, BrickArray):
+                x0 = x0.gather()
+            x, aux = single(x0)
+            return sharding.shard(x), aux
+
+        return mg_step, sharding
+
+    field = program.fields[name]
+    mg = _build_mg(method, precondition, group, name, field.shape, field.dtype,
+                   backend, mg_opts, mesh.home)
+
+    def _brick_step(ops, loop):
+        step, _ = compile_body(ops, loop, shapes, dtypes, backend, mesh=mesh)
+
+        def run(env):
+            out = step({n: list(v.bricks) for n, v in env.items()})
+            return {n: BrickArray(v, sharding) for n, v in out.items()}
+
+        return run
+
+    op_step = _brick_step(op_ops, op_loop)
+    rhs_step = (_brick_step(rhs_group[1], rhs_group[0])
+                if rhs_group is not None else None)
+    coef_names = [n for n in program.fields if n != name]
+    coefs = [sharding.shard(np.asarray(member_env.get(
+        n, program.fields[n].init_data))) for n in coef_names]
+    mask = None
+    if method == "jacobi":
+        zwin = torch.from_numpy(_z_window(group, nz))
+        mask = BrickArray([local_moat_mask(bx, by, mesh.coords(b), mx, my, dev)
+                           & zwin.to(dev)
+                           for b, dev in enumerate(mesh.devices)], sharding)
+
+    def dot(a, b):
+        # BrickArray.__torch_function__: a local sum per brick, one psum
+        return torch.sum(a * b, dtype=torch.promote_types(a.dtype,
+                                                          torch.float32))
+
+    def dot2(a, b, c, d):
+        acc = torch.promote_types(a.dtype, torch.float32)
+        if backend == "pallas":
+            parts = [kops.dual_dot(*v) for v in zip(a.bricks, b.bricks,
+                                                     c.bricks, d.bricks)]
+        else:
+            parts = [torch.stack([torch.sum(p * q, dtype=acc),
+                                  torch.sum(r * t, dtype=acc)])
+                     for p, q, r, t in zip(a.bricks, b.bricks, c.bricks,
+                                           d.bricks)]
+        part = psum(parts, mesh)  # ONE reduction of the pairs
+        return part[0], part[1]
+
+    M = None
+    if mg is not None and precondition == "mg":
+        M = lambda r: sharding.shard(mg.apply(r.gather()))  # noqa: E731
+
+    run = _make_runner(
+        method=method,
+        name=name,
+        coef_names=coef_names,
+        op_step=op_step,
+        rhs_step=rhs_step,
+        dot=dot,
+        dot2=dot2,
+        tol=tol,
+        maxiter=maxiter,
+        steps=steps,
+        bounds=bounds,
+        group=group,
+        jacobi_mask=mask,
+        mg=None,
+        M=M,
+    )
+
+    def step_fn(x0):
+        return run(_bricks(x0), *coefs)
+
+    return step_fn, sharding
 
 
 # ---------------------------------------------------------------------------
@@ -652,7 +819,10 @@ def solve(
     initial guess and/or coefficient fields (the rest broadcast), the
     solution is the ``(B, X, Y, Z)`` stack, and the per-member iteration
     counts land in :class:`SolveInfo` (shape ``(steps, B)``) and in
-    ``repro_torch.engine.stats.member_iterations``.
+    ``repro_torch.engine.stats.member_iterations``.  ``options.mesh`` (or
+    the legacy ``mesh=``) solves on the bricks of a
+    :class:`~repro_torch.core.mesh.Mesh` (:func:`make_sharded_solver`);
+    a mesh with ``batch > 1`` raises ``ValueError``.
 
     The initial guess is the unknown field's init data (its Moat must carry
     the boundary values, as in the explicit path).  ``tol`` bounds the
@@ -688,11 +858,14 @@ def solve(
     )
     backend = options.resolved_backend("pallas")
     batch = options.batch
+    mesh = options.mesh
+    if mesh is not None and batch > 1:
+        raise ValueError(
+            "batched solves are single-device; drop mesh= or set batch=1"
+        )
     name = _answer_name(program, answer)
     member_env = member_env or {}
-    step_fn = make_solver(
-        program,
-        name,
+    kwargs = dict(
         method=method,
         backend=backend,
         tol=tol,
@@ -702,14 +875,20 @@ def solve(
         precondition=precondition,
         mg_opts=mg_opts,
         member_env=member_env,
-        device=options.device,
-        batch=batch,
     )
+    if mesh is not None:
+        from repro_torch.engine.plan import _mesh_device
+
+        _mesh_device(mesh, options.device)
+        step_fn, _ = make_sharded_solver(program, name, mesh, **kwargs)
+    else:
+        step_fn = make_solver(program, name, device=options.device,
+                              batch=batch, **kwargs)
     x0 = np.asarray(member_env.get(name, program.fields[name].init_data))
     if batch > 1 and x0.ndim == 3:
         x0 = np.broadcast_to(x0, (batch,) + x0.shape).copy()
     x, (iters, res, outs) = step_fn(x0)
-    x = x.cpu().numpy()
+    x = x.gather("cpu").numpy() if mesh is not None else x.cpu().numpy()
     engine_stats.solve_outcomes = tuple(
         str(v) for v in np.unique(health.outcome_names(outs))
     )

@@ -58,7 +58,17 @@ Without a card every test skips.  Tolerances:
   launches, one ``batch_launches`` per launch; a batched ``make``
   (``RunOptions(batch=B)``, k = 1 and the auto tile, resident and
   repacking) bitwise equal to B single runs, its resident loops making no
-  device allocation per step.
+  device allocation per step;
+* K1 on sharded bricks (``wrap=False``, each brick's global origin as its
+  coordinates) on every brick of 2×2 and 3×3 meshes, k = 1 and the sweep
+  at k = 2, 3, 8, padded and margin mode, the heat and a hazard body, 1
+  and 3 members, float32 and float64: bitwise against its plain version
+  on zero-filled windows; ``make`` on a 2×2 mesh of the card bitwise equal
+  to the single-device ``make`` (k = 1 and the auto tile, resident and
+  repacking), K1 launched once per brick per engine launch through the
+  route its tile names; a resident sharded step makes no device
+  allocation; sharded solves (cg, pipecg with K2 per brick) within
+  ``3.2·tol`` of the single-device solve on the card.
 
 The bodies of :data:`K1_BODIES` are shared with ``test_torch_k1.py``, which
 holds their plain version against the JAX reference on the CPU.
@@ -594,10 +604,11 @@ def k1_body(m, name, dtype, steps=2, seed=0):
     return wse, env
 
 
-def k1_kernel(name, dtype, device, margin=0, k=1, brick=None, batch=1):
+def k1_kernel(name, dtype, device, margin=0, k=1, brick=None, batch=1,
+              wrap=True):
     """``(kernel, env)`` of body ``name`` at time tile ``k`` on ``device``,
     for the whole grid or a ``brick=(bx, by)`` of it, built for ``batch``
-    members."""
+    members (``wrap=False``: a sharded brick's kernel)."""
     wse, env = k1_body(port_core, name, dtype)
     prog = wse.program
     wse.__exit__()
@@ -607,7 +618,7 @@ def k1_kernel(name, dtype, device, margin=0, k=1, brick=None, batch=1):
         {n: f.dtype for n, f in prog.fields.items()})
     bx, by = brick or (nx, ny)
     kern, _ = build_fused_call(group.updates, specs, group.halo, bx, by, nx,
-                               ny, time_tile=k, wrap=True, device=device,
+                               ny, time_tile=k, wrap=wrap, device=device,
                                margin=margin, batch=batch)
     return kern, env
 
@@ -928,3 +939,150 @@ def test_cuda_batched_solve_matches_single_solves(method):
         xs = solve(prog, "T", method=method, tol=tol,
                    member_env={"T": x0s[b]})
         assert np.abs(x[b].astype(np.float64) - xs).max() <= 10 * tol
+
+
+# -- sharded bricks (slice 12) -------------------------------------------------
+
+def zero_window(field, coords, bx, by, pad):
+    """The ``(…, bx + 2·pad, by + 2·pad)`` window around the brick at
+    ``coords`` of the global ``field`` (leading member axes whole), zero
+    outside the domain: what a sharded brick's halo exchange gives it."""
+    lead = field.shape[:-3]
+    z = np.zeros((*lead, field.shape[-3] + 2 * pad,
+                  field.shape[-2] + 2 * pad, field.shape[-1]), field.dtype)
+    z[..., pad:pad + field.shape[-3], pad:pad + field.shape[-2], :] = field
+    return np.ascontiguousarray(z[..., coords[0]:coords[0] + bx + 2 * pad,
+                                  coords[1]:coords[1] + by + 2 * pad, :])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (3, 3)])
+@pytest.mark.parametrize("name", ["heat", "hazard"])
+def test_cuda_sharded_k1_bitwise_vs_plain(name, mesh_shape):
+    """K1 built without wrap for the bricks of a mesh equals its plain
+    version bit for bit on every brick (coords = the brick's global
+    origin; the sweep's regions reach below 0 and past the grid on edge
+    bricks, where both must mask rather than wrap): k = 1 and the sweep at
+    k = 2, 3, 8, padded and margin mode (M = k·h + 1, output margins left
+    alone), 1 and 3 members, float32 and float64."""
+    _need_card()
+    mx, my = mesh_shape
+    for dtype in (np.float32, np.float64):
+        whole, _ = k1_kernel(name, dtype, "cpu")
+        bx, by = whole.nx // mx, whole.ny // my
+        for k, M, B in itertools.product((1, 2, 3, 8), (0, None), (1, 3)):
+            M = 0 if M == 0 else k * whole.halo + 1
+            kern, _ = k1_kernel(name, dtype, "cuda", margin=M, k=k,
+                                brick=(bx, by), batch=B, wrap=False)
+            assert fused_entry(kern) == ("k1" if k == 1 else "sweep")
+            envs = []
+            for seed in range(B):
+                wse, env = k1_body(port_core, name, dtype, seed=seed)
+                wse.__exit__()
+                envs.append(env)
+            for cx, cy in itertools.product(range(mx), range(my)):
+                coords = (cx * bx, cy * by)
+                ins = []
+                for n in kern.in_names:
+                    f = np.stack([e[n] for e in envs]) if B > 1 else envs[0][n]
+                    ins.append(torch.tensor(zero_window(
+                        f, coords, bx, by, M or kern.pad), device="cuda"))
+                outs = {}
+                for how in ("kernel", "plain"):
+                    out = ([torch.full_like(ins[kern.in_names.index(n)], -7.0)
+                            for n in kern.written] if M else None)
+                    call = launch_fused if how == "kernel" else fused_step_ref
+                    outs[how] = call(kern, ins, coords, out=out)
+                for g, w in zip(outs["kernel"], outs["plain"]):
+                    assert torch.equal(g, w), (name, dtype, k, M, B, coords)
+
+
+def _heat_member(T0, steps):
+    with port_core.WSE_Interface() as wse:
+        T = port_core.WSE_Array("T", init_data=T0, dtype=T0.dtype)
+        with port_core.WSE_For_Loop("t", steps):
+            T[1:-1, 0, 0] = 0.4 * T[1:-1, 0, 0] + 0.1 * (
+                T[2:, 0, 0] + T[:-2, 0, 0] + T[1:-1, 1, 0]
+                + T[1:-1, 0, -1] + T[1:-1, -1, 0] + T[1:-1, 0, 1])
+    return wse, T
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_make_equals_single_device():
+    """make on a 2×2 mesh of the card equals the single-device make bit for
+    bit, at k = 1 and the auto tile, resident and repacking; K1 is launched
+    once per brick per engine launch, through the route its tile names."""
+    _need_card()
+    from repro_torch.engine import reset_stats, stats
+
+    T0 = np.random.default_rng(14).uniform(300.0, 500.0,
+                                           (64, 48, 12)).astype(np.float32)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    for tt, resident in itertools.product((1, None), (True, False)):
+        opts = dict(backend="pallas", time_tile=tt, resident=resident)
+        wse, T = _heat_member(T0, 16)
+        single = wse.make(answer=T, options=RunOptions(**opts))
+        reset_stats()
+        before = (launch_fused.launches, launch_fused.k1_launches,
+                  launch_fused.sweep_launches, launch_fused.brick_launches)
+        wse, T = _heat_member(T0, 16)
+        sharded = wse.make(answer=T, options=RunOptions(mesh=mesh, **opts))
+        launched = tuple(a - b for a, b in zip(
+            (launch_fused.launches, launch_fused.k1_launches,
+             launch_fused.sweep_launches, launch_fused.brick_launches),
+            before))
+        assert launched[0] == 4 * stats.launches > 0
+        assert launched[1 if tt == 1 else 2] == launched[3] == launched[0], (
+            launched)
+        np.testing.assert_array_equal(sharded, single, err_msg=str(opts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("time_tile", [1, None])
+def test_cuda_resident_sharded_make_allocates_nothing_per_step(time_tile):
+    """A resident sharded step makes no device allocation: a run's growth
+    of ``allocation.all.allocated`` (after a warm-up run) is the same over
+    16 steps as over 8."""
+    _need_card()
+    from repro_torch.core.mesh import NamedSharding
+    from repro_torch.engine import plan, sharded_runner
+
+    T0 = np.random.default_rng(15).uniform(300.0, 500.0,
+                                           (64, 48, 12)).astype(np.float32)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    grown = {}
+    for steps in (8, 16):
+        wse, _ = _heat_member(T0, steps)
+        p = plan(wse.program, RunOptions(backend="pallas", time_tile=time_tile,
+                                         mesh=mesh))
+        run = sharded_runner(p)
+        env = {"T": list(NamedSharding(mesh).shard(T0).bricks)}
+        run(env)
+        torch.cuda.synchronize()
+        a0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+        run(env)
+        torch.cuda.synchronize()
+        grown[steps] = torch.cuda.memory_stats()["allocation.all.allocated"] - a0
+    assert grown[16] == grown[8], grown
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["cg", "pipecg"])
+def test_cuda_sharded_solve_matches_single_device(method):
+    """A BTCS solve on a 2×2 mesh of the card: CONVERGED, within 3.2·tol of
+    the single-device solve; pipecg's dot pairs go through K2 per brick."""
+    _need_card()
+    from repro_torch.solver import btcs_program, solve
+
+    shape = (32, 32, 17)
+    T0 = heat_init(shape)
+    tol = 1e-5 * float(np.linalg.norm(T0))
+    prog = btcs_program(shape, 0.1, init_data=T0)
+    single = solve(prog, "T", method=method, tol=tol)
+    before = launch_dual_dot.launches
+    x, info = solve(prog, "T", method=method, tol=tol, return_info=True,
+                    options=RunOptions(mesh=make_mesh((2, 2))))
+    assert list(info.outcomes) == ["CONVERGED"]
+    if method == "pipecg":
+        assert launch_dual_dot.launches - before >= 4 * int(info.iterations[0])
+    assert np.abs(x.astype(np.float64) - single).max() <= 3.2 * tol

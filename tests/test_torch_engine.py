@@ -132,15 +132,13 @@ def test_auto_tile_matches_reference():
 
 def test_options_of_later_slices_raise():
     for field, value, later in (
-            ("mesh", object(), "sharding"),
             ("overlap", True, "overlap"), ("differentiable", True, "adjoint"),
             ("check_finite", 5, "health"), ("recovery", object(), "health")):
         with pytest.raises(NotImplementedError, match=f"{later} slice"):
             RunOptions(**{field: value})
-    with port_core.WFAInterface() as wse:
-        with pytest.raises(NotImplementedError, match="sharding slice"):
-            port_engine.plan(wse.program,
-                             RunOptions(backend="shard_map", device="cpu"))
+    # the sharding slice is in: a mesh must be the port's own Mesh
+    with pytest.raises(TypeError, match="Mesh"):
+        RunOptions(mesh=object())
 
 
 def test_cuda_default_without_a_card_raises(monkeypatch):

@@ -458,10 +458,19 @@ def test_mesh_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_unported_entry_points_name_their_slices():
+    """The adjoint still raises, naming its slice; the sharded implicit
+    shim now returns a working step (one BTCS step on a 1×1 mesh equals
+    the single-device ``btcs_solve`` to solver tolerance)."""
     mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+    T0 = heat_init(SHAPE)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)
-        with pytest.raises(NotImplementedError, match="sharding slice"):
-            implicit.make_sharded_implicit(mesh, SHAPE, OMEGA)
+        step, sharding = implicit.make_sharded_implicit(
+            mesh, SHAPE, OMEGA, tol=1e-6, maxiter=200)
+        want, _ = implicit.btcs_solve(T0, OMEGA, 1, tol=1e-6, maxiter=200,
+                                      device="cpu")
+    got = step(device_put(T0, sharding))
+    assert got.shape == SHAPE
+    assert np.abs(device_get(got) - want.numpy()).max() < 5e-3
     with pytest.raises(NotImplementedError, match="adjoint slice"):
         explicit.ftcs_solve_checkpointed(torch.zeros(SHAPE), OMEGA, 4)

@@ -393,7 +393,8 @@ def test_later_slices_raise():
     for kw, slice_name in (({"differentiable": True}, "adjoint"),):
         with pytest.raises(NotImplementedError, match=slice_name):
             port_solver.make_solver(prog, "T", device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="sharding"):
+    # the sharding slice is in: a mesh must be the port's own Mesh
+    with pytest.raises(TypeError, match="Mesh"):
         port_solver.make_sharded_solver(prog, "T", mesh=None)
     with pytest.raises(NotImplementedError, match="health"):
         RunOptions(recovery=port_solver.RecoveryPolicy())
