@@ -159,6 +159,29 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          single-device solve; K1 per brick through its
                          k = 1 entry, K2 per brick (pipecg, cg + mg), K3/K4
                          on the gathered hierarchy; ms per solve;
+10d. ``overlap_make`` — ``HeatConfig()`` through ``make(overlap=True)``
+                         (the interior/boundary split, resident) on one
+                         device and on the 2×2 mesh, k = 1 and the auto
+                         tile, and 8 members at k = 1: each run bitwise
+                         its ``overlap=False`` run, the engine's split
+                         counts (one interior, four shells, one overlapped
+                         exchange per launch), K1 launched once in region
+                         mode and four times padded per brick per launch
+                         through the route its tile names, ``overlap=
+                         "auto"`` plans unsplit, 0 device allocations per
+                         split step; split and monolithic ms per step, host
+                         µs per step, idle share, and from the profiler's
+                         trace whether the slab copies on the side stream
+                         ran beside a K1 launch; the interior's k = 1 and
+                         auto launches and each shell's (queued) beside
+                         their bounds and ``PREDICTED``.  (``kernel_vs_ref``
+                         holds the split launch itself: the interior of
+                         ``split_regions`` in region mode and each shell's
+                         padded launch on its ``strip_window``, bitwise
+                         against their plain versions and the monolithic
+                         launch's cells, heat3d at k = 1 and the auto tile
+                         with 1 and 8 members and the hazard body, f32 and
+                         f64.)
 11. ``kernels``        — one JSON line describing every kernel of the paths
                          (K1 on six rows: the k = 1 entry in the padded and
                          the margin mode, the sweep at the auto tile, and
@@ -176,15 +199,18 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          each pair's time; K2's adds ``sharded_solve``'s;
                          two rows for K1 on the 2×2 mesh's bricks, the k = 1
                          entry and the sweep, timed per brick in margin
-                         mode, their launches by mesh and by mode).
+                         mode, their launches by mesh and by mode; two rows
+                         for the overlap's split launch: the interior in
+                         region mode (k = 1, its auto-tile sweep beside it)
+                         and the shells' padded launches (the mean of the
+                         four at k = 1), launches by tile).
 
 Each main path (``heat3d``, ``hazard_make``, ``ensemble_make``,
 ``solve_heat3d``, ``ensemble_solve``, ``mg_poisson``, ``legacy_ftcs``,
-``legacy_btcs``, ``sharded_make``, ``sharded_solve``) runs with the launch
-counters set to 0 just
-before it and read just after, and fails if one of its kernels was not
-launched.  Then the card's name and power limit,
-and last the result line.  Any failed check raises: the script exits
+``legacy_btcs``, ``sharded_make``, ``sharded_solve``, ``overlap_make``)
+runs with the launch counters set to 0 just before it and read just after,
+and fails if one of its kernels was not launched.  Then the card's name and
+power limit, and last the result line.  Any failed check raises: the script exits
 non-zero and prints no result line.  Without a CUDA device it exits
 non-zero before printing anything.
 
@@ -287,6 +313,32 @@ PREDICTED = {
     # 60-120 (55.69; r gathered and the correction cut back per iteration)
     "sharded_solve_ms": {"cg": [10.0, 25.0], "pipecg": [15.0, 35.0],
                          "cg+mg": [60.0, 120.0]},
+    # the exchange/compute overlap (written before its first timed run;
+    # PERF.md §6): HeatConfig() with overlap=True, resident, float32.
+    # The interior in region mode reads and writes 510² (k = 1) or 496²
+    # (k = 8) of the 512² brick, so about that share of the monolithic
+    # launch (0.3141 ms, 2.59 ms); each shell a launch-bound few µs; the
+    # split step adds four shell launches, their window copies and the
+    # slab copies, all paced by the host at k = 1 (about 20 more torch
+    # calls and four more launcher calls a brick and field); the auto step
+    # spreads that over 8 steps; no allocation per split step.  On one
+    # card the slab copies (a few µs) are enqueued before the interior
+    # launch, so at most their tail runs beside its start
+    "overlap_interior_ms": {"k1": [0.29, 0.33], "k8": [2.3, 2.6]},
+    "overlap_shell_ms": {"k1": [0.003, 0.010]},
+    "overlap_ms_per_step": {"one_k1": [0.40, 0.65], "one_auto": [0.33, 0.40],
+                            "mesh_k1": [1.2, 2.4], "mesh_auto": [0.36, 0.45],
+                            "members_k1": [2.7, 3.1]},
+    "overlap_host_us_per_step": {"one_k1": [350.0, 650.0],
+                                 "one_auto": [45.0, 90.0],
+                                 "mesh_k1": [1200.0, 2400.0],
+                                 "mesh_auto": [150.0, 300.0],
+                                 "members_k1": [350.0, 650.0]},
+    "overlap_idle_share": {"one_k1": [0.2, 0.5], "one_auto": [0.0, 0.05],
+                           "mesh_k1": [0.6, 0.85], "mesh_auto": [0.0, 0.1]},
+    "overlap_allocations_per_step": 0,
+    "overlap_slab_copies_concurrent": "at most the copies' tail beside the "
+                                      "interior launch's start",
 }
 #: H100 SXM device-memory rate and float32 / float64 (non-tensor) peaks
 HBM_BYTES_PER_S = 3.35e12
@@ -504,16 +556,18 @@ def phase_build():
           "ptxas": ptxas})
 
 
-def _build_kernel(program_ops, shapes, dtypes, k, device, margin=0, batch=1):
+def _build_kernel(program_ops, shapes, dtypes, k, device, margin=0, batch=1,
+                  region=None, brick=None):
     from repro_torch.compiler.codegen import _field_specs
     from repro_torch.compiler.ir import lower_group
     from repro_torch.kernels.fused import build_fused_call
 
     group = lower_group(program_ops)
     specs, (nx, ny) = _field_specs(group, shapes, dtypes)
-    kernel, _ = build_fused_call(group.updates, specs, group.halo, nx, ny, nx,
+    bx, by = brick or (nx, ny)
+    kernel, _ = build_fused_call(group.updates, specs, group.halo, bx, by, nx,
                                  ny, time_tile=k, wrap=True, device=device,
-                                 margin=margin, batch=batch)
+                                 margin=margin, batch=batch, region=region)
     return kernel
 
 
@@ -626,6 +680,81 @@ def compare_margin(kernel, inputs, padded_out):
     return err
 
 
+def compare_region(ops, shapes, dtypes, k, dev, env, padded_out=None,
+                   members=1):
+    """K1's region mode on the card over the interior of ``split_regions``
+    (margin M = k·h, the engine's), and each shell's padded launch on its
+    ``strip_window`` of the same buffers, each bitwise against its plain
+    version (whole output buffers, so no cell outside the region moves),
+    through the route its tile names, the interior counted once in
+    ``region_launches``; with ``padded_out`` (the monolithic padded launch
+    on the same fields) the five outputs also equal its cells.  ``env``
+    holds ``(B, X, Y, Z)`` stacks for ``members > 1``.  Returns (max |diff|,
+    the launches to time: ``{"interior": (kernel, ins, out), "shells":
+    [(kernel, windows, coords), …]}``)."""
+    import torch
+
+    from repro_torch.compiler.ir import lower_group, split_regions
+    from repro_torch.engine.layout import strip_window, wrap_slabs
+    from repro_torch.kernels.fused import fused_step_ref, launch_fused
+
+    group = lower_group(ops)
+    nx, ny = next(iter(shapes.values()))[:2]
+    split = split_regions(group, k, (nx, ny))
+    M = k * group.halo
+    kern = _build_kernel(ops, shapes, dtypes, k, dev, margin=M, batch=members,
+                         region=split.interior)
+    ins = _resident_inputs(kern, env, dev)
+    r = split.interior
+    before = launch_fused.region_launches
+    got = launch_via_entry(kern, ins, out=margin_outputs(kern, ins),
+                           coords=(r.x0, r.y0))
+    if launch_fused.region_launches - before != 1:
+        raise AssertionError("the interior launch was not counted as a region "
+                             "launch")
+    want = fused_step_ref(kern, ins, (r.x0, r.y0),
+                          out=margin_outputs(kern, ins))
+    torch.cuda.synchronize()
+    err = 0.0
+    pieces = [(r, [g[..., M + r.x0:M + r.x0 + r.rx, M + r.y0:M + r.y0 + r.ry, :]
+                   for g in got])]
+    for g, w in zip(got, want):
+        err = max(err, (g.double() - w.double()).abs().max().item())
+        if not torch.isfinite(g[..., M:-M, M:-M, :][..., r.x0:r.x0 + r.rx,
+                                                    r.y0:r.y0 + r.ry, :]).all():
+            raise AssertionError("K1's region mode produced non-finite values")
+        if not torch.equal(g, w):
+            raise AssertionError(f"K1's region mode differs from its plain "
+                                 f"version (max {err})")
+    del want
+    ph = kern.pad
+    slabs = [wrap_slabs(t, M, ph) for t in ins]
+    shells = []
+    for s in split.shells:
+        shell = _build_kernel(ops, shapes, dtypes, k, dev, batch=members,
+                              brick=(s.rx, s.ry))
+        wins = [strip_window(t, sl, M, ph, s, nx, ny)
+                for t, sl in zip(ins, slabs)]
+        sg = launch_via_entry(shell, wins, coords=(s.x0, s.y0))
+        sw = fused_step_ref(shell, wins, (s.x0, s.y0))
+        torch.cuda.synchronize()
+        for g, w in zip(sg, sw):
+            err = max(err, (g.double() - w.double()).abs().max().item())
+            if not torch.equal(g, w):
+                raise AssertionError(f"K1's shell launch {s} differs from its "
+                                     f"plain version (max {err})")
+        pieces.append((s, sg))
+        shells.append((shell, wins, (s.x0, s.y0)))
+    if padded_out is not None:
+        for reg, outs in pieces:
+            for g, p in zip(outs, padded_out):
+                if not torch.equal(g, p[..., reg.x0:reg.x0 + reg.rx,
+                                        reg.y0:reg.y0 + reg.ry, :]):
+                    raise AssertionError(f"the split launch's region {reg} "
+                                         "differs from the monolithic launch")
+    return err, {"interior": (kern, ins, got), "shells": shells}
+
+
 def small_body_cases():
     """K1 vs its plain version on small bodies that reach every branch of
     the kernel, and ``make`` on the card vs ``make`` on the CPU with a
@@ -734,6 +863,7 @@ def phase_kernel_vs_ref(steps_heat: int, seed: int):
     cases = []
     cfg = HeatConfig()
     heat = {}
+    region_err = 0.0
     for dtype in ("float32", "float64"):
         c = HeatConfig(dtype=dtype)
         wse, T = record_heat(c, steps_heat)
@@ -767,7 +897,27 @@ def phase_kernel_vs_ref(steps_heat: int, seed: int):
                     # k = 1, the sweep at the auto tile
                     heat["margin" if k == 1 else "sweep"] = {
                         "kernel": kern_m, "inputs": ins, "err": err}
-            del padded_out
+            # the overlap's split launch at the same tile: the interior in
+            # region mode and the four shells, each against its plain
+            # version and against the monolithic launch's cells
+            err, handles = compare_region(ops, shapes, dtypes, k, dev, env,
+                                          padded_out)
+            cases.append({"body": "heat3d", "mode": "region (interior) + "
+                          "4 shells", "shape": [c.nx, c.ny, c.nz],
+                          "dtype": dtype, "k": k, "max_abs_err": err})
+            region_err = max(region_err, err)
+            if dtype == cfg.dtype:
+                heat.setdefault("region", {})[k] = handles
+            del padded_out, handles
+            # and with members, each a seeded heat3d field
+            B = ENSEMBLE_MAKE_MEMBERS
+            err, _ = compare_region(ops, shapes, dtypes, k, dev,
+                                    {"T_n": heat_members(c, B, seed)},
+                                    members=B)
+            cases.append({"body": "heat3d", "mode": "region (interior) + "
+                          "4 shells", "members": B, "shape": [c.nx, c.ny, c.nz],
+                          "dtype": dtype, "k": k, "max_abs_err": err})
+            region_err = max(region_err, err)
     # the hazard body at full width, k = 1 and its auto tile, through the
     # column entry's hazard instantiation; the float32 margin-mode kernels
     # are the hazard row's, timed in hazard_make
@@ -802,6 +952,11 @@ def phase_kernel_vs_ref(steps_heat: int, seed: int):
             err = compare_margin(kern_m, ins, padded_out)
             cases.append(dict(case, mode="margin", margin=kern.pad,
                               max_abs_err=err))
+            err, _ = compare_region(prog.ops, shapes, dtypes, k, dev, env,
+                                    padded_out)
+            cases.append(dict(case, mode="region (interior) + 4 shells",
+                              max_abs_err=err))
+            region_err = max(region_err, err)
             del padded_out
             if dtype == cfg.dtype:
                 heat["hazard"][k] = {"kernel": kern_m, "inputs": ins,
@@ -814,10 +969,12 @@ def phase_kernel_vs_ref(steps_heat: int, seed: int):
           "launches_by_route": {"k1": moved[1], "sweep": moved[2],
                                 "sweep_substeps": moved[3],
                                 "hazard": moved[4]}})
+    heat["region_err"] = region_err
     return heat
 
 
-def allocations_per_step(record, steps: int, time_tile, members=None) -> dict:
+def allocations_per_step(record, steps: int, time_tile, members=None,
+                         overlap=False) -> dict:
     """Device allocations per step of the resident loop at ``time_tile`` of
     the program ``record(n)`` records for ``n`` steps (``(wse, answer)``),
     on its fields' init data or on ``members`` (name -> ``(B, X, Y, Z)``
@@ -838,7 +995,7 @@ def allocations_per_step(record, steps: int, time_tile, members=None) -> dict:
         prog = wse.program
         batch = next(iter(members.values())).shape[0] if members else 1
         p = plan(prog, RunOptions(backend="pallas", time_tile=time_tile,
-                                  batch=batch))
+                                  batch=batch, overlap=overlap))
         wse.__exit__()
         run = single_runner(p)
         env = env_from_numpy(members or {name: f.init_data for name, f
@@ -1545,6 +1702,7 @@ def reset_counts() -> None:
     launch_fused.hazard_launches = 0
     launch_fused.batch_launches = 0
     launch_fused.brick_launches = 0
+    launch_fused.region_launches = 0
 
 
 def level_counts() -> dict:
@@ -1568,8 +1726,9 @@ def read_counts() -> dict:
     """Launches by kernel; ``K1m`` is K1's margin-mode share of ``K1``,
     ``K1k1`` the k = 1 route's share, ``K1sw`` the sweep's share,
     ``K1sub`` the sweep's sub-steps, ``K1hz`` the hazard bodies' share,
-    ``K1b`` the share of kernels built for more than one member and
-    ``K1br`` the share of kernels built for a mesh's bricks."""
+    ``K1b`` the share of kernels built for more than one member, ``K1br``
+    the share of kernels built for a mesh's bricks and ``K1rg`` the share
+    of region kernels (the overlap's interior launches)."""
     from repro_torch.kernels.fused import launch_fused
 
     counts = {k: fn.launches for k, fn in kernel_counters().items()}
@@ -1580,6 +1739,7 @@ def read_counts() -> dict:
     counts["K1hz"] = launch_fused.hazard_launches
     counts["K1b"] = launch_fused.batch_launches
     counts["K1br"] = launch_fused.brick_launches
+    counts["K1rg"] = launch_fused.region_launches
     return counts
 
 
@@ -2465,7 +2625,8 @@ SHARD_MESH = (2, 2)
 SHARD_SOLVE_ATOL = {"cg": 2e-4, "pipecg": 2e-4, "cg+mg": 1e-4}
 
 
-def sharded_allocations_per_step(record, steps: int, time_tile, mesh) -> dict:
+def sharded_allocations_per_step(record, steps: int, time_tile, mesh,
+                                 overlap=False) -> dict:
     """:func:`allocations_per_step` of the resident sharded loop on
     ``mesh``: the growth of ``allocation.all.allocated`` over a
     ``2·steps`` run less that over a ``steps`` run, divided by ``steps``."""
@@ -2479,7 +2640,7 @@ def sharded_allocations_per_step(record, steps: int, time_tile, mesh) -> dict:
         wse, _ = record(n)
         prog = wse.program
         p = plan(prog, RunOptions(backend="pallas", time_tile=time_tile,
-                                  mesh=mesh))
+                                  mesh=mesh, overlap=overlap))
         wse.__exit__()
         run = sharded_runner(p)
         sh = NamedSharding(mesh)
@@ -2543,22 +2704,24 @@ def brick_bound_ms(kernel, dtype_name: str, schedule: bool = False) -> tuple:
     written once (with ``schedule``, the sweep's own schedule: each
     sub-step's region window read and region written, as
     :func:`sweep_bound_ms`), against the body's operations on the brick's
-    cells for k sub-steps."""
+    cells for k sub-steps; a region kernel's region in place of the brick,
+    B times that for B members."""
     from repro_torch.kernels.fused import sweep_geoms
 
     itemsize = 4 if dtype_name == "float32" else 8
     ph = kernel.pad
+    bx, by = kernel.span        # a region kernel's region
     regions = ([(g.bx, g.by, kernel.halo) for g in sweep_geoms(kernel)]
-               if schedule else [(kernel.bx, kernel.by, ph)])
+               if schedule else [(bx, by, ph)])
     nbytes = 0
     for rx, ry, h in regions:
         for name, nz in zip(kernel.in_names, kernel.nz):
             nbytes += (rx + 2 * h) * (ry + 2 * h) * nz * itemsize
             if name in kernel.written:
                 nbytes += rx * ry * nz * itemsize
-    ops = kernel.k * kernel.bx * kernel.by * body_ops(kernel)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FLOPS[dtype_name] * 1e3
+    ops = kernel.k * bx * by * body_ops(kernel)
+    t_bytes = kernel.batch * nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = kernel.batch * ops / PEAK_FLOPS[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2857,6 +3020,271 @@ def phase_sharded_solve():
     return total
 
 
+# ---------------------------------------------------------------------------
+# slice 13: the exchange/compute overlap
+# ---------------------------------------------------------------------------
+
+def stream_overlap(fn) -> dict:
+    """Whether the copies of one ``fn()`` that ran on another stream than
+    K1's were concurrent with a K1 launch on the card: the profiler's
+    device events (chrome trace, each with its stream), the side streams'
+    kernels and copies, their device µs, and the µs of them that fall
+    inside a K1 launch's interval."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset") and "stream" in e.get("args", {})]
+    k1 = [e for e in dev if "fused_column_kernel" in e["name"]]
+    if not k1:
+        return {"device_events": len(dev), "k1_events": 0, "concurrent": None}
+    main = {e["args"]["stream"] for e in k1}
+    side = [e for e in dev if e["args"]["stream"] not in main]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in k1)
+    inside = 0.0
+    for e in side:
+        a, b = e["ts"], e["ts"] + e["dur"]
+        inside += sum(max(0.0, min(b, hi) - max(a, lo)) for lo, hi in spans)
+    return {"device_events": len(dev), "k1_events": len(k1),
+            "k1_streams": sorted(main),
+            "side_streams": sorted({e["args"]["stream"] for e in side}),
+            "side_events": len(side),
+            "side_busy_us": sum(e["dur"] for e in side),
+            "side_us_inside_k1": inside, "concurrent": inside > 0}
+
+
+def phase_overlap_make(steps: int, seed: int, heat):
+    """``HeatConfig()`` through ``make(overlap=True)`` on one device and on
+    the 2×2 mesh at k = 1 and the auto tile, and 8 members at k = 1: each
+    run bitwise its ``overlap=False`` run, every launch split (one region
+    launch and four shells per brick), ``overlap="auto"`` unsplit; ms and
+    host µs per step, idle share and allocations per split step beside the
+    monolithic step's, whether the slab copies ran beside the interior
+    launch; the interior's and the shells' launch times (queued) beside
+    their bounds and ``PREDICTED``."""
+    import numpy as np
+    import torch
+
+    import repro_torch as rt
+    from repro_torch import compiler
+    from repro_torch.configs.heat3d import HeatConfig, record_heat
+    from repro_torch.core.mesh import NamedSharding, make_mesh
+    from repro_torch.engine import (RunOptions, plan, reset_stats,
+                                    sharded_runner, single_runner, stats)
+    from repro_torch.kernels.fused import fused_step_ref, launch_fused
+
+    cfg = HeatConfig()
+    mesh = make_mesh(SHARD_MESH)
+    B = ENSEMBLE_MAKE_MEMBERS
+    members = heat_members(cfg, B, seed)
+    #: tag -> (mesh, time_tile, members)
+    cells = {"one_k1": (None, 1, None), "one_auto": (None, None, None),
+             "mesh_k1": (mesh, 1, None), "mesh_auto": (mesh, None, None),
+             "members_k1": (None, 1, members)}
+
+    def make(tag, overlap):
+        m, tt, stack = cells[tag]
+        opts = RunOptions(backend="pallas", time_tile=tt, mesh=m,
+                          overlap=overlap)
+        wse, T = record_heat(cfg, steps)
+        if stack is None:
+            return wse.make(answer=T, options=opts)
+        return rt.Ensemble(wse.program, T, overrides={"T_n": stack}).make(
+            options=opts)
+
+    # --- the main path: counters to 0 just before, read just after -------
+    compiler.reset_stats()
+    reset_counts()
+    outs, runs = {}, []
+    for tag, (m, tt, stack) in cells.items():
+        reset_stats()
+        before = read_counts()
+        outs[tag] = make(tag, True)
+        after = read_counts()
+        runs.append({"run": tag, "time_tile": stats.max_time_tile,
+                     "bricks": m.size if m else 1,
+                     "members": 1 if stack is None else len(stack),
+                     "engine_launches": stats.launches,
+                     "interior_launches": stats.interior_launches,
+                     "boundary_launches": stats.boundary_launches,
+                     "overlapped_exchanges": stats.overlapped_exchanges,
+                     **{k: after[k] - before[k] for k in (
+                         "K1", "K1m", "K1k1", "K1sw", "K1sub", "K1b",
+                         "K1br", "K1rg")}})
+    counts = read_counts()
+    fallbacks = compiler.stats.fallbacks
+    # -----------------------------------------------------------------------
+    if fallbacks:
+        raise AssertionError(f"{fallbacks} interpreter fallbacks on the "
+                             "overlap path")
+    for r in runs:
+        n, nb = r["engine_launches"], r["bricks"]
+        if (n == 0 or r["interior_launches"] != n
+                or r["boundary_launches"] != 4 * n
+                or r["overlapped_exchanges"] != n):
+            raise AssertionError(f"overlap {r['run']}: the engine's split "
+                                 f"counts {r}")
+        if r["K1rg"] != nb * n or r["K1"] != 5 * nb * n or r["K1m"] != nb * n:
+            raise AssertionError(f"overlap {r['run']}: K1 launches {r} are not "
+                                 f"one region + four shells per brick launch")
+        route = "K1k1" if r["time_tile"] == 1 else "K1sw"
+        if r[route] != r["K1"]:
+            raise AssertionError(f"overlap {r['run']}: {r[route]} of {r['K1']} "
+                                 f"launches through {route}")
+        if r["K1br"] != (r["K1"] if nb > 1 else 0) or r["K1b"] != (
+                r["K1"] if r["members"] > 1 else 0):
+            raise AssertionError(f"overlap {r['run']}: brick/member launches "
+                                 f"{r}")
+    diffs, auto_split = {}, {}
+    for tag, (m, tt, stack) in cells.items():
+        mono = make(tag, False)
+        out = outs[tag]
+        want_shape = (cfg.nx, cfg.ny, cfg.nz) if stack is None else stack.shape
+        if out.shape != want_shape or not np.isfinite(out).all():
+            raise AssertionError(f"overlap {tag}: bad shape or non-finite")
+        diffs[tag] = float(np.abs(out.astype(np.float64) - mono).max())
+        if not np.array_equal(out, mono):
+            raise AssertionError(f"overlap {tag} differs from its monolithic "
+                                 f"run (max {diffs[tag]})")
+        wse, T = record_heat(cfg, steps)
+        p = plan(wse.program, RunOptions(
+            backend="pallas", time_tile=tt, mesh=m, overlap="auto",
+            batch=1 if stack is None else len(stack)))
+        wse.__exit__()
+        auto_split[tag] = [seg.split for seg in p.segments]
+        if any(auto_split[tag]):
+            raise AssertionError(f"overlap='auto' split {tag}: {auto_split}")
+    del outs, mono, out
+
+    allocs = {}
+    for tag, (m, tt, stack) in cells.items():
+        if stack is not None:
+            continue
+        if m is None:
+            allocs[tag] = allocations_per_step(
+                lambda n: record_heat(cfg, n), steps, tt, overlap=True)
+        else:
+            allocs[tag] = sharded_allocations_per_step(
+                lambda n: record_heat(cfg, n), steps, tt, m, overlap=True)
+        if allocs[tag]["allocations_per_step"] != 0:
+            raise AssertionError(f"the split {tag} loop allocates: "
+                                 f"{allocs[tag]}")
+
+    # --- timing: split and monolithic, whole runs on device tensors ------
+    timing, concurrency = {}, {}
+    for tag, (m, tt, stack) in cells.items():
+        for ov in (True, False):
+            wse, T = record_heat(cfg, steps)
+            p = plan(wse.program, RunOptions(
+                backend="pallas", time_tile=tt, mesh=m, overlap=ov,
+                batch=1 if stack is None else len(stack)))
+            wse.__exit__()
+            init = T.init_data if stack is None else stack
+            if m is None:
+                run = single_runner(p)
+                env = {"T_n": torch.tensor(init, device="cuda")}
+            else:
+                run = sharded_runner(p)
+                env = {"T_n": list(NamedSharding(m).shard(init).bricks)}
+            ms = cuda_time_ms(lambda: run(env), repeats=3)
+            key = tag + ("" if ov else "_monolithic")
+            timing[key] = {"ms_per_step": ms / steps,
+                           "time_tile": p.segments[0].time_tile,
+                           "split": p.segments[0].split,
+                           "host_us_per_step": host_us(lambda: run(env)) / steps,
+                           **device_breakdown(lambda: run(env))}
+            if ov and stack is None:
+                concurrency[tag] = stream_overlap(lambda: run(env))
+            del env, run
+
+    # --- the split's launches at the main path's shape, float32 ---------
+    rows = {}
+    for k, handles in heat["region"].items():
+        kern, ins, out = handles["interior"]
+        b_ms, b_by = brick_bound_ms(kern, cfg.dtype)
+        row = {"k": k, "region": [kern.span[0], kern.span[1], cfg.nz],
+               "ms": cuda_time_ms(lambda: launch_fused(kern, ins, out=out),
+                                  repeats=20),
+               "plain_ms": cuda_time_ms(
+                   lambda: fused_step_ref(kern, ins, (kern.origin,) * 2,
+                                          out=out), repeats=2),
+               "bound_ms": b_ms, "bound_by": b_by}
+        if k > 1:
+            row["sweep_schedule_bound_ms"] = brick_bound_ms(
+                kern, cfg.dtype, schedule=True)[0]
+        shells = []
+        for sk, wins, coords in handles["shells"]:
+            held = launch_fused(sk, wins, coords)
+            s_ms, s_by = brick_bound_ms(sk, cfg.dtype)
+            shells.append({
+                "extent": [sk.bx, sk.by, cfg.nz],
+                "ms": queued_ms(lambda: launch_fused(sk, wins, coords,
+                                                     out=held), repeats=50),
+                "plain_ms": cuda_time_ms(
+                    lambda: fused_step_ref(sk, wins, coords, out=held),
+                    repeats=5),
+                "bound_ms": s_ms, "bound_by": s_by})
+        row["shells"] = shells
+        rows[k] = row
+    k_auto = max(rows)
+    measured = {
+        "interior_ms": {k: r["ms"] for k, r in rows.items()},
+        "shell_ms": {k: [s["ms"] for s in r["shells"]] for k, r in rows.items()},
+        "ms_per_step": {t: v["ms_per_step"] for t, v in timing.items()},
+        "host_us_per_step": {t: v["host_us_per_step"]
+                             for t, v in timing.items()},
+        "idle_share_unprofiled": {t: v["device_idle_share_unprofiled"]
+                                  for t, v in timing.items()},
+        "allocations_per_step": {t: a["allocations_per_step"]
+                                 for t, a in allocs.items()},
+        "slab_copies_concurrent_with_k1": {t: c["concurrent"]
+                                           for t, c in concurrency.items()}}
+    emit({"phase": "overlap_make", "card": card_line(),
+          "mesh": list(SHARD_MESH), "shape": [cfg.nx, cfg.ny, cfg.nz],
+          "dtype": cfg.dtype, "steps": steps, "members": B, "runs": runs,
+          "fallbacks": fallbacks, "launches": counts,
+          "max_abs_err_vs_monolithic": diffs, "auto_split": auto_split,
+          "split_allocations": allocs, "timing": timing,
+          "stream_overlap": concurrency, "launch": rows,
+          "predicted": {k: PREDICTED[k] for k in PREDICTED
+                        if k == "card" or k.startswith("overlap")},
+          "measured": measured})
+    launches = {"region": {1: 0, k_auto: 0}, "shell": {1: 0, k_auto: 0}}
+    for r in runs:
+        launches["region"][r["time_tile"]] += r["K1rg"]
+        launches["shell"][r["time_tile"]] += r["K1"] - r["K1rg"]
+    err = heat["region_err"]
+    one, auto = rows[1], rows[k_auto]
+    region = {"launches": sum(launches["region"].values()),
+              "launches_by_tile": launches["region"], "err": err,
+              "ms": one["ms"], "plain_ms": one["plain_ms"],
+              "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
+              "region": one["region"], "sweep_ms": auto["ms"],
+              "sweep_schedule_bound_ms": auto["sweep_schedule_bound_ms"]}
+    # the shells' row: the mean of the four k = 1 shells
+    sh = one["shells"]
+    shell = {"launches": sum(launches["shell"].values()),
+             "launches_by_tile": launches["shell"], "err": err,
+             "ms": sum(s["ms"] for s in sh) / len(sh),
+             "plain_ms": sum(s["plain_ms"] for s in sh) / len(sh),
+             "bound_ms": sum(s["bound_ms"] for s in sh) / len(sh),
+             "bound_by": sh[0]["bound_by"],
+             "extents": [s["extent"] for s in sh]}
+    return region, shell
+
+
 def device_breakdown(fn, top: int = 4) -> dict:
     """Device time by kernel over one ``fn()`` under ``torch.profiler``, and
     the device's idle share: of the profiled call's wall time
@@ -2935,6 +3363,7 @@ def main() -> int:
     btcs_counts, k5_by_mesh = phase_legacy_btcs(args.seed)
     sharded = phase_sharded_make(args.steps, heat)
     sharded_solve_counts = phase_sharded_solve()
+    region, shell = phase_overlap_make(args.steps, args.seed, heat)
     csrc = "src/repro_torch/kernels/csrc/"
     # the solves apply their operators through the k = 1 entry, padded;
     # K2 (cg + mg), K3 and K4 run in the multigrid solves of both solve
@@ -2987,6 +3416,15 @@ def main() -> int:
              f"{mesh_tag} mesh bricks (wrap=False), margin mode",
              "fused_stencil.cu", "src/repro/kernels/fused.py:245",
              dict(sharded["sweep"], library_ms=None)),
+            # the overlap's split launch (overlap_make): the interior in
+            # region mode, timed at k = 1 (its sweep at the auto tile
+            # beside it), and the four shells' padded launches, launch-bound
+            ("K1 fused_stencil, region mode (interior), k = 1, margin mode",
+             "fused_stencil.cu", "src/repro/kernels/fused.py:245",
+             dict(region, library_ms=None)),
+            ("K1 fused_stencil, shell (padded, launch-bound), k = 1",
+             "fused_stencil.cu", "src/repro/kernels/fused.py:245",
+             dict(shell, library_ms=None)),
             ("K2 dual_dot", "dual_dot.cu", "src/repro/kernels/dotprod.py:39",
              dict(k2, launches=solve_counts["K2"] + mg_counts["K2"]
                   + btcs_counts["K2"] + sharded_solve_counts["K2"])),
@@ -3018,7 +3456,8 @@ def main() -> int:
                              "launches_by_level_pair", "ms_by_level_pair",
                              "sweep_schedule_bound_ms", "k1_ms",
                              "k1_plain_ms", "k1_bound_ms", "k1_err",
-                             "single_ms")
+                             "single_ms", "launches_by_tile", "sweep_ms",
+                             "region", "extents")
            if k in r})
         for name, src, where, r in rows]})
     print(card_line(), flush=True)

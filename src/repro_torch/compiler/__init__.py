@@ -19,18 +19,20 @@ from repro_torch.compiler.codegen import (CompilerStats, clear_cache,
                                           compile_group, compile_transfer,
                                           reset_stats, stats, try_compile)
 from repro_torch.compiler.ir import (MG_MIN_DIM, AffineUpdate, LoweredGroup,
-                                     LoweringError, MGOperator, Tap,
-                                     TiledGroup, TransferStencil, auto_tile,
+                                     LoweringError, MGOperator, RegionSpec,
+                                     SplitRegions, Tap, TiledGroup,
+                                     TransferStencil, auto_tile,
                                      coarsen_operator, coarsen_shape,
                                      coarsenable, lower_group, lower_update,
                                      mg_fine_operator, mg_hierarchy,
-                                     tile_group)
+                                     split_regions, tile_group)
 
 __all__ = [
     "MG_MIN_DIM", "AffineUpdate", "CompilerStats", "LoweredGroup",
-    "LoweringError", "MGOperator", "Tap", "TiledGroup", "TransferStencil",
-    "auto_tile", "clear_cache", "coarsen_operator", "coarsen_shape",
-    "coarsenable", "compile_group", "compile_transfer", "lower_group",
-    "lower_update", "mg_fine_operator", "mg_hierarchy", "reset_stats",
-    "stats", "tile_group", "try_compile",
+    "LoweringError", "MGOperator", "RegionSpec", "SplitRegions", "Tap",
+    "TiledGroup", "TransferStencil", "auto_tile", "clear_cache",
+    "coarsen_operator", "coarsen_shape", "coarsenable", "compile_group",
+    "compile_transfer", "lower_group", "lower_update", "mg_fine_operator",
+    "mg_hierarchy", "reset_stats", "split_regions", "stats", "tile_group",
+    "try_compile",
 ]

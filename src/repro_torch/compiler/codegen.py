@@ -34,11 +34,17 @@ per brick, the halos exchanged between bricks
 (:func:`repro_torch.core.halo.halo_refresh` on resident bricks,
 :func:`~repro_torch.core.halo.halo_pad` on the repacking step).
 
-The overlap step (interior and boundary launches) comes with a later
-slice.
+Both builders take ``overlap=True`` on the resident layout: the launch is
+split into an interior launch (K1's region mode, which reads no margin) and
+four boundary-shell launches (:func:`_build_overlap_step`), so the margin
+exchange can run on a second stream while the interior computes.  A body
+without a halo, or a brick too small for an interior at depth ``k·h``
+(:func:`repro_torch.compiler.ir.split_regions` is ``None``), keeps the
+monolithic launch.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import logging
@@ -118,13 +124,14 @@ def _field_specs(group: LoweredGroup, shapes: Dict[str, tuple],
 
 
 def _get_kernel(group: LoweredGroup, specs, bx, by, nx, ny, device, time_tile,
-                wrap, margin=0, batch=1):
+                wrap, margin=0, batch=1, region=None):
     from repro_torch.kernels.fused import build_fused_call
 
     device = torch.device(device)
+    # ``region`` tags the overlap's interior launch (None: the whole brick)
     sig = (group, tuple((n, s[0], dtype_name(s[1])) for n, s in specs.items()),
            bx, by, nx, ny, str(device), int(time_tile), bool(wrap), int(margin),
-           int(batch))
+           int(batch), region)
     hit = _KERNEL_CACHE.get(sig)
     if hit is not None:
         stats.cache_hits += 1
@@ -134,7 +141,7 @@ def _get_kernel(group: LoweredGroup, specs, bx, by, nx, ny, device, time_tile,
     # failure, so it must not become an interpreter fallback
     built = build_fused_call(group.updates, specs, group.halo, bx, by, nx, ny,
                              time_tile=time_tile, wrap=wrap, device=device,
-                             margin=margin, batch=batch)
+                             margin=margin, batch=batch, region=region)
     stats.kernels_built += 1
     _KERNEL_CACHE[sig] = built
     return built
@@ -182,10 +189,148 @@ def _wrap_pad(v: torch.Tensor, ph: int) -> torch.Tensor:
     return torch.cat([v[..., -ph:, :], v, v[..., :ph, :]], dim=-2)
 
 
+class _SideStreams:
+    """The overlap step's second stream on each CUDA device it runs on, and
+    the two events per device that order it: ``entry`` (recorded on the
+    device's current stream when the exchange starts; the side stream waits
+    on it) and ``done`` (recorded on the side stream when the exchange is
+    enqueued; :meth:`join` makes the current stream wait on it).  Nothing
+    for CPU devices, where the exchange runs inline."""
+
+    def __init__(self, devices):
+        self.devices = [d for d in dict.fromkeys(devices) if d.type == "cuda"]
+        self.side = {d: torch.cuda.Stream(d) for d in self.devices}
+        self.entry = {d: torch.cuda.Event() for d in self.devices}
+        self.done = {d: torch.cuda.Event() for d in self.devices}
+
+    @contextlib.contextmanager
+    def exchange(self):
+        """Work enqueued inside goes to the side streams, after everything
+        enqueued before on the current streams."""
+        with contextlib.ExitStack() as stack:
+            for d in self.devices:
+                self.entry[d].record(torch.cuda.current_stream(d))
+                self.side[d].wait_event(self.entry[d])
+                stack.enter_context(torch.cuda.stream(self.side[d]))
+            yield
+            for d in self.devices:
+                self.done[d].record(self.side[d])
+
+    def join(self) -> None:
+        """Work enqueued after this on the current streams waits for the
+        exchange."""
+        for d in self.devices:
+            torch.cuda.current_stream(d).wait_event(self.done[d])
+
+
+def _build_overlap_step(group, specs, bx, by, nx, ny, time_tile, wrap, margin,
+                        batch, split, bricks, slabs_fn, single):
+    """One interior/boundary-split step of the exchange/compute overlap
+    (the reference's ``_build_overlap_step``), ``step(env, spare) -> env``
+    on the resident layout of margin ``margin``.
+
+    ``bricks`` lists each brick's ``(device, global origin)`` (one entry on
+    one device, where ``single`` says env values are tensors rather than
+    x-major lists of bricks); ``slabs_fn(buffers, out)`` extracts the
+    depth-``k·h`` margin slabs of one field's brick buffers into the held
+    slab buffers ``out`` (:func:`repro_torch.engine.layout.wrap_slabs` on
+    one device, :func:`repro_torch.core.halo.exchange_slabs` on a mesh).
+    The schedule, per step:
+
+    1. **exchange in flight** — the slabs of every input go to buffers of
+       their own, on a second CUDA stream (:class:`_SideStreams`) that
+       starts after everything already enqueued; the slabs only read the
+       current buffers.
+    2. **interior launch** — K1's region mode over ``split.interior``, per
+       brick on the current stream, from the current buffers into the
+       spares (ping-pong): its window lies inside the brick, so it needs no
+       slab, and nothing orders it after the exchange.
+    3. **boundary launches** — the current stream waits for the exchange;
+       then, shell by shell, each shell's padded window is assembled from
+       the current buffer and the slabs
+       (:func:`repro_torch.engine.layout.strip_window`, cell for cell the
+       window a monolithic launch reads off a refreshed buffer), K1's
+       padded mode steps it at the shell's extent, and
+       :func:`~repro_torch.engine.layout.land_region` stores it in the
+       spare.
+
+    Every K1 launch is on the current stream (the sweep's held scratch is
+    per kernel, and kernels are shared by the bricks of a device); only
+    copies go to the side stream.  Slab, window and shell-output buffers
+    are allocated at the first call and held, so a split step allocates
+    nothing after it.  The split gives the monolithic launch's bits: every
+    launch runs the same per-cell arithmetic and the same global Moat.  On
+    the CPU the same step runs inline, on the plain versions.
+    """
+    from repro_torch.engine.layout import land_region, slab_buffers, strip_window
+    from repro_torch.kernels.ops import fused_step
+
+    ph = time_tile * group.halo
+    in_names = list(specs)
+    devices = list(dict.fromkeys(dev for dev, _ in bricks))
+    interior = {}
+    for dev in devices:
+        interior[dev], written = _get_kernel(
+            group, specs, bx, by, nx, ny, dev, time_tile, wrap, margin=margin,
+            batch=batch, region=split.interior)
+    shells = [{dev: _get_kernel(group, specs, r.rx, r.ry, nx, ny, dev,
+                                time_tile, wrap, batch=batch)[0]
+               for dev in devices} for r in split.shells]
+    held = {}
+
+    def hold(cur):
+        """The step's side streams and buffers, allocated at its first call
+        (the plan fixes every buffer's shape, dtype and device)."""
+        if not held:
+            held["streams"] = _SideStreams(dev for dev, _ in bricks)
+            held["slabs"] = {n: [slab_buffers(t, bx, by, ph) for t in cur[n]]
+                             for n in in_names}
+            held["windows"] = [
+                {n: [t.new_empty((*t.shape[:-3], r.rx + 2 * ph, r.ry + 2 * ph,
+                                  t.shape[-1])) for t in cur[n]]
+                 for n in in_names} for r in split.shells]
+            held["outs"] = [
+                [[cur[n][b].new_empty((*cur[n][b].shape[:-3], r.rx, r.ry,
+                                       cur[n][b].shape[-1])) for n in written]
+                 for b in range(len(bricks))] for r in split.shells]
+        return held
+
+    def step(env, spare):
+        env = dict(env)
+        cur = {n: [env[n]] if single else list(env[n]) for n in in_names}
+        dst = {n: [spare[n]] if single else list(spare[n]) for n in written}
+        h = hold(cur)
+        streams = h["streams"]
+        with streams.exchange():
+            slabs = {n: slabs_fn(cur[n], h["slabs"][n]) for n in in_names}
+        r = split.interior
+        try:
+            for b, (dev, (cx, cy)) in enumerate(bricks):
+                fused_step(interior[dev], [cur[n][b] for n in in_names],
+                           (cx + r.x0, cy + r.y0),
+                           out=[dst[n][b] for n in written])
+        finally:
+            streams.join()
+        for r, kernels, wins, outs in zip(split.shells, shells, h["windows"],
+                                          h["outs"]):
+            for b, (dev, (cx, cy)) in enumerate(bricks):
+                ins = [strip_window(cur[n][b], slabs[n][b], margin, ph, r, bx,
+                                    by, out=wins[n][b]) for n in in_names]
+                got = fused_step(kernels[dev], ins, (cx + r.x0, cy + r.y0),
+                                 out=outs[b])
+                for name, o in zip(written, got):
+                    land_region(dst[name][b], o, margin, r)
+        for name in written:
+            env[name], spare[name] = spare[name], env[name]
+        return env
+
+    return step
+
+
 def compile_group(ops, shapes: Dict[str, tuple], dtypes: Dict[str, object],
                   device="cuda", *, time_tile: int = 1,
                   group: LoweredGroup = None, resident: int = 0,
-                  batch: int = 1):
+                  batch: int = 1, overlap: bool = False):
     """Lower + codegen one loop body for single-device execution.
 
     With ``time_tile=k`` each call advances *k* steps off one halo window of
@@ -204,13 +349,19 @@ def compile_group(ops, shapes: Dict[str, tuple], dtypes: Dict[str, object],
     ``batch=B > 1`` builds the same steps over ``(B, …)`` member stacks:
     K1 is built for B members, so each launch advances all of them.
 
+    ``overlap=True`` (resident only) builds the split step of
+    :func:`_build_overlap_step` instead, its slabs from
+    :func:`repro_torch.engine.layout.wrap_slabs`; where
+    :func:`repro_torch.compiler.ir.split_regions` finds no interior it keeps
+    the monolithic step.
+
     Raises :class:`LoweringError` when the body cannot be fused (the caller
     falls back to the interpreter and logs the reason) or when ``K < k·h``,
     and ``ValueError`` when it is outside the fused kernel's limits (see
     :func:`repro_torch.kernels.fused.build_fused_call`), which no caller
     catches.
     """
-    from repro_torch.compiler.ir import tile_group
+    from repro_torch.compiler.ir import split_regions, tile_group
     from repro_torch.kernels.ops import fused_step
 
     if group is None:
@@ -222,6 +373,18 @@ def compile_group(ops, shapes: Dict[str, tuple], dtypes: Dict[str, object],
     ph = tiled.halo            # k·h margin, paid once per tile
     if resident and resident < ph:
         raise LoweringError(f"resident margin {resident} < tiled halo {ph}")
+    split = split_regions(group, time_tile, (nx, ny))
+    if overlap and resident and split is not None:
+        from repro_torch.engine.layout import wrap_slabs
+
+        step = _build_overlap_step(
+            group, specs, nx, ny, nx, ny, time_tile, True, resident, batch,
+            split, bricks=[(torch.device(device), (0, 0))],
+            slabs_fn=lambda bufs, out: [wrap_slabs(bufs[0], resident, ph,
+                                                   out=out[0])],
+            single=True)
+        stats.groups_fused += 1
+        return step
     kernel, written = _get_kernel(group, specs, nx, ny, nx, ny, device,
                                   time_tile, wrap=True, margin=resident,
                                   batch=batch)
@@ -256,7 +419,8 @@ def compile_group(ops, shapes: Dict[str, tuple], dtypes: Dict[str, object],
 def compile_group_sharded(ops, shapes: Dict[str, tuple],
                           dtypes: Dict[str, object], mesh, *,
                           time_tile: int = 1, group: LoweredGroup = None,
-                          resident: int = 0, batch: int = 1):
+                          resident: int = 0, batch: int = 1,
+                          overlap: bool = False):
     """Lower + codegen one loop body for the bricks of ``mesh``.
 
     ``shapes`` are the global field shapes, which must divide the mesh; the
@@ -275,13 +439,16 @@ def compile_group_sharded(ops, shapes: Dict[str, tuple],
     place (:func:`~repro_torch.core.halo.halo_refresh`), K1's margin mode
     writes each brick's spare, and the step swaps the lists.  Both give the
     same bits.  ``batch=B`` builds both over ``(B, …)`` member stacks in
-    every brick.
+    every brick.  ``overlap=True`` (resident only) builds the split step of
+    :func:`_build_overlap_step`, its slabs exchanged by
+    :func:`repro_torch.core.halo.exchange_slabs`, where
+    :func:`repro_torch.compiler.ir.split_regions` finds an interior.
 
     Raises :class:`LoweringError` when the body cannot be fused, the
     extent does not divide the mesh, or ``K < k·h``.
     """
-    from repro_torch.compiler.ir import tile_group
-    from repro_torch.core.halo import halo_pad, halo_refresh
+    from repro_torch.compiler.ir import split_regions, tile_group
+    from repro_torch.core.halo import exchange_slabs, halo_pad, halo_refresh
     from repro_torch.kernels.ops import fused_step
 
     if group is None:
@@ -296,15 +463,26 @@ def compile_group_sharded(ops, shapes: Dict[str, tuple],
     ph = tiled.halo
     if resident and resident < ph:
         raise LoweringError(f"resident margin {resident} < tiled halo {ph}")
+    origins = [tuple(c * e for c, e in zip(mesh.coords(b), (bx, by)))
+               for b in range(mesh.size)]
+    split = split_regions(group, time_tile, (bx, by))
+    if overlap and resident and split is not None:
+        step = _build_overlap_step(
+            group, specs, bx, by, nx, ny, time_tile, False, resident, batch,
+            split, bricks=list(zip(mesh.devices, origins)),
+            slabs_fn=lambda bufs, out: exchange_slabs(bufs, resident, ph, mesh,
+                                                      out=out),
+            single=False)
+        stats.groups_fused += 1
+        return step
     kernels = {}
     for dev in mesh.devices:
         if dev not in kernels:
             kernels[dev], written = _get_kernel(
                 group, specs, bx, by, nx, ny, dev, time_tile, wrap=False,
                 margin=resident, batch=batch)
-    bricks = [(kernels[dev], tuple(c * e for c, e in zip(mesh.coords(b),
-                                                          (bx, by))))
-              for b, dev in enumerate(mesh.devices)]
+    bricks = [(kernels[dev], origin)
+              for dev, origin in zip(mesh.devices, origins)]
     in_names = list(specs)
     stats.groups_fused += 1
 

@@ -18,13 +18,14 @@ distribution of products over sums, so e.g. the Fig. 3 heat update always
 canonicalizes to the same seven taps regardless of how the Python spelled it.
 
 This is the single-device subset of the reference IR plus its multigrid
-part (level operators, re-discretization, transfer ops); the overlap region
-split and the adjoint tap transpose come with their slices.
+part (level operators, re-discretization, transfer ops) and the
+interior/boundary region split of the exchange/compute overlap
+(:func:`split_regions`); the adjoint tap transpose comes with its slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, List, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 from repro_torch.core import stencil as st
 
@@ -143,7 +144,7 @@ def auto_tile(group: LoweredGroup, brick_xy: Tuple[int, int],
     (auto-tiled runs never need a remainder kernel) and whose tiled halo
     stays small next to the brick (``4·k·h ≤ min(bx, by)``).  Halo-free
     bodies tile purely for launch amortization.  The measured cost model of
-    the reference comes with the overlap slice.
+    the reference comes with its own slice.
     """
     cand = max_k
     while cand >= 2:
@@ -153,6 +154,70 @@ def auto_tile(group: LoweredGroup, brick_xy: Tuple[int, int],
             return cand
         cand //= 2
     return 1
+
+
+# ---------------------------------------------------------------------------
+# interior/boundary region split (exchange/compute overlap)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RegionSpec:
+    """One rectangular (X, Y) sub-region of a brick's output plane.
+
+    ``(x0, y0)`` is the region origin in brick coordinates, ``(rx, ry)``
+    its extent.  K1 windows a margin-mode launch to the region
+    (:func:`repro_torch.kernels.fused.build_fused_call` with ``region=``),
+    so one loop body can be decomposed into several launches whose outputs
+    tile the brick exactly.
+    """
+
+    x0: int
+    y0: int
+    rx: int
+    ry: int
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitRegions:
+    """Interior/boundary decomposition of one tiled launch.
+
+    ``interior`` is the deep region at distance ``≥ m = k·h`` from every
+    brick edge: its depth-``m`` input window lies inside the brick, so its
+    launch needs no incoming halo data and can run while the margin
+    exchange is in flight.  ``shells`` are the four boundary rectangles
+    covering the rest of the brick (two full-height X slabs and two
+    X-interior Y strips); their windows reach into the margins, so they
+    launch once the exchanged slabs have landed.  The five output regions
+    partition the brick: no cell is written twice.
+    """
+
+    interior: RegionSpec
+    shells: Tuple[RegionSpec, ...]
+
+
+def split_regions(group: LoweredGroup, k: int, brick_xy: Tuple[int, int]
+                  ) -> Optional[SplitRegions]:
+    """Interior/boundary split of a ``k``-tiled launch, or ``None``.
+
+    ``None`` when there is nothing to overlap: halo-free bodies (no
+    exchange to hide) and bricks too small to keep a nonempty interior at
+    depth ``m = k·h`` (``bx ≤ 2m`` or ``by ≤ 2m``).
+    """
+    m = k * group.halo
+    if m == 0:
+        return None
+    bx, by = brick_xy
+    if bx <= 2 * m or by <= 2 * m:
+        return None
+    interior = RegionSpec(m, m, bx - 2 * m, by - 2 * m)
+    shells = (
+        RegionSpec(0, 0, m, by),                 # low-X slab (full Y)
+        RegionSpec(bx - m, 0, m, by),            # high-X slab
+        RegionSpec(m, 0, bx - 2 * m, m),         # low-Y strip
+        RegionSpec(m, by - m, bx - 2 * m, m),    # high-Y strip
+    )
+    return SplitRegions(interior=interior, shells=shells)
 
 
 # ---------------------------------------------------------------------------

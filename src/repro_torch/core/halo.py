@@ -94,38 +94,47 @@ def _extent(resident: torch.Tensor, margin: int) -> Tuple[int, int]:
 
 
 def exchange_slabs(resident: Sequence[torch.Tensor], margin: int, h: int,
-                   mesh: Mesh) -> List[Dict[str, torch.Tensor]]:
+                   mesh: Mesh,
+                   out: Optional[Sequence[Dict[str, torch.Tensor]]] = None
+                   ) -> List[Dict[str, torch.Tensor]]:
     """Exchange the depth-``h`` margin slabs of halo-resident bricks into
     *separate* tensors: per brick, ``{"lo_x", "hi_x", "lo_y", "hi_y"}``
     shaped as :func:`repro_torch.engine.layout.slab_rects` lays them out.
 
     ``resident[b]`` is a ``(…, bx + 2·margin, by + 2·margin, Z)`` buffer
-    whose interior holds brick ``b``.  Two transfers per axis; the Y
-    transfers' sources span the x-extended rows (own edge columns flanked
-    by the incoming X slabs' corner pieces), exactly like
-    :func:`halo_pad`'s second concatenation, so the slabs are bitwise what
-    :func:`halo_pad` builds, zero fill on domain-edge bricks included.
+    whose interior holds brick ``b``; it is only read.  Two transfers for
+    X; each Y slab's sender contributes its x-extended rows (its own edge
+    rows flanked by the corner pieces of the X slabs it received), three
+    transfers per Y slab, exactly like :func:`halo_pad`'s second
+    concatenation, so the slabs are bitwise what :func:`halo_pad` builds,
+    zero fill on domain-edge bricks included.  The slabs land in ``out``
+    (one dict of buffers per brick, on the receivers' devices: the overlap
+    step holds them) or in fresh tensors.
     :func:`repro_torch.engine.layout.land_slabs` stores them.  Leading
     (member) axes travel whole.
     """
+    from repro_torch.engine.layout import slab_buffers
+
     K = margin
     bx, by = _extent(resident[0], K)
     ax_x, ax_y = mesh.axis_names
+    if out is None:
+        out = [slab_buffers(t, bx, by, h) for t in resident]
     lo_x = _ppermute_shift([t[..., K + bx - h:K + bx, K:K + by, :]
-                            for t in resident], mesh, ax_x, +1)
+                            for t in resident], mesh, ax_x, +1,
+                           out=[o["lo_x"] for o in out])
     hi_x = _ppermute_shift([t[..., K:K + h, K:K + by, :] for t in resident],
-                           mesh, ax_x, -1)
-    src_lo = [torch.cat([lo[..., by - h:by, :],
-                         t[..., K:K + bx, K + by - h:K + by, :],
-                         hi[..., by - h:by, :]], dim=-3)
-              for lo, t, hi in zip(lo_x, resident, hi_x)]
-    src_hi = [torch.cat([lo[..., 0:h, :], t[..., K:K + bx, K:K + h, :],
-                         hi[..., 0:h, :]], dim=-3)
-              for lo, t, hi in zip(lo_x, resident, hi_x)]
-    lo_y = _ppermute_shift(src_lo, mesh, ax_y, +1)
-    hi_y = _ppermute_shift(src_hi, mesh, ax_y, -1)
-    return [{"lo_x": a, "hi_x": b, "lo_y": c, "hi_y": d}
-            for a, b, c, d in zip(lo_x, hi_x, lo_y, hi_y)]
+                           mesh, ax_x, -1, out=[o["hi_x"] for o in out])
+    for name, y0, direction in (("lo_y", by - h, +1), ("hi_y", 0, -1)):
+        pieces = (((0, h), [s[..., :, y0:y0 + h, :] for s in lo_x]),
+                  ((h, h + bx), [t[..., K:K + bx, K + y0:K + y0 + h, :]
+                                 for t in resident]),
+                  ((h + bx, bx + 2 * h), [s[..., :, y0:y0 + h, :]
+                                          for s in hi_x]))
+        for (x0, x1), parts in pieces:
+            _ppermute_shift(parts, mesh, ax_y, direction,
+                            out=[o[name][..., x0:x1, :, :] for o in out])
+    return list(out)
 
 
 def halo_refresh(resident: Sequence[torch.Tensor], margin: int, h: int,

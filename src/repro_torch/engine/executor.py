@@ -178,6 +178,8 @@ def _account(plan: ExecutionPlan) -> None:
     the only repacking conversions are the layout's enter/exit events — two
     for an all-fused plan, plus a pair around each interpreter segment of a
     mixed plan; otherwise one full wrap pad (a repack) per launch.
+    A split segment (``seg.split`` shells) counts each launch event's
+    interior and boundary launches and one overlapped exchange.
     Interpreter segments roll in place on one device and pad per op, per
     step, on a mesh.  A launch is one event of the plan, however many
     bricks it covers.
@@ -198,6 +200,14 @@ def _account(plan: ExecutionPlan) -> None:
             launches = tiled + (n % k if k > 1 else n)
             stats.launches += launches
             stats.tiles_fused += tiled
+            if seg.split:
+                # overlap split: every launch event is one interior launch
+                # plus `split` boundary shells, its exchange slabs in
+                # flight while the interior computes
+                stats.interior_launches += launches
+                stats.boundary_launches += launches * seg.split
+                if seg.halo > 0:
+                    stats.overlapped_exchanges += launches
             if seg.halo > 0:
                 stats.exchanges += launches
                 if not resident:

@@ -23,6 +23,15 @@ A run then touches memory three ways, none of which repacks a field:
 Margin contents are transient: refreshed to depth ``ph`` right before each
 launch that reads them and dead in between.
 
+The exchange/compute overlap (``RunOptions(overlap=True)``,
+:mod:`repro_torch.compiler.codegen`) never writes a margin: it extracts the
+slabs into buffers of their own (:func:`wrap_slabs` on one device,
+:func:`repro_torch.core.halo.exchange_slabs` on a mesh), assembles each
+boundary shell's padded window from the brick and the slabs
+(:func:`strip_window`) and stores each shell's output in the spare
+(:func:`land_region`).  Each takes ``out=`` buffers that the step holds, so
+a split step allocates nothing either.
+
 Every operation here passes leading (batch) axes through; only the
 trailing (X, Y, Z) axes are touched.
 
@@ -41,7 +50,7 @@ True
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -117,6 +126,47 @@ def slab_views(resident: torch.Tensor, margin: int,
             for name, (ox, oy, sx, sy) in slab_rects(bx, by, h).items()}
 
 
+def slab_buffers(resident: torch.Tensor, bx: int, by: int,
+                 h: int) -> Dict[str, torch.Tensor]:
+    """Empty buffers shaped as :func:`slab_rects`' slabs of ``resident``
+    (its leading axes, dtype and device)."""
+    lead, nz = resident.shape[:-3], resident.shape[-1]
+    return {name: resident.new_empty((*lead, sx, sy, nz))
+            for name, (_, _, sx, sy) in slab_rects(bx, by, h).items()}
+
+
+def wrap_slabs(resident: torch.Tensor, margin: int, h: int,
+               out: Optional[Dict[str, torch.Tensor]] = None
+               ) -> Dict[str, torch.Tensor]:
+    """Extract the depth-``h`` wrap margin slabs into *separate* buffers.
+
+    The slab values are exactly what :func:`wrap_refresh` writes into the
+    margin frame (the Y slabs span the x-extended rows, so the corners wrap
+    in both axes), but they go to their own tensors (``out``, name ->
+    buffer shaped as :func:`slab_rects` says, or fresh ones), so the
+    resident buffer is only read: an interior launch can read it at the
+    same time.  Leading (member) axes pass through whole.  Returns the
+    slabs.
+    """
+    K = margin
+    bx = resident.shape[-3] - 2 * K
+    by = resident.shape[-2] - 2 * K
+    if out is None:
+        out = slab_buffers(resident, bx, by, h)
+    lo_x, hi_x = out["lo_x"], out["hi_x"]
+    lo_x.copy_(resident[..., K + bx - h:K + bx, K:K + by, :])
+    hi_x.copy_(resident[..., K:K + h, K:K + by, :])
+    # the Y slabs' x-extended rows: the X slabs' corner pieces flank the
+    # interior's edge rows (by - h .. by for lo_y, 0 .. h for hi_y)
+    for name, y0 in (("lo_y", by - h), ("hi_y", 0)):
+        o = out[name]
+        o[..., :h, :, :].copy_(lo_x[..., :, y0:y0 + h, :])
+        o[..., h:h + bx, :, :].copy_(resident[..., K:K + bx,
+                                              K + y0:K + y0 + h, :])
+        o[..., h + bx:, :, :].copy_(hi_x[..., :, y0:y0 + h, :])
+    return out
+
+
 def land_slabs(resident: torch.Tensor, slabs: Dict[str, torch.Tensor],
                margin: int, h: int) -> torch.Tensor:
     """Store margin slabs (name -> tensor, as :func:`slab_rects` shapes
@@ -156,4 +206,47 @@ def wrap_refresh(resident: torch.Tensor, margin: int, h: int) -> torch.Tensor:
         sx0, sy0 = x0 + fx * bx, y0 + fy * by
         resident[..., x0:x0 + sx, y0:y0 + sy, :].copy_(
             resident[..., sx0:sx0 + sx, sy0:sy0 + sy, :])
+    return resident
+
+
+def strip_window(resident: torch.Tensor, slabs: Dict[str, torch.Tensor],
+                 margin: int, h: int, region, bx: int, by: int,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Assemble one boundary region's padded input window.
+
+    ``region`` is a shell :class:`repro_torch.compiler.ir.RegionSpec`; the
+    window is the ``(…, rx + 2h, ry + 2h, Z)`` input of its depth-``h``
+    (``= k·halo``) padded launch: brick cells copied from the **pre-step**
+    resident buffer, margin cells from the ``slabs`` (:func:`slab_rects`'
+    rectangles, which cover the window's part outside the brick).  Cell for
+    cell this is the window a monolithic launch reads off a refreshed
+    buffer, and it reads no margin cell of ``resident``.  Written into
+    ``out`` (contiguous, that shape) or a fresh tensor, which is returned.
+    """
+    K = margin
+    wx0, wy0 = region.x0 - h, region.y0 - h
+    wx1, wy1 = region.x0 + region.rx + h, region.y0 + region.ry + h
+    if out is None:
+        out = resident.new_empty((*resident.shape[:-3], wx1 - wx0, wy1 - wy0,
+                                  resident.shape[-1]))
+    rects = {"brick": (0, 0, bx, by), **slab_rects(bx, by, h)}
+    for name, (ox, oy, sx, sy) in rects.items():
+        ix0, iy0 = max(ox, wx0), max(oy, wy0)
+        ix1, iy1 = min(ox + sx, wx1), min(oy + sy, wy1)
+        if ix0 >= ix1 or iy0 >= iy1:
+            continue
+        if name == "brick":
+            piece = resident[..., K + ix0:K + ix1, K + iy0:K + iy1, :]
+        else:
+            piece = slabs[name][..., ix0 - ox:ix1 - ox, iy0 - oy:iy1 - oy, :]
+        out[..., ix0 - wx0:ix1 - wx0, iy0 - wy0:iy1 - wy0, :].copy_(piece)
+    return out
+
+
+def land_region(resident: torch.Tensor, out: torch.Tensor, margin: int,
+                region) -> torch.Tensor:
+    """Store one region's kernel output ``out`` into the resident buffer's
+    brick at the region's origin, in place; returns ``resident``."""
+    x0, y0 = margin + region.x0, margin + region.y0
+    resident[..., x0:x0 + out.shape[-3], y0:y0 + out.shape[-2], :].copy_(out)
     return resident

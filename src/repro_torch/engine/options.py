@@ -55,7 +55,12 @@ class RunOptions:
     ping-ponged between two resident buffers per written field.
     ``resident=False`` keeps the repacking step (a wrap pad per launch,
     fresh kernel outputs); both give the same bits.
-    ``overlap="auto"`` keeps the monolithic launch (no cost model yet).
+    ``overlap=True`` splits each fused resident launch into an interior
+    launch and four boundary shells, the margin exchange running on a
+    second stream meanwhile (bodies without a halo, or bricks without an
+    interior at depth ``k·h``, keep the monolithic launch);
+    ``overlap="auto"`` keeps the monolithic launch (no cost model yet), as
+    does ``overlap=False``.
     ``batch=B`` steps a B-member ensemble: every field buffer carries a
     leading member axis and each K1 launch advances all members
     (:mod:`repro_torch.core.ensemble`).  ``mesh`` (a
@@ -100,8 +105,6 @@ class RunOptions:
                 raise TypeError(
                     "mesh must be a repro_torch.core.mesh.Mesh (make_mesh); "
                     f"got {type(self.mesh).__name__}")
-        if self.overlap is True:
-            raise _later("overlap=True", "overlap")
         if self.differentiable:
             raise _later("differentiable=True", "adjoint")
         if self.check_finite > 0:

@@ -33,6 +33,15 @@ Y, Z)`` member stacks — fused bodies on K1 built for B members (one launch
 advances all of them), interpreter steps on the whole stack, whose rolls
 and masks act on the trailing three axes.
 
+Overlap: ``RunOptions(overlap=True)`` splits each fused resident launch
+whose body has a halo and whose brick keeps an interior at depth ``k·h``
+(:func:`repro_torch.compiler.ir.split_regions`) into an interior launch
+and four boundary shells, the margin exchange on a second stream meanwhile
+(:func:`repro_torch.compiler.codegen._build_overlap_step`); the segment
+records its shells in ``Segment.split``.  ``overlap="auto"`` keeps the
+monolithic launch, as the reference does without a calibrated cost model;
+so does ``overlap=False``.
+
 Meshes: ``RunOptions(mesh=…)`` (a :class:`repro_torch.core.mesh.Mesh`)
 plans every body for the mesh's bricks — fused bodies through
 :func:`repro_torch.compiler.codegen.compile_group_sharded` (one K1 launch
@@ -51,7 +60,8 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 
-from repro_torch.compiler import LoweringError, auto_tile, lower_group, tile_group
+from repro_torch.compiler import (LoweringError, auto_tile, lower_group,
+                                   split_regions, tile_group)
 from repro_torch.compiler.codegen import (compile_group, compile_group_sharded,
                                           try_compile)
 from repro_torch.core.mesh import Mesh
@@ -86,6 +96,9 @@ class Segment:
     halo: int = 0
     reason: str = ""  # fallback / clamp explanation, "" when none
     written: Tuple[str, ...] = ()
+    #: boundary shell launches per tile when the segment runs the
+    #: interior/boundary overlap split (0 = monolithic fused launch)
+    split: int = 0
 
     @property
     def n_steps(self) -> int:
@@ -140,6 +153,7 @@ def compile_body(
     resident: int = 0,
     batch: int = 1,
     mesh: Optional[Mesh] = None,
+    overlap: bool = False,
 ) -> Tuple[Callable, bool]:
     """Build one body application ``env -> env`` — THE backend dispatch.
 
@@ -157,7 +171,9 @@ def compile_body(
     tensors, on the bricks' own devices; ``shapes`` stay global): K1 per
     brick (:func:`repro_torch.compiler.codegen.compile_group_sharded`) or
     the roll interpreter on halo-padded bricks
-    (:func:`repro_torch.core.halo.interp_step_sharded`).
+    (:func:`repro_torch.core.halo.interp_step_sharded`).  ``overlap=True``
+    asks a fused resident step for the interior/boundary split (bodies it
+    does not fit keep the monolithic launch).
     """
     if mesh is None:
         device = resolve_device(device)
@@ -172,10 +188,12 @@ def compile_body(
             if mesh is not None:
                 return compile_group_sharded(
                     ops, shapes, dtypes, mesh, time_tile=time_tile,
-                    group=group, resident=resident, batch=batch)
+                    group=group, resident=resident, batch=batch,
+                    overlap=overlap)
             return compile_group(ops, shapes, dtypes, device=device,
                                  time_tile=time_tile, group=group,
-                                 resident=resident, batch=batch)
+                                 resident=resident, batch=batch,
+                                 overlap=overlap)
 
         step = try_compile(fn, loop)
         if step is not None:
@@ -336,7 +354,8 @@ def plan(
 
     Two passes: pass one lowers each body and picks its tile factor, which
     fixes the run-wide margin ``K = max k·h`` of the halo-resident layout;
-    pass two compiles each body (and its remainder step) against ``K``.
+    pass two decides the overlap split and compiles each body (and its
+    remainder step) against ``K``.
     """
     options = resolve_options(
         options,
@@ -411,12 +430,20 @@ def plan(
         if backend == "numpy":
             segments.append(Segment(loop=loop, ops=tuple(ops), kind="eager"))
             continue
+        # the overlap split: on a resident plan, for a body with a halo
+        # whose brick keeps an interior at depth k·h, when asked for
+        use_split = 0
+        if options.overlap is True and group is not None and pad > 0:
+            sp = split_regions(group, k, _brick_xy(program, mesh, group))
+            if sp is not None:
+                use_split = len(sp.shells)
         step, fused = compile_body(ops, loop, shapes, dtypes, backend,
                                    device=device, time_tile=k, group=group,
                                    resident=pad, batch=options.batch,
-                                   mesh=mesh)
+                                   mesh=mesh, overlap=bool(use_split))
         if not fused:
             k = 1
+            use_split = 0
         seg = Segment(
             loop=loop,
             ops=tuple(ops),
@@ -426,12 +453,14 @@ def plan(
             halo=group.halo if group is not None else 0,
             reason=reason,
             written=tuple(group.fields_written()) if fused else (),
+            split=use_split,
         )
         if fused and k > 1 and seg.n_steps % k:
             seg.step_rem, _ = compile_body(ops, loop, shapes, dtypes, backend,
                                            device=device, time_tile=1,
                                            group=group, resident=pad,
-                                           batch=options.batch, mesh=mesh)
+                                           batch=options.batch, mesh=mesh,
+                                           overlap=bool(use_split))
         if reason:
             stats.note_tile_reason(reason)
         if fused:

@@ -6,9 +6,11 @@ update in place; tests and benchmarks ``reset_stats()`` around a run.  The
 counters are the reference's ``EngineStats``, field for field, so the two
 packages' accounting compares directly.  The multigrid counters
 (``mg_hierarchies``, ``mg_levels_built``, ``mg_level_log``) and the solve
-outcome words (``solve_outcomes``) are live for single-device solves; the
-ones for paths not ported yet (overlap, the health ladder and
-sentinels, service) stay 0.
+outcome words (``solve_outcomes``) are live for single-device solves, the
+overlap counters (``interior_launches``, ``boundary_launches``,
+``overlapped_exchanges``) for split segments; the ones for paths not
+ported yet (the cost model, the health ladder and sentinels, service)
+stay 0.
 
 Exchange counting is *static*: the executor derives the counts from the
 plan — one halo exchange per fused-kernel launch (zero for halo-free

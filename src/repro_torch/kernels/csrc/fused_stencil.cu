@@ -10,7 +10,11 @@
 //   buffer of the same extent that is never an input (ping-pong).  The
 //   reference writes in place through input_output_aliases, which is valid
 //   only while blocks run one at a time.
-// The two modes differ only in the origins and row strides of Geom.  Instead
+// The two modes differ only in the origins and row strides of Geom.  The
+// overlap's interior launch (region mode) is a margin-mode launch over one
+// rectangle of the brick: the host moves the Geoms' window and destination
+// offsets by its origin (x0 == y0; fused.py::sweep_geoms) and passes the
+// region's global origin as cx, cy, so it needs no code here.  Instead
 // of a source generated per program, the kernel reads the body's canonical
 // tap form from a small descriptor that the host flattens from the
 // LoweredGroup (repro_torch/kernels/fused.py, _encode), and is templated on

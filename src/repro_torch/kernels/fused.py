@@ -57,7 +57,17 @@ code without the offset).  Each member's cells are computed as a single
 launch computes them, so a batched launch equals B single launches bit for
 bit.
 
-The region mode (overlap) comes with a later slice.
+Region mode (the exchange/compute overlap's interior launch): a margin-mode
+kernel built with ``region=RegionSpec(x0, y0, rx, ry)`` evaluates only that
+rectangle of the brick.  Its buffers keep the brick's resident extent; the
+launch's regions (every sub-step of the sweep's trapezoid) take the
+region's extent, their read windows and destinations move by the region's
+origin, and the caller adds the origin to ``coords`` so the Moat stays
+global.  The CUDA ``Geom`` has one window and one destination offset for x
+and y, so the origin must be diagonal (``x0 == y0``, as the interior's
+``(k·h, k·h)`` is); the kernel's device code is the same.  The overlap's
+four shells are padded-mode launches at their own extents, into fresh
+outputs or caller-held ``out=`` buffers of the shell's extent.
 
 Entry points:
 
@@ -69,9 +79,11 @@ Entry points:
   launch), ``launch_fused.sweep_substeps`` (the sweep's column-entry
   launches, k per sweep), ``launch_fused.hazard_launches`` (the share of
   hazard bodies, either route), ``launch_fused.batch_launches`` (the
-  share of kernels built for ``batch > 1``, either route) and
+  share of kernels built for ``batch > 1``, either route),
   ``launch_fused.brick_launches`` (the share of kernels built for a
-  mesh's bricks, ``wrap=False``, either route);
+  mesh's bricks, ``wrap=False``, either route) and
+  ``launch_fused.region_launches`` (the share of region kernels, the
+  overlap's interior launches);
 * :func:`fused_step_ref` is the plain PyTorch version: the same trapezoid,
   the same Moat mask and the same association, over the whole window at
   once.  The CPU path and the tests use it;
@@ -151,6 +163,9 @@ class FusedKernel:
     device: torch.device
     margin: int = 0                  # resident margin M; 0: padded mode
     batch: int = 1                   # members per launch (leading axis if > 1)
+    #: the brick rectangle a margin-mode launch covers (``x0, y0, rx, ry``,
+    #: a :class:`repro_torch.compiler.ir.RegionSpec`); None: the brick
+    region: Optional[object] = None
     ints_dev: Optional[torch.Tensor] = None
     coefs_dev: Optional[torch.Tensor] = None
     #: what the launcher keeps between launches: the sweep's geometry by
@@ -170,6 +185,19 @@ class FusedKernel:
         buffer in margin mode (which the outputs share)."""
         d = 2 * (self.margin or self.pad)
         return self.bx + d, self.by + d
+
+    @property
+    def span(self) -> Tuple[int, int]:
+        """(X, Y) extent of the cells a launch writes: the region's, or the
+        brick's."""
+        r = self.region
+        return (self.bx, self.by) if r is None else (r.rx, r.ry)
+
+    @property
+    def origin(self) -> int:
+        """The region's origin in the brick, x and y alike (0 without a
+        region)."""
+        return 0 if self.region is None else self.region.x0
 
     def stacked(self, shape: Tuple[int, ...]) -> Tuple[int, ...]:
         """``shape`` with the member axis in front when ``batch > 1``."""
@@ -267,10 +295,11 @@ def k1_launch_shape(kernel: FusedKernel,
     blocks give x, ``grid_x = ceil(ry / BY)`` give y (``blockIdx.x·BY +
     threadIdx.y``), and each thread walks ``z = threadIdx.x, +BZ, …``,
     ``K1_CELLS`` of them at once — K6's ``shape_for`` with the z blocks
-    folded into that walk.  Raises ``ValueError`` for an empty region or a
-    grid over CUDA's limits.
+    folded into that walk.  Default extent: the cells a launch writes
+    (:attr:`FusedKernel.span`; a 1-wide region is a grid of one x).
+    Raises ``ValueError`` for an empty region or a grid over CUDA's limits.
     """
-    rx, ry = extent or (kernel.bx, kernel.by)
+    rx, ry = extent or kernel.span
     bz, by_threads = k1_block(max(kernel.nz))
     grid = (-(-ry // by_threads), rx)
     if (rx < 1 or ry < 1 or min(kernel.nz) < 1
@@ -302,10 +331,17 @@ def sweep_geoms(kernel: FusedKernel, coords: Tuple[int, int] = (0, 0)
     writes the scratch buffers, which share the inputs' extent and row
     stride, at the region's own place in the window (``in_off + (s+1)·h``),
     and at ``s = k − 1`` the outputs at the brick's origin.  The geometry is
-    one member's: a batched launch runs it on every member.
+    one member's: a batched launch runs it on every member.  A region
+    kernel runs the same trapezoid over its region: extents from the
+    region's, read windows and destinations moved by its origin (in the
+    inputs, the scratch and the outputs alike); ``coords`` is then the
+    region's global origin.
     """
     k, h = kernel.k, kernel.halo
     in_off, out_off, out_px, out_py = _origins(kernel)
+    o = kernel.origin
+    in_off, out_off = in_off + o, out_off + o
+    rx, ry = kernel.span
     ex, ey = kernel.extent
     cx, cy = int(coords[0]), int(coords[1])
     geoms = []
@@ -313,7 +349,7 @@ def sweep_geoms(kernel: FusedKernel, coords: Tuple[int, int] = (0, 0)
         r = (k - s - 1) * h
         last = s == k - 1
         geoms.append(Geom(
-            bx=kernel.bx + 2 * r, by=kernel.by + 2 * r, nx=kernel.nx,
+            bx=rx + 2 * r, by=ry + 2 * r, nx=kernel.nx,
             ny=kernel.ny, cx=cx - r, cy=cy - r, k=1, h=h,
             wrap=int(kernel.wrap), in_px=ex, out_px=out_px if last else ex,
             tiles_x=0, tiles_y=0,
@@ -327,7 +363,7 @@ def sweep_geoms(kernel: FusedKernel, coords: Tuple[int, int] = (0, 0)
 def build_fused_call(updates: Sequence, field_specs: Dict[str, Tuple[int, object]],
                      halo: int, bx: int, by: int, nx: int, ny: int,
                      time_tile: int = 1, wrap: bool = False, *, device,
-                     margin: int = 0, batch: int = 1):
+                     margin: int = 0, batch: int = 1, region=None):
     """Build the fused kernel for one loop body.
 
     ``updates``     — :class:`repro_torch.compiler.ir.AffineUpdate`s, in
@@ -348,6 +384,10 @@ def build_fused_call(updates: Sequence, field_specs: Dict[str, Tuple[int, object
                       the padded → fresh-output mode.
     ``batch``       — members per launch: ``B > 1`` takes every input and
                       output as a ``(B, …)`` stack (one grid z per member).
+    ``region``      — a :class:`repro_torch.compiler.ir.RegionSpec` windowing
+                      a margin-mode launch to that rectangle of the brick
+                      (see the module docstring); the caller adds its
+                      origin to ``coords``.
 
     Returns ``(kernel, written)``: the :class:`FusedKernel` to pass to
     :func:`repro_torch.kernels.ops.fused_step` and the written fields in
@@ -356,12 +396,24 @@ def build_fused_call(updates: Sequence, field_specs: Dict[str, Tuple[int, object
     than float32/float64, more than one dtype, more than ``MAX_FIELDS``
     fields, a descriptor over ``MAX_DESC_BYTES``, or a hazard body whose
     stage and descriptor pass ``MAX_SHARED_BYTES``
-    (:func:`column_shared_bytes`); and for a margin below ``k·halo`` or a
-    ``batch`` outside ``[1, MAX_BATCH]``.
+    (:func:`column_shared_bytes`); for a margin below ``k·halo`` or a
+    ``batch`` outside ``[1, MAX_BATCH]``; and for a ``region`` without a
+    margin, outside the brick, or with ``x0 != y0`` (a gap of the port:
+    split x/y offsets wait for a caller that needs them).
     """
     if margin and margin < time_tile * halo:
         raise ValueError(
             f"resident margin {margin} < window halo {time_tile * halo}")
+    if region is not None:
+        if not margin:
+            raise ValueError("region windowing requires resident margin mode")
+        if region.x0 != region.y0:
+            raise ValueError(f"region origin ({region.x0}, {region.y0}) is not "
+                             "diagonal; the port's K1 takes x0 == y0 only")
+        if not (0 <= region.x0 and region.rx >= 1 and region.ry >= 1
+                and region.x0 + region.rx <= bx
+                and region.y0 + region.ry <= by):
+            raise ValueError(f"region {region} leaves the ({bx}, {by}) brick")
     if not 1 <= batch <= MAX_BATCH:
         raise ValueError(f"batch {batch} outside [1, {MAX_BATCH}]")
     in_names = tuple(field_specs)
@@ -389,7 +441,7 @@ def build_fused_call(updates: Sequence, field_specs: Dict[str, Tuple[int, object
         nz=tuple(nz_of[n] for n in in_names), dtype=next(iter(dtypes)),
         halo=int(halo), k=int(time_tile), bx=bx, by=by, nx=nx, ny=ny,
         wrap=bool(wrap), ints=ints, coefs=coefs, hazard=hazard,
-        device=device, margin=int(margin), batch=int(batch))
+        device=device, margin=int(margin), batch=int(batch), region=region)
     if hazard:
         smem = column_shared_bytes(kern, k1_block(max(kern.nz))[1])
         if smem > MAX_SHARED_BYTES:
@@ -479,25 +531,25 @@ def _apply_updates(updates, cur, nz_of, h, out_x, out_y, gx0, gy0, nx, ny,
 
 
 def _check_outputs(kernel: FusedKernel, inputs, out) -> None:
-    """Margin mode's output buffers: one per written field, at the resident
-    extent, and none sharing storage with an input or with another output
-    (the ping-pong guard: the kernel's blocks would read cells a
-    neighbouring block already wrote)."""
-    if not kernel.margin:
-        if out is not None:
-            raise ValueError("out= is the margin mode's; this kernel was "
-                             "built with margin=0")
+    """The caller's output buffers: one per written field, at the resident
+    extent (margin mode, where they are required) or the brick's (padded
+    mode, where they are optional), and none sharing storage with an input
+    or with another output (the ping-pong guard: the kernel's blocks would
+    read cells a neighbouring block already wrote)."""
+    if out is None and not kernel.margin:
         return
     if out is None or len(out) != len(kernel.written):
-        raise ValueError(f"margin mode needs out= with one buffer per written "
-                         f"field {kernel.written}")
-    ex, ey = kernel.extent
+        raise ValueError(f"{'margin mode needs out=' if kernel.margin else 'out='}"
+                         f" with one buffer per written field {kernel.written}")
+    ex, ey = kernel.extent if kernel.margin else (kernel.bx, kernel.by)
     nz_of = dict(zip(kernel.in_names, kernel.nz))
     for name, o in zip(kernel.written, out):
         want = kernel.stacked((ex, ey, nz_of[name]))
         if tuple(o.shape) != want or o.dtype != kernel.dtype:
-            raise ValueError(f"output {name!r} is {tuple(o.shape)} {o.dtype}, "
-                             f"expected {want} {kernel.dtype}")
+            raise ValueError(
+                f"output {name!r} is {tuple(o.shape)} {o.dtype}, expected "
+                f"{want} {kernel.dtype} (the kernel was built with "
+                f"margin={kernel.margin})")
         if o.device != inputs[0].device or not o.is_contiguous():
             raise ValueError(f"output {name!r} must be contiguous on "
                              f"{inputs[0].device}")
@@ -539,12 +591,13 @@ def fused_step_ref(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
     """Plain PyTorch version of one launch of ``kernel``.
 
     Padded mode: ``inputs`` are the ``(bx + 2·k·h, by + 2·k·h, nz)`` windows
-    in ``kernel.in_names`` order; returns fresh ``(bx, by, nz)`` written
-    fields.  Margin mode: ``inputs`` are resident buffers; the window is
-    sliced from offset ``M − k·h``, and the written fields land in the
-    interior ``[M:M+bx, M:M+by]`` of the ``out`` buffers, which are
-    returned (their margins are left as they were).  ``coords`` is the
-    brick's global cell origin.  The whole window is one block: each output
+    in ``kernel.in_names`` order; returns the ``(bx, by, nz)`` written
+    fields, fresh or in the ``out`` buffers.  Margin mode: ``inputs`` are
+    resident buffers; the window is sliced from offset ``M − k·h``, and the
+    written fields land in the interior ``[M:M+bx, M:M+by]`` of the ``out``
+    buffers, which are returned (their margins are left as they were); a
+    region kernel reads and writes its region's part only.  ``coords`` is
+    the global cell origin of the brick (of the region).  The whole window is one block: each output
     cell's arithmetic is the same whichever block computes it, so this
     matches the tiled kernel bit for bit.  A batched kernel's stacks run one
     member at a time.
@@ -555,26 +608,27 @@ def fused_step_ref(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
 def _step_member(kernel, inputs, coords, out):
     """:func:`fused_step_ref` of one member."""
     k, h = kernel.k, kernel.halo
+    rx, ry = kernel.span
     if kernel.margin:
-        lo = kernel.margin - kernel.pad
-        wx, wy = kernel.bx + 2 * kernel.pad, kernel.by + 2 * kernel.pad
+        lo = kernel.margin - kernel.pad + kernel.origin
+        wx, wy = rx + 2 * kernel.pad, ry + 2 * kernel.pad
         inputs = [t[lo:lo + wx, lo:lo + wy] for t in inputs]
     cur = dict(zip(kernel.in_names, inputs))
     nz_of = dict(zip(kernel.in_names, kernel.nz))
     gx0 = coords[0] - k * h
     gy0 = coords[1] - k * h
     for s in range(k):
-        out_x = kernel.bx + 2 * (k - s - 1) * h
-        out_y = kernel.by + 2 * (k - s - 1) * h
+        out_x = rx + 2 * (k - s - 1) * h
+        out_y = ry + 2 * (k - s - 1) * h
         gx0 += h
         gy0 += h
         cur = _apply_updates(kernel.updates, cur, nz_of, h, out_x, out_y,
                              gx0, gy0, kernel.nx, kernel.ny, kernel.wrap)
-    if not kernel.margin:
+    if out is None:
         return tuple(cur[n].contiguous() for n in kernel.written)
-    M = kernel.margin
+    lo = kernel.margin + kernel.origin if kernel.margin else 0
     for name, o in zip(kernel.written, out):
-        o[M:M + kernel.bx, M:M + kernel.by].copy_(cur[name])
+        o[lo:lo + rx, lo:lo + ry].copy_(cur[name])
     return tuple(out)
 
 
@@ -600,7 +654,7 @@ def _sweep_member(kernel, inputs, coords, out):
     h, k = kernel.halo, kernel.k
     nz_of = dict(zip(kernel.in_names, kernel.nz))
     src = dict(zip(kernel.in_names, inputs))
-    if kernel.margin:
+    if out is not None:
         outs = dict(zip(kernel.written, out))
     else:
         outs = {n: inputs[0].new_empty((kernel.bx, kernel.by, nz_of[n]))
@@ -683,7 +737,7 @@ def _sweep_held(kernel: FusedKernel, coords: Tuple[int, int]):
     none at k = 1), allocated once (``torch.empty``) and reused by every
     later launch."""
     held = kernel.held
-    key = ("geoms", coords)
+    key = ("geoms", coords, kernel.region)
     if key not in held:
         geoms = sweep_geoms(kernel, coords)
         shapes = [k1_launch_shape(kernel, (g.bx, g.by)) for g in geoms]
@@ -714,17 +768,18 @@ def launch_fused(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
     :func:`fused_entry` names (a hazard body through the kernel's hazard
     instantiation).
 
-    Padded mode: returns fresh ``(bx, by, nz)`` outputs (``(B, bx, by,
-    nz)`` for a batched kernel, whose inputs are stacks too).  Margin mode:
-    writes the brick interiors of the caller's ``out`` buffers (resident
+    Padded mode: returns ``(bx, by, nz)`` outputs (``(B, bx, by, nz)`` for a
+    batched kernel, whose inputs are stacks too), fresh, or the caller's
+    ``out`` buffers of that shape.  Margin mode: writes the brick interiors
+    (a region kernel: its region) of the caller's ``out`` buffers (resident
     extent, no storage shared with an input) and returns them; no output is
     allocated.  Checks device, dtype, shape and contiguity, launches on the
     current stream and raises if a launch was refused.  The sweep's scratch
     is allocated at the kernel's first sweep and held by the kernel (so
     launches of one kernel on two streams at once would race on it).  The
-    k = 1 route also needs the brick inside the global extent (``coords ≥
-    0``, ``coords + (bx, by) ≤ (nx, ny)``), which it checks.  Does not
-    synchronise.
+    k = 1 route also needs the brick (the region) inside the global extent
+    (``coords ≥ 0``, ``coords + span ≤ (nx, ny)``), which it checks.  Does
+    not synchronise.
     """
     if kernel.device.type != "cuda" or kernel.ints_dev is None:
         raise ValueError(f"kernel was built for {kernel.device}, not CUDA")
@@ -732,14 +787,14 @@ def launch_fused(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
     _check_outputs(kernel, inputs, out)
     entry = fused_entry(kernel)
     cx, cy = int(coords[0]), int(coords[1])
-    if entry == "k1" and not (0 <= cx and cx + kernel.bx <= kernel.nx
-                              and 0 <= cy and cy + kernel.by <= kernel.ny):
-        raise ValueError(f"brick at {coords} of extent ({kernel.bx}, "
-                         f"{kernel.by}) leaves the ({kernel.nx}, {kernel.ny}) "
-                         "grid")
+    rx, ry = kernel.span
+    if entry == "k1" and not (0 <= cx and cx + rx <= kernel.nx
+                              and 0 <= cy and cy + ry <= kernel.ny):
+        raise ValueError(f"brick at {coords} of extent ({rx}, {ry}) leaves "
+                         f"the ({kernel.nx}, {kernel.ny}) grid")
     lib = _library()
     k = kernel.k
-    if kernel.margin:
+    if out is not None:
         outs = dict(zip(kernel.written, out))
     else:
         outs = {name: torch.empty(kernel.stacked((kernel.bx, kernel.by, nz)),
@@ -770,6 +825,7 @@ def launch_fused(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
     launch_fused.hazard_launches += kernel.hazard
     launch_fused.batch_launches += kernel.batch > 1
     launch_fused.brick_launches += not kernel.wrap
+    launch_fused.region_launches += kernel.region is not None
     return tuple(outs[nm] for nm in kernel.written)
 
 
@@ -781,3 +837,4 @@ launch_fused.sweep_substeps = 0
 launch_fused.hazard_launches = 0
 launch_fused.batch_launches = 0
 launch_fused.brick_launches = 0
+launch_fused.region_launches = 0

@@ -605,21 +605,24 @@ def k1_body(m, name, dtype, steps=2, seed=0):
 
 
 def k1_kernel(name, dtype, device, margin=0, k=1, brick=None, batch=1,
-              wrap=True):
+              wrap=True, grid=None, region=None):
     """``(kernel, env)`` of body ``name`` at time tile ``k`` on ``device``,
     for the whole grid or a ``brick=(bx, by)`` of it, built for ``batch``
-    members (``wrap=False``: a sharded brick's kernel)."""
+    members (``wrap=False``: a sharded brick's kernel), windowed to
+    ``region``; ``grid=(nx, ny)`` replaces the body's (X, Y) extent (``env``
+    keeps the recorded shapes)."""
     wse, env = k1_body(port_core, name, dtype)
     prog = wse.program
     wse.__exit__()
     group = lower_group(prog.ops)
     specs, (nx, ny) = _field_specs(
-        group, {n: f.shape for n, f in prog.fields.items()},
+        group, {n: (*(grid or f.shape[:2]), f.shape[2])
+                for n, f in prog.fields.items()},
         {n: f.dtype for n, f in prog.fields.items()})
     bx, by = brick or (nx, ny)
     kern, _ = build_fused_call(group.updates, specs, group.halo, bx, by, nx,
                                ny, time_tile=k, wrap=wrap, device=device,
-                               margin=margin, batch=batch)
+                               margin=margin, batch=batch, region=region)
     return kern, env
 
 
@@ -1086,3 +1089,125 @@ def test_cuda_sharded_solve_matches_single_device(method):
     if method == "pipecg":
         assert launch_dual_dot.launches - before >= 4 * int(info.iterations[0])
     assert np.abs(x.astype(np.float64) - single).max() <= 3.2 * tol
+
+
+# -- the exchange/compute overlap (K1's region mode) -----------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["heat", "hazard"])
+def test_cuda_k1_region_mode_bitwise_vs_plain(name):
+    """K1's region mode over the interior of ``split_regions`` equals its
+    plain version bit for bit on the card (k = 1, 2, 3, 8; 1 and 3
+    members; float32 and float64), writes nothing outside the region, goes
+    through the column entry's route for its tile and counts one
+    ``region_launches``; each shell's padded launch into held ``out=``
+    buffers equals its plain version too."""
+    _need_card()
+    from repro_torch.compiler import LoweredGroup
+    from repro_torch.compiler.ir import split_regions
+
+    for dtype, k, B in itertools.product((np.float32, np.float64),
+                                         (1, 2, 3, 8), (1, 3)):
+        grid = (2 * k + 9, 2 * k + 6)
+        probe, _ = k1_kernel(name, dtype, "cpu", grid=grid)
+        split = split_regions(LoweredGroup(probe.updates, probe.halo), k, grid)
+        M = k * probe.halo + 1
+        kern, _ = k1_kernel(name, dtype, "cuda", margin=M, k=k, batch=B,
+                            grid=grid, region=split.interior)
+        lead = (B,) if B > 1 else ()
+        gen = torch.Generator(device="cuda").manual_seed(k)
+        ins = [torch.rand((*lead, *kern.extent, nz), generator=gen,
+                          device="cuda", dtype=kern.dtype) + 0.5
+               for nz in kern.nz]
+        r = split.interior
+        outs = []
+        before = (launch_fused.region_launches, launch_fused.k1_launches,
+                  launch_fused.sweep_launches)
+        for call in (launch_fused, fused_step_ref):
+            out = [torch.full_like(ins[kern.in_names.index(n)], -7.0)
+                   for n in kern.written]
+            outs.append(call(kern, ins, (r.x0, r.y0), out=out))
+        torch.cuda.synchronize()
+        moved = tuple(a - b for a, b in zip(
+            (launch_fused.region_launches, launch_fused.k1_launches,
+             launch_fused.sweep_launches), before))
+        assert moved == (1, int(k == 1), int(k > 1)), moved
+        for g, w in zip(*outs):
+            assert torch.equal(g, w), (name, dtype, k, B)
+        ph = kern.pad
+        for s in split.shells:
+            shell, _ = k1_kernel(name, dtype, "cuda", k=k, batch=B, grid=grid,
+                                 brick=(s.rx, s.ry))
+            wins = [t[..., M + s.x0 - ph:M + s.x0 + s.rx + ph,
+                      M + s.y0 - ph:M + s.y0 + s.ry + ph, :].contiguous()
+                    for t in ins]
+            held = [torch.empty(shell.stacked((s.rx, s.ry, nz)),
+                                dtype=shell.dtype, device="cuda")
+                    for n, nz in zip(shell.in_names, shell.nz)
+                    if n in shell.written]
+            got = launch_fused(shell, wins, (s.x0, s.y0), out=held)
+            assert all(g is h for g, h in zip(got, held))
+            want = fused_step_ref(shell, wins, (s.x0, s.y0))
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (name, dtype, k, B, s)
+
+
+@pytest.mark.cuda
+def test_cuda_overlap_make_equals_monolithic():
+    """``make(overlap=True)`` on the card equals the monolithic make bit
+    for bit at k = 1 and the auto tile, on one device and on a 2×2 mesh, 1
+    and 3 members; every engine launch is one region launch per brick; a
+    resident split step makes no device allocation."""
+    _need_card()
+    from repro_torch.core.mesh import NamedSharding
+    from repro_torch.engine import plan, reset_stats, sharded_runner, \
+        single_runner, stats
+
+    T0 = np.random.default_rng(16).uniform(300.0, 500.0,
+                                           (64, 48, 12)).astype(np.float32)
+    stack = np.stack([T0, T0 + 1.0, T0 - 2.0])
+    for tt, mesh, B in itertools.product((1, None), (None, (2, 2)), (1, 3)):
+        m = mesh and make_mesh(mesh, ("data", "model"))
+        out = {}
+        for ov in (False, True):
+            wse, T = _heat_member(T0, 16)
+            opts = RunOptions(backend="pallas", time_tile=tt, mesh=m,
+                              overlap=ov)
+            reset_stats()
+            before = launch_fused.region_launches
+            if B > 1:
+                import repro_torch as wfa
+                out[ov] = wfa.make(wfa.Ensemble(wse.program, T,
+                                                overrides={"T": stack}),
+                                   options=opts)
+            else:
+                out[ov] = wse.make(answer=T, options=opts)
+            bricks = m.size if m else 1
+            assert launch_fused.region_launches - before == (
+                bricks * stats.launches if ov else 0)
+            assert stats.boundary_launches == (4 * stats.launches if ov else 0)
+        np.testing.assert_array_equal(out[True], out[False],
+                                      err_msg=str((tt, mesh, B)))
+    for tt, mesh in itertools.product((1, None), (None, (2, 2))):
+        m = mesh and make_mesh(mesh, ("data", "model"))
+        grown = {}
+        for steps in (8, 16):
+            wse, _ = _heat_member(T0, steps)
+            p = plan(wse.program, RunOptions(backend="pallas", time_tile=tt,
+                                             mesh=m, overlap=True))
+            assert p.segments[0].split == 4
+            if m:
+                run = sharded_runner(p)
+                env = {"T": list(NamedSharding(m).shard(T0).bricks)}
+            else:
+                run = single_runner(p)
+                env = {"T": torch.tensor(T0, device="cuda")}
+            run(env)
+            torch.cuda.synchronize()
+            a0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+            run(env)
+            torch.cuda.synchronize()
+            grown[steps] = (torch.cuda.memory_stats()["allocation.all.allocated"]
+                            - a0)
+        assert grown[16] == grown[8], (tt, mesh, grown)

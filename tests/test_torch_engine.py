@@ -132,10 +132,12 @@ def test_auto_tile_matches_reference():
 
 def test_options_of_later_slices_raise():
     for field, value, later in (
-            ("overlap", True, "overlap"), ("differentiable", True, "adjoint"),
+            ("differentiable", True, "adjoint"),
             ("check_finite", 5, "health"), ("recovery", object(), "health")):
         with pytest.raises(NotImplementedError, match=f"{later} slice"):
             RunOptions(**{field: value})
+    # the overlap slice is in: overlap=True is an ordinary option now
+    assert RunOptions(overlap=True, device="cpu").overlap is True
     # the sharding slice is in: a mesh must be the port's own Mesh
     with pytest.raises(TypeError, match="Mesh"):
         RunOptions(mesh=object())
