@@ -148,7 +148,12 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          bricks (``wrap=False``, the brick's global origin
                          as coords; k = 1 and the auto tile, margin mode,
                          float32 and float64) bitwise against its plain
-                         version on every brick's refreshed inputs; ms per
+                         version on every brick's refreshed inputs, and the
+                         split launch of those bricks (the interior in
+                         region mode, four shells on ``exchange_slabs``'
+                         windows, each at the brick's global origin plus
+                         the region's) bitwise against its plain versions
+                         and the monolithic launch's cells; ms per
                          step by CUDA events, host µs per step, idle share,
                          K1's per-brick time (queued) beside its bound and
                          ``PREDICTED``;
@@ -557,7 +562,7 @@ def phase_build():
 
 
 def _build_kernel(program_ops, shapes, dtypes, k, device, margin=0, batch=1,
-                  region=None, brick=None):
+                  region=None, brick=None, wrap=True):
     from repro_torch.compiler.codegen import _field_specs
     from repro_torch.compiler.ir import lower_group
     from repro_torch.kernels.fused import build_fused_call
@@ -566,7 +571,7 @@ def _build_kernel(program_ops, shapes, dtypes, k, device, margin=0, batch=1,
     specs, (nx, ny) = _field_specs(group, shapes, dtypes)
     bx, by = brick or (nx, ny)
     kernel, _ = build_fused_call(group.updates, specs, group.halo, bx, by, nx,
-                                 ny, time_tile=k, wrap=True, device=device,
+                                 ny, time_tile=k, wrap=wrap, device=device,
                                  margin=margin, batch=batch, region=region)
     return kernel
 
@@ -681,7 +686,7 @@ def compare_margin(kernel, inputs, padded_out):
 
 
 def compare_region(ops, shapes, dtypes, k, dev, env, padded_out=None,
-                   members=1):
+                   members=1, mesh=None):
     """K1's region mode on the card over the interior of ``split_regions``
     (margin M = k·h, the engine's), and each shell's padded launch on its
     ``strip_window`` of the same buffers, each bitwise against its plain
@@ -689,70 +694,99 @@ def compare_region(ops, shapes, dtypes, k, dev, env, padded_out=None,
     through the route its tile names, the interior counted once in
     ``region_launches``; with ``padded_out`` (the monolithic padded launch
     on the same fields) the five outputs also equal its cells.  ``env``
-    holds ``(B, X, Y, Z)`` stacks for ``members > 1``.  Returns (max |diff|,
-    the launches to time: ``{"interior": (kernel, ins, out), "shells":
-    [(kernel, windows, coords), …]}``)."""
+    holds ``(B, X, Y, Z)`` stacks for ``members > 1``.
+
+    With ``mesh`` (a brick mesh of the card) the kernels are the sharded
+    split step's — the brick's extent, ``wrap=False`` — every brick's
+    launches take its global origin plus the region's, the slabs come from
+    ``exchange_slabs``, and the five outputs of each brick are held against
+    the cells of the monolithic margin-mode launch on that brick.
+
+    Returns (max |diff|, the single-device launches to time:
+    ``{"interior": (kernel, ins, out), "shells": [(kernel, windows,
+    coords), …]}``)."""
     import torch
 
     from repro_torch.compiler.ir import lower_group, split_regions
+    from repro_torch.core.halo import exchange_slabs
     from repro_torch.engine.layout import strip_window, wrap_slabs
     from repro_torch.kernels.fused import fused_step_ref, launch_fused
 
     group = lower_group(ops)
     nx, ny = next(iter(shapes.values()))[:2]
-    split = split_regions(group, k, (nx, ny))
+    wrap = mesh is None
+    bx, by = (nx, ny) if wrap else (nx // mesh.dims[0], ny // mesh.dims[1])
+    split = split_regions(group, k, (bx, by))
     M = k * group.halo
     kern = _build_kernel(ops, shapes, dtypes, k, dev, margin=M, batch=members,
-                         region=split.interior)
-    ins = _resident_inputs(kern, env, dev)
-    r = split.interior
-    before = launch_fused.region_launches
-    got = launch_via_entry(kern, ins, out=margin_outputs(kern, ins),
-                           coords=(r.x0, r.y0))
-    if launch_fused.region_launches - before != 1:
-        raise AssertionError("the interior launch was not counted as a region "
-                             "launch")
-    want = fused_step_ref(kern, ins, (r.x0, r.y0),
-                          out=margin_outputs(kern, ins))
-    torch.cuda.synchronize()
-    err = 0.0
-    pieces = [(r, [g[..., M + r.x0:M + r.x0 + r.rx, M + r.y0:M + r.y0 + r.ry, :]
-                   for g in got])]
-    for g, w in zip(got, want):
-        err = max(err, (g.double() - w.double()).abs().max().item())
-        if not torch.isfinite(g[..., M:-M, M:-M, :][..., r.x0:r.x0 + r.rx,
-                                                    r.y0:r.y0 + r.ry, :]).all():
-            raise AssertionError("K1's region mode produced non-finite values")
-        if not torch.equal(g, w):
-            raise AssertionError(f"K1's region mode differs from its plain "
-                                 f"version (max {err})")
-    del want
+                         region=split.interior, brick=(bx, by), wrap=wrap)
     ph = kern.pad
-    slabs = [wrap_slabs(t, M, ph) for t in ins]
-    shells = []
-    for s in split.shells:
-        shell = _build_kernel(ops, shapes, dtypes, k, dev, batch=members,
-                              brick=(s.rx, s.ry))
-        wins = [strip_window(t, sl, M, ph, s, nx, ny)
-                for t, sl in zip(ins, slabs)]
-        sg = launch_via_entry(shell, wins, coords=(s.x0, s.y0))
-        sw = fused_step_ref(shell, wins, (s.x0, s.y0))
+    if wrap:
+        bricks = [(_resident_inputs(kern, env, dev), (0, 0))]
+        slabs = [[wrap_slabs(t, M, ph) for t in bricks[0][0]]]
+        monolithic = [padded_out]
+    else:
+        ins, coords = _brick_inputs(kern, env, mesh)
+        bricks = list(zip(ins, coords))
+        slabs = list(zip(*[exchange_slabs([b[f] for b in ins], M, ph, mesh)
+                           for f in range(len(kern.in_names))]))
+        whole = _build_kernel(ops, shapes, dtypes, k, dev, margin=M,
+                              brick=(bx, by), wrap=False)
+        monolithic = [[o[..., M:-M, M:-M, :] for o in launch_fused(
+            whole, xs, c, out=margin_outputs(whole, xs))] for xs, c in bricks]
+    shells = [_build_kernel(ops, shapes, dtypes, k, dev, batch=members,
+                            brick=(s.rx, s.ry), wrap=wrap)
+              for s in split.shells]
+    r = split.interior
+    err, timed = 0.0, None
+    for (ins, (cx, cy)), sl, mono in zip(bricks, slabs, monolithic):
+        before = launch_fused.region_launches
+        got = launch_via_entry(kern, ins, out=margin_outputs(kern, ins),
+                               coords=(cx + r.x0, cy + r.y0))
+        if launch_fused.region_launches - before != 1:
+            raise AssertionError("the interior launch was not counted as a "
+                                 "region launch")
+        want = fused_step_ref(kern, ins, (cx + r.x0, cy + r.y0),
+                              out=margin_outputs(kern, ins))
         torch.cuda.synchronize()
-        for g, w in zip(sg, sw):
+        pieces = [(r, [g[..., M + r.x0:M + r.x0 + r.rx,
+                         M + r.y0:M + r.y0 + r.ry, :] for g in got])]
+        for g, w in zip(got, want):
             err = max(err, (g.double() - w.double()).abs().max().item())
+            if not torch.isfinite(pieces[0][1][0]).all():
+                raise AssertionError("K1's region mode produced non-finite "
+                                     "values")
             if not torch.equal(g, w):
-                raise AssertionError(f"K1's shell launch {s} differs from its "
-                                     f"plain version (max {err})")
-        pieces.append((s, sg))
-        shells.append((shell, wins, (s.x0, s.y0)))
-    if padded_out is not None:
-        for reg, outs in pieces:
-            for g, p in zip(outs, padded_out):
-                if not torch.equal(g, p[..., reg.x0:reg.x0 + reg.rx,
-                                        reg.y0:reg.y0 + reg.ry, :]):
-                    raise AssertionError(f"the split launch's region {reg} "
-                                         "differs from the monolithic launch")
-    return err, {"interior": (kern, ins, got), "shells": shells}
+                raise AssertionError(f"K1's region mode at {(cx, cy)} differs "
+                                     f"from its plain version (max {err})")
+        del want
+        launches = []
+        for s, shell in zip(split.shells, shells):
+            wins = [strip_window(t, slab, M, ph, s, bx, by)
+                    for t, slab in zip(ins, sl)]
+            at = (cx + s.x0, cy + s.y0)
+            sg = launch_via_entry(shell, wins, coords=at)
+            sw = fused_step_ref(shell, wins, at)
+            torch.cuda.synchronize()
+            for g, w in zip(sg, sw):
+                err = max(err, (g.double() - w.double()).abs().max().item())
+                if not torch.equal(g, w):
+                    raise AssertionError(f"K1's shell launch {s} at "
+                                         f"{(cx, cy)} differs from its plain "
+                                         f"version (max {err})")
+            pieces.append((s, sg))
+            launches.append((shell, wins, at))
+        if mono is not None:
+            for reg, outs in pieces:
+                for g, p in zip(outs, mono):
+                    if not torch.equal(g, p[..., reg.x0:reg.x0 + reg.rx,
+                                            reg.y0:reg.y0 + reg.ry, :]):
+                        raise AssertionError(
+                            f"the split launch's region {reg} at {(cx, cy)} "
+                            "differs from the monolithic launch")
+        if timed is None:
+            timed = {"interior": (kern, ins, got), "shells": launches}
+    return err, timed
 
 
 def small_body_cases():
@@ -2886,6 +2920,15 @@ def phase_sharded_make(steps: int, heat):
                         kern, dtype, schedule=True)[0]
                 del out
             del ins
+            # the sharded split launch at the same tile: the interior in
+            # region mode and the four shells on every brick (wrap=False, at
+            # the brick's global origin), each against its plain version and
+            # the monolithic launch's cells
+            err, _ = compare_region(ops, {"T_n": T.shape}, {"T_n": dtype}, k,
+                                    "cuda", env, mesh=mesh)
+            cases.append({"route": "region (interior) + 4 shells", "k": k,
+                          "dtype": dtype, "bricks": n_bricks,
+                          "max_abs_err": err})
     for tag in rows:
         rows[tag]["err"] = max(c["max_abs_err"] for c in cases
                                if c["route"] == tag)

@@ -34,13 +34,12 @@ per brick, the halos exchanged between bricks
 (:func:`repro_torch.core.halo.halo_refresh` on resident bricks,
 :func:`~repro_torch.core.halo.halo_pad` on the repacking step).
 
-Both builders take ``overlap=True`` on the resident layout: the launch is
-split into an interior launch (K1's region mode, which reads no margin) and
-four boundary-shell launches (:func:`_build_overlap_step`), so the margin
-exchange can run on a second stream while the interior computes.  A body
-without a halo, or a brick too small for an interior at depth ``k·h``
-(:func:`repro_torch.compiler.ir.split_regions` is ``None``), keeps the
-monolithic launch.
+Both builders take ``split=`` on the resident layout (the planner's
+:func:`repro_torch.compiler.ir.split_regions` of the body on the brick):
+the launch is split into an interior launch (K1's region mode, which reads
+no margin) and four boundary-shell launches (:func:`_build_overlap_step`),
+so the margin exchange can run on a second stream while the interior
+computes.  ``split=None`` is the monolithic launch.
 """
 from __future__ import annotations
 
@@ -52,7 +51,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.compiler.ir import LoweredGroup, LoweringError, lower_group
+from repro_torch.compiler.ir import (LoweredGroup, LoweringError, RegionSpec,
+                                     SplitRegions, lower_group)
 from repro_torch.convert import dtype_name, torch_dtype
 
 log = logging.getLogger("repro_torch.compiler")
@@ -223,6 +223,16 @@ class _SideStreams:
             torch.cuda.current_stream(d).wait_event(self.done[d])
 
 
+def _check_split(split: SplitRegions, resident: int, ph: int, brick) -> None:
+    """Raise :class:`ValueError` unless ``split`` is the split of a resident
+    step at depth ``ph = k·h`` on a ``brick``-sized brick."""
+    bx, by = brick
+    if not resident or split.interior != RegionSpec(ph, ph, bx - 2 * ph,
+                                                     by - 2 * ph):
+        raise ValueError(f"{split} is not the split of a resident step at "
+                         f"depth {ph} on a {bx}×{by} brick")
+
+
 def _build_overlap_step(group, specs, bx, by, nx, ny, time_tile, wrap, margin,
                         batch, split, bricks, slabs_fn, single):
     """One interior/boundary-split step of the exchange/compute overlap
@@ -330,7 +340,7 @@ def _build_overlap_step(group, specs, bx, by, nx, ny, time_tile, wrap, margin,
 def compile_group(ops, shapes: Dict[str, tuple], dtypes: Dict[str, object],
                   device="cuda", *, time_tile: int = 1,
                   group: LoweredGroup = None, resident: int = 0,
-                  batch: int = 1, overlap: bool = False):
+                  batch: int = 1, split: SplitRegions = None):
     """Lower + codegen one loop body for single-device execution.
 
     With ``time_tile=k`` each call advances *k* steps off one halo window of
@@ -349,11 +359,10 @@ def compile_group(ops, shapes: Dict[str, tuple], dtypes: Dict[str, object],
     ``batch=B > 1`` builds the same steps over ``(B, …)`` member stacks:
     K1 is built for B members, so each launch advances all of them.
 
-    ``overlap=True`` (resident only) builds the split step of
-    :func:`_build_overlap_step` instead, its slabs from
-    :func:`repro_torch.engine.layout.wrap_slabs`; where
-    :func:`repro_torch.compiler.ir.split_regions` finds no interior it keeps
-    the monolithic step.
+    ``split`` (resident only; the body's
+    :func:`repro_torch.compiler.ir.split_regions` at ``time_tile`` on the
+    grid) builds the split step of :func:`_build_overlap_step` instead, its
+    slabs from :func:`repro_torch.engine.layout.wrap_slabs`.
 
     Raises :class:`LoweringError` when the body cannot be fused (the caller
     falls back to the interpreter and logs the reason) or when ``K < k·h``,
@@ -361,7 +370,7 @@ def compile_group(ops, shapes: Dict[str, tuple], dtypes: Dict[str, object],
     :func:`repro_torch.kernels.fused.build_fused_call`), which no caller
     catches.
     """
-    from repro_torch.compiler.ir import split_regions, tile_group
+    from repro_torch.compiler.ir import tile_group
     from repro_torch.kernels.ops import fused_step
 
     if group is None:
@@ -373,10 +382,10 @@ def compile_group(ops, shapes: Dict[str, tuple], dtypes: Dict[str, object],
     ph = tiled.halo            # k·h margin, paid once per tile
     if resident and resident < ph:
         raise LoweringError(f"resident margin {resident} < tiled halo {ph}")
-    split = split_regions(group, time_tile, (nx, ny))
-    if overlap and resident and split is not None:
+    if split is not None:
         from repro_torch.engine.layout import wrap_slabs
 
+        _check_split(split, resident, ph, (nx, ny))
         step = _build_overlap_step(
             group, specs, nx, ny, nx, ny, time_tile, True, resident, batch,
             split, bricks=[(torch.device(device), (0, 0))],
@@ -420,7 +429,7 @@ def compile_group_sharded(ops, shapes: Dict[str, tuple],
                           dtypes: Dict[str, object], mesh, *,
                           time_tile: int = 1, group: LoweredGroup = None,
                           resident: int = 0, batch: int = 1,
-                          overlap: bool = False):
+                          split: SplitRegions = None):
     """Lower + codegen one loop body for the bricks of ``mesh``.
 
     ``shapes`` are the global field shapes, which must divide the mesh; the
@@ -439,15 +448,15 @@ def compile_group_sharded(ops, shapes: Dict[str, tuple],
     place (:func:`~repro_torch.core.halo.halo_refresh`), K1's margin mode
     writes each brick's spare, and the step swaps the lists.  Both give the
     same bits.  ``batch=B`` builds both over ``(B, …)`` member stacks in
-    every brick.  ``overlap=True`` (resident only) builds the split step of
-    :func:`_build_overlap_step`, its slabs exchanged by
-    :func:`repro_torch.core.halo.exchange_slabs`, where
-    :func:`repro_torch.compiler.ir.split_regions` finds an interior.
+    every brick.  ``split`` (resident only; the body's
+    :func:`repro_torch.compiler.ir.split_regions` at ``time_tile`` on the
+    brick) builds the split step of :func:`_build_overlap_step`, its slabs
+    exchanged by :func:`repro_torch.core.halo.exchange_slabs`.
 
     Raises :class:`LoweringError` when the body cannot be fused, the
     extent does not divide the mesh, or ``K < k·h``.
     """
-    from repro_torch.compiler.ir import split_regions, tile_group
+    from repro_torch.compiler.ir import tile_group
     from repro_torch.core.halo import exchange_slabs, halo_pad, halo_refresh
     from repro_torch.kernels.ops import fused_step
 
@@ -465,8 +474,8 @@ def compile_group_sharded(ops, shapes: Dict[str, tuple],
         raise LoweringError(f"resident margin {resident} < tiled halo {ph}")
     origins = [tuple(c * e for c, e in zip(mesh.coords(b), (bx, by)))
                for b in range(mesh.size)]
-    split = split_regions(group, time_tile, (bx, by))
-    if overlap and resident and split is not None:
+    if split is not None:
+        _check_split(split, resident, ph, (bx, by))
         step = _build_overlap_step(
             group, specs, bx, by, nx, ny, time_tile, False, resident, batch,
             split, bricks=list(zip(mesh.devices, origins)),

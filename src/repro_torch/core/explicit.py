@@ -7,8 +7,8 @@ Three tiers, all computing the same update:
 * :func:`make_sharded_ftcs` — the brick-decomposed solver over a
   :class:`repro_torch.core.mesh.Mesh` with halo exchange; ``halo_depth=k``
   exchanges a depth-k halo once per k local steps; ``overlap=True`` takes
-  the interior/edge split (:func:`ftcs_brick_step_overlapped`), whose
-  interior stencil reads no halo;
+  the plain step, since one process on one stream has no exchange to hide
+  (the engine's split, ``RunOptions(overlap=True)``, is the port's overlap);
 * ``use_kernel=True`` steps each padded brick with the hand-written kernel
   K6, ``use_kernel="planes"`` each unpadded brick and its received halo
   planes with K7 (:mod:`repro_torch.kernels.ops`).
@@ -136,27 +136,6 @@ def ftcs_brick_step(bricks: Sequence[torch.Tensor], w: float, masks,
             for T, p, m in zip(bricks, P, masks)]
 
 
-def ftcs_brick_step_overlapped(bricks: Sequence[torch.Tensor], w: float,
-                               masks, mesh: Mesh) -> List[torch.Tensor]:
-    """Interior/edge split of :func:`ftcs_brick_step`: the interior cells
-    (≥ 1 from the brick's edge) are summed from the brick alone, with no
-    halo, and only the four edge strips from the halo-padded bricks, as
-    the reference schedules its ``ppermute`` beside the interior stencil.
-    Torch runs the calls in order on one stream, so nothing overlaps here;
-    the sums associate as :func:`neighbor_sum_padded`'s, so the step gives
-    :func:`ftcs_brick_step`'s bits."""
-    P = halo_pad(bricks, 1, mesh)
-    out = []
-    for T, p, m in zip(bricks, P, masks):
-        s_in = neighbor_sum_padded(T)          # interior: no halo
-        full = neighbor_sum_padded(p)          # the edge strips read it
-        s = torch.cat([full[:1], torch.cat([full[1:-1, :1], s_in,
-                                            full[1:-1, -1:]], dim=1),
-                       full[-1:]], dim=0)
-        out.append(_fix_z_boundary(torch.where(m, _update(T, s, w), T), T))
-    return out
-
-
 def ftcs_brick_step_wide(bricks: Sequence[torch.Tensor], w: float, k: int,
                          masks, mesh: Mesh) -> List[torch.Tensor]:
     """Communication-avoiding: one depth-``k`` exchange, ``k`` local steps.
@@ -187,9 +166,8 @@ def make_sharded_ftcs(mesh: Mesh, shape, w: float, *, overlap: bool = False,
     tensor or array, which is cut into bricks first) and returns a fresh
     BrickArray.  The variant: ``halo_depth > 1`` wins, then
     ``use_kernel="planes"`` (K7: unpadded brick + halo planes, Moat in the
-    kernel), then ``use_kernel=True`` (K6 on the padded brick), then
-    ``overlap`` (the interior/edge split); else the plain step.  All give
-    the same bits.
+    kernel), then ``use_kernel=True`` (K6 on the padded brick); else, with
+    ``overlap`` or without, the plain step.  All give the same bits.
     """
     ax_x, ax_y = mesh.axis_names[-2], mesh.axis_names[-1]
     mx, my = mesh.shape[ax_x], mesh.shape[ax_y]
@@ -223,9 +201,7 @@ def make_sharded_ftcs(mesh: Mesh, shape, w: float, *, overlap: bool = False,
         body = planes_step
     elif use_kernel:
         body = kernel_step
-    elif overlap:
-        body = lambda b: ftcs_brick_step_overlapped(b, w, masks, mesh)  # noqa: E731
-    else:
+    else:  # overlap too: one process on one stream has nothing to overlap
         body = lambda b: ftcs_brick_step(b, w, masks, mesh)  # noqa: E731
 
     def step(T):

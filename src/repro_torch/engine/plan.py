@@ -153,7 +153,7 @@ def compile_body(
     resident: int = 0,
     batch: int = 1,
     mesh: Optional[Mesh] = None,
-    overlap: bool = False,
+    split=None,
 ) -> Tuple[Callable, bool]:
     """Build one body application ``env -> env`` — THE backend dispatch.
 
@@ -171,9 +171,11 @@ def compile_body(
     tensors, on the bricks' own devices; ``shapes`` stay global): K1 per
     brick (:func:`repro_torch.compiler.codegen.compile_group_sharded`) or
     the roll interpreter on halo-padded bricks
-    (:func:`repro_torch.core.halo.interp_step_sharded`).  ``overlap=True``
-    asks a fused resident step for the interior/boundary split (bodies it
-    does not fit keep the monolithic launch).
+    (:func:`repro_torch.core.halo.interp_step_sharded`).  ``split`` (a
+    :class:`repro_torch.compiler.ir.SplitRegions` of this body at
+    ``time_tile`` on the brick, from the planner) builds a fused resident
+    step as the interior/boundary split; ``None`` keeps the monolithic
+    launch.
     """
     if mesh is None:
         device = resolve_device(device)
@@ -189,11 +191,11 @@ def compile_body(
                 return compile_group_sharded(
                     ops, shapes, dtypes, mesh, time_tile=time_tile,
                     group=group, resident=resident, batch=batch,
-                    overlap=overlap)
+                    split=split)
             return compile_group(ops, shapes, dtypes, device=device,
                                  time_tile=time_tile, group=group,
                                  resident=resident, batch=batch,
-                                 overlap=overlap)
+                                 split=split)
 
         step = try_compile(fn, loop)
         if step is not None:
@@ -430,20 +432,22 @@ def plan(
         if backend == "numpy":
             segments.append(Segment(loop=loop, ops=tuple(ops), kind="eager"))
             continue
-        # the overlap split: on a resident plan, for a body with a halo
-        # whose brick keeps an interior at depth k·h, when asked for
-        use_split = 0
+        # the overlap split, decided here only: on a resident plan, for a
+        # body with a halo whose brick keeps an interior at depth k·h, when
+        # asked for; None is the monolithic launch
+        split = split_rem = None
         if options.overlap is True and group is not None and pad > 0:
-            sp = split_regions(group, k, _brick_xy(program, mesh, group))
-            if sp is not None:
-                use_split = len(sp.shells)
+            brick = _brick_xy(program, mesh, group)
+            split = split_regions(group, k, brick)
+            if split is not None:  # the n % k remainder step splits at k = 1
+                split_rem = split_regions(group, 1, brick)
         step, fused = compile_body(ops, loop, shapes, dtypes, backend,
                                    device=device, time_tile=k, group=group,
                                    resident=pad, batch=options.batch,
-                                   mesh=mesh, overlap=bool(use_split))
+                                   mesh=mesh, split=split)
         if not fused:
             k = 1
-            use_split = 0
+            split = None
         seg = Segment(
             loop=loop,
             ops=tuple(ops),
@@ -453,14 +457,14 @@ def plan(
             halo=group.halo if group is not None else 0,
             reason=reason,
             written=tuple(group.fields_written()) if fused else (),
-            split=use_split,
+            split=len(split.shells) if split is not None else 0,
         )
         if fused and k > 1 and seg.n_steps % k:
             seg.step_rem, _ = compile_body(ops, loop, shapes, dtypes, backend,
                                            device=device, time_tile=1,
                                            group=group, resident=pad,
                                            batch=options.batch, mesh=mesh,
-                                           overlap=bool(use_split))
+                                           split=split_rem)
         if reason:
             stats.note_tile_reason(reason)
         if fused:

@@ -548,8 +548,7 @@ def _check_outputs(kernel: FusedKernel, inputs, out) -> None:
         if tuple(o.shape) != want or o.dtype != kernel.dtype:
             raise ValueError(
                 f"output {name!r} is {tuple(o.shape)} {o.dtype}, expected "
-                f"{want} {kernel.dtype} (the kernel was built with "
-                f"margin={kernel.margin})")
+                f"{want} {kernel.dtype}")
         if o.device != inputs[0].device or not o.is_contiguous():
             raise ValueError(f"output {name!r} must be contiguous on "
                              f"{inputs[0].device}")

@@ -1101,56 +1101,67 @@ def test_cuda_k1_region_mode_bitwise_vs_plain(name):
     members; float32 and float64), writes nothing outside the region, goes
     through the column entry's route for its tile and counts one
     ``region_launches``; each shell's padded launch into held ``out=``
-    buffers equals its plain version too."""
+    buffers equals its plain version too.  On one device (``wrap=True``,
+    the brick at the origin) and on the bricks of a 2×2 mesh
+    (``wrap=False``, the brick's global origin plus the region's, so the
+    Moat comes from global coordinates)."""
     _need_card()
     from repro_torch.compiler import LoweredGroup
     from repro_torch.compiler.ir import split_regions
 
     for dtype, k, B in itertools.product((np.float32, np.float64),
                                          (1, 2, 3, 8), (1, 3)):
-        grid = (2 * k + 9, 2 * k + 6)
-        probe, _ = k1_kernel(name, dtype, "cpu", grid=grid)
-        split = split_regions(LoweredGroup(probe.updates, probe.halo), k, grid)
+        brick = (2 * k + 9, 2 * k + 6)
+        mesh = (2 * brick[0], 2 * brick[1])
+        probe, _ = k1_kernel(name, dtype, "cpu", grid=brick)
+        split = split_regions(LoweredGroup(probe.updates, probe.halo), k,
+                              brick)
         M = k * probe.halo + 1
-        kern, _ = k1_kernel(name, dtype, "cuda", margin=M, k=k, batch=B,
-                            grid=grid, region=split.interior)
-        lead = (B,) if B > 1 else ()
-        gen = torch.Generator(device="cuda").manual_seed(k)
-        ins = [torch.rand((*lead, *kern.extent, nz), generator=gen,
-                          device="cuda", dtype=kern.dtype) + 0.5
-               for nz in kern.nz]
-        r = split.interior
-        outs = []
-        before = (launch_fused.region_launches, launch_fused.k1_launches,
-                  launch_fused.sweep_launches)
-        for call in (launch_fused, fused_step_ref):
-            out = [torch.full_like(ins[kern.in_names.index(n)], -7.0)
-                   for n in kern.written]
-            outs.append(call(kern, ins, (r.x0, r.y0), out=out))
-        torch.cuda.synchronize()
-        moved = tuple(a - b for a, b in zip(
-            (launch_fused.region_launches, launch_fused.k1_launches,
-             launch_fused.sweep_launches), before))
-        assert moved == (1, int(k == 1), int(k > 1)), moved
-        for g, w in zip(*outs):
-            assert torch.equal(g, w), (name, dtype, k, B)
-        ph = kern.pad
-        for s in split.shells:
-            shell, _ = k1_kernel(name, dtype, "cuda", k=k, batch=B, grid=grid,
-                                 brick=(s.rx, s.ry))
-            wins = [t[..., M + s.x0 - ph:M + s.x0 + s.rx + ph,
-                      M + s.y0 - ph:M + s.y0 + s.ry + ph, :].contiguous()
-                    for t in ins]
-            held = [torch.empty(shell.stacked((s.rx, s.ry, nz)),
-                                dtype=shell.dtype, device="cuda")
-                    for n, nz in zip(shell.in_names, shell.nz)
-                    if n in shell.written]
-            got = launch_fused(shell, wins, (s.x0, s.y0), out=held)
-            assert all(g is h for g, h in zip(got, held))
-            want = fused_step_ref(shell, wins, (s.x0, s.y0))
+        for wrap, grid, (cx, cy) in ((True, brick, (0, 0)),
+                                     (False, mesh, (0, brick[1])),
+                                     (False, mesh, brick)):
+            case = (name, dtype, k, B, wrap, (cx, cy))
+            kern, _ = k1_kernel(name, dtype, "cuda", margin=M, k=k, batch=B,
+                                grid=grid, brick=brick, wrap=wrap,
+                                region=split.interior)
+            lead = (B,) if B > 1 else ()
+            gen = torch.Generator(device="cuda").manual_seed(k)
+            ins = [torch.rand((*lead, *kern.extent, nz), generator=gen,
+                              device="cuda", dtype=kern.dtype) + 0.5
+                   for nz in kern.nz]
+            r = split.interior
+            outs = []
+            before = (launch_fused.region_launches, launch_fused.k1_launches,
+                      launch_fused.sweep_launches)
+            for call in (launch_fused, fused_step_ref):
+                out = [torch.full_like(ins[kern.in_names.index(n)], -7.0)
+                       for n in kern.written]
+                outs.append(call(kern, ins, (cx + r.x0, cy + r.y0), out=out))
             torch.cuda.synchronize()
-            for g, w in zip(got, want):
-                assert torch.equal(g, w), (name, dtype, k, B, s)
+            moved = tuple(a - b for a, b in zip(
+                (launch_fused.region_launches, launch_fused.k1_launches,
+                 launch_fused.sweep_launches), before))
+            assert moved == (1, int(k == 1), int(k > 1)), moved
+            for g, w in zip(*outs):
+                assert torch.equal(g, w), case
+            ph = kern.pad
+            for s in split.shells:
+                shell, _ = k1_kernel(name, dtype, "cuda", k=k, batch=B,
+                                     grid=grid, brick=(s.rx, s.ry), wrap=wrap)
+                wins = [t[..., M + s.x0 - ph:M + s.x0 + s.rx + ph,
+                          M + s.y0 - ph:M + s.y0 + s.ry + ph, :].contiguous()
+                        for t in ins]
+                held = [torch.empty(shell.stacked((s.rx, s.ry, nz)),
+                                    dtype=shell.dtype, device="cuda")
+                        for n, nz in zip(shell.in_names, shell.nz)
+                        if n in shell.written]
+                at = (cx + s.x0, cy + s.y0)
+                got = launch_fused(shell, wins, at, out=held)
+                assert all(g is h for g, h in zip(got, held))
+                want = fused_step_ref(shell, wins, at)
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), case + (s,)
 
 
 @pytest.mark.cuda

@@ -43,6 +43,7 @@ import repro_torch.core as port_core
 import repro_torch.engine as port_engine
 from conftest import heat_init
 from repro_torch.compiler import LoweredGroup, lower_group
+from repro_torch.compiler.codegen import compile_group_sharded
 from repro_torch.compiler.ir import RegionSpec, split_regions
 from repro_torch.core import explicit
 from repro_torch.core.halo import exchange_slabs, halo_refresh
@@ -262,6 +263,31 @@ def test_region_geometry_and_refusals():
         with pytest.raises(ValueError, match=msg):
             _kernel("heat", np.float32, k, margin, shape, region=bad)
 
+
+
+@pytest.mark.parametrize("mesh", [None, (2, 2)])
+def test_builders_refuse_a_split_that_does_not_fit(mesh):
+    """The planner alone decides the split; the builders take it and refuse
+    one made for another tile depth, another brick or a repacking step."""
+    T0 = _t0(16, 12)
+    wse, _ = build_heat(port_core, T0, 4)
+    ops = wse.program.ops
+    wse.__exit__()
+    group = lower_group(ops)
+    shapes, dtypes = {"T_n": T0.shape}, {"T_n": T0.dtype}
+    brick = (16, 12) if mesh is None else (8, 6)
+    if mesh is None:
+        build = lambda **kw: port_compiler.compile_group(  # noqa: E731
+            ops, shapes, dtypes, device="cpu", group=group, **kw)
+    else:
+        build = lambda **kw: compile_group_sharded(  # noqa: E731
+            ops, shapes, dtypes, _mesh(mesh), group=group, **kw)
+    build(time_tile=2, resident=2, split=split_regions(group, 2, brick))
+    for k, resident, at in ((2, 2, (brick[0] + 2, brick[1])),
+                            (2, 2, brick[::-1]), (1, 2, brick), (2, 0, brick)):
+        with pytest.raises(ValueError, match="is not the split"):
+            build(time_tile=k, resident=resident,
+                  split=split_regions(group, 2, at))
 
 # -- overlap=True through the entry points ------------------------------------------
 

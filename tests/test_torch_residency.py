@@ -266,8 +266,9 @@ def test_margin_below_the_window_raises():
 
 def test_margin_mode_output_aliasing_an_input_raises():
     """The ping-pong guard: margin mode refuses an output that shares
-    storage with an input (itself or a view of it), a missing ``out=``, and
-    ``out=`` on a padded-mode kernel."""
+    storage with an input (itself or a view of it) and a missing ``out=``;
+    padded mode takes an optional ``out=`` at the brick's extent, refuses
+    one at the resident extent, and writes the bits it returns without."""
     padded, margin, env = _kernels("coupled", 1, 0)
     M = margin.margin
     lay = HaloLayout(pad=M, shapes={})
@@ -282,6 +283,12 @@ def test_margin_mode_output_aliasing_an_input_raises():
             ops.fused_step(margin, ins, out=bad)
     with pytest.raises(ValueError, match="needs out="):
         ops.fused_step(margin, ins)
-    with pytest.raises(ValueError, match="margin=0"):
-        ops.fused_step(padded, [_wrap_pad(env[n], 1) for n in padded.in_names],
-                       out=ok)
+    pins = [_wrap_pad(env[n], 1) for n in padded.in_names]
+    nx, ny, nz = env[padded.written[0]].shape
+    with pytest.raises(ValueError, match=rf"expected \({nx}, {ny}, {nz}\)"):
+        ops.fused_step(padded, pins, out=ok)
+    held = [torch.full_like(env[n], float("nan")) for n in padded.written]
+    got = ops.fused_step(padded, pins, out=held)
+    for want, g, h in zip(ops.fused_step(padded, pins), got, held):
+        assert g.data_ptr() == h.data_ptr()
+        torch.testing.assert_close(g, want, rtol=0, atol=0)
