@@ -187,6 +187,56 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          launch's cells, heat3d at k = 1 and the auto tile
                          with 1 and 8 members and the hazard body, f32 and
                          f64.)
+10e. ``health_make``  — ``HeatConfig()`` through ``make(check_finite=64)``
+                         (resident) on one device and the 2×2 mesh at
+                         k = 1 and the auto tile, and 8 members at k = 1:
+                         each run bitwise its unguarded run, the
+                         reference's probe count (entry, one per full
+                         chunk, one per tail), K1 launched as unguarded,
+                         0 fallbacks; guarded and unguarded ms per step
+                         (CUDA events, in turns), host µs per step and
+                         idle share; the one-device k = 1 overhead held
+                         to ``HEALTH_BUDGET`` (2 %) in the steady state of
+                         ``benchmarks/health_overhead.py`` (2048-step
+                         runs, both read back, in shuffled turns, the
+                         floor of each side); ``T ← 4·T`` with one
+                         cell overflowing at step 100 on one device and
+                         on the mesh: ``NumericalFault`` at the first
+                         probe after it, ``last_good`` bitwise the
+                         unguarded run at the last good probe; the
+                         ``time_tile=4`` retry: one recovery attempt, two
+                         faults;
+10f. ``health_solve`` — BTCS at 512×512×128 (tol = 1e-5·‖b‖) with a NaN in
+                         the state: every method ``NAN_RESIDUAL``; healthy
+                         cg and pipecg with ``RecoveryPolicy()`` bitwise
+                         the plain solves, the ladder never entered; 4
+                         members with one poisoned, the other three
+                         bitwise an all-healthy batch's; the ladder at the
+                         reference tests' sizes: BiCGSTAB's breakdown on a
+                         2×2 rotation, the ladder's rungs on an
+                         antisymmetric stencil with bicgstab (restart,
+                         float64) and cg (escalation, float64), and the
+                         float32 overflow that converges on the float64
+                         rung, each against its ``RecoveryTrace``;
+10g. ``adjoint_solve`` — ``make_differentiable_solver`` at 512×512×128:
+                         cg, pipecg and cg + mg on BTCS (symmetric: no
+                         kernel built by the backward), bicgstab on
+                         variable-coefficient BTCS (the transposed taps
+                         built at build time), each gradient's
+                         dot-product test ``⟨Aᵀ⁻¹ x̄, b⟩ = ⟨x̄, A⁻¹ b⟩``
+                         within ``4·tol·(‖x̄‖ + ‖b‖)``, forward and
+                         backward ms and launches; then
+                         ``examples/inverse_diffusivity.py`` at its own
+                         size, float64, below 1e-2 relative error;
+10h. ``adjoint_make`` — the differentiable heat3d ``make``
+                         (``differentiable_runner``, k = 1, 64 steps, and
+                         16 on the 2×2 mesh): the forward bitwise the
+                         repacking ``make``, the checkpointed gradient of
+                         ``sum(T²)`` bitwise the all-residuals one, the
+                         mesh's forward bitwise and its gradient within 2
+                         f32 ulp a step of one device's, the dot-product
+                         test ``⟨J v, w⟩ = ⟨v, Jᵀ w⟩``, peak device memory
+                         of both ladders, forward and backward ms;
 11. ``kernels``        — one JSON line describing every kernel of the paths
                          (K1 on six rows: the k = 1 entry in the padded and
                          the margin mode, the sweep at the auto tile, and
@@ -208,11 +258,15 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          for the overlap's split launch: the interior in
                          region mode (k = 1, its auto-tile sweep beside it)
                          and the shells' padded launches (the mean of the
-                         four at k = 1), launches by tile).
+                         four at k = 1), launches by tile; the health
+                         and adjoint phases' launches added to the rows
+                         of their routes, by phase in
+                         ``launches_by_phase``).
 
 Each main path (``heat3d``, ``hazard_make``, ``ensemble_make``,
 ``solve_heat3d``, ``ensemble_solve``, ``mg_poisson``, ``legacy_ftcs``,
-``legacy_btcs``, ``sharded_make``, ``sharded_solve``, ``overlap_make``)
+``legacy_btcs``, ``sharded_make``, ``sharded_solve``, ``overlap_make``,
+``health_make``, ``health_solve``, ``adjoint_solve``, ``adjoint_make``)
 runs with the launch counters set to 0 just before it and read just after,
 and fails if one of its kernels was not launched.  Then the card's name and
 power limit, and last the result line.  Any failed check raises: the script exits
@@ -344,6 +398,54 @@ PREDICTED = {
     "overlap_allocations_per_step": 0,
     "overlap_slab_copies_concurrent": "at most the copies' tail beside the "
                                       "interior launch's start",
+    # numerical health (written before its first run on a card; PERF.md
+    # §6): HeatConfig(), 200 steps, check_finite=64, resident.  A probe is
+    # one isfinite/all pass (134 MB read, 33.5 MB of flags written and
+    # read: about 60 us) every 64 steps (21 ms at k = 1), its verdict read
+    # one chunk late, so the card does not idle for it: five probes a
+    # 200-step run, about 0.3 ms of device time and one wait at each chunk
+    # run's end, so 0.2-1.2 % over the unguarded run at k = 1 on one
+    # device; the mesh's k = 1 step is host-paced and hides its probes;
+    # host us per step up by the probes' Python (about 100 us a chunk)
+    "health_overhead": {"one_k1": [0.002, 0.012], "one_auto": [0.0, 0.015],
+                        "mesh_k1": [-0.02, 0.03], "mesh_auto": [0.0, 0.03],
+                        "members_k1": [0.0, 0.005]},
+    "health_ms_per_step_guarded": {"one_k1": [0.330, 0.338],
+                                   "one_auto": [0.328, 0.336],
+                                   "mesh_k1": [0.53, 0.60],
+                                   "mesh_auto": [0.353, 0.365],
+                                   "members_k1": [2.67, 2.72]},
+    "health_probes_per_run": 5,
+    # the budget's steady state (written before its first run on a card;
+    # PERF.md §6): 2048-step runs at k = 1, each read back as its caller
+    # would, guarded and unguarded in shuffled turns.  Both runs pay the
+    # same start and final wait, so the guarded run adds only its 33
+    # probes (about 55 us each, 1.8 ms) and its zeroed spare (0.05 ms) to
+    # about 677 ms: 0.2-0.6 %
+    "health_budget_overhead": [0.002, 0.006],
+    "health_poisoned": {"overflow_step": 100, "fault_step": 128,
+                        "good_step": 64},
+    # differentiation (written before its first run on a card; PERF.md §6):
+    # the adjoint solve is one more Krylov solve on the same kernels, plus
+    # the Moat correction's rolls (a few full-field passes, 1-3 ms): cg and
+    # pipecg a few ms each way (solve_heat3d's 6.97 and 11.64 ms), cg + mg
+    # 35-70 ms each way, bicgstab on the variable-coefficient system 10-60
+    # ms; the dot-product test within 1e-5 of <xbar, x>; the inverse
+    # problem below 1e-2 relative error in 5-40 s of host-paced 16x16x8
+    # solves
+    "adjoint_solve_ms": {"cg": [4.0, 15.0], "pipecg": [8.0, 25.0],
+                         "bicgstab": [10.0, 60.0], "cg+mg": [35.0, 90.0]},
+    "adjoint_inverse_relative_error": 0.01,
+    # the differentiable make at k = 1 (padded launches, 0.59 ms a step
+    # with the wrap pad), S = 64: the forward about 38 ms; the backward
+    # 64 VJPs of the roll interpreter (2.1 ms a step forward, 2-3x that
+    # backward) 0.25-0.45 s, the checkpointed one a forward more; peak
+    # memory about S x 134 MB = 8.6 GB all-residuals against about
+    # (8 + 8) x 134 MB = 2.1 GB checkpointed, plus the VJP's transients
+    "adjoint_make_forward_ms": [30.0, 60.0],
+    "adjoint_make_backward_ms": [250.0, 600.0],
+    "adjoint_make_peak_gb": {"all_residuals": [8.6, 12.0],
+                             "checkpointed": [2.1, 5.0]},
 }
 #: H100 SXM device-memory rate and float32 / float64 (non-tensor) peaks
 HBM_BYTES_PER_S = 3.35e12
@@ -3328,6 +3430,950 @@ def phase_overlap_make(steps: int, seed: int, heat):
     return region, shell
 
 
+# ---------------------------------------------------------------------------
+# slice 14: numerical health and reverse-mode differentiation
+# ---------------------------------------------------------------------------
+
+#: the device the health and adjoint phases run on (the card)
+DEV = "cuda"
+#: the explicit sentinel's granule of the ``health_make`` phase
+HEALTH_EVERY = 64
+#: the guarded run's overhead budget on one device at k = 1
+#: (``benchmarks/health_overhead.py``'s documented gate)
+HEALTH_BUDGET = 0.02
+#: the budget's steady state, as ``benchmarks/health_overhead.py`` defines
+#: it: runs of this many steps, guarded and unguarded in shuffled turns
+#: for this many rounds, each run read back as its caller would, and the
+#: floor (mean of the fastest half) of each side compared
+HEALTH_BUDGET_STEPS = 2048
+HEALTH_BUDGET_ROUNDS = 8
+#: the differentiable make's steps: all-residuals keeps one 134 MB input a
+#: launch at k = 1 (64 × 134 MB ≈ 8.6 GB); the 2×2 mesh's run
+ADJOINT_MAKE_STEPS = 64
+ADJOINT_MESH_STEPS = 16
+
+
+def chunk_ends(p, every: int):
+    """The steps after which a guarded run of plan ``p`` probes (the
+    reference's chunking: per segment, full chunks of ``ceil(every / k)``
+    launches, then the tail, and the same for the ``n % k`` remainder)."""
+    ends, step = [], 0
+    for seg in p.segments:
+        N, k = (seg.loop.n, seg.time_tile) if seg.loop else (1, 1)
+        parts = ((N // k, k), (N % k, 1)) if k > 1 else ((N, 1),)
+        for launches, per_launch in parts:
+            if launches <= 0:
+                continue
+            per = min(max(1, -(-every // per_launch)), launches)
+            full, tail = divmod(launches, per)
+            for size in [per] * full + ([tail] if tail else []):
+                step += size * per_launch
+                ends.append(step)
+    return ends
+
+
+def expected_probes(p, every: int) -> int:
+    """The probes of a guarded run of plan ``p``: the entry's and one at
+    each chunk end."""
+    return 1 + len(chunk_ends(p, every))
+
+
+def k1_rows(delta, *, bricks: int = 1, members: int = 1):
+    """One run's launches (``read_counts`` deltas) by the ``kernels`` row
+    they add to: K1's k = 1 entry (padded or margin mode: a run's launches
+    are all of one mode) and sweep, on members or bricks, and K2–K4."""
+    if members > 1:
+        keys = ("members_k1", "members_sweep")
+    elif bricks > 1:
+        keys = ("bricks_k1", "bricks_sweep")
+    elif delta["K1m"] not in (0, delta["K1"]):
+        raise AssertionError(f"a run of both K1 modes: {delta}")
+    else:
+        keys = ("k1_margin" if delta["K1m"] else "k1_padded", "sweep")
+    return {keys[0]: delta["K1k1"], keys[1]: delta["K1sw"],
+            **{k: delta[k] for k in ("K2", "K3", "K4")}}
+
+
+def add_rows(total: dict, rows: dict) -> dict:
+    for k, v in rows.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def counts_delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in before}
+
+
+def growth_program(cfg, steps, init):
+    """The reference tests' growth body ``T ← 4·T`` (tests/test_health.py)
+    at ``cfg``'s grid: halo-free, exact, overflowing where ``init`` is
+    large."""
+    import repro_torch as rt
+
+    wse = rt.WFAInterface()
+    T = rt.Field("T", init_data=init)
+    with rt.ForLoop("t", steps):
+        T[:, 0, 0] = 4.0 * T[:, 0, 0]
+    return wse, T
+
+
+def growth_init(cfg, overflow_step: int):
+    """Every cell 1e-37 (finite for 125 steps of ``4·T``), one interior
+    cell 3e38 / 4^(overflow_step − 1): it overflows at ``overflow_step``."""
+    import numpy as np
+
+    init = np.full((cfg.nx, cfg.ny, cfg.nz), 1.0e-37, np.float32)
+    init[cfg.nx // 3, cfg.ny // 2, cfg.nz // 2] = np.float32(
+        3.0e38 / 4.0 ** (overflow_step - 1))
+    return init
+
+
+def health_budget(cfg, seed: int) -> dict:
+    """The guarded run's steady-state overhead on one device at k = 1, as
+    ``benchmarks/health_overhead.py`` measures its 2 % budget:
+    ``HEALTH_BUDGET_STEPS``-step runs of ``HeatConfig()``, unguarded and
+    guarded (``check_finite=HEALTH_EVERY``) in a shuffled order each round,
+    each run timed by CUDA events from an idle card to its read-back (the
+    guarded run reads its last verdict; the unguarded one is synchronised),
+    and the floor (mean of the fastest half of the rounds) of each side
+    compared.  The two runs' results are checked bitwise, and the guarded
+    run's probes against the reference's chunking."""
+    import random
+    import statistics
+
+    import torch
+
+    from repro_torch.configs.heat3d import make_field, record_heat
+    from repro_torch.engine import (RunOptions, guarded_runner, plan,
+                                    single_runner, stats)
+
+    steps = HEALTH_BUDGET_STEPS
+    wse, _ = record_heat(cfg, steps)
+    p = plan(wse.program, RunOptions(backend="pallas", time_tile=1,
+                                     device=DEV))
+    wse.__exit__()
+    env = {"T_n": torch.tensor(make_field(cfg), device=DEV)}
+    runners = {"unguarded": single_runner(p),
+               "guarded": guarded_runner(p, HEALTH_EVERY)}
+    probes = stats.health_probes
+    outs = {kind: run(env)["T_n"] for kind, run in runners.items()}
+    probes = stats.health_probes - probes
+    if not torch.equal(outs["guarded"], outs["unguarded"]):
+        raise AssertionError("health_budget: the guarded run differs from "
+                             "the unguarded run")
+    if probes != expected_probes(p, HEALTH_EVERY):
+        raise AssertionError(f"health_budget: {probes} probes, expected "
+                             f"{expected_probes(p, HEALTH_EVERY)}")
+    del outs
+    ms = {kind: [] for kind in runners}
+    order = list(runners)
+    rng = random.Random(seed)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(HEALTH_BUDGET_ROUNDS):
+        rng.shuffle(order)
+        for kind in order:
+            torch.cuda.synchronize()
+            start.record()
+            runners[kind](env)
+            end.record()
+            end.synchronize()
+            ms[kind].append(start.elapsed_time(end) / steps)
+    half = HEALTH_BUDGET_ROUNDS // 2
+    floor = {kind: statistics.mean(sorted(v)[:half]) for kind, v in ms.items()}
+    return {"steps": steps, "rounds": HEALTH_BUDGET_ROUNDS,
+            "probes_per_run": probes, "ms_per_step": ms,
+            "floor_ms_per_step": floor,
+            "overhead": floor["guarded"] / floor["unguarded"] - 1.0}
+
+
+def phase_health_make(steps: int, seed: int):
+    """``HeatConfig()`` through ``make(check_finite=64)``, resident, at k = 1
+    and the auto tile, on one device and the 2×2 mesh, and with 8 members
+    at k = 1: each run bitwise its unguarded run, with the reference's
+    probe count; guarded and unguarded ms/step (CUDA events), host µs/step
+    and idle share; the one-device k = 1 overhead in the steady state
+    (:func:`health_budget`) held to ``HEALTH_BUDGET``; then ``T ← 4·T`` with one cell overflowing at step
+    100 on one device and on the mesh: ``NumericalFault`` at the
+    reference's step, ``last_good`` bitwise the unguarded run at its good
+    step; the de-escalated retry from ``time_tile=4``."""
+    t_phase = time.perf_counter()
+    import warnings
+
+    import numpy as np
+    import torch
+
+    import repro_torch as rt
+    from repro_torch import compiler
+    from repro_torch.configs.heat3d import HeatConfig, make_field, record_heat
+    from repro_torch.core.mesh import NamedSharding, make_mesh
+    from repro_torch.engine import (RunOptions, guarded_runner, plan,
+                                    reset_stats, sharded_runner,
+                                    single_runner, stats)
+    from repro_torch.solver import NumericalFault, RecoveryPolicy
+
+    cfg = HeatConfig()
+    N = HEALTH_EVERY
+    mesh = make_mesh(SHARD_MESH, device=DEV)
+    B = ENSEMBLE_MAKE_MEMBERS
+    members = heat_members(cfg, B, seed)
+    cells = {"one_k1": (None, 1, None), "one_auto": (None, None, None),
+             "mesh_k1": (mesh, 1, None), "mesh_auto": (mesh, None, None),
+             "members_k1": (None, 1, members)}
+
+    def options(tag, check):
+        m, tt, stack = cells[tag]
+        return RunOptions(backend="pallas", time_tile=tt, mesh=m,
+                          check_finite=check, device=DEV,
+                          batch=1 if stack is None else len(stack))
+
+    def make(tag, check):
+        m, tt, stack = cells[tag]
+        wse, T = record_heat(cfg, steps)
+        opts = options(tag, check)
+        if stack is None:
+            return wse.make(answer=T, options=opts)
+        return rt.Ensemble(wse.program, T, overrides={"T_n": stack}).make(
+            options=opts.replace(batch=1))
+
+    def planned(tag, check=0):
+        wse, _ = record_heat(cfg, steps)
+        p = plan(wse.program, options(tag, check))
+        wse.__exit__()
+        return p
+
+    # --- the main path: counters to 0 just before, read just after -------
+    compiler.reset_stats()
+    reset_counts()
+    outs, runs, by_row = {}, [], {}
+    for tag, (m, tt, stack) in cells.items():
+        reset_stats()
+        before = read_counts()
+        outs[tag] = make(tag, N)
+        delta = counts_delta(before, read_counts())
+        bricks = m.size if m else 1
+        runs.append({"run": tag, "time_tile": stats.max_time_tile,
+                     "bricks": bricks,
+                     "members": 1 if stack is None else len(stack),
+                     "engine_launches": stats.launches,
+                     "health_probes": stats.health_probes,
+                     "expected_probes": expected_probes(planned(tag), N),
+                     "numerical_faults": stats.numerical_faults,
+                     "K1": delta["K1"], "K1m": delta["K1m"]})
+        add_rows(by_row, k1_rows(delta, bricks=bricks,
+                                 members=1 if stack is None else len(stack)))
+    counts = read_counts()
+    fallbacks = compiler.stats.fallbacks
+    # -----------------------------------------------------------------------
+    if fallbacks:
+        raise AssertionError(f"{fallbacks} interpreter fallbacks on the "
+                             "guarded path")
+    for r in runs:
+        if r["health_probes"] != r["expected_probes"] or r["numerical_faults"]:
+            raise AssertionError(f"health_make {r['run']}: probes {r}")
+        if (r["K1"] != r["bricks"] * r["engine_launches"] or r["K1"] == 0
+                or r["K1m"] != r["K1"]):
+            raise AssertionError(f"health_make {r['run']}: K1 launches {r} "
+                                 "are not one margin launch per brick launch")
+    diffs = {}
+    for tag, (m, tt, stack) in cells.items():
+        want = make(tag, 0)
+        out = outs[tag]
+        if out.shape != want.shape or not np.isfinite(out).all():
+            raise AssertionError(f"health_make {tag}: bad shape or non-finite")
+        diffs[tag] = float(np.abs(out.astype(np.float64) - want).max())
+        if not np.array_equal(out, want):
+            raise AssertionError(f"guarded {tag} differs from its unguarded "
+                                 f"run (max {diffs[tag]})")
+    del outs
+
+    # --- timing: guarded and unguarded, whole runs on device tensors -----
+    timing = {}
+    for tag, (m, tt, stack) in cells.items():
+        init = make_field(cfg) if stack is None else stack
+        if m is None:
+            env = {"T_n": torch.tensor(init, device=DEV)}
+        else:
+            env = {"T_n": list(NamedSharding(m).shard(init).bricks)}
+        p = planned(tag)
+        runners = {"guarded": guarded_runner(p, N),
+                   "unguarded": single_runner(p) if m is None
+                   else sharded_runner(p)}
+        ms = {"guarded": [], "unguarded": []}
+        for kind in ("unguarded", "guarded", "guarded", "unguarded"):
+            ms[kind].append(cuda_time_ms(lambda: runners[kind](env),
+                                         repeats=5) / steps)
+        row = {"time_tile": p.segments[0].time_tile}
+        for kind, run in runners.items():
+            row[kind] = {"ms_per_step": ms[kind],
+                         "host_us_per_step": host_us(lambda: run(env)) / steps,
+                         **device_breakdown(lambda: run(env))}
+        g, u = sum(ms["guarded"]) / 2, sum(ms["unguarded"]) / 2
+        row["overhead"] = g / u - 1.0
+        timing[tag] = row
+        del env, runners
+
+    # --- a poisoned run: T <- 4·T, one cell overflowing at step 100 ------
+    faults = []
+    init = growth_init(cfg, 100)
+    for tag, m in (("one", None), ("mesh", mesh)):
+        opts = RunOptions(backend="pallas", check_finite=N, mesh=m, device=DEV)
+        wse, T = growth_program(cfg, steps, init)
+        p = plan(wse.program, opts)
+        ends = chunk_ends(p, N)
+        want_step = next(e for e in ends if e >= 100)
+        want_good = max([e for e in ends if e < 100], default=0)
+        reset_stats()
+        before = read_counts()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            try:
+                wse.make(answer=T, options=opts)
+            except NumericalFault as e:
+                fault = e
+            else:
+                raise AssertionError(f"health_make: the poisoned {tag} run "
+                                     "did not fault")
+            finally:
+                wse.__exit__()
+        delta = counts_delta(before, read_counts())
+        add_rows(by_row, k1_rows(delta, bricks=m.size if m else 1))
+        good = int(str(fault).split("last finite probe at step ")[1]
+                   .rstrip(")"))
+        w2, T2 = growth_program(cfg, good, init)
+        want = w2.make(answer=T2, options=opts.replace(check_finite=0))
+        same = np.array_equal(fault.last_good["T"], want)
+        faults.append({"run": tag, "step": fault.step, "good_step": good,
+                       "expected_step": want_step, "expected_good": want_good,
+                       "chunk_ends": ends, "outcome": fault.outcome,
+                       "numerical_faults": stats.numerical_faults,
+                       "last_good_bitwise": same, "launches": delta})
+        if (fault.step, good) != (want_step, want_good) or not same:
+            raise AssertionError(f"health_make: the poisoned {tag} run "
+                                 f"{faults[-1]}")
+    # --- the de-escalated retry from time_tile=4 -------------------------
+    opts = RunOptions(backend="pallas", check_finite=N, time_tile=4,
+                      recovery=RecoveryPolicy(), device=DEV)
+    wse, T = growth_program(cfg, steps, init)
+    reset_stats()
+    before = read_counts()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        try:
+            wse.make(answer=T, options=opts)
+        except NumericalFault as e:
+            retry_step = e.step
+        else:
+            raise AssertionError("health_make: the retry did not fault")
+        finally:
+            wse.__exit__()
+    delta = counts_delta(before, read_counts())
+    add_rows(by_row, k1_rows(delta))
+    retry = {"recovery_attempts": stats.recovery_attempts,
+             "numerical_faults": stats.numerical_faults, "step": retry_step,
+             "launches": delta}
+    if (retry["recovery_attempts"], retry["numerical_faults"]) != (1, 2):
+        raise AssertionError(f"health_make: the retry {retry}")
+
+    budget = health_budget(cfg, seed)
+
+    measured = {
+        "budget_overhead": budget["overhead"],
+        "overhead": {t: v["overhead"] for t, v in timing.items()},
+        "ms_per_step": {t: {k: sum(v[k]["ms_per_step"]) / 2
+                            for k in ("guarded", "unguarded")}
+                        for t, v in timing.items()},
+        "host_us_per_step": {t: {k: v[k]["host_us_per_step"]
+                                 for k in ("guarded", "unguarded")}
+                             for t, v in timing.items()},
+        "idle_share_unprofiled": {
+            t: {k: v[k]["device_idle_share_unprofiled"]
+                for k in ("guarded", "unguarded")} for t, v in timing.items()},
+        "probes": {r["run"]: r["health_probes"] for r in runs}}
+    emit({"phase": "health_make", "card": card_line(),
+          "seconds": time.perf_counter() - t_phase,
+          "shape": [cfg.nx, cfg.ny, cfg.nz], "dtype": cfg.dtype,
+          "steps": steps, "check_finite": N, "members": B,
+          "mesh": list(SHARD_MESH), "runs": runs, "fallbacks": fallbacks,
+          "launches": counts, "max_abs_err_vs_unguarded": diffs,
+          "timing": timing, "budget": HEALTH_BUDGET,
+          "budget_run": budget, "faults": faults,
+          "retry": retry,
+          "predicted": {k: PREDICTED[k] for k in PREDICTED
+                        if k == "card" or k.startswith("health")},
+          "measured": measured})
+    if budget["overhead"] > HEALTH_BUDGET:
+        raise AssertionError(f"the guarded k = 1 run costs "
+                             f"{budget['overhead']:.2%} > {HEALTH_BUDGET:.0%} "
+                             "over the unguarded run in the steady state")
+    return by_row
+
+
+def antisymmetric_program(shape, dtype, F):
+    """``A x = x[x+1] − x[x−1]`` (no centre tap): an antisymmetric stencil,
+    so ``⟨r, A r⟩ = 0`` for every interior-supported ``r`` — the 90°
+    rotation of the reference's BiCGSTAB breakdown test on a grid.  The
+    right-hand side is ``F`` (small integers: every dot is exact)."""
+    from repro_torch.core.field import Field
+    from repro_torch.core.program import scoped_program
+    from repro_torch.solver.frontend import Operator, Rhs
+
+    with scoped_program() as prog:
+        T = Field("T", shape=shape, dtype=dtype)
+        Ff = Field("F", init_data=F, dtype=dtype)
+        with Operator():
+            T[1:-1, 0, 0] = T[1:-1, 1, 0] - T[1:-1, -1, 0]
+        with Rhs():
+            T[1:-1, 0, 0] = Ff[1:-1, 0, 0]
+    return prog
+
+
+def phase_health_solve(seed: int):
+    """BTCS at ``HeatConfig()`` width, ``tol = 1e-5·‖b‖``: a NaN in the
+    right-hand side labels every method ``NAN_RESIDUAL``; a healthy solve
+    with ``RecoveryPolicy()`` is bitwise the solve without it and never
+    enters the ladder; 4 members with one poisoned leave the other three
+    bitwise unperturbed; then the ladder's deterministic constructions at
+    the reference tests' sizes on the card — BiCGSTAB's breakdown on a
+    rotation (restart, then the float64 rung) and CG's (escalation), and
+    the float32 overflow that converges on the float64 rung — each rung
+    against its ``RecoveryTrace``."""
+    t_phase = time.perf_counter()
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from repro_torch import compiler
+    from repro_torch.configs.heat3d import HeatConfig, make_field
+    from repro_torch.engine import RunOptions, reset_stats, stats
+    from repro_torch.solver import (NumericalFault, RecoveryPolicy, health,
+                                    krylov, record_btcs)
+    from repro_torch.solver.api import solve
+
+    cfg = HeatConfig()
+    T0 = make_field(cfg)
+    b = T0.astype(np.float64)
+    b[1:-1, 1:-1, 1:-1] *= 1.0 / (1.0 + 6.0 * cfg.omega)
+    tol = SOLVE_REL_TOL * float(np.linalg.norm(b))
+    poisoned = T0.copy()
+    poisoned[cfg.nx // 2, cfg.ny // 3, cfg.nz // 2] = np.nan
+    opts = RunOptions(backend="pallas", device=DEV)
+
+    # --- the main path: counters to 0 just before, read just after -------
+    compiler.reset_stats()
+    reset_counts()
+    by_row, labeled = {}, []
+    for method in ("cg", "pipecg", "bicgstab", "chebyshev", "jacobi"):
+        wse, T = record_btcs(poisoned, cfg.omega)
+        before = read_counts()
+        x, info = solve(wse.program, T, method=method, tol=tol, maxiter=60,
+                        return_info=True, options=opts)
+        add_rows(by_row, k1_rows(counts_delta(before, read_counts())))
+        labeled.append({"method": method, "outcomes": list(info.outcomes),
+                        "iterations": info.iterations.tolist(),
+                        "finite": bool(np.isfinite(x).all())})
+        if list(info.outcomes) != ["NAN_RESIDUAL"] or labeled[-1]["finite"]:
+            raise AssertionError(f"health_solve: poisoned {labeled[-1]}")
+    healthy = []
+    for method in ("cg", "pipecg"):
+        xs = []
+        for rec in (None, RecoveryPolicy()):
+            wse, T = record_btcs(T0, cfg.omega)
+            reset_stats()
+            before = read_counts()
+            x, info = solve(wse.program, T, method=method, tol=tol,
+                            maxiter=cfg.maxiter, return_info=True,
+                            options=opts.replace(recovery=rec))
+            add_rows(by_row, k1_rows(counts_delta(before, read_counts())))
+            xs.append(x)
+            entered = info.recovery is not None or stats.recovery_attempts
+            if list(info.outcomes) != ["CONVERGED"] or entered:
+                raise AssertionError(f"health_solve: healthy {method} "
+                                     f"{list(info.outcomes)}, ladder {entered}")
+        healthy.append({"method": method, "bitwise": np.array_equal(*xs)})
+        if not healthy[-1]["bitwise"]:
+            raise AssertionError(f"health_solve: {method} with a recovery "
+                                 "policy differs from the plain solve")
+    B = ENSEMBLE_SOLVE_MEMBERS
+    stack = np.broadcast_to(T0, (B,) + T0.shape).copy()
+    sick = stack.copy()
+    sick[2, cfg.nx // 2, cfg.ny // 3, cfg.nz // 2] = np.nan
+    member_x = {}
+    for key, st in (("sick", sick), ("healthy", stack)):
+        wse, T = record_btcs(T0, cfg.omega)
+        before = read_counts()
+        member_x[key], info = solve(
+            wse.program, T, method="cg", tol=tol, maxiter=cfg.maxiter,
+            return_info=True, member_env={"T": st},
+            options=opts.replace(batch=B))
+        add_rows(by_row, k1_rows(counts_delta(before, read_counts()),
+                                 members=B))
+        if key == "sick":
+            member_outcomes = np.asarray(info.outcomes).ravel().tolist()
+    unperturbed = [bool(np.array_equal(member_x["sick"][i],
+                                       member_x["healthy"][i]))
+                   for i in range(B) if i != 2]
+    if (member_outcomes != ["CONVERGED", "CONVERGED", "NAN_RESIDUAL",
+                            "CONVERGED"] or not all(unperturbed)):
+        raise AssertionError(f"health_solve: members {member_outcomes}, "
+                             f"unperturbed {unperturbed}")
+    del member_x, stack, sick
+    counts = read_counts()
+    fallbacks = compiler.stats.fallbacks
+    # -----------------------------------------------------------------------
+    if fallbacks:
+        raise AssertionError(f"{fallbacks} interpreter fallbacks in the "
+                             "health solves")
+
+    # --- the ladder's deterministic constructions (reference sizes) ------
+    ladder = {}
+    A = torch.tensor([[0.0, -1.0], [1.0, 0.0]], device=DEV)
+    _, it, _, st = krylov.bicgstab(
+        lambda v: A @ v, lambda a, c: torch.sum(a * c), torch.tensor(
+            [1.0, 0.0], device=DEV), torch.zeros(2, device=DEV),
+        tol=1e-10, maxiter=50)
+    ladder["rotation_2x2"] = {"outcome": health.outcome_name(int(st)),
+                              "iterations": int(it)}
+    if ladder["rotation_2x2"]["outcome"] != "BREAKDOWN" or it > 2:
+        raise AssertionError(f"health_solve: {ladder['rotation_2x2']}")
+    F = np.random.default_rng(seed).integers(-2, 3, (10, 10, 6)).astype(
+        np.float32)
+    F[[0, -1]] = 0.0
+    F[:, [0, -1]] = 0.0
+    expect = {
+        # the breakdown's huge α overflows the float32 update to NaN, so
+        # the restart from that iterate is NaN at entry; float64 holds the
+        # same α and breaks down again
+        "bicgstab": (["initial", "restart 1 after BREAKDOWN",
+                      "fp64 safe mode after NAN_RESIDUAL"],
+                     ["BREAKDOWN", "NAN_RESIDUAL", "BREAKDOWN"]),
+        "cg": (["initial", "escalate cg->bicgstab after NAN_RESIDUAL",
+                "fp64 safe mode after BREAKDOWN"],
+               ["NAN_RESIDUAL", "BREAKDOWN", "NAN_RESIDUAL"])}
+    for method, (reasons, outcomes) in expect.items():
+        prog = antisymmetric_program(F.shape, np.float32, F)
+        reset_stats()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            try:
+                solve(prog, "T", method=method, tol=1e-6, maxiter=50,
+                      options=opts.replace(recovery=RecoveryPolicy()))
+            except NumericalFault as e:
+                trace = e.trace
+            else:
+                raise AssertionError(f"health_solve: the rotation with "
+                                     f"{method} did not fault")
+        got = {"reasons": [a.reason.split(" (")[0] for a in trace.attempts],
+               "methods": [a.method for a in trace.attempts],
+               "dtypes": [a.dtype for a in trace.attempts],
+               "outcomes": [a.outcome for a in trace.attempts],
+               "recovery_attempts": stats.recovery_attempts,
+               "numerical_faults": stats.numerical_faults}
+        ladder[f"rotation_{method}"] = got
+        if (got["reasons"] != reasons or got["outcomes"] != outcomes
+                or got["dtypes"][-1] != "float64"
+                or got["recovery_attempts"] != len(reasons) - 1
+                or got["numerical_faults"] != 1):
+            raise AssertionError(f"health_solve: rotation {method} {got}")
+    T_over = np.full((10, 10, 6), 5.0e20, np.float32)
+    T_over[1:-1, 1:-1, 0] = 3.0e20
+    wse, T = record_btcs(T_over, 0.1)
+    reset_stats()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        x, info = solve(wse.program, T, method="cg", tol=1e-6, maxiter=200,
+                        return_info=True,
+                        options=opts.replace(recovery=RecoveryPolicy()))
+    tr = info.recovery
+    got = {"methods": [a.method for a in tr.attempts],
+           "dtypes": [a.dtype for a in tr.attempts],
+           "outcomes": [a.outcome for a in tr.attempts],
+           "x_dtype": str(x.dtype), "finite": bool(np.isfinite(x).all()),
+           "recovery_attempts": stats.recovery_attempts,
+           "numerical_faults": stats.numerical_faults}
+    ladder["overflow_fp64"] = got
+    if (got["methods"] != ["cg", "bicgstab", "cg"]
+            or got["dtypes"] != ["float32", "float32", "float64"]
+            or got["outcomes"] != ["NAN_RESIDUAL", "NAN_RESIDUAL", "CONVERGED"]
+            or not tr.succeeded or got["x_dtype"] != "float32"
+            or not got["finite"] or got["recovery_attempts"] != 2
+            or got["numerical_faults"] != 0):
+        raise AssertionError(f"health_solve: overflow ladder {got}")
+    emit({"phase": "health_solve", "seconds": time.perf_counter() - t_phase,
+          "shape": [cfg.nx, cfg.ny, cfg.nz],
+          "dtype": cfg.dtype, "tol": tol, "tol_relative": SOLVE_REL_TOL,
+          "poisoned": labeled, "healthy_with_policy": healthy,
+          "members": {"outcomes": member_outcomes,
+                      "healthy_members_bitwise": unperturbed},
+          "ladder": ladder, "fallbacks": fallbacks, "launches": counts})
+    return by_row
+
+
+def dot64(a, b) -> float:
+    """``⟨a, b⟩`` in float64 on the card."""
+    import torch
+
+    return float(torch.sum(a.double() * b.double()))
+
+
+def norm64(a) -> float:
+    import torch
+
+    return float(torch.linalg.vector_norm(a.double()))
+
+
+def event_ms(fn):
+    """``(result, ms)`` of one ``fn()`` by CUDA events on the current
+    stream (the host waits for the end)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def inverse_diffusivity(n=16, nz=8, steps=3, obs_frac=0.25, iters=150,
+                        coarse=4):
+    """``examples/inverse_diffusivity.py`` at its own size and float64 on
+    the port: recover a diffusivity on a coarse control grid by Adam
+    through ``make_differentiable_solver`` (bicgstab); returns the
+    relative parameter error and the misfits."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.field import Field
+    from repro_torch.core.program import scoped_program
+    from repro_torch.solver import make_differentiable_solver
+    from repro_torch.solver.frontend import Operator
+
+    rng = np.random.default_rng(0)
+    shape = (n, n, nz)
+    omega = 0.3
+    gx, gy = np.meshgrid(np.linspace(-1, 1, coarse),
+                         np.linspace(-1, 1, coarse), indexing="ij")
+    theta_true = 0.15 + 0.35 * np.exp(-2.0 * (gx ** 2 + gy ** 2))
+    T0 = np.zeros(shape)
+    T0[1:-1, 1:-1, 1:-1] = 1.0
+    T0 += 0.1 * rng.random(shape)
+    with scoped_program() as prog:
+        T = Field("T", init_data=T0, dtype=np.float64)
+        C = Field("kappa", shape=shape, dtype=np.float64)
+        with Operator():
+            T[1:-1, 0, 0] = T[1:-1, 0, 0] + omega * C[1:-1, 0, 0] * (
+                6.0 * T[1:-1, 0, 0]
+                - (T[2:, 0, 0] + T[:-2, 0, 0] + T[1:-1, 1, 0]
+                   + T[1:-1, -1, 0] + T[1:-1, 0, 1] + T[1:-1, 0, -1]))
+    solver = make_differentiable_solver(prog, "T", method="bicgstab",
+                                        tol=1e-12, maxiter=400, steps=steps,
+                                        device=DEV)
+
+    xs = torch.linspace(0.0, coarse - 1.0, n, dtype=torch.float64,
+                        device=DEV)
+    i0 = torch.clamp(torch.floor(xs).long(), 0, coarse - 2)
+    f = xs - i0
+
+    def upsample(theta):
+        fx, fy = f[:, None], f[None, :]
+        c = (theta[i0[:, None], i0[None, :]] * (1 - fx) * (1 - fy)
+             + theta[i0[:, None] + 1, i0[None, :]] * fx * (1 - fy)
+             + theta[i0[:, None], i0[None, :] + 1] * (1 - fx) * fy
+             + theta[i0[:, None] + 1, i0[None, :] + 1] * fx * fy)
+        return c[:, :, None].expand(shape)
+
+    mask = np.zeros(shape, bool)
+    interior = rng.random(shape) < obs_frac
+    mask[1:-1, 1:-1, 1:-1] = interior[1:-1, 1:-1, 1:-1]
+    obs = torch.tensor(mask, device=DEV)
+    truth = torch.tensor(theta_true, device=DEV)
+    with torch.no_grad():
+        y_obs = solver(T0, {"kappa": upsample(truth)})[obs]
+    theta = torch.full((coarse, coarse), 0.25, dtype=torch.float64,
+                       device=DEV, requires_grad=True)
+    m = torch.zeros_like(theta)
+    v = torch.zeros_like(theta)
+    lr, b1, b2 = 0.02, 0.9, 0.999
+    misfits = []
+    for i in range(1, iters + 1):
+        x = solver(T0, {"kappa": upsample(theta)})
+        loss = torch.sum((x[obs] - y_obs) ** 2)
+        (g,) = torch.autograd.grad(loss, theta)
+        misfits.append(loss.detach().item())
+        with torch.no_grad():
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * g * g
+            theta -= lr * (m / (1 - b1 ** i)) / (
+                torch.sqrt(v / (1 - b2 ** i)) + 1e-12)
+    rel = float(torch.linalg.vector_norm(theta.detach() - truth)
+                / torch.linalg.vector_norm(truth))
+    return {"shape": list(shape), "steps": steps, "iterations": iters,
+            "observed_cells": int(mask.sum()), "relative_error": rel,
+            "misfit_first_last": [misfits[0], misfits[-1]]}
+
+
+#: the adjoint dot-product test's bound, relative to the solve's absolute
+#: tolerance: |⟨Aᵀ⁻¹ x̄, b⟩ − ⟨x̄, A⁻¹ b⟩| ≤ ADJOINT_DOT_C · tol · (‖x̄‖ +
+#: ‖b‖), the forward and adjoint errors each at most ‖A⁻¹‖·tol with ‖A⁻¹‖
+#: ≤ 1.6 for BTCS, and margin for the float32 solves
+ADJOINT_DOT_C = 4.0
+
+
+def phase_adjoint_solve(seed: int):
+    """``make_differentiable_solver`` at ``HeatConfig()`` width, tol =
+    1e-5·‖b‖: cg, pipecg and cg + mg on BTCS (symmetric: no kernel built
+    by the backward), bicgstab on variable-coefficient BTCS (one more K1
+    build for the transposed taps); the dot-product test of each adjoint;
+    forward and backward ms; then ``examples/inverse_diffusivity.py`` at
+    its own size, float64, to a relative parameter error below 1e-2."""
+    t_phase = time.perf_counter()
+    import numpy as np
+    import torch
+
+    from repro_torch import compiler
+    from repro_torch.configs.heat3d import HeatConfig, make_field, record_implicit
+    from repro_torch.solver import make_differentiable_solver, operator_fns
+    from repro_torch.solver.presets import record_varcoef_btcs
+
+    cfg = HeatConfig()
+    T0 = make_field(cfg)
+    C0 = np.random.default_rng(seed).uniform(0.5, 1.5, T0.shape).astype(
+        np.float32)
+
+    def program(kind):
+        wse = (record_implicit(cfg) if kind == "btcs"
+               else record_varcoef_btcs(T0, C0, cfg.omega))[0]
+        wse.__exit__()
+        return wse.program
+
+    # per system: b = Rhs(T0), tol = 1e-5·‖b‖, and x̄ = b plus 10 % noise,
+    # so that ⟨x̄, A⁻¹ b⟩ is of the order of ‖b‖²/‖A‖ and the bound below
+    # a small share of it
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    systems = {}
+    for kind in ("btcs", "varcoef"):
+        _, rhs = operator_fns(program(kind), "T", backend="pallas",
+                              device=DEV)
+        b = rhs(torch.tensor(T0, device=DEV))
+        noise = torch.randn(T0.shape, generator=g, device=DEV)
+        norm_b = norm64(b)
+        systems[kind] = {"norm_b": norm_b, "tol": SOLVE_REL_TOL * norm_b,
+                         "xbar": (b + (0.1 * norm_b / norm64(noise)) * noise)}
+        del b, noise
+
+    cases = (("cg", None, "btcs"), ("pipecg", None, "btcs"),
+             ("bicgstab", None, "varcoef"), ("cg", "mg", "btcs"))
+    # --- the main path: counters to 0 just before, read just after -------
+    compiler.reset_stats()
+    reset_counts()
+    by_row, runs = {}, []
+    for method, pc, kind in cases:
+        compiler.clear_cache()
+        built0 = compiler.stats.kernels_built
+        sysm = systems[kind]
+        tol, xbar = sysm["tol"], sysm["xbar"]
+        s = make_differentiable_solver(program(kind), "T", method=method,
+                                       precondition=pc, tol=tol,
+                                       maxiter=cfg.maxiter, device=DEV)
+        built = compiler.stats.kernels_built - built0
+        x0 = torch.tensor(T0, device=DEV, requires_grad=True)
+        before = read_counts()
+        x, fwd_ms = event_ms(lambda: s(x0))
+        mid = read_counts()
+        (gx,), bwd_ms = event_ms(lambda: torch.autograd.grad(
+            torch.sum(xbar * x), x0))
+        after = read_counts()
+        built_bwd = compiler.stats.kernels_built - built0 - built
+        add_rows(by_row, k1_rows(counts_delta(before, after)))
+        lhs = dot64(gx, x0.detach())  # ⟨Rᵀ A⁻ᵀ x̄, x0⟩ = ⟨A⁻ᵀ x̄, b⟩
+        rhs = dot64(xbar, x.detach())  # ⟨x̄, A⁻¹ b⟩
+        bound = ADJOINT_DOT_C * tol * (norm64(xbar) + sysm["norm_b"])
+        run = {"method": method, "precondition": pc, "system": kind,
+               "tol": tol, "symmetric_adjoint": s.symmetric_adjoint,
+               "kernels_built_at_build": built,
+               "kernels_built_by_backward": built_bwd,
+               "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+               "dot_lhs": lhs, "dot_rhs": rhs, "dot_err": abs(lhs - rhs),
+               "dot_bound": bound,
+               "forward_launches": counts_delta(before, mid),
+               "backward_launches": counts_delta(mid, after)}
+        runs.append(run)
+        want_sym = kind == "btcs"
+        if (s.symmetric_adjoint != want_sym or built_bwd != 0
+                or run["dot_err"] > bound or not torch.isfinite(gx).all()):
+            raise AssertionError(f"adjoint_solve: {run}")
+        if kind == "varcoef" and built != 2:
+            raise AssertionError("adjoint_solve: bicgstab built "
+                                 f"{built} kernels, not forward + transposed")
+        if run["backward_launches"]["K1"] == 0 or (
+                method == "pipecg" and run["backward_launches"]["K2"] == 0) or (
+                pc == "mg" and run["backward_launches"]["K3"] == 0):
+            raise AssertionError(f"adjoint_solve: backward launches {run}")
+        del s, x, x0, gx
+    counts = read_counts()
+    counts["by_level"] = level_counts()
+    fallbacks = compiler.stats.fallbacks
+    # -----------------------------------------------------------------------
+    if fallbacks:
+        raise AssertionError(f"{fallbacks} interpreter fallbacks in the "
+                             "adjoint solves")
+    t0 = time.perf_counter()
+    inverse = inverse_diffusivity()
+    inverse["seconds"] = time.perf_counter() - t0
+    if not inverse["relative_error"] < 1e-2:
+        raise AssertionError(f"adjoint_solve: inverse problem {inverse}")
+    emit({"phase": "adjoint_solve", "card": card_line(),
+          "seconds": time.perf_counter() - t_phase,
+          "shape": list(T0.shape), "dtype": cfg.dtype,
+          "tol_relative": SOLVE_REL_TOL, "dot_test": "|<A^-T xbar, b> - "
+          "<xbar, A^-1 b>| <= 4 tol (|xbar| + |b|)", "runs": runs,
+          "inverse_diffusivity": inverse, "fallbacks": fallbacks,
+          "launches": counts,
+          "predicted": {k: PREDICTED[k] for k in PREDICTED
+                        if k == "card" or k.startswith("adjoint")}})
+    return by_row, counts["by_level"]
+
+
+#: the differentiable make's dot-product test: |⟨J v, w⟩ − ⟨v, Jᵀ w⟩| ≤
+#: MAKE_DOT_ULPS · S · eps32 · ‖v‖ · ‖w‖ — each of the S steps (a
+#: nonnegative average, ‖J‖ ≤ 1) rounds its result within a few ulp,
+#: forward (K1) and backward (the roll interpreter's VJP) alike
+MAKE_DOT_ULPS = 16
+
+
+def phase_adjoint_make(seed: int):
+    """The differentiable heat3d ``make`` (``differentiable_runner``) at
+    ``HeatConfig()`` width, float32, k = 1: its forward bitwise the
+    repacking ``make``; the checkpointed gradient of ``sum(T²)`` bitwise
+    the all-residuals one; the dot-product test ``⟨J v, w⟩ = ⟨v, Jᵀ w⟩``;
+    peak device memory of both ladders; forward and backward ms; then the
+    same on the 2×2 mesh at fewer steps (forward bitwise the single
+    device, gradient within 2 f32 ulp a step of it)."""
+    t_phase = time.perf_counter()
+    import numpy as np
+    import torch
+
+    from repro_torch import compiler
+    from repro_torch.configs.heat3d import HeatConfig, record_heat
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.engine import (RunOptions, differentiable_runner, plan,
+                                    run_program)
+
+    from torch.utils.checkpoint import checkpoint
+
+    cfg = HeatConfig()
+    mesh = make_mesh(SHARD_MESH, device=DEV)
+    eps = float(np.finfo(np.float32).eps)
+    # the first checkpoint call imports the rest of torch (about a second):
+    # not in any timed run
+    checkpoint(torch.sin, torch.ones(1, device=DEV, requires_grad=True),
+               use_reentrant=False).sum().backward()
+
+    def runner(S, m, checkpoint):
+        wse, T = record_heat(cfg, S)
+        wse.__exit__()
+        p = plan(wse.program, RunOptions(backend="pallas", time_tile=1,
+                                         mesh=m, differentiable=True,
+                                         device=DEV))
+        return differentiable_runner(p, checkpoint=checkpoint), wse.program, T
+
+    def grad_run(run, x_init, loss_fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        x = torch.tensor(x_init, device=DEV, requires_grad=True)
+        out, fwd_ms = event_ms(lambda: run({"T_n": x})["T_n"])
+        (gx,), bwd_ms = event_ms(lambda: torch.autograd.grad(loss_fn(out), x))
+        peak = torch.cuda.max_memory_allocated() - base
+        return out.detach(), gx, fwd_ms, bwd_ms, peak
+
+    # --- the main path: counters to 0 just before, read just after -------
+    compiler.reset_stats()
+    reset_counts()
+    by_row, runs = {}, {}
+    for tag, S, m in (("one", ADJOINT_MAKE_STEPS, None),
+                      ("mesh", ADJOINT_MESH_STEPS, mesh)):
+        got = {}
+        for ck in (True, False):
+            run, prog, T = runner(S, m, ck)
+            before = read_counts()
+            out, gx, fwd_ms, bwd_ms, peak = grad_run(
+                run, T.init_data, lambda o: torch.sum(o * o))
+            delta = counts_delta(before, read_counts())
+            add_rows(by_row, k1_rows(delta, bricks=m.size if m else 1))
+            got[ck] = {"out": out, "grad": gx, "forward_ms": fwd_ms,
+                       "backward_ms": bwd_ms, "peak_bytes": peak,
+                       "launches": delta}
+        runs[tag] = {"steps": S, "got": got, "prog": prog}
+    counts = read_counts()
+    fallbacks = compiler.stats.fallbacks
+    # -----------------------------------------------------------------------
+    if fallbacks:
+        raise AssertionError(f"{fallbacks} interpreter fallbacks in the "
+                             "differentiable make")
+    report = {}
+    for tag, r in runs.items():
+        S, got = r["steps"], r["got"]
+        m = mesh if tag == "mesh" else None
+        want = run_program(r["prog"], options=RunOptions(
+            backend="pallas", time_tile=1, resident=False, mesh=m,
+            device=DEV))["T_n"]
+        ck, full = got[True], got[False]
+        fwd_bitwise = np.array_equal(ck["out"].cpu().numpy(), want)
+        grad_bitwise = torch.equal(ck["grad"], full["grad"])
+        row = {"steps": S, "forward_bitwise_repacking_make": fwd_bitwise,
+               "checkpointed_grad_bitwise_all_residuals": grad_bitwise,
+               **{f"{k}_{name}": g[k] for name, g in (
+                   ("checkpointed", ck), ("all_residuals", full))
+                  for k in ("forward_ms", "backward_ms", "peak_bytes")},
+               "launches": {"checkpointed": ck["launches"],
+                            "all_residuals": full["launches"]}}
+        if not (fwd_bitwise and grad_bitwise):
+            raise AssertionError(f"adjoint_make {tag}: {row}")
+        report[tag] = row
+    # the mesh's gradient against the single device's at the same steps
+    S = ADJOINT_MESH_STEPS
+    run1, _, T = runner(S, None, True)
+    out1, g1, *_ = grad_run(run1, T.init_data, lambda o: torch.sum(o * o))
+    gm = runs["mesh"]["got"][True]
+    scale = float(g1.abs().max())
+    mesh_err = float((gm["grad"] - g1).abs().max())
+    report["mesh"].update(
+        forward_bitwise_single_device=torch.equal(gm["out"], out1),
+        grad_max_abs_err_vs_single_device=mesh_err,
+        grad_bound=2 * S * eps * scale)
+    if not report["mesh"]["forward_bitwise_single_device"] or (
+            mesh_err > 2 * S * eps * scale):
+        raise AssertionError(f"adjoint_make mesh: {report['mesh']}")
+    # the dot-product test of the one-device make (a linear map)
+    S = ADJOINT_MAKE_STEPS
+    run1, _, T = runner(S, None, True)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    v = torch.randn(T.init_data.shape, generator=gen, device=DEV)
+    with torch.no_grad():
+        jv = run1({"T_n": v})["T_n"]
+    w = jv + 0.1 * torch.randn(jv.shape, generator=gen, device=DEV)
+    _, jtw, _, _, _ = grad_run(run1, v.cpu().numpy(),
+                               lambda o: torch.sum(o * w))
+    lhs, rhs = dot64(jv, w), dot64(v, jtw)
+    bound = MAKE_DOT_ULPS * S * eps * norm64(v) * norm64(w)
+    report["dot_test"] = {"lhs": lhs, "rhs": rhs, "err": abs(lhs - rhs),
+                          "bound": bound}
+    if abs(lhs - rhs) > bound:
+        raise AssertionError(f"adjoint_make: dot test {report['dot_test']}")
+    emit({"phase": "adjoint_make", "card": card_line(),
+          "seconds": time.perf_counter() - t_phase,
+          "shape": [cfg.nx, cfg.ny, cfg.nz], "dtype": cfg.dtype,
+          "time_tile": 1, "mesh": list(SHARD_MESH), "runs": report,
+          "fallbacks": fallbacks, "launches": counts,
+          "predicted": {k: PREDICTED[k] for k in PREDICTED
+                        if k == "card" or k.startswith("adjoint_make")}})
+    return by_row
+
+
 def device_breakdown(fn, top: int = 4) -> dict:
     """Device time by kernel over one ``fn()`` under ``torch.profiler``, and
     the device's idle share: of the profiled call's wall time
@@ -3407,13 +4453,17 @@ def main() -> int:
     sharded = phase_sharded_make(args.steps, heat)
     sharded_solve_counts = phase_sharded_solve()
     region, shell = phase_overlap_make(args.steps, args.seed, heat)
+    slice14 = {"health_make": phase_health_make(args.steps, args.seed),
+               "health_solve": phase_health_solve(args.seed)}
+    slice14["adjoint_solve"], adjoint_levels = phase_adjoint_solve(args.seed)
+    slice14["adjoint_make"] = phase_adjoint_make(args.seed)
     csrc = "src/repro_torch/kernels/csrc/"
     # the solves apply their operators through the k = 1 entry, padded;
     # K2 (cg + mg), K3 and K4 run in the multigrid solves of both solve
     # phases
-    mg_levels = add_levels(add_levels(add_levels(
+    mg_levels = add_levels(add_levels(add_levels(add_levels(
         {}, solve_counts["by_level"]), mg_counts["by_level"]),
-        sharded_solve_counts["by_level"])
+        sharded_solve_counts["by_level"]), adjoint_levels)
     mesh_tag = "x".join(map(str, SHARD_MESH))
     # the sharded bricks' k = 1 launches: the sharded make's (both modes)
     # and the sharded solves' operator applications (padded)
@@ -3486,6 +4536,15 @@ def main() -> int:
              dict(legacy["K6"], launches=ftcs_counts["K6"])),
             ("K7 stencil_planes", "stencil7.cu", "src/repro/kernels/stencil7.py:140",
              dict(legacy["K7"], launches=ftcs_counts["K7"]))]
+    # the health and adjoint phases' launches, by the row they belong to
+    row_of = {"k1_padded": 0, "k1_margin": 1, "sweep": 2, "members_k1": 4,
+              "members_sweep": 5, "bricks_k1": 6, "bricks_sweep": 7,
+              "K2": 10, "K3": 11, "K4": 12}
+    for phase, by_row in slice14.items():
+        for key, n in by_row.items():
+            r = rows[row_of[key]][3]
+            r["launches"] += n
+            r.setdefault("launches_by_phase", {})[phase] = n
     missing = [name for name, _, _, r in rows if r["launches"] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on their main paths: {missing}")
@@ -3500,7 +4559,7 @@ def main() -> int:
                              "sweep_schedule_bound_ms", "k1_ms",
                              "k1_plain_ms", "k1_bound_ms", "k1_err",
                              "single_ms", "launches_by_tile", "sweep_ms",
-                             "region", "extents")
+                             "region", "extents", "launches_by_phase")
            if k in r})
         for name, src, where, r in rows]})
     print(card_line(), flush=True)

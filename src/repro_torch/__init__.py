@@ -12,7 +12,10 @@ and ``solve`` accept it and advance all members per kernel launch
 (:mod:`repro_torch.core.ensemble`).  ``RunOptions(mesh=make_mesh(...))``
 and :func:`run_sharded` run a program on a brick mesh
 (:mod:`repro_torch.core.mesh`, :mod:`repro_torch.core.halo`), one process
-driving every brick.
+driving every brick.  ``RunOptions(check_finite=N, recovery=…)`` guards a
+run's numerical health, and :func:`make_differentiable_solver` /
+``engine.differentiable_runner`` put ``torch.autograd`` through a solve or
+a time loop.
 
 >>> import numpy as np
 >>> import repro_torch as wfa
@@ -33,8 +36,9 @@ from repro_torch.core.ensemble import Ensemble, make, solve
 from repro_torch.core.halo import run_sharded
 from repro_torch.engine import RunOptions, stats
 from repro_torch.solver import (NumericalFault, Operator, RecoveryPolicy, Rhs,
-                                SolveInfo)
+                                SolveInfo, make_differentiable_solver)
 
 __all__ = ["Ensemble", "Field", "ForLoop", "NumericalFault", "Operator",
            "RecoveryPolicy", "Rhs", "RunOptions", "SolveInfo", "WFAInterface",
-           "make", "run_sharded", "solve", "stats"]
+           "make", "make_differentiable_solver", "run_sharded", "solve",
+           "stats"]

@@ -25,7 +25,8 @@ from repro_torch.compiler.ir import (MG_MIN_DIM, AffineUpdate, LoweredGroup,
                                      coarsen_operator, coarsen_shape,
                                      coarsenable, lower_group, lower_update,
                                      mg_fine_operator, mg_hierarchy,
-                                     split_regions, tile_group)
+                                     split_regions, tile_group,
+                                     transpose_taps)
 
 __all__ = [
     "MG_MIN_DIM", "AffineUpdate", "CompilerStats", "LoweredGroup",
@@ -34,5 +35,5 @@ __all__ = [
     "coarsen_operator", "coarsen_shape", "coarsenable", "compile_group",
     "compile_transfer", "lower_group", "lower_update", "mg_fine_operator",
     "mg_hierarchy", "reset_stats", "split_regions", "stats", "tile_group",
-    "try_compile",
+    "transpose_taps", "try_compile",
 ]

@@ -20,7 +20,8 @@ canonicalizes to the same seven taps regardless of how the Python spelled it.
 This is the single-device subset of the reference IR plus its multigrid
 part (level operators, re-discretization, transfer ops) and the
 interior/boundary region split of the exchange/compute overlap
-(:func:`split_regions`); the adjoint tap transpose comes with its slice.
+(:func:`split_regions`) and the adjoint's tap transpose
+(:func:`transpose_taps`).
 """
 from __future__ import annotations
 
@@ -483,6 +484,71 @@ def lower_group(ops: Sequence) -> LoweredGroup:
         updates.append(u)
         if u.field not in written:
             written.append(u.field)
+    halo = 0
+    for u in updates:
+        for t in u.taps():
+            halo = max(halo, abs(t.dx), abs(t.dy))
+    return LoweredGroup(updates=tuple(updates), halo=halo)
+
+
+def transpose_taps(group: LoweredGroup, answer: str) -> LoweredGroup:
+    """Adjoint of a lowered linear operator: transpose the tap set.
+
+    For a linear operator body in canonical form — every term one tap of
+    the unknown ``answer`` at offset ``o_x``, optionally times a coefficient
+    tap at ``o_c`` — the transposed stencil follows from re-indexing the
+    bilinear form ``<y, A x>``: the unknown tap moves to ``-o_x`` and the
+    coefficient tap to ``o_c - o_x``::
+
+        c * C[q + o_c] * x[q + o_x]   →   c * C[p + o_c - o_x] * x[p - o_x]
+
+    (X/Y offsets are periodic — the roll semantics every backend
+    implements — and the Moat/z-window row masking is the *same* for the
+    adjoint: the identity rows of ``A`` transpose to identity rows plus a
+    boundary-column correction the adjoint solver applies outside the
+    Krylov loop, see :mod:`repro_torch.solver.adjoint`.)
+
+    The result is re-canonicalized exactly like :func:`lower_update`
+    (taps sorted, like terms merged, terms sorted), so a symmetric tap set
+    maps to a ``LoweredGroup`` that compares **equal** to the input — and
+    therefore hits the *same* kernel-cache entry in
+    :func:`repro_torch.compiler.codegen.compile_group`.  Transposing twice
+    is the identity on canonical groups.
+
+    Raises :class:`LoweringError` for bodies that are not linear in
+    ``answer`` (constant addend, affine-shift terms, products of unknown
+    taps) — those have no well-defined operator transpose.
+    """
+    updates = []
+    for u in group.updates:
+        if u.field != answer:
+            raise LoweringError(
+                f"transpose_taps: update writes {u.field!r}, not the "
+                f"unknown {answer!r}")
+        if u.const != 0.0:
+            raise LoweringError(
+                f"transpose_taps: operator has a constant addend "
+                f"({u.const}); A(x) must be linear in the unknown")
+        poly: dict = {}
+        for coeff, taps in u.terms:
+            unknown = [t for t in taps if t.field == answer]
+            if len(unknown) != 1:
+                raise LoweringError(
+                    "transpose_taps: term is not linear in the unknown "
+                    f"({len(unknown)} taps of {answer!r})")
+            x = unknown[0]
+            rest = list(taps)
+            rest.remove(x)
+            new = [Tap(answer, -x.dz, -x.dx, -x.dy)] + [
+                Tap(t.field, t.dz - x.dz, t.dx - x.dx, t.dy - x.dy)
+                for t in rest
+            ]
+            key = tuple(sorted(new))
+            poly[key] = poly.get(key, 0.0) + coeff
+        terms = tuple(sorted(
+            (coeff, taps) for taps, coeff in poly.items() if coeff != 0.0))
+        updates.append(AffineUpdate(field=u.field, z0=u.z0, zlen=u.zlen,
+                                    const=0.0, terms=terms))
     halo = 0
     for u in updates:
         for t in u.taps():

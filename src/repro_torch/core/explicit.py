@@ -21,12 +21,15 @@ and differs from them by rounding.  Each ``lax.fori_loop`` of the reference
 is a Python loop; fields are torch tensors on any device, and every step
 writes fresh tensors.
 
-``ftcs_solve_checkpointed`` comes with the adjoint slice.
+:func:`ftcs_solve_checkpointed` runs the same step as :func:`ftcs_solve`
+in ``torch.utils.checkpoint`` chunks, for reverse-mode AD in O(√n) saved
+states.
 """
 from __future__ import annotations
 
 from typing import List, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -81,36 +84,74 @@ def ftcs_solve_repack(T0: torch.Tensor, w: float, steps: int) -> torch.Tensor:
     return T
 
 
+def _ftcs_zero_repack_step(T0: torch.Tensor, w: float):
+    """``step(T) -> T`` of :func:`ftcs_solve`'s loop for fields shaped as
+    ``T0``: the fixed z faces stay in place, only the inner ``(X, Y, Z−2)``
+    slab is padded in X/Y and stepped, the z neighbours are plain
+    z-slices, and the X/Y Moat is pinned by a broadcast mask."""
+    nx, ny, _ = T0.shape
+    dev = T0.device
+    row = torch.arange(nx, device=dev)[:, None, None]
+    col = torch.arange(ny, device=dev)[None, :, None]
+    mask_xy = (row > 0) & (row < nx - 1) & (col > 0) & (col < ny - 1)
+    a, b = coef(1.0 - 6.0 * w, T0.dtype), coef(w, T0.dtype)
+
+    def step(T):
+        Ti = T[:, :, 1:-1]
+        P = _pad_xy(Ti)
+        s = P[:-2, 1:-1, :] + P[2:, 1:-1, :] + P[1:-1, :-2, :] + P[1:-1, 2:, :]
+        zsum = T[:, :, :-2] + T[:, :, 2:]
+        new = torch.where(mask_xy, a * Ti + b * (s + zsum), Ti)
+        return torch.cat([T[:, :, :1], new, T[:, :, -1:]], dim=2)
+
+    return step
+
+
 def ftcs_solve(T0: torch.Tensor, w: float, steps: int) -> torch.Tensor:
     """FTCS time loop with zero-repack stepping (the same update as
     :func:`ftcs_step`, to rounding): the fixed z faces stay in place, only
     the inner ``(X, Y, Z−2)`` slab is padded in X/Y and stepped, the z
     neighbours are plain z-slices, and the X/Y Moat is pinned by a
     broadcast mask."""
-    nx, ny, nz = T0.shape
-    if nz < 3:
+    if T0.shape[2] < 3:
         return T0  # no interior z plane: every cell is boundary-pinned
-    dev = T0.device
-    row = torch.arange(nx, device=dev)[:, None, None]
-    col = torch.arange(ny, device=dev)[None, :, None]
-    mask_xy = (row > 0) & (row < nx - 1) & (col > 0) & (col < ny - 1)
-    a, b = coef(1.0 - 6.0 * w, T0.dtype), coef(w, T0.dtype)
+    step = _ftcs_zero_repack_step(T0, w)
     T = T0
     for _ in range(steps):
-        Ti = T[:, :, 1:-1]
-        P = _pad_xy(Ti)
-        s = P[:-2, 1:-1, :] + P[2:, 1:-1, :] + P[1:-1, :-2, :] + P[1:-1, 2:, :]
-        zsum = T[:, :, :-2] + T[:, :, 2:]
-        new = torch.where(mask_xy, a * Ti + b * (s + zsum), Ti)
-        T = torch.cat([T[:, :, :1], new, T[:, :, -1:]], dim=2)
+        T = step(T)
     return T
 
 
 def ftcs_solve_checkpointed(T0, w: float, steps: int, chunk: int = 0):
-    """The checkpointed reverse sweep comes with the adjoint slice."""
-    raise NotImplementedError(
-        "ftcs_solve_checkpointed is not ported yet: it comes with the adjoint "
-        "slice of the PyTorch port")
+    """:func:`ftcs_solve` with a checkpointed reverse sweep.
+
+    The same forward values (the step body is shared), structured for
+    ``torch.autograd``: the time loop runs in chunks of ``chunk`` steps
+    (default ``⌈√steps⌉``), each rematerialized by
+    ``torch.utils.checkpoint`` in the reverse pass, so the pass stores one
+    state per chunk and recomputes inside — O(√n) saved states instead of
+    the O(n) a plain differentiable loop keeps, at one extra forward pass
+    of compute.  The remainder ``steps % chunk`` runs after the chunks.
+    """
+    from torch.utils.checkpoint import checkpoint
+
+    if T0.shape[2] < 3 or steps <= 0:
+        return T0
+    if chunk <= 0:
+        chunk = max(1, int(np.ceil(np.sqrt(steps))))
+    step = _ftcs_zero_repack_step(T0, w)
+
+    def run(T, n):
+        for _ in range(n):
+            T = step(T)
+        return T
+
+    n_chunks, rem = divmod(steps, chunk)
+    T = T0
+    for _ in range(n_chunks):
+        T = checkpoint(run, T, chunk, use_reentrant=False,
+                       preserve_rng_state=False)
+    return run(T, rem)
 
 
 # ---------------------------------------------------------------------------

@@ -14,11 +14,19 @@ Every way of running a recorded WFA program dispatches through here:
 * :class:`HaloLayout` is the halo-resident layout a ``pallas`` plan steps
   on (:mod:`repro_torch.engine.layout`, with ``wrap_refresh``);
 * :data:`stats` exposes the accounting (steps, launches, halo exchanges,
-  repacks, tiles fused).
+  repacks, tiles fused, health probes and faults);
+* :mod:`~repro_torch.engine.health` holds the ``check_finite`` sentinels'
+  probe; :func:`differentiable_runner` and :func:`checkpointed_vjp` run a
+  ``RunOptions(differentiable=True)`` plan under ``torch.autograd``.
 """
 
-from repro_torch.engine.executor import (execute, run_program, sharded_runner,
-                                        single_runner)
+from repro_torch.engine import health
+from repro_torch.engine.executor import (checkpointed_vjp,
+                                         differentiable_runner, execute,
+                                         fresh_buffer, guarded_runner,
+                                         run_program,
+                                         sharded_runner, single_runner)
+from repro_torch.engine.health import NumericalFault, RecoveryPolicy
 from repro_torch.engine.layout import HaloLayout
 from repro_torch.engine.options import UNSET, RunOptions, resolve_options
 from repro_torch.engine.plan import (
@@ -39,11 +47,18 @@ __all__ = [
     "ExecutionPlan",
     "HaloLayout",
     "LevelSegment",
+    "NumericalFault",
+    "RecoveryPolicy",
     "RunOptions",
     "Segment",
     "UNSET",
+    "checkpointed_vjp",
     "compile_body",
+    "differentiable_runner",
     "execute",
+    "fresh_buffer",
+    "guarded_runner",
+    "health",
     "plan",
     "plan_mg_levels",
     "reset_stats",

@@ -3,8 +3,7 @@
 The port keeps the reference's field names and spellings, so one options
 value reads the same in both packages, and adds ``device``: the torch device
 the run uses (``"cuda"`` by default; the caller asks for ``"cpu"``
-explicitly).  Fields whose execution paths are not ported yet raise
-:class:`NotImplementedError` naming the slice that brings them.
+explicitly).
 
 The legacy keywords of ``make`` / ``plan`` still work as thin deprecation
 shims: they warn **once per entry point per keyword** and forward into the
@@ -36,12 +35,6 @@ UNSET = _Unset()
 
 #: (entry point, keyword) pairs that already warned this process
 _WARNED: Set[Tuple[str, str]] = set()
-
-
-def _later(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"RunOptions({what}) is not ported yet: it comes with the "
-        f"{slice_name} slice of the PyTorch port")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,12 +98,13 @@ class RunOptions:
                 raise TypeError(
                     "mesh must be a repro_torch.core.mesh.Mesh (make_mesh); "
                     f"got {type(self.mesh).__name__}")
-        if self.differentiable:
-            raise _later("differentiable=True", "adjoint")
-        if self.check_finite > 0:
-            raise _later(f"check_finite={self.check_finite}", "health")
         if self.recovery is not None:
-            raise _later("recovery=...", "health")
+            from repro_torch.solver.health import RecoveryPolicy
+
+            if not isinstance(self.recovery, RecoveryPolicy):
+                raise TypeError(
+                    "recovery must be a repro_torch.solver.health."
+                    f"RecoveryPolicy; got {type(self.recovery).__name__}")
 
     def replace(self, **changes) -> "RunOptions":
         """A copy with ``changes`` applied (``dataclasses.replace``)."""

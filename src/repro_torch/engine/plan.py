@@ -42,6 +42,11 @@ records its shells in ``Segment.split``.  ``overlap="auto"`` keeps the
 monolithic launch, as the reference does without a calibrated cost model;
 so does ``overlap=False``.
 
+Differentiation: ``RunOptions(differentiable=True)`` plans no resident
+layout (every fused body on the repacking step, fresh outputs per launch),
+so the inputs of every launch survive as the saved inputs of
+:func:`repro_torch.engine.executor.differentiable_runner`'s reverse pass.
+
 Meshes: ``RunOptions(mesh=…)`` (a :class:`repro_torch.core.mesh.Mesh`)
 plans every body for the mesh's bricks — fused bodies through
 :func:`repro_torch.compiler.codegen.compile_group_sharded` (one K1 launch
@@ -124,6 +129,9 @@ class ExecutionPlan:
     layout: Optional[HaloLayout] = None
     batch: int = 1  # leading member axis every env tensor carries (if > 1)
     mesh: Optional[Mesh] = None  # the bricks' mesh; None on one device
+    #: built for reverse-mode AD: repacking steps only, no halo-resident
+    #: layout — see RunOptions.differentiable
+    differentiable: bool = False
 
 
 def resolve_device(device) -> torch.device:
@@ -421,7 +429,10 @@ def plan(
         scheduled.append((loop, ops, group, k, reason))
 
     pad = 0
-    if options.resident and backend == "pallas":
+    if options.resident and backend == "pallas" and not options.differentiable:
+        # a differentiable plan keeps the repacking steps: the resident
+        # layout's ping-pong outputs and margin rewrites reuse buffers that
+        # a reverse pass keeps as saved inputs
         pad = max((k * g.halo for _, _, g, k, _ in scheduled if g is not None),
                   default=0)
     layout = HaloLayout(pad=pad, shapes=shapes)
@@ -479,4 +490,4 @@ def plan(
     )
     return ExecutionPlan(program=program, backend=backend, device=device,
                          segments=segments, layout=layout, batch=options.batch,
-                         mesh=mesh)
+                         mesh=mesh, differentiable=options.differentiable)

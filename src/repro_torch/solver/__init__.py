@@ -22,10 +22,13 @@ The port of ``repro.solver``, on one device or the bricks of a mesh:
 5. :mod:`~repro_torch.solver.presets` — canonical recorded systems (BTCS
    heat, variable-coefficient diffusion, Dirichlet Poisson).
 
-The adjoint (differentiable solves) comes with its own slice.
+6. :mod:`~repro_torch.solver.adjoint` — reverse-mode AD through a solve
+   (the implicit-function-theorem adjoint: one transposed Krylov solve on
+   the same compiled kernels).
 """
 
 from repro_torch.solver import health, krylov
+from repro_torch.solver.adjoint import ADJOINT_METHODS, make_differentiable_solver
 from repro_torch.solver.api import (
     SolveInfo,
     gershgorin_bounds,
@@ -52,6 +55,7 @@ from repro_torch.solver.presets import (
 )
 
 __all__ = [
+    "ADJOINT_METHODS",
     "GuardConfig",
     "MGOptions",
     "Multigrid",
@@ -67,6 +71,7 @@ __all__ = [
     "gershgorin_bounds",
     "health",
     "krylov",
+    "make_differentiable_solver",
     "make_sharded_solver",
     "make_solver",
     "operator_fns",

@@ -26,9 +26,13 @@ one masked Krylov loop (:mod:`repro_torch.solver.krylov`'s ``*_batched``
 variants), the operator one K1 launch for all members.
 ``RunOptions(mesh=…)`` solves on the bricks of a mesh
 (:func:`make_sharded_solver`): the same Krylov loops on
-:class:`~repro_torch.core.mesh.BrickArray` vectors.  The adjoint and the
-recovery ladder come with their slices and raise ``NotImplementedError``
-here.
+:class:`~repro_torch.core.mesh.BrickArray` vectors.
+``RunOptions(recovery=RecoveryPolicy(…))`` drives the bounded escalation
+ladder on a failed single-device solve (:func:`_recover_solve`: restart,
+cg/pipecg → bicgstab, one float64 re-solve), and
+``RunOptions(differentiable=True)`` / ``make_solver(differentiable=True)``
+route through the implicit-function-theorem adjoint
+(:mod:`repro_torch.solver.adjoint`).
 """
 
 from __future__ import annotations
@@ -63,8 +67,9 @@ class SolveInfo:
 
     ``outcomes`` holds the :mod:`repro_torch.solver.health` taxonomy name
     per time step (``CONVERGED`` / ``MAXITER`` / ``NAN_RESIDUAL`` /
-    ``BREAKDOWN`` / ``STAGNATED`` / ``DIVERGED``); ``recovery`` stays None
-    until the recovery ladder is ported.  On a batched solve (``batch=B >
+    ``BREAKDOWN`` / ``STAGNATED`` / ``DIVERGED``); ``recovery`` is the
+    :class:`~repro_torch.solver.health.RecoveryTrace` of a solve the
+    recovery ladder rescued (None otherwise).  On a batched solve (``batch=B >
     1``) ``iterations``, ``residual`` and ``outcomes`` carry a trailing
     member axis, shape ``(steps, B)``, with each member's own count."""
 
@@ -74,12 +79,6 @@ class SolveInfo:
     residual: np.ndarray  # (steps,) or (steps, B) final ‖r‖
     outcomes: Optional[np.ndarray] = None  # (steps,) or (steps, B) names
     recovery: Optional["health.RecoveryTrace"] = None
-
-
-def _later(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with the {slice_name} slice of "
-        "the PyTorch port")
 
 
 # ---------------------------------------------------------------------------
@@ -293,18 +292,14 @@ def _written_mask(group, shape) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def _make_runner(
+def _method_runner(
     *,
     method: str,
     name: str,
-    coef_names,
-    op_step: Callable,
-    rhs_step: Optional[Callable],
     dot: Callable,
     dot2: Callable,
     tol: float,
     maxiter: int,
-    steps: int,
     bounds,
     group,
     jacobi_mask: Optional[torch.Tensor],
@@ -312,23 +307,11 @@ def _make_runner(
     M: Optional[Callable] = None,
     batch: int = 1,
 ):
-    """Solve loop: ``run(x0, *coefs) -> (x, (iters, res, outcomes))``.
-
-    Per time step the ``Rhs()`` body produces ``b`` from the state (the
-    identity when none was recorded) and the method solves ``A x = b``
-    warm-started at the state; the reference's ``lax.scan`` over steps is a
-    Python loop.  ``mg`` carries the compiled
-    :class:`~repro_torch.solver.multigrid.Multigrid` for ``method="mg"``;
-    ``M`` is the preconditioner action for CG/BiCGSTAB; ``jacobi_mask``
-    marks the cells the operator writes (``method="jacobi"`` only).  ``iters`` and
-    ``outcomes`` are int32 arrays of shape ``(steps,)``, ``res`` the final
-    ``‖r‖`` per step in the dots' accumulation dtype.
-
-    ``batch=B > 1`` routes the Krylov methods to their masked batched
-    variants (``dot``/``dot2`` then reduce to ``(B,)`` vectors) and gives
-    the fixed-count methods' shared iteration count to every member, so
-    all three arrays are ``(steps, B)``.
-    """
+    """``run_method(A, b, x0, envc) -> (x, iterations, ‖r‖, outcome)``: one
+    solve of ``A x = b`` warm-started at ``x0`` with ``method`` (``envc``,
+    the coefficient env, serves Jacobi's diagonal).  Shared by the forward
+    solves of :func:`_make_runner` and the adjoint solves of
+    :mod:`repro_torch.solver.adjoint`."""
 
     def run_method(A, b, x0, envc):
         if method == "mg":
@@ -372,6 +355,50 @@ def _make_runner(
             rnorm2=lambda x: dot(b - A(x), b - A(x)),
             tol=tol,
         )
+
+    return run_method
+
+
+def _make_runner(
+    *,
+    method: str,
+    name: str,
+    coef_names,
+    op_step: Callable,
+    rhs_step: Optional[Callable],
+    dot: Callable,
+    dot2: Callable,
+    tol: float,
+    maxiter: int,
+    steps: int,
+    bounds,
+    group,
+    jacobi_mask: Optional[torch.Tensor],
+    mg=None,
+    M: Optional[Callable] = None,
+    batch: int = 1,
+):
+    """Solve loop: ``run(x0, *coefs) -> (x, (iters, res, outcomes))``.
+
+    Per time step the ``Rhs()`` body produces ``b`` from the state (the
+    identity when none was recorded) and the method solves ``A x = b``
+    warm-started at the state; the reference's ``lax.scan`` over steps is a
+    Python loop.  ``mg`` carries the compiled
+    :class:`~repro_torch.solver.multigrid.Multigrid` for ``method="mg"``;
+    ``M`` is the preconditioner action for CG/BiCGSTAB; ``jacobi_mask``
+    marks the cells the operator writes (``method="jacobi"`` only).  ``iters`` and
+    ``outcomes`` are int32 arrays of shape ``(steps,)``, ``res`` the final
+    ``‖r‖`` per step in the dots' accumulation dtype.
+
+    ``batch=B > 1`` routes the Krylov methods to their masked batched
+    variants (``dot``/``dot2`` then reduce to ``(B,)`` vectors) and gives
+    the fixed-count methods' shared iteration count to every member, so
+    all three arrays are ``(steps, B)``.
+    """
+    run_method = _method_runner(
+        method=method, name=name, dot=dot, dot2=dot2, tol=tol,
+        maxiter=maxiter, bounds=bounds, group=group, jacobi_mask=jacobi_mask,
+        mg=mg, M=M, batch=batch)
 
     def run(x0, *coef_args):
         envc = dict(zip(coef_names, coef_args))
@@ -425,6 +452,34 @@ def _build_step(ops, loop, program: Program, backend: str, device,
     step, _ = compile_body(ops, loop, shapes, dtypes, backend, device=device,
                            batch=batch)
     return step
+
+
+def _dots(backend: str, batch: int = 1):
+    """``(dot, dot2)`` of a single-device solve.
+
+    Dots accumulate in ``promote(dtype, float32)``, as the reference's do:
+    a float32 field keeps float32 sums, a float64 one float64 sums; a
+    batched solve reduces each member over its (X, Y, Z) axes.  ``dot2``
+    is the fused dual-dot kernel K2 on the card with ``backend="pallas"``
+    (its plain version on the host; unlike the reference, no interpret-mode
+    switch decides) and two ``dot``s otherwise."""
+    dims = (1, 2, 3) if batch > 1 else None
+
+    def dot(a, b):
+        acc = torch.promote_types(a.dtype, torch.float32)
+        if dims is None:
+            return torch.sum(a * b, dtype=acc)
+        return torch.sum(a * b, dim=dims, dtype=acc)
+
+    def dot2(a, b, c, d):
+        from repro_torch.kernels import ops as kops
+
+        if backend == "pallas" and batch == 1:
+            part = kops.dual_dot(a, b, c, d)  # one fused operand sweep
+            return part[0], part[1]
+        return dot(a, b), dot(c, d)
+
+    return dot, dot2
 
 
 def operator_fns(program: Program, answer, backend: str = "jit", device="cuda"):
@@ -511,12 +566,48 @@ def make_solver(
     ``member_env`` then holds ``(B, X, Y, Z)`` stacks for coefficient fields
     (the others broadcast from their init data).  Multigrid is not
     batch-aware: ``method="mg"`` and ``precondition=`` raise ``ValueError``
-    with ``batch > 1``.  ``differentiable=True`` comes with a later slice.
+    with ``batch > 1``.
+
+    ``differentiable=True`` returns a solver that is reverse-mode
+    differentiable via the implicit-function-theorem adjoint
+    (:mod:`repro_torch.solver.adjoint`): the same ``step_fn(x0) -> (x,
+    (iters, res, outcomes))`` contract, with ``x`` carrying an autograd
+    graph back to ``x0`` and the coefficient fields.  Requires ``batch=1``
+    and a Krylov/mg method; non-affine operator bodies raise instead of
+    falling back to the interpreter.
     """
     from repro_torch.engine import resolve_device
 
     if differentiable:
-        raise _later("make_solver(differentiable=True)", "adjoint")
+        if batch > 1:
+            raise ValueError(
+                "differentiable solves need batch=1 (vmap the returned "
+                "solver for ensembles of gradients)"
+            )
+        from repro_torch.solver.adjoint import make_differentiable_solver
+
+        member_env = member_env or {}
+        solve_fn = make_differentiable_solver(
+            program,
+            answer,
+            method=method,
+            backend="pallas" if backend is None else backend,
+            tol=tol,
+            maxiter=maxiter,
+            steps=steps,
+            precondition=precondition,
+            mg_opts=mg_opts,
+            return_info=True,
+            device=device,
+        )
+
+        def diff_step_fn(x0):
+            coef = {n: member_env[n] for n in solve_fn.coef_names
+                    if n in member_env}
+            return solve_fn(x0, coef)
+
+        diff_step_fn.symmetric_adjoint = solve_fn.symmetric_adjoint
+        return diff_step_fn
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; expected one of {METHODS}")
     _check_precondition(method, precondition)
@@ -566,32 +657,7 @@ def make_solver(
     mask = (torch.tensor(_written_mask(group, shape), device=device)
             if method == "jacobi" else None)
 
-    # dots accumulate in promote(dtype, float32), as the reference's do: a
-    # float32 field keeps float32 sums, a float64 one float64 sums; a
-    # batched solve reduces each member over its (X, Y, Z) axes
-    if batch > 1:
-
-        def dot(a, b):
-            return torch.sum(a * b, dim=(1, 2, 3),
-                             dtype=torch.promote_types(a.dtype, torch.float32))
-
-    else:
-
-        def dot(a, b):
-            return torch.sum(a * b,
-                             dtype=torch.promote_types(a.dtype, torch.float32))
-
-    def dot2(a, b, c, d):
-        from repro_torch.kernels import ops as kops
-
-        # the fused dual-dot kernel K2 on the card (its plain version on the
-        # host); unlike the reference, no interpret-mode switch decides.  A
-        # batched solve sums per member, as the reference's does
-        if backend == "pallas" and batch == 1:
-            part = kops.dual_dot(a, b, c, d)  # one fused operand sweep
-            return part[0], part[1]
-        return dot(a, b), dot(c, d)
-
+    dot, dot2 = _dots(backend, batch)
     run = _make_runner(
         method=method,
         name=name,
@@ -784,6 +850,134 @@ def make_sharded_solver(
 
 
 # ---------------------------------------------------------------------------
+# recovery ladder (bounded, logged escalation on failed solves)
+# ---------------------------------------------------------------------------
+
+
+def _cast_program(program: Program, dtype) -> Program:
+    """Shallow dtype-cast view of a recorded program (fp64 safe mode).
+
+    Ops reference fields by name, so sharing the op list with replica
+    ``Field`` objects (same names/shapes, cast dtype + init data) is enough
+    to rebuild every solver at the new precision.
+    """
+    import copy
+
+    clone = Program.__new__(Program)
+    clone.fields = {}
+    clone.ops = program.ops
+    clone._loop_stack = []
+    for n, f in program.fields.items():
+        f2 = copy.copy(f)
+        f2.init_data = np.asarray(f.init_data, dtype)
+        f2.dtype = f2.init_data.dtype
+        clone.fields[n] = f2
+    return clone
+
+
+def _fetch4(step_fn, x0, mesh=None):
+    """Run one solver attempt and land its 4 outputs on the host (the
+    solution gathered from the bricks on a mesh)."""
+    x, (iters, res, outs) = step_fn(x0)
+    x = x.gather("cpu") if mesh is not None else x
+    return (x.detach().cpu().numpy(), np.asarray(iters), np.asarray(res),
+            np.asarray(outs))
+
+
+def _record_attempt(trace, method, dtype, outs, iters, res, reason):
+    trace.record(
+        method,
+        np.dtype(dtype).name,
+        health.outcome_name(health.worst(outs)),
+        int(np.sum(iters)),
+        float(np.asarray(res).ravel()[-1]),
+        reason,
+    )
+
+
+def _recover_solve(program, name, first, x0, policy, kwargs):
+    """Drive the escalation ladder after a failed first attempt.
+
+    Rungs (each at most once, every attempt logged): same-method restart
+    from the current iterate on BREAKDOWN (a fresh BiCGSTAB shadow residual
+    is the textbook cure), cg/pipecg → bicgstab escalation, one fp64
+    safe-mode re-solve.  Every rung runs on the first attempt's device
+    (``kwargs["device"]``).  Torch has no global x64 switch: the fp64 rung
+    casts the program and ``member_env`` to float64 and builds a new
+    solver, whose dots then accumulate in float64 (K2 included).  Returns
+    ``((x, iters, res, outs), trace)`` on success; raises
+    :class:`~repro_torch.solver.health.NumericalFault` carrying the
+    populated trace when the ladder is exhausted.
+    """
+    from repro_torch.engine.stats import stats as engine_stats
+
+    method = kwargs["method"]
+    member_env = kwargs["member_env"]
+    dtype = program.fields[name].dtype
+    trace = health.RecoveryTrace()
+    x, iters, res, outs = first
+    _record_attempt(trace, method, dtype, outs, iters, res, "initial")
+
+    def failed(o):
+        return health.any_failure(o, on_maxiter=policy.on_maxiter)
+
+    def _attempt(kw, prog, start, reason, cast=None):
+        nonlocal x, iters, res, outs
+        engine_stats.recovery_attempts += 1
+        solver = make_solver(prog, name, **kw)
+        x, iters, res, outs = _fetch4(solver, start)
+        if cast is not None:
+            x = x.astype(cast)
+        _record_attempt(
+            trace, kw["method"], prog.fields[name].dtype, outs, iters, res, reason
+        )
+        log.warning("solve recovery: %s", trace.summary()[-1])
+        return not failed(outs)
+
+    # rung 1: restart from the current iterate (BREAKDOWN only)
+    restarts = 0
+    while (
+        failed(outs)
+        and health.worst(outs) == health.BREAKDOWN
+        and restarts < policy.max_restarts
+    ):
+        restarts += 1
+        if _attempt(kwargs, program, x, f"restart {restarts} after BREAKDOWN"):
+            return (x, iters, res, outs), trace
+
+    # rung 2: method escalation (symmetric methods → bicgstab)
+    if failed(outs) and policy.escalate and method in ("cg", "pipecg"):
+        why = health.outcome_name(health.worst(outs))
+        kw2 = dict(kwargs, method="bicgstab", precondition=None)
+        if _attempt(kw2, program, x0, f"escalate {method}->bicgstab after {why}"):
+            return (x, iters, res, outs), trace
+
+    # rung 3: one fp64 safe-mode re-solve of the original system
+    if failed(outs) and policy.safe_mode_fp64 and dtype != np.float64:
+        why = health.outcome_name(health.worst(outs))
+        p64 = _cast_program(program, np.float64)
+        kw64 = dict(kwargs, member_env={
+            k: np.asarray(v, np.float64) for k, v in member_env.items()})
+        if _attempt(kw64, p64, np.asarray(x0, np.float64),
+                    f"fp64 safe mode after {why}", cast=dtype):
+            return (x, iters, res, outs), trace
+
+    engine_stats.numerical_faults += 1
+    worst_name = health.outcome_name(health.worst(outs))
+    # the taxonomy lands on stats even when the ladder is exhausted — a
+    # fault must leave the same forensic trail a success does
+    engine_stats.solve_outcomes = tuple(
+        str(v) for v in np.unique(health.outcome_names(outs))
+    )
+    raise health.NumericalFault(
+        f"solve({method}) failed with {worst_name} after "
+        f"{len(trace.attempts)} attempt(s): {'; '.join(trace.summary())}",
+        outcome=worst_name,
+        trace=trace,
+    )
+
+
+# ---------------------------------------------------------------------------
 # one-shot entry point (WFAInterface.solve lands here)
 # ---------------------------------------------------------------------------
 
@@ -822,7 +1016,19 @@ def solve(
     ``repro_torch.engine.stats.member_iterations``.  ``options.mesh`` (or
     the legacy ``mesh=``) solves on the bricks of a
     :class:`~repro_torch.core.mesh.Mesh` (:func:`make_sharded_solver`);
-    a mesh with ``batch > 1`` raises ``ValueError``.
+    a mesh with ``batch > 1`` or ``differentiable=True`` raises
+    ``ValueError``.
+
+    ``options.recovery=RecoveryPolicy(…)`` drives the escalation ladder
+    (:func:`_recover_solve`) when a single-device, unbatched solve ends in
+    a failure word; ``info.recovery`` then holds its trace.  Sharded,
+    batched and differentiable solves get no ladder and raise
+    :class:`~repro_torch.solver.health.NumericalFault` with a one-attempt
+    trace.  ``options.differentiable=True`` routes through the
+    implicit-function-theorem adjoint (:mod:`repro_torch.solver.adjoint`):
+    the eager result is numerically the same, and the underlying solver
+    (``make_solver(..., differentiable=True)``) is reverse-mode
+    differentiable.
 
     The initial guess is the unknown field's init data (its Moat must carry
     the boundary values, as in the explicit path).  ``tol`` bounds the
@@ -863,6 +1069,11 @@ def solve(
         raise ValueError(
             "batched solves are single-device; drop mesh= or set batch=1"
         )
+    if options.differentiable and mesh is not None:
+        raise ValueError(
+            "differentiable solves are single-device; drop mesh= (shard the "
+            "forward solve only, or take gradients with mesh=None)"
+        )
     name = _answer_name(program, answer)
     member_env = member_env or {}
     kwargs = dict(
@@ -882,13 +1093,39 @@ def solve(
         _mesh_device(mesh, options.device)
         step_fn, _ = make_sharded_solver(program, name, mesh, **kwargs)
     else:
-        step_fn = make_solver(program, name, device=options.device,
-                              batch=batch, **kwargs)
+        kwargs["device"] = options.device
+        step_fn = make_solver(program, name, batch=batch,
+                              differentiable=options.differentiable, **kwargs)
     x0 = np.asarray(member_env.get(name, program.fields[name].init_data))
     if batch > 1 and x0.ndim == 3:
         x0 = np.broadcast_to(x0, (batch,) + x0.shape).copy()
-    x, (iters, res, outs) = step_fn(x0)
-    x = x.gather("cpu").numpy() if mesh is not None else x.cpu().numpy()
+    x, iters, res, outs = _fetch4(step_fn, x0, mesh)
+    trace = None
+    recovery = options.recovery
+    if recovery is not None and health.any_failure(
+        outs, on_maxiter=recovery.on_maxiter
+    ):
+        if mesh is not None or batch > 1 or options.differentiable:
+            # no escalation ladder off the plain path — still fail loud
+            engine_stats.numerical_faults += 1
+            trace = health.RecoveryTrace()
+            _record_attempt(
+                trace, method, program.fields[name].dtype, outs, iters, res,
+                "initial",
+            )
+            worst_name = health.outcome_name(health.worst(outs))
+            engine_stats.solve_outcomes = tuple(
+                str(v) for v in np.unique(health.outcome_names(outs))
+            )
+            raise health.NumericalFault(
+                f"solve({method}) failed with {worst_name} (no recovery "
+                "ladder for sharded/batched/differentiable solves)",
+                outcome=worst_name,
+                trace=trace,
+            )
+        (x, iters, res, outs), trace = _recover_solve(
+            program, name, (x, iters, res, outs), x0, recovery, kwargs
+        )
     engine_stats.solve_outcomes = tuple(
         str(v) for v in np.unique(health.outcome_names(outs))
     )
@@ -903,6 +1140,7 @@ def solve(
             iterations=iters,
             residual=res,
             outcomes=health.outcome_names(outs),
+            recovery=trace,
         )
         return x, info
     return x

@@ -68,7 +68,16 @@ Without a card every test skips.  Tolerances:
   repacking), K1 launched once per brick per engine launch through the
   route its tile names; a resident sharded step makes no device
   allocation; sharded solves (cg, pipecg with K2 per brick) within
-  ``3.2·tol`` of the single-device solve on the card.
+  ``3.2·tol`` of the single-device solve on the card;
+* numerical health and the adjoint: a guarded resident ``make``
+  (``check_finite``) bitwise the unguarded one at k = 1 and 8, with the
+  same K1 launches and the reference's probe count, and a mid-run overflow
+  faulting with ``last_good`` bitwise the unguarded run at the last good
+  probe; the differentiable runner's forward on K1 (no fallback), bitwise
+  the repacking ``make``, its checkpointed gradient bitwise the
+  all-residuals one; the symmetric adjoint (cg, pipecg) building no kernel
+  across the backward, its float64 gradient within ``1e-8·max|g|`` of the
+  CPU's (both solved to 1e-11: another dot order, the same tolerance).
 
 The bodies of :data:`K1_BODIES` are shared with ``test_torch_k1.py``, which
 holds their plain version against the JAX reference on the CPU.
@@ -1222,3 +1231,126 @@ def test_cuda_overlap_make_equals_monolithic():
             grown[steps] = (torch.cuda.memory_stats()["allocation.all.allocated"]
                             - a0)
         assert grown[16] == grown[8], (tt, mesh, grown)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("time_tile", [1, 8])
+def test_cuda_guarded_resident_make_equals_unguarded(time_tile):
+    """A guarded resident ``make`` (``check_finite=16``) on the card equals
+    the unguarded one bit for bit, with the same K1 launches and the
+    reference's probes (entry, one per full chunk, one for the tail); a
+    cell overflowing mid-run faults with ``last_good`` equal to the
+    unguarded run at the last probed step."""
+    _need_card()
+    import warnings
+
+    from repro_torch.engine import reset_stats, stats
+    from repro_torch.solver import NumericalFault
+
+    T0 = np.random.default_rng(27).uniform(300.0, 500.0,
+                                           (64, 48, 12)).astype(np.float32)
+    out, launches = {}, {}
+    for check in (0, 16):
+        wse, T = _heat_member(T0, 40)
+        reset_stats()
+        before = launch_fused.launches
+        out[check] = wse.make(answer=T, options=RunOptions(
+            backend="pallas", time_tile=time_tile, check_finite=check))
+        launches[check] = launch_fused.launches - before
+        if check:
+            assert stats.health_probes == 1 + 3  # 16 + 16 + 8 steps
+    np.testing.assert_array_equal(out[16], out[0])
+    assert launches[16] == launches[0] > 0
+
+    def grow(steps):
+        wse = port_core.WSE_Interface()
+        A = port_core.WSE_Array("A", init_data=init)
+        with port_core.WSE_For_Loop("t", steps):
+            A[1:-1, 0, 0] = 2.0 * A[1:-1, 0, 0] + 0.125 * (
+                A[2:, 0, 0] + A[:-2, 0, 0] + A[1:-1, 1, 0] + A[1:-1, -1, 0])
+        return wse, A
+
+    init = np.ones((64, 48, 12), np.float32)
+    init[30, 20, 6] = 3.0e38 / 2.5 ** 20
+    opts = RunOptions(backend="pallas", time_tile=time_tile, check_finite=8)
+    wse, A = grow(40)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        with pytest.raises(NumericalFault) as exc:
+            wse.make(answer=A, options=opts)
+        wse.__exit__()
+    good = int(str(exc.value).split("last finite probe at step ")[1]
+               .rstrip(")"))
+    assert 0 < good < exc.value.step
+    wse, A = grow(good)
+    want = wse.make(answer=A, options=opts.replace(check_finite=0))
+    np.testing.assert_array_equal(exc.value.last_good["A"], want)
+
+
+@pytest.mark.cuda
+def test_cuda_differentiable_make_forward_on_k1():
+    """The differentiable runner's forward runs K1 (no interpreter
+    fallback), gives the repacking ``make``'s bits, and its checkpointed
+    gradient equals the all-residuals one."""
+    _need_card()
+    from repro_torch import compiler
+    from repro_torch.engine import differentiable_runner, plan
+
+    T0 = np.random.default_rng(28).uniform(300.0, 500.0,
+                                           (64, 48, 12)).astype(np.float32)
+    w = torch.randn(64, 48, 12, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(5))
+    wse, T = _heat_member(T0, 13)
+    prog = wse.program
+    want = wse.make(answer=T, options=RunOptions(
+        backend="pallas", time_tile=4, resident=False))
+    grads = {}
+    for ck in (True, False):
+        compiler.reset_stats()
+        p = plan(prog, RunOptions(backend="pallas", time_tile=4,
+                                  differentiable=True))
+        run = differentiable_runner(p, checkpoint=ck)
+        x = torch.tensor(T0, device="cuda", requires_grad=True)
+        before = launch_fused.launches
+        out = run({"T": x})["T"]
+        assert launch_fused.launches - before == 3 + 1  # 3 tiles + 1 step
+        assert compiler.stats.fallbacks == 0
+        np.testing.assert_array_equal(out.detach().cpu().numpy(), want)
+        (grads[ck],) = torch.autograd.grad(torch.sum(w * out), x)
+    assert torch.equal(grads[True], grads[False])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["cg", "pipecg"])
+def test_cuda_symmetric_adjoint_builds_no_kernel(method):
+    """The symmetric adjoint's backward solve runs K1 (and K2 for pipecg)
+    from the forward's cache entry: no kernel is built across the
+    backward, and the gradient matches the one on the CPU."""
+    _need_card()
+    from repro_torch import compiler
+    from repro_torch.core.field import Field
+    from repro_torch.core.program import scoped_program
+    from repro_torch.solver import make_differentiable_solver
+    from repro_torch.solver.presets import _record_btcs_body
+
+    T0 = heat_init((33, 29, 10)).astype(np.float64)
+    with scoped_program() as prog:
+        _record_btcs_body(Field("T", init_data=T0, dtype=np.float64), 0.2)
+    w = np.random.default_rng(29).normal(size=T0.shape)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        s = make_differentiable_solver(prog, "T", method=method, tol=1e-11,
+                                       maxiter=400, device=dev)
+        assert s.symmetric_adjoint
+        built = compiler.stats.kernels_built
+        x = torch.tensor(T0, device=dev, requires_grad=True)
+        before = launch_fused.launches
+        loss = torch.sum(torch.tensor(w, device=dev) * s(x))
+        fwd = launch_fused.launches
+        (g,) = torch.autograd.grad(loss, x)
+        assert compiler.stats.kernels_built == built
+        if dev == "cuda":
+            assert fwd > before and launch_fused.launches > fwd
+        grads[dev] = g.cpu().numpy()
+    scale = np.abs(grads["cpu"]).max()
+    assert np.abs(grads["cuda"] - grads["cpu"]).max() <= 1e-8 * scale

@@ -131,11 +131,18 @@ def test_auto_tile_matches_reference():
 
 
 def test_options_of_later_slices_raise():
-    for field, value, later in (
-            ("differentiable", True, "adjoint"),
-            ("check_finite", 5, "health"), ("recovery", object(), "health")):
-        with pytest.raises(NotImplementedError, match=f"{later} slice"):
-            RunOptions(**{field: value})
+    """Every option of the reference is ported now: the health and adjoint
+    options build (a recovery that is not a RecoveryPolicy is refused, as
+    the reference refuses it), the overlap and the mesh as before."""
+    from repro_torch.solver import RecoveryPolicy
+
+    opts = RunOptions(differentiable=True, check_finite=5,
+                      recovery=RecoveryPolicy(), device="cpu")
+    assert (opts.differentiable, opts.check_finite) == (True, 5)
+    with pytest.raises(TypeError, match="RecoveryPolicy"):
+        RunOptions(recovery=object())
+    with pytest.raises(ValueError, match="check_finite"):
+        RunOptions(check_finite=-1)
     # the overlap slice is in: overlap=True is an ordinary option now
     assert RunOptions(overlap=True, device="cpu").overlap is True
     # the sharding slice is in: a mesh must be the port's own Mesh

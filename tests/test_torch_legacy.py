@@ -458,9 +458,10 @@ def test_mesh_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_unported_entry_points_name_their_slices():
-    """The adjoint still raises, naming its slice; the sharded implicit
-    shim now returns a working step (one BTCS step on a 1×1 mesh equals
-    the single-device ``btcs_solve`` to solver tolerance)."""
+    """Every entry point is ported now: the sharded implicit shim returns a
+    working step (one BTCS step on a 1×1 mesh equals the single-device
+    ``btcs_solve`` to solver tolerance), and the checkpointed FTCS loop
+    of the adjoint slice gives ``ftcs_solve``'s bits."""
     mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
     T0 = heat_init(SHAPE)
     with warnings.catch_warnings():
@@ -472,5 +473,7 @@ def test_unported_entry_points_name_their_slices():
     got = step(device_put(T0, sharding))
     assert got.shape == SHAPE
     assert np.abs(device_get(got) - want.numpy()).max() < 5e-3
-    with pytest.raises(NotImplementedError, match="adjoint slice"):
-        explicit.ftcs_solve_checkpointed(torch.zeros(SHAPE), OMEGA, 4)
+    # the adjoint slice is in: the checkpointed loop gives ftcs_solve's bits
+    T0 = torch.tensor(heat_init(SHAPE))
+    assert torch.equal(explicit.ftcs_solve_checkpointed(T0, OMEGA, 4),
+                       explicit.ftcs_solve(T0, OMEGA, 4))

@@ -38,8 +38,9 @@ SHAPE_BRICKS = [(3, 7, 9), (6, 10, 5), (7, 130, 12), (70, 37, 130),
                 (256, 256, 128), (512, 512, 128)]
 #: the ragged bricks, small enough for the reference in interpret mode
 SMALL_BRICKS = SHAPE_BRICKS[:4]
-#: names of ``repro`` that later slices of the port bring (differentiation)
-LATER_SLICES = {"make_differentiable_solver"}
+#: names of ``repro`` that later slices of the port bring (none: the
+#: differentiation slice brought ``make_differentiable_solver``)
+LATER_SLICES = set()
 
 
 def _tiles(extent, size, tiles):

@@ -387,17 +387,19 @@ def test_solve_defaults_to_the_card(monkeypatch):
 
 
 def test_later_slices_raise():
+    """The adjoint and health slices are in: make_solver(differentiable=True)
+    builds the adjoint solver and RunOptions takes a RecoveryPolicy."""
     wse, T = port_solver.record_btcs(heat_init((6, 6, 6)), OMEGA)
     prog = wse.program
     wse.__exit__()
-    for kw, slice_name in (({"differentiable": True}, "adjoint"),):
-        with pytest.raises(NotImplementedError, match=slice_name):
-            port_solver.make_solver(prog, "T", device="cpu", **kw)
+    step = port_solver.make_solver(prog, "T", device="cpu",
+                                   differentiable=True)
+    assert step.symmetric_adjoint
     # the sharding slice is in: a mesh must be the port's own Mesh
     with pytest.raises(TypeError, match="Mesh"):
         port_solver.make_sharded_solver(prog, "T", mesh=None)
-    with pytest.raises(NotImplementedError, match="health"):
-        RunOptions(recovery=port_solver.RecoveryPolicy())
+    opts = RunOptions(recovery=port_solver.RecoveryPolicy())
+    assert opts.recovery == port_solver.RecoveryPolicy()
 
 
 def test_make_solver_leaves_the_callers_state_alone():

@@ -55,6 +55,11 @@ Prints one JSON line and the ``ptxas`` lines of the ``stencil7`` library
 (and, with ``--k4``, of ``transfer``): each kernel's entry, registers and
 spills.  Exits 2 without a CUDA device.
 
+With ``--sass`` it prints the digest and instruction count of the SASS of
+every kernel in the four libraries (``fused_stencil``, ``dual_dot``,
+``transfer``, ``stencil7``: K1–K7), so that two trees' kernels can be
+compared whole.
+
 With ``--k1-hazard`` it times K1 (``launch_fused``) at float32 on
 ``HeatConfig()``'s 512×512×128 grid, margin mode, queued behind a sleep
 kernel (median, min and max of ``--runs`` means, each of enough launches
@@ -534,6 +539,9 @@ def main() -> int:
                     help="comma-separated BZxBY column-entry blocks to time "
                          "the hazard launches at besides the shape's own "
                          "(with --k1-hazard)")
+    ap.add_argument("--sass", action="store_true",
+                    help="also digest the SASS of every kernel of the four "
+                         "kernel libraries (K1-K7)")
     ap.add_argument("--runs", type=int, default=7,
                     help="runs of 20 iterations per method and mesh, of "
                          "20-step FTCS calls per mesh and of queued K3/K4 "
@@ -626,12 +634,15 @@ def main() -> int:
         transfers = transfer_ms(args.repeats, args.runs, args.k4_xc)
         sass = kernel_sass(build.load_library("transfer")._name, "transfer",
                            "restrict_kernel")
+    all_sass = ({lib: kernel_sass(build.load_library(lib)._name, lib, "")
+                 for lib in ("fused_stencil", "dual_dot", "transfer",
+                             "stencil7")} if args.sass else None)
     print(json.dumps({"src": args.src, "card": card[0] if card else None,
                       "dtype": "float32", "bricks": out,
                       "iteration_ms": iters, "ftcs_ms_per_step": ftcs,
                       "transfers": transfers, "restrict_sass": sass,
                       "mg_solves": solves, "k1": k1,
-                      "column_sass": k1_sass}),
+                      "column_sass": k1_sass, "sass": all_sass}),
           flush=True)
     libs = (("stencil7",) + ("transfer",) * args.k4
             + ("fused_stencil",) * args.k1_hazard)
