@@ -237,6 +237,34 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          f32 ulp a step of one device's, the dot-product
                          test ``⟨J v, w⟩ = ⟨v, Jᵀ w⟩``, peak device memory
                          of both ladders, forward and backward ms;
+10i. ``service``      — the simulation service (``repro_torch.service``)
+                         at ``HeatConfig()``'s 512×512×128 float32 grid:
+                         the port's own ``python -m repro_torch.service
+                         --smoke`` in process (16 requests of 48 steps, 4
+                         workers, every gate); heat3d and advdiff step
+                         requests of 200 steps and jacobi3d at
+                         ``time_tile=2`` bitwise their ``make``; a request
+                         checkpointing every 50 steps with a fault
+                         injected at step 100 (retried, restored, bitwise);
+                         80 steps, a new service and ``resume=True`` to 200
+                         (only 120 rerun, bitwise); 8 requests coalesced by
+                         ``micro_batch=8`` (``stats.batch == 8``, each
+                         bitwise its single request); heat3d and jacobi3d
+                         on the 2×2 mesh of the card bitwise the
+                         single-device service; cg and pipecg
+                         ``SolveRequest``s ``CONVERGED`` to 1e-5·‖b‖ (float64
+                         residual ≤ 1e-5) and a NaN-initialized solve
+                         failing fast with ``NumericalFault``; a stream of 32
+                         heat3d requests (200 steps, 4 workers, 4
+                         signatures warm): requests/s, p50/p99 latency,
+                         mean queue wait, device ms per served step beside
+                         ``make``'s, idle share; host µs per chunk,
+                         allocations per chunk in the steady state (must
+                         be 0), checkpoint write and restore seconds at
+                         134 MB a field, kernels built after warm-up (must
+                         be 0); its K1 launches (margin, sweep, padded,
+                         members, bricks) and K2's added to the rows they
+                         belong to;
 11. ``kernels``        — one JSON line describing every kernel of the paths
                          (K1 on six rows: the k = 1 entry in the padded and
                          the margin mode, the sweep at the auto tile, and
@@ -258,16 +286,16 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          for the overlap's split launch: the interior in
                          region mode (k = 1, its auto-tile sweep beside it)
                          and the shells' padded launches (the mean of the
-                         four at k = 1), launches by tile; the health
-                         and adjoint phases' launches added to the rows
-                         of their routes, by phase in
+                         four at k = 1), launches by tile; the health,
+                         adjoint and service phases' launches added to
+                         the rows of their routes, by phase in
                          ``launches_by_phase``).
 
 Each main path (``heat3d``, ``hazard_make``, ``ensemble_make``,
 ``solve_heat3d``, ``ensemble_solve``, ``mg_poisson``, ``legacy_ftcs``,
 ``legacy_btcs``, ``sharded_make``, ``sharded_solve``, ``overlap_make``,
-``health_make``, ``health_solve``, ``adjoint_solve``, ``adjoint_make``)
-runs with the launch counters set to 0 just before it and read just after,
+``health_make``, ``health_solve``, ``adjoint_solve``, ``adjoint_make``,
+``service``) runs with the launch counters set to 0 just before it and read just after,
 and fails if one of its kernels was not launched.  Then the card's name and
 power limit, and last the result line.  Any failed check raises: the script exits
 non-zero and prints no result line.  Without a CUDA device it exits
@@ -446,6 +474,31 @@ PREDICTED = {
     "adjoint_make_backward_ms": [250.0, 600.0],
     "adjoint_make_peak_gb": {"all_residuals": [8.6, 12.0],
                              "checkpointed": [2.1, 5.0]},
+    # the simulation service (written before its first run on a card;
+    # PERF.md §6): HeatConfig()'s grid, 32 heat3d requests of 200 steps, 4
+    # workers, chunks of 8 steps.  Every chunk is 8 resident k = 1 launches
+    # (0.33 ms each, as make's) plus one isfinite probe of the 135 MB
+    # resident buffer (60-90 us) and one host read; each request also
+    # copies its init to the card (pageable, 134 MB, 10-20 ms), enters the
+    # layout, and copies its answer back (10-20 ms).  Workers enqueue on
+    # one stream, so requests serialize on the card: about 66 ms of steps
+    # and 20-40 ms of copies a request, 7-11 requests/s; device ms per
+    # served step 0.40-0.55 beside make's 0.33; a request waits behind
+    # the 28 others, so p50 latency 1.5-3 s, p99 3-5 s, mean queue wait
+    # 1-2.5 s; host us per chunk (enqueue only) 8 x the resident step's
+    # 110-170 us; idle share 5-25 % (the probe's wait and each chunk's
+    # first launch); 0 allocations per chunk (the spares are held by the
+    # request); a checkpoint of the resident env (135 MB) written in
+    # 0.15-0.6 s and restored in 0.1-0.4 s; 0 kernels built after warm-up
+    "service_requests_per_s": [7.0, 11.0],
+    "service_latency_s": {"p50": [1.5, 3.0], "p99": [3.0, 5.0]},
+    "service_mean_queue_wait_s": [1.0, 2.5],
+    "service_device_ms_per_served_step": [0.40, 0.55],
+    "service_host_us_per_chunk": [880.0, 1360.0],
+    "service_idle_share": [0.05, 0.25],
+    "service_allocations_per_chunk": 0,
+    "service_checkpoint_s": {"write": [0.15, 0.6], "restore": [0.1, 0.4]},
+    "service_kernels_built_after_warm_up": 0,
 }
 #: H100 SXM device-memory rate and float32 / float64 (non-tensor) peaks
 HBM_BYTES_PER_S = 3.35e12
@@ -3434,7 +3487,7 @@ def phase_overlap_make(steps: int, seed: int, heat):
 # slice 14: numerical health and reverse-mode differentiation
 # ---------------------------------------------------------------------------
 
-#: the device the health and adjoint phases run on (the card)
+#: the device the health, adjoint and service phases run on (the card)
 DEV = "cuda"
 #: the explicit sentinel's granule of the ``health_make`` phase
 HEALTH_EVERY = 64
@@ -4374,6 +4427,362 @@ def phase_adjoint_make(seed: int):
     return by_row
 
 
+#: the ``service`` phase: the throughput stream's requests, workers and
+#: steps per request, and the warm manifest's signatures (HeatConfig()'s
+#: grid, the reference smoke's offsets)
+SERVICE_STREAM = 32
+SERVICE_WORKERS = 4
+SERVICE_STEPS = 200
+
+
+def service_rows(delta, *, bricks: int = 1, members: int = 1):
+    """One service run's launches by the ``kernels`` row they add to.  On
+    one device a service run mixes K1's modes: its step requests launch
+    margin mode (resident; k = 1 and, at a time tile, the sweep), its
+    solves the padded k = 1 entry; bricks and members are
+    :func:`k1_rows`'."""
+    if bricks > 1 or members > 1:
+        return k1_rows(delta, bricks=bricks, members=members)
+    margin_k1 = delta["K1m"] - delta["K1sw"]
+    padded_k1 = delta["K1k1"] - margin_k1
+    if margin_k1 < 0 or padded_k1 < 0:
+        raise AssertionError(f"a padded sweep in a service run: {delta}")
+    return {"k1_margin": margin_k1, "k1_padded": padded_k1,
+            "sweep": delta["K1sw"],
+            **{k: delta[k] for k in ("K2", "K3", "K4")}}
+
+
+def service_btcs_residual(x, T0):
+    """‖b − A x‖ / ‖b‖ of the service's ``btcs_heat`` system in float64 by
+    plain slicing on the card: A = I − 0.05·S on the interior, identity on
+    the Moat rows; b = 0.625·T0 on the interior, T0 on the Moat."""
+    import torch
+
+    x = torch.as_tensor(x, device=DEV).double()
+    b = torch.as_tensor(T0, device=DEV).double().clone()
+    b[1:-1, 1:-1, 1:-1] *= 0.625
+    Ax = x.clone()
+    Ax[1:-1, 1:-1, 1:-1] = x[1:-1, 1:-1, 1:-1] - 0.05 * neighbours(x)
+    return float(torch.linalg.vector_norm(b - Ax) / torch.linalg.vector_norm(b))
+
+
+def phase_service(seed: int):
+    """The simulation service at ``HeatConfig()``'s 512×512×128 float32
+    grid on one card, through its entry points: the port's own ``--smoke``
+    in process; heat3d and advdiff step requests (200 steps) and jacobi3d
+    at ``time_tile=2`` bitwise their ``make``; restore-and-continue and
+    kill-and-restore bitwise the uninterrupted run; 8 micro-batched
+    requests bitwise their single ones; the service on the 2×2 mesh
+    bitwise the single-device service; cg and pipecg solves and a poisoned
+    solve; a 32-request heat3d stream timed (requests/s, latency, queue
+    wait, device ms per served step beside ``make``'s, idle share), host µs
+    per chunk, allocations per chunk, checkpoint write and restore seconds
+    at 134 MB a field, and ``kernels_built`` after warm-up."""
+    t_phase = time.perf_counter()
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import compiler
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.heat3d import HeatConfig
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.engine import RunOptions, health, plan, run_program
+    from repro_torch.engine import single_runner
+    from repro_torch.runtime.fault import FaultInjector
+    from repro_torch.service import (NumericalFault, PlanSignature,
+                                     SimulationService, SolveRequest,
+                                     StepRequest, get_workload)
+    from repro_torch.service.__main__ import main as service_main
+
+    cfg = HeatConfig()
+    shape = (cfg.nx, cfg.ny, cfg.nz)
+    rng = np.random.default_rng(seed)
+    heat = PlanSignature("heat3d", shape)
+    adv = PlanSignature("advdiff", shape)
+    jac = PlanSignature("jacobi3d", shape, time_tile=2)
+    btcs = PlanSignature("btcs_heat", shape)
+    manifest = [heat, adv, jac, btcs]
+    inits = {heat: rng.uniform(300.0, 500.0, shape).astype(np.float32),
+             adv: rng.uniform(0.0, 1.0, shape).astype(np.float32), jac: None}
+    root = tempfile.mkdtemp(prefix="chip-smoke-service-")
+    S = SERVICE_STEPS
+    report = {}
+
+    def make_of(sig, steps, init=None):
+        """``make`` (the engine's ``run_program``) of the signature's
+        recorded program, on the card."""
+        program, answer = get_workload(sig.workload).record(
+            sig.shape, np.dtype(sig.dtype), steps)
+        env = {n: f.init_data for n, f in program.fields.items()}
+        if init is not None:
+            env[answer] = init
+        return run_program(program, env, RunOptions(
+            backend="pallas", time_tile=sig.time_tile, device=DEV))[answer]
+
+    def serve(svc, req):
+        t = svc.submit(req)
+        return t.result(timeout=600), t.stats
+
+    def check(name, ok, detail):
+        report[name] = detail
+        if not ok:
+            raise AssertionError(f"service {name}: {detail}")
+
+    # make of each step signature, the reference of the bitwise checks:
+    # run before the main path's window, so its launches are not counted
+    # as the service's
+    wants = {sig: make_of(sig, S, T0) for sig, T0 in inits.items()}
+    # --- the main path: counters to 0 just before, read just after -------
+    compiler.reset_stats()
+    reset_counts()
+    by_row = {}
+    try:
+        # the port's own --smoke gate, at full width
+        before = read_counts()
+        t0 = time.perf_counter()
+        rc = service_main(["--smoke", "--shape", *map(str, shape),
+                           "--requests", "16", "--steps", "48",
+                           "--workers", str(SERVICE_WORKERS),
+                           "--ckpt-root", os.path.join(root, "smoke"),
+                           "--device", DEV])
+        smoke_s = time.perf_counter() - t0
+        add_rows(by_row, service_rows(counts_delta(before, read_counts())))
+        check("smoke", rc == 0, {"exit": rc, "seconds": smoke_s})
+
+        svc = SimulationService(workers=SERVICE_WORKERS, manifest=manifest,
+                                ckpt_root=root, device=DEV).start()
+        try:
+            before = read_counts()
+            # step requests against make: bitwise
+            served = {}
+            for sig, T0 in inits.items():
+                out, st = serve(svc, StepRequest(sig, steps=S, init=T0))
+                want = wants[sig]
+                served[sig] = out
+                check(f"{sig.workload}_vs_make", np.array_equal(out, want),
+                      {"steps": S, "chunks": st.chunks,
+                       "launches": st.launches,
+                       "max_abs_err": float(np.abs(out - want).max())})
+            # restore and continue: a fault at step 100, checkpoints every 50
+            req = StepRequest(heat, steps=S, init=inits[heat], ckpt_every=50)
+            with FaultInjector(fail_at=[100], match_tag=req.request_id):
+                out, st = serve(svc, req)
+            check("restore", st.retries >= 1 and st.restores >= 1
+                  and np.array_equal(out, served[heat]),
+                  {"retries": st.retries, "restores": st.restores,
+                   "checkpoints": st.checkpoints,
+                   "bitwise": bool(np.array_equal(out, served[heat]))})
+            # kill and restore: 80 steps, a new service, resume to 200
+            serve(svc, StepRequest(heat, steps=80, init=inits[heat],
+                                   ckpt_every=40, ckpt_key="kill"))
+        finally:
+            svc.stop()
+        with SimulationService(workers=1, manifest=[heat], ckpt_root=root,
+                               device=DEV) as svc2:
+            out, st = serve(svc2, StepRequest(heat, steps=S, ckpt_every=40,
+                                              ckpt_key="kill", resume=True))
+        check("kill_restore", st.restores == 1 and st.steps == S - 80
+              and np.array_equal(out, served[heat]),
+              {"restores": st.restores, "steps_rerun": st.steps,
+               "bitwise": bool(np.array_equal(out, served[heat]))})
+        # solves: cg and pipecg to 1e-5·‖b‖, and a poisoned one
+        with SimulationService(workers=1, manifest=[btcs],
+                               device=DEV) as svc3:
+            T0 = get_workload("btcs_heat").default_init(shape, np.float32)
+            b = T0.astype(np.float64)
+            b[1:-1, 1:-1, 1:-1] *= 0.625
+            tol = SOLVE_REL_TOL * float(np.linalg.norm(b))
+            for method in ("cg", "pipecg"):
+                x, st = serve(svc3, SolveRequest(btcs, method=method, tol=tol,
+                                                 maxiter=200))
+                rel = service_btcs_residual(x, T0)
+                check(f"solve_{method}", st.outcome == "CONVERGED"
+                      and rel <= SOLVE_REL_TOL and np.isfinite(x).all(),
+                      {"outcome": st.outcome, "iterations": st.iterations,
+                       "tol": tol, "independent_f64_relative_residual": rel})
+            t = svc3.submit(SolveRequest(btcs, maxiter=200, init=np.full(
+                shape, np.nan, np.float32)))
+            try:
+                t.result(timeout=600)
+                fault = None
+            except NumericalFault as e:
+                fault = e
+            check("poisoned_solve", fault is not None and t.stats.retries == 0
+                  and t.stats.outcome == "NAN_RESIDUAL"
+                  and len(t.stats.recovery) >= 1,
+                  {"raised": type(fault).__name__, "retries": t.stats.retries,
+                   "outcome": t.stats.outcome,
+                   "recovery": list(t.stats.recovery)})
+        add_rows(by_row, service_rows(counts_delta(before, read_counts())))
+        # micro-batching: a busy worker, then 8 same-signature requests
+        steps_mb = 40
+        members = [rng.uniform(300.0, 500.0, shape).astype(np.float32)
+                   for _ in range(8)]
+        before = read_counts()
+        with SimulationService(workers=1, micro_batch=8,
+                               manifest=[heat, jac], device=DEV) as svc4:
+            blocker = svc4.submit(StepRequest(jac, steps=400))
+            while not blocker.stats.started_s:
+                time.sleep(0.001)
+            tickets = [svc4.submit(StepRequest(heat, steps=steps_mb, init=T))
+                       for T in members]
+            outs = [t.result(timeout=600) for t in tickets]
+            blocker.result(timeout=600)
+        delta = counts_delta(before, read_counts())
+        # the coalesced members, the blocker's sweeps and the warm-up's
+        # single k = 1 launches, all resident (margin mode)
+        if not delta["K1"] == delta["K1m"] == delta["K1k1"] + delta["K1sw"]:
+            raise AssertionError(f"service micro_batch: launches {delta}")
+        add_rows(by_row, {"members_k1": delta["K1b"], "sweep": delta["K1sw"],
+                          "k1_margin": delta["K1k1"] - delta["K1b"]})
+        before = read_counts()
+        with SimulationService(workers=1, manifest=[heat],
+                               device=DEV) as svc5:
+            singles = [serve(svc5, StepRequest(heat, steps=steps_mb, init=T))[0]
+                       for T in members]
+        add_rows(by_row, service_rows(counts_delta(before, read_counts())))
+        check("micro_batch", all(t.stats.batch == 8 for t in tickets)
+              and all(np.array_equal(o, s) for o, s in zip(outs, singles)),
+              {"batch": [t.stats.batch for t in tickets],
+               "bitwise": [bool(np.array_equal(o, s))
+                           for o, s in zip(outs, singles)]})
+        # the 2x2 mesh of the card: bitwise the single-device service
+        mesh = make_mesh(SHARD_MESH, ("x", "y"), device=DEV)
+        before = read_counts()
+        with SimulationService(workers=1, mesh=mesh, manifest=[heat, jac],
+                               device=DEV) as svc6:
+            mesh_out = {sig: serve(svc6, StepRequest(sig, steps=S,
+                                                     init=inits[sig]))[0]
+                        for sig in (heat, jac)}
+        add_rows(by_row, service_rows(counts_delta(before, read_counts()),
+                                      bricks=mesh.size))
+        check("mesh", all(np.array_equal(mesh_out[s], served[s])
+                          for s in mesh_out),
+              {"mesh": list(SHARD_MESH),
+               "bitwise": {s.workload: bool(np.array_equal(mesh_out[s],
+                                                           served[s]))
+                           for s in mesh_out}})
+
+        # the throughput stream: 32 heat3d requests, 4 workers, warm
+        def stream(svc):
+            t0 = time.perf_counter()
+            ts = [svc.submit(StepRequest(heat, steps=S))
+                  for _ in range(SERVICE_STREAM)]
+            for t in ts:
+                t.result(timeout=600)
+            return time.perf_counter() - t0, ts
+
+        from torch.profiler import ProfilerActivity, profile
+
+        before = read_counts()
+        with SimulationService(workers=SERVICE_WORKERS, manifest=manifest,
+                               device=DEV) as svc7:
+            compiler.reset_stats()  # after the warm-up
+            torch.cuda.synchronize()
+            wall, ts = stream(svc7)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                wall_prof, _ = stream(svc7)
+                torch.cuda.synchronize()
+            built = compiler.stats.kernels_built
+        add_rows(by_row, service_rows(counts_delta(before, read_counts())))
+        counts = read_counts()
+        # ------------------------------------------------------------------
+        # make's ms/step on the same card: the resident loop of the body
+        program, _ = get_workload("heat3d").record(shape, np.float32, S)
+        run = single_runner(plan(program, RunOptions(
+            backend="pallas", time_tile=1, device=DEV)))
+        env = {"T": torch.tensor(program.fields["T"].init_data, device=DEV)}
+        make_ms = cuda_time_ms(lambda: run(env), repeats=3) / S
+        # allocations per chunk of a request the service serves (advance,
+        # the wait, the probe): the growth of a warm one-worker service's
+        # 2S-step request less its S-step one, after a warm-up request of
+        # each (the request's env, spares, probe buffers and result cancel)
+        with SimulationService(workers=1, manifest=[heat],
+                               device=DEV) as svc8:
+            chunk = svc8.default_chunk
+            grown = {}
+            for n_steps in (S, 2 * S, S, 2 * S):
+                torch.cuda.synchronize()
+                a0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+                serve(svc8, StepRequest(heat, steps=n_steps))
+                torch.cuda.synchronize()
+                grown[n_steps] = (torch.cuda.memory_stats()
+                                  ["allocation.all.allocated"] - a0)
+            cw = svc8._plans[heat.key()]
+        allocs_per_step = (grown[2 * S] - grown[S]) / S
+        # host us per chunk (enqueue only), on one request's env and spares
+        e, sp = cw.initial_env(None)
+        host_us_chunk = host_us(lambda: cw.advance(e, sp, chunk), samples=9)
+        # checkpoint write and restore of a resident env at 134 MB a field
+        mgr = CheckpointManager(os.path.join(root, "timing"), keep=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(chunk, e, extra={"signature": heat.key(), "step": chunk,
+                                  "pad": cw.layout.pad})
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, _, _ = svc8._restore_env(cw, mgr)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check("restore_timing_bitwise",
+              all(torch.equal(restored[n], e[n]) for n in e), True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    lat = np.array([t.stats.latency_s for t in ts])
+    by_kind = []
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total", None)
+            us = ev.self_cuda_time_total if us is None else us
+            if us > 0:
+                by_kind.append((us, ev.key[:60], ev.count))
+    by_kind.sort(reverse=True)
+    busy_us = sum(k[0] for k in by_kind)
+    steps_served = SERVICE_STREAM * S
+    field_mb = e["T"].numel() * e["T"].element_size() / 1e6
+    timing = {
+        "requests": SERVICE_STREAM, "workers": SERVICE_WORKERS,
+        "steps_per_request": S, "chunk": chunk,
+        "requests_per_s": SERVICE_STREAM / wall,
+        "latency_p50_s": float(np.percentile(lat, 50)),
+        "latency_p99_s": float(np.percentile(lat, 99)),
+        "mean_queue_wait_s": float(np.mean([t.stats.queue_wait_s
+                                            for t in ts])),
+        "device_ms_per_served_step": busy_us / 1e3 / steps_served,
+        "device_us_by_kind": [{"kernel": name, "us": us, "calls": n}
+                              for us, name, n in by_kind[:6]],
+        "make_ms_per_step": make_ms,
+        "device_idle_share": 1.0 - busy_us / (wall_prof * 1e6),
+        "device_idle_share_unprofiled": 1.0 - busy_us / (wall * 1e6),
+        "host_us_per_chunk": host_us_chunk,
+        "allocations_per_chunk": allocs_per_step * chunk,
+        "allocations_per_step": allocs_per_step,
+        "allocations_per_request": [grown[S], grown[2 * S]],
+        "checkpoint_field_mb": field_mb,
+        "checkpoint_write_s": write_s, "checkpoint_restore_s": restore_s,
+        "kernels_built_after_warm_up": built,
+    }
+    check("steady_state", allocs_per_step == 0 and built == 0,
+          {"allocations_per_step": allocs_per_step,
+           "kernels_built_after_warm_up": built})
+    need = {"k1_margin", "k1_padded", "sweep", "members_k1", "bricks_k1",
+            "bricks_sweep", "K2"}
+    missing = sorted(k for k in need if not by_row.get(k))
+    if missing:
+        raise AssertionError(f"service: {missing} never launched: {by_row}")
+    emit({"phase": "service", "card": card_line(),
+          "seconds": time.perf_counter() - t_phase,
+          "shape": list(shape), "dtype": "float32", "checks": report,
+          "timing": timing, "launches": counts, "by_row": by_row,
+          "predicted": {k: PREDICTED[k] for k in PREDICTED
+                        if k == "card" or k.startswith("service")}})
+    return by_row
+
+
 def device_breakdown(fn, top: int = 4) -> dict:
     """Device time by kernel over one ``fn()`` under ``torch.profiler``, and
     the device's idle share: of the profiled call's wall time
@@ -4453,10 +4862,12 @@ def main() -> int:
     sharded = phase_sharded_make(args.steps, heat)
     sharded_solve_counts = phase_sharded_solve()
     region, shell = phase_overlap_make(args.steps, args.seed, heat)
-    slice14 = {"health_make": phase_health_make(args.steps, args.seed),
-               "health_solve": phase_health_solve(args.seed)}
-    slice14["adjoint_solve"], adjoint_levels = phase_adjoint_solve(args.seed)
-    slice14["adjoint_make"] = phase_adjoint_make(args.seed)
+    phase_rows = {"health_make": phase_health_make(args.steps, args.seed),
+                  "health_solve": phase_health_solve(args.seed)}
+    phase_rows["adjoint_solve"], adjoint_levels = phase_adjoint_solve(
+        args.seed)
+    phase_rows["adjoint_make"] = phase_adjoint_make(args.seed)
+    phase_rows["service"] = phase_service(args.seed)
     csrc = "src/repro_torch/kernels/csrc/"
     # the solves apply their operators through the k = 1 entry, padded;
     # K2 (cg + mg), K3 and K4 run in the multigrid solves of both solve
@@ -4536,11 +4947,12 @@ def main() -> int:
              dict(legacy["K6"], launches=ftcs_counts["K6"])),
             ("K7 stencil_planes", "stencil7.cu", "src/repro/kernels/stencil7.py:140",
              dict(legacy["K7"], launches=ftcs_counts["K7"]))]
-    # the health and adjoint phases' launches, by the row they belong to
+    # the health, adjoint and service phases' launches, by the row they
+    # belong to
     row_of = {"k1_padded": 0, "k1_margin": 1, "sweep": 2, "members_k1": 4,
               "members_sweep": 5, "bricks_k1": 6, "bricks_sweep": 7,
               "K2": 10, "K3": 11, "K4": 12}
-    for phase, by_row in slice14.items():
+    for phase, by_row in phase_rows.items():
         for key, n in by_row.items():
             r = rows[row_of[key]][3]
             r["launches"] += n

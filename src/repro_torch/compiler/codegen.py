@@ -47,6 +47,7 @@ import contextlib
 import dataclasses
 import functools
 import logging
+import threading
 from typing import Dict, Tuple
 
 import torch
@@ -76,6 +77,10 @@ class CompilerStats:
 stats = CompilerStats()
 
 _KERNEL_CACHE: Dict[tuple, object] = {}
+#: held across each cache lookup and the build it may start, so threads
+#: (the service's workers) that meet one new signature together build it
+#: once and share it
+_CACHE_LOCK = threading.Lock()
 
 
 def reset_stats() -> None:
@@ -88,7 +93,8 @@ def reset_stats() -> None:
 
 
 def clear_cache() -> None:
-    _KERNEL_CACHE.clear()
+    with _CACHE_LOCK:
+        _KERNEL_CACHE.clear()
 
 
 def try_compile(compile_fn, loop):
@@ -132,19 +138,22 @@ def _get_kernel(group: LoweredGroup, specs, bx, by, nx, ny, device, time_tile,
     sig = (group, tuple((n, s[0], dtype_name(s[1])) for n, s in specs.items()),
            bx, by, nx, ny, str(device), int(time_tile), bool(wrap), int(margin),
            int(batch), region)
-    hit = _KERNEL_CACHE.get(sig)
-    if hit is not None:
-        stats.cache_hits += 1
-        return hit
-    # a body outside the kernel's limits (dtype, field count, descriptor
-    # size) raises ValueError here: it is a gap of the port, not a lowering
-    # failure, so it must not become an interpreter fallback
-    built = build_fused_call(group.updates, specs, group.halo, bx, by, nx, ny,
-                             time_tile=time_tile, wrap=wrap, device=device,
-                             margin=margin, batch=batch, region=region)
-    stats.kernels_built += 1
-    _KERNEL_CACHE[sig] = built
-    return built
+    with _CACHE_LOCK:
+        hit = _KERNEL_CACHE.get(sig)
+        if hit is not None:
+            stats.cache_hits += 1
+            return hit
+        # a body outside the kernel's limits (dtype, field count,
+        # descriptor size) raises ValueError here: it is a gap of the port,
+        # not a lowering failure, so it must not become an interpreter
+        # fallback
+        built = build_fused_call(group.updates, specs, group.halo, bx, by,
+                                 nx, ny, time_tile=time_tile, wrap=wrap,
+                                 device=device, margin=margin, batch=batch,
+                                 region=region)
+        stats.kernels_built += 1
+        _KERNEL_CACHE[sig] = built
+        return built
 
 
 def compile_transfer(kind: str, fine_shape, coarse_shape, dtype,
@@ -169,17 +178,18 @@ def compile_transfer(kind: str, fine_shape, coarse_shape, dtype,
     ts = TransferStencil(kind, tuple(fine_shape), tuple(coarse_shape))
     device = resolve_device(device)
     sig = ("transfer", ts, dtype_name(dtype), str(device))
-    hit = _KERNEL_CACHE.get(sig)
-    if hit is not None:
-        stats.cache_hits += 1
-        return hit
-    if kind == "restrict":
-        call = functools.partial(ops.restrict)
-    else:
-        call = functools.partial(ops.prolong, fine_shape=ts.fine_shape)
-    stats.kernels_built += 1
-    _KERNEL_CACHE[sig] = call
-    return call
+    with _CACHE_LOCK:
+        hit = _KERNEL_CACHE.get(sig)
+        if hit is not None:
+            stats.cache_hits += 1
+            return hit
+        if kind == "restrict":
+            call = functools.partial(ops.restrict)
+        else:
+            call = functools.partial(ops.prolong, fine_shape=ts.fine_shape)
+        stats.kernels_built += 1
+        _KERNEL_CACHE[sig] = call
+        return call
 
 
 def _wrap_pad(v: torch.Tensor, ph: int) -> torch.Tensor:

@@ -14,7 +14,8 @@ Every way of running a recorded WFA program dispatches through here:
 * :class:`HaloLayout` is the halo-resident layout a ``pallas`` plan steps
   on (:mod:`repro_torch.engine.layout`, with ``wrap_refresh``);
 * :data:`stats` exposes the accounting (steps, launches, halo exchanges,
-  repacks, tiles fused, health probes and faults);
+  repacks, tiles fused, health probes and faults, the service's requests),
+  :func:`service_stats` its serving summary;
 * :mod:`~repro_torch.engine.health` holds the ``check_finite`` sentinels'
   probe; :func:`differentiable_runner` and :func:`checkpointed_vjp` run a
   ``RunOptions(differentiable=True)`` plan under ``torch.autograd``.
@@ -39,7 +40,8 @@ from repro_torch.engine.plan import (
     plan_mg_levels,
     resolve_device,
 )
-from repro_torch.engine.stats import EngineStats, reset_stats, stats
+from repro_torch.engine.stats import (EngineStats, reset_stats,
+                                      service_stats, stats)
 
 __all__ = [
     "BACKENDS",
@@ -65,6 +67,7 @@ __all__ = [
     "resolve_device",
     "resolve_options",
     "run_program",
+    "service_stats",
     "sharded_runner",
     "single_runner",
     "stats",

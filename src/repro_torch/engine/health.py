@@ -75,6 +75,58 @@ def probe_ok(env) -> torch.Tensor:
     return field_verdicts(env).all()
 
 
+class HeldProbe:
+    """:func:`probe_ok` with every buffer held: built once for the shapes
+    of ``env`` (the fields of a run that steps its buffers in place, as a
+    service request's chunks do), it probes any env of those shapes with no
+    device allocation — a chunk of the service stays at zero.
+
+    Each part (field or brick) is reduced one trailing axis at a time,
+    ``aminmax`` into held extremes: a few hundred inputs per output never
+    take PyTorch's cross-block reduction, which allocates its scratch per
+    call.  The last stage writes into one held vector of every part's two
+    extremes, read to the host in one copy (pinned on the card); the
+    verdict is the same as :func:`probe_ok`'s, since ``amin``/``amax``
+    propagate NaN like ``aminmax``.
+    """
+
+    def __init__(self, env):
+        parts = [p for v in env.values() for p in _parts(v)]
+        dev = parts[0].device
+        dtypes = {p.dtype for p in parts}
+        dtype = dtypes.pop() if len(dtypes) == 1 else torch.float64
+        self._ends = torch.empty(2 * len(parts), dtype=dtype, device=dev)
+        self._host = torch.empty(2 * len(parts), dtype=dtype,
+                                 pin_memory=dev.type == "cuda")
+        # per part: the held extremes after each trailing axis is reduced;
+        # the last stage is two slots of the ends vector (or, for a part of
+        # another dtype, two held scalars copied into them)
+        self._stages = []
+        for i, p in enumerate(parts):
+            stages = [(torch.empty(p.shape[:j], dtype=p.dtype, device=p.device),
+                       torch.empty(p.shape[:j], dtype=p.dtype, device=p.device))
+                      for j in range(p.ndim - 1, -1, -1)]
+            if p.dtype == dtype and p.device == dev:
+                stages[-1] = (self._ends[2 * i], self._ends[2 * i + 1])
+            self._stages.append(stages)
+
+    def __call__(self, env) -> bool:
+        """True when every buffer in ``env`` is all-finite; one host read."""
+        parts = [p for v in env.values() for p in _parts(v)]
+        for i, (p, stages) in enumerate(zip(parts, self._stages)):
+            (lo, hi), rest = stages[0], stages[1:]
+            torch.aminmax(p, dim=-1, out=(lo, hi))
+            for nlo, nhi in rest:
+                torch.amin(lo, dim=-1, out=nlo)
+                torch.amax(hi, dim=-1, out=nhi)
+                lo, hi = nlo, nhi
+            if lo.data_ptr() != self._ends[2 * i].data_ptr():
+                self._ends[2 * i].copy_(lo)
+                self._ends[2 * i + 1].copy_(hi)
+        self._host.copy_(self._ends)
+        return bool(torch.isfinite(self._host).all())
+
+
 def probe(env) -> bool:
     """Host-side sentinel: True when every field buffer is finite.
 

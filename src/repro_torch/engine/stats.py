@@ -8,9 +8,12 @@ packages' accounting compares directly.  The multigrid counters
 (``mg_hierarchies``, ``mg_levels_built``, ``mg_level_log``) and the solve
 outcome words (``solve_outcomes``) are live for single-device solves, the
 overlap counters (``interior_launches``, ``boundary_launches``,
-``overlapped_exchanges``) for split segments; the ones for paths not
-ported yet (the cost model, the health ladder and sentinels, service)
-stay 0.
+``overlapped_exchanges``) for split segments, the health counters for
+guarded runs and solves, and the serving counters (``requests_*``,
+``plan_*``, ``service_*``, ``queue_wait_s``) for
+:class:`repro_torch.service.SimulationService`, which
+:func:`service_stats` summarizes; the cost model's (``cost_model_hits``,
+``calibrations``) stay 0 until it is ported.
 
 Exchange counting is *static*: the executor derives the counts from the
 plan — one halo exchange per fused-kernel launch (zero for halo-free
@@ -100,3 +103,59 @@ def reset_stats() -> None:
     # mutate in place so `from repro_torch.engine import stats` stays live
     for f in dataclasses.fields(EngineStats):
         setattr(stats, f.name, f.default)
+
+
+def service_stats() -> dict:
+    """Service-level summary the ``--smoke`` gate and the card smoke read.
+
+    Combines the serving-tier counters above with the kernel-pipeline
+    counters of :data:`repro_torch.compiler.stats` (the fallback count is
+    the "unexpected interpreter fallbacks" gate on a no-fault run).  The
+    reference's dict, key for key.
+
+    >>> from repro_torch.engine import reset_stats
+    >>> from repro_torch.engine.stats import service_stats
+    >>> reset_stats()
+    >>> s = service_stats()
+    >>> (s["requests"]["completed"], s["plans"]["cache_hits"], s["faults"]["retries"])
+    (0, 0, 0)
+    """
+    from repro_torch.compiler import stats as kstats
+
+    admitted = stats.requests_admitted
+    return {
+        "requests": {
+            "admitted": admitted,
+            "rejected": stats.requests_rejected,
+            "expired": stats.requests_expired,
+            "completed": stats.requests_completed,
+            "failed": stats.requests_failed,
+            "degraded": stats.requests_degraded,
+            "mean_queue_wait_s": (
+                stats.queue_wait_s / admitted if admitted else 0.0
+            ),
+        },
+        "plans": {
+            "builds": stats.plan_builds,
+            "cache_hits": stats.plan_cache_hits,
+        },
+        "kernels": {
+            "built": kstats.kernels_built,
+            "cache_hits": kstats.cache_hits,
+            "fallbacks": kstats.fallbacks,
+            "launches": stats.launches,
+        },
+        "faults": {
+            "retries": stats.request_retries,
+            "checkpoints": stats.service_checkpoints,
+            "restores": stats.service_restores,
+            "stragglers": stats.service_stragglers,
+        },
+        "health": {
+            "probes": stats.health_probes,
+            "numerical_faults": stats.numerical_faults,
+            "recovery_attempts": stats.recovery_attempts,
+        },
+        "steps_run": stats.steps_run,
+        "repacks": stats.repacks,
+    }

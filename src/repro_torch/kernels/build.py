@@ -10,7 +10,10 @@ stale build is never loaded.  Nothing is built when a module is imported:
 the CPU tests import every module on a machine without ``nvcc``.
 
 A missing ``nvcc`` or a failed build raises :class:`KernelBuildError`;
-nothing falls back.
+nothing falls back.  Builds and loads hold one process-wide lock, so
+threads that need one library together run one ``nvcc``; each library is
+written under a temporary name and renamed into place, so another process
+never loads a torn file.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Sequence
@@ -36,6 +40,8 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+#: held across each check-build-load, by every thread of the process
+_BUILD_LOCK = threading.RLock()
 #: seconds from the start of a build to each library's nvcc finishing in
 #: this process (0.0 when loaded from an existing build), and nvcc's report
 #: (registers, spills)
@@ -75,46 +81,48 @@ def _build(stems: Sequence[str]) -> None:
     """Build every missing library of ``stems``: one ``nvcc`` per source,
     all started together, then wait for each.  Raises
     :class:`KernelBuildError` naming every source that failed."""
-    missing = [s for s in dict.fromkeys(stems)
-               if s not in _LIBS and not library_path(s).exists()]
-    if not missing:
-        return
-    nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    procs = {}
-    for stem in missing:
-        so = library_path(stem)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
-        procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.PIPE, text=True),
-                       tmp, so)
-    errors = []
-    for stem, (proc, tmp, so) in procs.items():
-        out, err = proc.communicate()
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            errors.append(f"nvcc failed to build {stem}.cu (exit "
-                          f"{proc.returncode}):\n{err}{out}")
-            continue
-        build_log[stem] = err + out
-        os.replace(tmp, so)  # atomic: a concurrent build never sees a torn file
-        build_seconds[stem] = time.perf_counter() - t0
-    if errors:
-        raise KernelBuildError("\n".join(errors))
+    with _BUILD_LOCK:
+        missing = [s for s in dict.fromkeys(stems)
+                   if s not in _LIBS and not library_path(s).exists()]
+        if not missing:
+            return
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        procs = {}
+        for stem in missing:
+            so = library_path(stem)
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
+            procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True),
+                           tmp, so)
+        errors = []
+        for stem, (proc, tmp, so) in procs.items():
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                errors.append(f"nvcc failed to build {stem}.cu (exit "
+                              f"{proc.returncode}):\n{err}{out}")
+                continue
+            build_log[stem] = err + out
+            os.replace(tmp, so)  # atomic: a concurrent build never sees a torn file
+            build_seconds[stem] = time.perf_counter() - t0
+        if errors:
+            raise KernelBuildError("\n".join(errors))
 
 
 def load_library(stem: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<stem>.cu``; cached per process."""
-    lib = _LIBS.get(stem)
-    if lib is not None:
+    with _BUILD_LOCK:
+        lib = _LIBS.get(stem)
+        if lib is not None:
+            return lib
+        _build([stem])
+        build_seconds.setdefault(stem, 0.0)
+        lib = ctypes.CDLL(str(library_path(stem)))
+        _LIBS[stem] = lib
         return lib
-    _build([stem])
-    build_seconds.setdefault(stem, 0.0)
-    lib = ctypes.CDLL(str(library_path(stem)))
-    _LIBS[stem] = lib
-    return lib
 
 
 def build_libraries(stems: Sequence[str]) -> Dict[str, ctypes.CDLL]:

@@ -102,6 +102,7 @@ import collections
 import ctypes
 import dataclasses
 import itertools
+import threading
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -775,7 +776,11 @@ def launch_fused(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
     allocated.  Checks device, dtype, shape and contiguity, launches on the
     current stream and raises if a launch was refused.  The sweep's scratch
     is allocated at the kernel's first sweep and held by the kernel (so
-    launches of one kernel on two streams at once would race on it).  The
+    launches of one kernel on two streams at once would race on it); the
+    held state is built and each C call enqueued under one process-wide
+    lock, so threads launching on one stream (the service's workers)
+    enqueue each sweep's sub-steps back to back, and the counters stay
+    exact.  The
     k = 1 route also needs the brick (the region) inside the global extent
     (``coords ≥ 0``, ``coords + span ≤ (nx, ny)``), which it checks.  Does
     not synchronise.
@@ -804,28 +809,34 @@ def launch_fused(kernel: FusedKernel, inputs: Sequence[torch.Tensor],
     ins = _PTRS(*[t.data_ptr() for t in inputs])
     out_ptrs = _PTRS(*[outs[nm].data_ptr() if nm in outs else None
                        for nm in kernel.in_names])
-    ((geoms, grids, (bz, bty), stage), (s0, s1),
-     host_ints) = _sweep_held(kernel, (cx, cy))
     fn = (lib.fused_sweep_f32 if kernel.dtype == torch.float32
           else lib.fused_sweep_f64)
-    rc = fn(ins, out_ptrs, s0, s1, _INTS(*kernel.nz), len(kernel.in_names),
-            kernel.ints_dev.data_ptr(), kernel.coefs_dev.data_ptr(), geoms,
-            grids, k, bz, bty, host_ints, int(kernel.hazard), stage,
-            kernel.batch, dev.index, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"fused_stencil {entry} launch failed: "
-            f"{lib.fused_stencil_error(rc).decode()} (cudaError {rc})")
-    launch_fused.launches += 1
-    launch_fused.margin_launches += bool(kernel.margin)
-    launch_fused.k1_launches += entry == "k1"
-    launch_fused.sweep_launches += entry == "sweep"
-    launch_fused.sweep_substeps += k if entry == "sweep" else 0
-    launch_fused.hazard_launches += kernel.hazard
-    launch_fused.batch_launches += kernel.batch > 1
-    launch_fused.brick_launches += not kernel.wrap
-    launch_fused.region_launches += kernel.region is not None
+    with _LAUNCH_LOCK:
+        ((geoms, grids, (bz, bty), stage), (s0, s1),
+         host_ints) = _sweep_held(kernel, (cx, cy))
+        rc = fn(ins, out_ptrs, s0, s1, _INTS(*kernel.nz),
+                len(kernel.in_names), kernel.ints_dev.data_ptr(),
+                kernel.coefs_dev.data_ptr(), geoms, grids, k, bz, bty,
+                host_ints, int(kernel.hazard), stage, kernel.batch,
+                dev.index, stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"fused_stencil {entry} launch failed: "
+                f"{lib.fused_stencil_error(rc).decode()} (cudaError {rc})")
+        launch_fused.launches += 1
+        launch_fused.margin_launches += bool(kernel.margin)
+        launch_fused.k1_launches += entry == "k1"
+        launch_fused.sweep_launches += entry == "sweep"
+        launch_fused.sweep_substeps += k if entry == "sweep" else 0
+        launch_fused.hazard_launches += kernel.hazard
+        launch_fused.batch_launches += kernel.batch > 1
+        launch_fused.brick_launches += not kernel.wrap
+        launch_fused.region_launches += kernel.region is not None
     return tuple(outs[nm] for nm in kernel.written)
+
+
+#: serializes :func:`launch_fused`'s held state, C call and counters
+_LAUNCH_LOCK = threading.Lock()
 
 
 launch_fused.launches = 0

@@ -77,7 +77,10 @@ Without a card every test skips.  Tolerances:
   the repacking ``make``, its checkpointed gradient bitwise the
   all-residuals one; the symmetric adjoint (cg, pipecg) building no kernel
   across the backward, its float64 gradient within ``1e-8·max|g|`` of the
-  CPU's (both solved to 1e-11: another dot order, the same tolerance).
+  CPU's (both solved to 1e-11: another dot order, the same tolerance);
+* the service: four workers return one worker's bits, step results equal
+  ``make``'s bitwise, and a served chunk (steps, wait, probe) makes no
+  device allocation.
 
 The bodies of :data:`K1_BODIES` are shared with ``test_torch_k1.py``, which
 holds their plain version against the JAX reference on the CPU.
@@ -1354,3 +1357,81 @@ def test_cuda_symmetric_adjoint_builds_no_kernel(method):
         grads[dev] = g.cpu().numpy()
     scale = np.abs(grads["cpu"]).max()
     assert np.abs(grads["cuda"] - grads["cpu"]).max() <= 1e-8 * scale
+
+
+@pytest.mark.cuda
+def test_cuda_service_four_workers_equal_one():
+    """The service on the card: four workers serving a mixed stream (heat3d
+    and advdiff at k = 1, jacobi3d's k = 2 sweep, pipecg solves) return
+    each request's bits as one worker does — the kernel cache, the library
+    build and K1's held sweep scratch are shared across worker threads —
+    and step results equal the engine's ``make`` on the card bitwise."""
+    _need_card()
+    from repro_torch.engine.executor import run_program
+    from repro_torch.service import (PlanSignature, SimulationService,
+                                     SolveRequest, StepRequest, get_workload)
+
+    sigs = [PlanSignature("heat3d", (48, 40, 12)),
+            PlanSignature("advdiff", (40, 40, 12)),
+            PlanSignature("jacobi3d", (32, 32, 12), time_tile=2)]
+    solve_sig = PlanSignature("btcs_heat", (24, 24, 8))
+    rng = np.random.default_rng(31)
+    stream = []
+    for i in range(24):
+        if i % 6 == 5:
+            stream.append(("solve", None))
+        else:
+            sig = sigs[i % 3]
+            lo, hi = (300.0, 500.0) if sig.workload == "heat3d" else (0.0, 1.0)
+            stream.append((sig, rng.uniform(lo, hi, sig.shape)
+                           .astype(np.float32)))
+    results = {}
+    for workers in (1, 4):
+        with SimulationService(workers=workers, manifest=sigs + [solve_sig],
+                               default_chunk=5) as svc:
+            tickets = [svc.submit(
+                SolveRequest(solve_sig, method="pipecg", tol=1.0,
+                             maxiter=100) if sig == "solve" else
+                StepRequest(sig, steps=13, init=T0)) for sig, T0 in stream]
+            results[workers] = [t.result(timeout=300) for t in tickets]
+    for one, four in zip(results[1], results[4]):
+        np.testing.assert_array_equal(four, one)
+    for (sig, T0), out in zip(stream, results[1]):
+        if sig == "solve":
+            continue
+        program, answer = get_workload(sig.workload).record(
+            sig.shape, np.float32, 13)
+        env = {n: f.init_data for n, f in program.fields.items()}
+        env[answer] = T0
+        want = run_program(program, env, RunOptions(
+            backend="pallas", time_tile=sig.time_tile))[answer]
+        np.testing.assert_array_equal(out, want)
+
+
+@pytest.mark.cuda
+def test_cuda_service_chunk_allocates_nothing():
+    """A chunk the service serves — its steps, the wait and the held probe
+    — makes no device allocation: through a warm one-worker service, a
+    request of 2n steps grows ``allocation.all.allocated`` exactly as one
+    of n steps does (the request's env, spares, probe buffers and result
+    are allocated once each and cancel), at k = 1 and at jacobi3d's k = 2
+    sweep, after a warm-up request of each length."""
+    _need_card()
+    from repro_torch.service import (PlanSignature, SimulationService,
+                                     StepRequest)
+
+    sigs = [PlanSignature("heat3d", (96, 80, 40)),
+            PlanSignature("jacobi3d", (64, 64, 40), time_tile=2)]
+    with SimulationService(workers=1, manifest=sigs, default_chunk=8) as svc:
+        for sig in sigs:
+            grown = {}
+            for steps in (48, 96, 48, 96):
+                torch.cuda.synchronize()
+                a0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+                t = svc.submit(StepRequest(sig, steps=steps))
+                t.result(timeout=300)
+                torch.cuda.synchronize()
+                grown[steps] = (torch.cuda.memory_stats()
+                                ["allocation.all.allocated"] - a0)
+                assert t.stats.chunks == steps // 8
+            assert grown[96] == grown[48], (sig.workload, grown)

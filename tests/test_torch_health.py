@@ -549,3 +549,35 @@ def test_probe_on_tensors_arrays_and_bricks_torch():
         assert ehealth.poisoned_fields(env_bad) == ["A" if "C" in env_bad
                                                     else list(env_bad)[-1]]
     assert ehealth.NumericalFault is NumericalFault
+
+
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf])
+def test_held_probe_matches_probe_ok_torch(value):
+    """The held-buffer probe a service request runs once per chunk gives
+    :func:`probe_ok`'s verdict (exact: a verdict is a word) on a field, a
+    strided view, 2×2 bricks, a member stack and a float64 field beside
+    float32 ones, for a bad value in every part; one probe serves a
+    clean env again after a poisoned one."""
+    from repro_torch.core.mesh import NamedSharding
+
+    rng = np.random.default_rng(5)
+    mesh = make_mesh((2, 2), device="cpu")
+    a = rng.uniform(300.0, 500.0, (6, 8, 5)).astype(np.float32)
+    padded = torch.tensor(rng.uniform(size=(8, 10, 5)).astype(np.float32))
+    env = {"T": torch.tensor(a), "V": padded[1:-1, 1:-1],
+           "U": list(NamedSharding(mesh).shard(a).bricks),
+           "M": torch.tensor(rng.uniform(size=(3, 6, 8, 5))),
+           "W": torch.tensor(a[..., :3])}
+    probe = ehealth.HeldProbe(env)
+    assert probe(env) and bool(ehealth.probe_ok(env))
+    spots = {"T": (5, 7, 4), "V": (0, 0, 0), "M": (2, 1, 3, 0), "W": (3, 0, 2)}
+    for name in env:
+        bad = {n: ([b.clone() for b in v] if isinstance(v, list) else v.clone())
+               for n, v in env.items()}
+        if name == "U":
+            bad["U"][3][1, 2, 4] = float(value)
+        else:
+            bad[name][spots[name]] = float(value)
+        assert not bool(ehealth.probe_ok(bad)), name
+        assert not probe(bad), name
+        assert probe(env), name
