@@ -265,6 +265,22 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          be 0); its K1 launches (margin, sweep, padded,
                          members, bricks) and K2's added to the rows they
                          belong to;
+10j. ``cost_model``  — the measured cost model at ``HeatConfig()``'s
+                         512×512×128 float32: the resident fused step at
+                         k = 1, 2, 4, 8 and the split step at k = 1, 4
+                         (CUDA events over ``--steps`` steps);
+                         ``calibrate_program`` at k = 1, 2, 4 on the card
+                         (the entry, its seconds, ``predict_step_us``
+                         beside every measured schedule); ``make`` with
+                         ``time_tile=None`` and ``overlap="auto"`` on the
+                         calibrated model: its k and split,
+                         ``cost_model_hits`` ≥ 1, ms per step, bitwise the
+                         uncalibrated ``make``, 0 allocations per step; a
+                         ``cpu``-tagged entry gives the card plan no hit; a
+                         manifest written on the card reloads to an equal
+                         entry; Eq. 12's rate beside the measured one; the
+                         calibration's and the calibrated make's K1
+                         launches added to the rows of their routes;
 11. ``kernels``        — one JSON line describing every kernel of the paths
                          (K1 on six rows: the k = 1 entry in the padded and
                          the margin mode, the sweep at the auto tile, and
@@ -287,15 +303,15 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          region mode (k = 1, its auto-tile sweep beside it)
                          and the shells' padded launches (the mean of the
                          four at k = 1), launches by tile; the health,
-                         adjoint and service phases' launches added to
-                         the rows of their routes, by phase in
+                         adjoint, service and cost_model phases' launches
+                         added to the rows of their routes, by phase in
                          ``launches_by_phase``).
 
 Each main path (``heat3d``, ``hazard_make``, ``ensemble_make``,
 ``solve_heat3d``, ``ensemble_solve``, ``mg_poisson``, ``legacy_ftcs``,
 ``legacy_btcs``, ``sharded_make``, ``sharded_solve``, ``overlap_make``,
 ``health_make``, ``health_solve``, ``adjoint_solve``, ``adjoint_make``,
-``service``) runs with the launch counters set to 0 just before it and read just after,
+``service``, ``cost_model``) runs with the launch counters set to 0 just before it and read just after,
 and fails if one of its kernels was not launched.  Then the card's name and
 power limit, and last the result line.  Any failed check raises: the script exits
 non-zero and prints no result line.  Without a CUDA device it exits
@@ -499,10 +515,30 @@ PREDICTED = {
     "service_allocations_per_chunk": 0,
     "service_checkpoint_s": {"write": [0.15, 0.6], "restore": [0.1, 0.4]},
     "service_kernels_built_after_warm_up": 0,
+    # the measured cost model (written before its first run on a card;
+    # PERF.md §6): HeatConfig() 512x512x128 float32, resident.  The fused
+    # steps 0.32-0.34 ms/step at every k (heat3d's 0.3293 at k = 1, 0.3281
+    # at k = 8), the split 0.6-1.0 ms/step at k = 1 (overlap_make's
+    # 0.65-0.96) and 0.36-0.50 at k = 4 (its host cost spread over 4
+    # steps); the fit's slope 0.33 ms over 3.36e7 cells, its intercept
+    # within noise of zero; the exchange four host-paced slab copies; each
+    # shell's overhead from the split step's 430 us of extra host time a
+    # step (overlap_make); so
+    # the calibrated plan is monolithic, its k whichever wins a <= 3 %
+    # trapezoid trade, within 2 % of the fastest fused schedule; the
+    # calibration under 5 s
+    "cost_model_fused_ms_per_step": [0.32, 0.34],
+    "cost_model_split_ms_per_step": {"k1": [0.6, 1.0], "k4": [0.36, 0.50]},
+    "cost_model_cell_ns": 0.0098,
+    "cost_model_exchange_us": [5.0, 40.0],
+    "cost_model_boundary_us_at_least": 50.0,
+    "cost_model_intercept_us": "within noise of zero",
+    "cost_model_calibrated_split": 0,
+    "cost_model_calibrated_over_fastest_fused": [1.0, 1.02],
+    "cost_model_calibration_s": [0.0, 5.0],
 }
 #: H100 SXM device-memory rate and float32 / float64 (non-tensor) peaks
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+from repro_torch.core.perfmodel import HBM_BYTES_PER_S, PEAK_FLOPS  # noqa: E402
 #: the kernel libraries of the main paths (csrc/<stem>.cu)
 LIBRARIES = ("fused_stencil", "dual_dot", "transfer", "stencil7")
 #: the ``kernels`` row of K1's column entry on a hazard body
@@ -4783,6 +4819,204 @@ def phase_service(seed: int):
     return by_row
 
 
+# ---------------------------------------------------------------------------
+# slice 16: the measured cost model
+# ---------------------------------------------------------------------------
+
+#: the fused and split schedules the ``cost_model`` phase times, and the
+#: tile factors it calibrates at
+COST_FUSED_KS = (1, 2, 4, 8)
+COST_SPLIT_KS = (1, 4)
+COST_CALIBRATION_KS = (1, 2, 4)
+
+
+def cost_rows(delta, split_k=None) -> dict:
+    """One run's K1 launches (``read_counts`` deltas, all margin mode but
+    the shells) by the ``kernels`` row they add to: the k = 1 entry and
+    the sweep of the monolithic steps, and the interior (region) and shell
+    launches of split steps, all of which ran at ``split_k``."""
+    region, shell = delta["K1rg"], delta["K1"] - delta["K1m"]
+    split = region + shell
+    return {"k1_margin": delta["K1k1"] - (split if split_k == 1 else 0),
+            "sweep": delta["K1sw"] - (split if (split_k or 0) > 1 else 0),
+            "region": region, "shell": shell}
+
+
+def phase_cost_model(steps: int, cfg=None):
+    """The measured cost model on the card, at ``HeatConfig()``'s
+    512×512×128 float32: the resident fused step at k = 1, 2, 4, 8 and the
+    split step at k = 1, 4 timed (CUDA events, ``steps`` steps after a
+    warm-up); ``calibrate_program`` at k = 1, 2, 4 (the entry, its
+    seconds, ``predict_step_us`` beside every measured schedule); the
+    calibrated plan (``time_tile=None``, ``overlap="auto"``): its k, split,
+    hits and ms per step, bitwise the uncalibrated ``make``, 0 allocations
+    per step; a ``cpu``-tagged entry gives the card plan no hit; the
+    manifest reloads to an equal entry; Eq. 12's rate beside the measured
+    one.  The process-wide model is cleared in a ``finally``."""
+    t_phase = time.perf_counter()
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import compiler
+    from repro_torch.configs.heat3d import HeatConfig, record_heat
+    from repro_torch.core import perfmodel
+    from repro_torch.core.program import _group_ops
+    from repro_torch.engine import (RunOptions, plan, reset_stats,
+                                    single_runner, stats)
+
+    cfg = cfg or HeatConfig()
+    shape = (cfg.nx, cfg.ny, cfg.nz)
+
+    def program():
+        wse, T = record_heat(cfg, steps)
+        wse.__exit__()
+        return wse.program, T.init_data
+
+    def make():
+        wse, T = record_heat(cfg, steps)
+        return wse.make(answer=T, options=RunOptions(
+            backend="pallas", time_tile=None, overlap="auto", device=DEV))
+
+    def timed(time_tile, overlap):
+        prog, init = program()
+        p = plan(prog, RunOptions(backend="pallas", time_tile=time_tile,
+                                  overlap=overlap, device=DEV))
+        run = single_runner(p)
+        env = {"T_n": torch.tensor(init, device=DEV)}
+        seg = p.segments[0]
+        return {"time_tile": seg.time_tile, "split": seg.split,
+                "ms_per_step": cuda_time_ms(lambda: run(env),
+                                            repeats=3) / steps}
+
+    try:
+        perfmodel.cost_model.clear()
+        # --- the schedules, uncalibrated ----------------------------------
+        schedules = {}
+        for k in COST_FUSED_KS:
+            schedules[f"fused_k{k}"] = timed(k, False)
+        for k in COST_SPLIT_KS:
+            schedules[f"split_k{k}"] = timed(k, True)
+        for key, r in schedules.items():
+            want = (int(key.split("_k")[1]), 4 if key.startswith("split") else 0)
+            if (r["time_tile"], r["split"]) != want:
+                raise AssertionError(f"cost_model: {key} planned as {r}")
+        reset_stats()
+        want = make()
+        if stats.cost_model_hits:
+            raise AssertionError("cost_model: a hit before calibrating")
+
+        # --- the main path: calibrate, then the calibrated make ----------
+        compiler.reset_stats()
+        reset_counts()
+        reset_stats()
+        before = read_counts()
+        prog, _ = program()
+        t0 = time.perf_counter()
+        entries = perfmodel.calibrate_program(prog, device=DEV,
+                                              ks=COST_CALIBRATION_KS)
+        calibration_s = time.perf_counter() - t0
+        mid = read_counts()
+        calibrations = stats.calibrations
+        reset_stats()
+        out = make()
+        hits = stats.cost_model_hits
+        after = read_counts()
+        fallbacks = compiler.stats.fallbacks
+        # ------------------------------------------------------------------
+        entry = entries["T_n"]
+        calib = counts_delta(before, mid)
+        made = counts_delta(mid, after)
+        reset_stats()
+        p = plan(prog, RunOptions(backend="pallas", time_tile=None,
+                                  overlap="auto", device=DEV))
+        pick = {"time_tile": p.segments[0].time_tile,
+                "split": p.segments[0].split}
+        k_b = max(k for k in COST_CALIBRATION_KS if (
+            shape[0] > 2 * k and shape[1] > 2 * k))
+        by_row = add_rows(cost_rows(calib, k_b),
+                          cost_rows(made, pick["time_tile"]
+                                    if pick["split"] else None))
+        checks = {
+            "calibrations": calibrations == 1,
+            "tag": entry.device == perfmodel.current_device(DEV)
+            and entry.device.startswith("cuda:"),
+            "hits": hits >= 1,
+            "fallbacks": fallbacks == 0,
+            "main_path_launched_k1": made["K1"] > 0 and calib["K1"] > 0,
+            "bitwise_vs_uncalibrated": bool(np.array_equal(out, want)),
+            "finite": out.shape == shape and bool(np.isfinite(out).all()),
+        }
+        allocs = allocations_per_step(lambda n: record_heat(cfg, n), steps,
+                                      None, overlap="auto")
+        checks["allocations_per_step"] = allocs["allocations_per_step"] == 0
+        calibrated = timed(None, "auto")
+
+        # a cpu-tagged entry for the same body steers no card plan
+        group = compiler.lower_group(
+            next(ops for loop, ops in _group_ops(prog) if loop is not None))
+        perfmodel.cost_model.clear()
+        perfmodel.cost_model.put(dataclasses.replace(
+            entry, signature=perfmodel.body_signature(
+                group, shape[2], cfg.dtype, "cpu"), device="cpu"))
+        reset_stats()
+        plan(prog, RunOptions(backend="pallas", time_tile=None,
+                              overlap="auto", device=DEV))
+        checks["cpu_entry_gives_no_hit"] = stats.cost_model_hits == 0
+
+        # the manifest written on the card reloads to an equal entry
+        model = perfmodel.CostModel()
+        model.put(entry)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "cost.json")
+            model.save_manifest(path)
+            fresh = perfmodel.CostModel()
+            fresh.load_manifest(path)
+        checks["manifest_roundtrip"] = fresh.entries == {entry.signature:
+                                                         entry}
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"cost_model: {failed} failed: {checks}, "
+                                 f"{entry}, {pick}, {allocs}")
+    finally:
+        perfmodel.cost_model.clear()
+
+    h = 1
+    predicted_us = {key: perfmodel.predict_step_us(
+        entry, shape[:2], shape[2], h, r["time_tile"],
+        split=bool(r["split"])) for key, r in schedules.items()}
+    predicted_us["calibrated"] = perfmodel.predict_step_us(
+        entry, shape[:2], shape[2], h, pick["time_tile"],
+        split=bool(pick["split"]))
+    fastest_fused = min(r["ms_per_step"] for key, r in schedules.items()
+                        if key.startswith("fused"))
+    W = shape[0] * shape[1] * shape[2]
+    emit({"phase": "cost_model", "card": card_line(),
+          "seconds": time.perf_counter() - t_phase,
+          "shape": list(shape), "dtype": cfg.dtype, "steps": steps,
+          "entry": entry.to_json(), "calibration_s": calibration_s,
+          "intercept_us": entry.launch_us + entry.exchange_us,
+          "schedules": {key: dict(r, predicted_ms_per_step=predicted_us[key]
+                                  / 1e3) for key, r in schedules.items()},
+          "calibrated_plan": dict(pick, cost_model_hits=hits,
+                                  ms_per_step=calibrated["ms_per_step"],
+                                  predicted_ms_per_step=predicted_us[
+                                      "calibrated"] / 1e3,
+                                  over_fastest_fused=calibrated["ms_per_step"]
+                                  / fastest_fused),
+          "allocations": allocs, "checks": checks,
+          "eq12_gpu_max_rate_steps_per_s": perfmodel.gpu_max_rate(
+              W, HBM_BYTES_PER_S),
+          "measured_steps_per_s": 1e3 / fastest_fused,
+          "launches": {"calibration": calib, "calibrated_make": made},
+          "by_row": by_row,
+          "predicted": {k: PREDICTED[k] for k in PREDICTED
+                        if k == "card" or k.startswith("cost_model")}})
+    return by_row
+
+
 def device_breakdown(fn, top: int = 4) -> dict:
     """Device time by kernel over one ``fn()`` under ``torch.profiler``, and
     the device's idle share: of the profiled call's wall time
@@ -4868,6 +5102,7 @@ def main() -> int:
         args.seed)
     phase_rows["adjoint_make"] = phase_adjoint_make(args.seed)
     phase_rows["service"] = phase_service(args.seed)
+    phase_rows["cost_model"] = phase_cost_model(args.steps)
     csrc = "src/repro_torch/kernels/csrc/"
     # the solves apply their operators through the k = 1 entry, padded;
     # K2 (cg + mg), K3 and K4 run in the multigrid solves of both solve
@@ -4951,7 +5186,7 @@ def main() -> int:
     # belong to
     row_of = {"k1_padded": 0, "k1_margin": 1, "sweep": 2, "members_k1": 4,
               "members_sweep": 5, "bricks_k1": 6, "bricks_sweep": 7,
-              "K2": 10, "K3": 11, "K4": 12}
+              "region": 8, "shell": 9, "K2": 10, "K3": 11, "K4": 12}
     for phase, by_row in phase_rows.items():
         for key, n in by_row.items():
             r = rows[row_of[key]][3]

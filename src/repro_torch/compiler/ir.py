@@ -138,15 +138,44 @@ def tile_group(group: LoweredGroup, k: int,
 
 
 def auto_tile(group: LoweredGroup, brick_xy: Tuple[int, int],
-              n_steps: int, max_k: int = 8) -> int:
-    """Pick a time-tile factor by the static rule.
+              n_steps: int, max_k: int = 8, *, cost=None, nz: int = None
+              ) -> int:
+    """Pick a time-tile factor.
 
-    The largest power of two ``k ≤ max_k`` that divides the trip count
-    (auto-tiled runs never need a remainder kernel) and whose tiled halo
-    stays small next to the brick (``4·k·h ≤ min(bx, by)``).  Halo-free
-    bodies tile purely for launch amortization.  The measured cost model of
-    the reference comes with its own slice.
+    Without a cost model this is the static rule: the largest power of two
+    ``k ≤ max_k`` that divides the trip count (auto-tiled runs never need a
+    remainder kernel) and whose tiled halo stays small next to the brick
+    (``4·k·h ≤ min(bx, by)``).  Halo-free bodies tile purely for launch
+    amortization.
+
+    With ``cost=`` (a calibrated
+    :class:`repro_torch.core.perfmodel.MeasuredCost` for this body's
+    signature) and ``nz``, the choice is the argmin of the *measured* model
+    over every legal power-of-two candidate — each scored as the better of
+    its fused and overlap-split schedules
+    (:func:`repro_torch.core.perfmodel.predict_step_us`).  ``k = 1`` is
+    always a candidate, so a model-driven pick can never lose to untiled
+    stepping by construction.
     """
+    if cost is not None and nz is not None and n_steps > 1:
+        from repro_torch.core.perfmodel import predict_step_us
+
+        best_k, best_t = 1, predict_step_us(cost, brick_xy, nz,
+                                            group.halo, 1)
+        cand = 2
+        while cand <= min(max_k, n_steps):
+            legal = (n_steps % cand == 0
+                     and (group.halo == 0
+                          or cand * group.halo <= min(brick_xy)))
+            if legal:
+                t = predict_step_us(cost, brick_xy, nz, group.halo, cand)
+                ts = predict_step_us(cost, brick_xy, nz, group.halo, cand,
+                                     split=True)
+                t = min(t, ts)
+                if t < best_t:
+                    best_k, best_t = cand, t
+            cand *= 2
+        return best_k
     cand = max_k
     while cand >= 2:
         if (cand <= n_steps and n_steps % cand == 0

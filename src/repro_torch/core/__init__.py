@@ -7,6 +7,9 @@ paper's Fig. 3, with the paper's ``WSE_*`` spellings as aliases.  The
 legacy functional drivers live in :mod:`~repro_torch.core.explicit` and
 :mod:`~repro_torch.core.implicit`, over the single-process brick mesh of
 :mod:`~repro_torch.core.mesh` and :mod:`~repro_torch.core.halo`.
+:mod:`~repro_torch.core.perfmodel` holds the paper's Eqs. 4-6/12-17, the
+H100 roofline and the measured cost model that ``auto_tile`` and
+``overlap="auto"`` consult.
 """
 from repro_torch.core.field import Field
 from repro_torch.core.program import ForLoop, WFAInterface

@@ -52,8 +52,10 @@ class RunOptions:
     launch and four boundary shells, the margin exchange running on a
     second stream meanwhile (bodies without a halo, or bricks without an
     interior at depth ``k·h``, keep the monolithic launch);
-    ``overlap="auto"`` keeps the monolithic launch (no cost model yet), as
-    does ``overlap=False``.
+    ``overlap="auto"`` splits only where the measured cost model
+    (:mod:`repro_torch.core.perfmodel`) holds a calibrated entry for the
+    body on the plan's device predicting the split faster, so uncalibrated
+    runs keep the monolithic launch; ``overlap=False`` always does.
     ``batch=B`` steps a B-member ensemble: every field buffer carries a
     leading member axis and each K1 launch advances all members
     (:mod:`repro_torch.core.ensemble`).  ``mesh`` (a

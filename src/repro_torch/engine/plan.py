@@ -12,7 +12,10 @@ Time-tile selection: an explicit ``time_tile=k`` is honoured up to the
 legality bounds of :func:`repro_torch.compiler.ir.tile_group` and clamped
 with a logged reason otherwise; ``time_tile=None`` auto-picks the largest
 power-of-two divisor of the trip count whose tiled halo stays small next to
-the grid (:func:`repro_torch.compiler.ir.auto_tile`).
+the grid (:func:`repro_torch.compiler.ir.auto_tile`) — or, when the measured
+cost model (:mod:`repro_torch.core.perfmodel`) holds a calibrated entry for
+the body on the plan's device, the candidate it predicts fastest
+(``stats.cost_model_hits`` counts the plans it serves).
 
 Layout: planning is two-pass.  Pass one lowers each body and picks its
 tile factor; with ``RunOptions(resident=True)`` (the default) and
@@ -38,9 +41,10 @@ whose body has a halo and whose brick keeps an interior at depth ``k·h``
 (:func:`repro_torch.compiler.ir.split_regions`) into an interior launch
 and four boundary shells, the margin exchange on a second stream meanwhile
 (:func:`repro_torch.compiler.codegen._build_overlap_step`); the segment
-records its shells in ``Segment.split``.  ``overlap="auto"`` keeps the
-monolithic launch, as the reference does without a calibrated cost model;
-so does ``overlap=False``.
+records its shells in ``Segment.split``.  ``overlap="auto"`` splits only
+where the body's calibrated cost-model entry predicts the split faster than
+the monolithic launch at the brick's extent (no entry: monolithic);
+``overlap=False`` never splits.
 
 Differentiation: ``RunOptions(differentiable=True)`` plans no resident
 layout (every fused body on the repacking step, fresh outputs per launch),
@@ -69,6 +73,7 @@ from repro_torch.compiler import (LoweringError, auto_tile, lower_group,
                                    split_regions, tile_group)
 from repro_torch.compiler.codegen import (compile_group, compile_group_sharded,
                                           try_compile)
+from repro_torch.core import perfmodel
 from repro_torch.core.mesh import Mesh
 from repro_torch.core.program import Program, _group_ops, _interp_step
 from repro_torch.engine.layout import HaloLayout
@@ -324,13 +329,21 @@ def _mesh_device(mesh: Mesh, device) -> torch.device:
     return mesh.home
 
 
-def _pick_tile(group, loop, requested: Optional[int], brick_xy) -> Tuple[int, str]:
-    """Resolve the tile factor for one fused loop body: (k, clamp_reason)."""
+def _pick_tile(group, loop, requested: Optional[int], brick_xy, cost=None,
+               nz=None) -> Tuple[int, str]:
+    """Resolve the tile factor for one fused loop body: (k, clamp_reason).
+
+    ``cost`` is this body's calibrated
+    :class:`~repro_torch.core.perfmodel.MeasuredCost` entry when one exists:
+    auto selection then minimizes the measured model over the legal
+    candidates instead of applying the static rule (``k = 1`` always
+    admissible — see :func:`repro_torch.compiler.ir.auto_tile`).
+    """
     n = loop.n if loop is not None else 1
     if n <= 1:
         return 1, ""
     if requested is None:
-        return auto_tile(group, brick_xy, n), ""
+        return auto_tile(group, brick_xy, n, cost=cost, nz=nz), ""
     k = max(1, int(requested))
     try:
         tile_group(group, k, brick_xy=brick_xy, n_steps=n)
@@ -343,6 +356,15 @@ def _pick_tile(group, loop, requested: Optional[int], brick_xy) -> Tuple[int, st
         reason = f"time_tile={requested} clamped to k={k_ok}: {e}"
         log.warning("%s", reason)
         return k_ok, reason
+
+
+def _split_pays(cost, brick_xy, nz: int, h: int, k: int) -> bool:
+    """``overlap="auto"``'s test: a calibrated entry predicts the split step
+    faster than the monolithic one at the brick's extent (no entry: no)."""
+    if cost is None:
+        return False
+    return (perfmodel.predict_step_us(cost, brick_xy, nz, h, k, split=True)
+            < perfmodel.predict_step_us(cost, brick_xy, nz, h, k))
 
 
 def plan(
@@ -362,10 +384,11 @@ def plan(
     ``time_tile=`` / ``resident=`` keywords warn once per keyword and
     forward into the bundle.
 
-    Two passes: pass one lowers each body and picks its tile factor, which
-    fixes the run-wide margin ``K = max k·h`` of the halo-resident layout;
-    pass two decides the overlap split and compiles each body (and its
-    remainder step) against ``K``.
+    Two passes: pass one lowers each body, looks up its calibrated
+    cost-model entry for the plan's device (a mesh's home device) and picks
+    its tile factor, which fixes the run-wide margin ``K = max k·h`` of the
+    halo-resident layout; pass two decides the overlap split and compiles
+    each body (and its remainder step) against ``K``.
     """
     options = resolve_options(
         options,
@@ -410,14 +433,21 @@ def plan(
     for loop, ops in _group_ops(program):
         group = None
         k, reason = 1, ""
+        cost = None
         if backend == "pallas":
             try:
                 group = lower_group(ops)
             except LoweringError:
                 group = None  # compile_body repeats the lowering to log/count
             if group is not None:
+                name0 = group.fields_written()[0]
+                cost = perfmodel.cost_model.lookup(
+                    group, shapes[name0][2], dtypes[name0], device)
+                if cost is not None:
+                    stats.cost_model_hits += 1
                 k, reason = _pick_tile(group, loop, time_tile,
-                                       _brick_xy(program, mesh, group))
+                                       _brick_xy(program, mesh, group),
+                                       cost=cost, nz=shapes[name0][2])
         elif backend != "numpy" and time_tile is not None and time_tile != 1:
             # an explicit tile request on an interpreter backend is dropped,
             # not honoured — say so instead of silently running untiled
@@ -426,30 +456,36 @@ def plan(
                 "fused kernels to tile (use backend='pallas')"
             )
             log.warning("%s", reason)
-        scheduled.append((loop, ops, group, k, reason))
+        scheduled.append((loop, ops, group, k, reason, cost))
 
     pad = 0
     if options.resident and backend == "pallas" and not options.differentiable:
         # a differentiable plan keeps the repacking steps: the resident
         # layout's ping-pong outputs and margin rewrites reuse buffers that
         # a reverse pass keeps as saved inputs
-        pad = max((k * g.halo for _, _, g, k, _ in scheduled if g is not None),
-                  default=0)
+        pad = max((k * g.halo for _, _, g, k, _, _ in scheduled
+                   if g is not None), default=0)
     layout = HaloLayout(pad=pad, shapes=shapes)
 
     # pass two: compile each body against the layout
     segments: List[Segment] = []
-    for loop, ops, group, k, reason in scheduled:
+    for loop, ops, group, k, reason, cost in scheduled:
         if backend == "numpy":
             segments.append(Segment(loop=loop, ops=tuple(ops), kind="eager"))
             continue
         # the overlap split, decided here only: on a resident plan, for a
         # body with a halo whose brick keeps an interior at depth k·h, when
-        # asked for; None is the monolithic launch
+        # forced (overlap=True) or, on "auto", predicted faster than the
+        # monolithic launch by the body's calibrated entry; None is the
+        # monolithic launch
         split = split_rem = None
-        if options.overlap is True and group is not None and pad > 0:
+        if options.overlap is not False and group is not None and pad > 0:
             brick = _brick_xy(program, mesh, group)
             split = split_regions(group, k, brick)
+            if options.overlap == "auto" and not _split_pays(
+                    cost, brick, shapes[group.fields_written()[0]][2],
+                    group.halo, k):
+                split = None
             if split is not None:  # the n % k remainder step splits at k = 1
                 split_rem = split_regions(group, 1, brick)
         step, fused = compile_body(ops, loop, shapes, dtypes, backend,

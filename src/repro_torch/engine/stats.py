@@ -12,8 +12,10 @@ overlap counters (``interior_launches``, ``boundary_launches``,
 guarded runs and solves, and the serving counters (``requests_*``,
 ``plan_*``, ``service_*``, ``queue_wait_s``) for
 :class:`repro_torch.service.SimulationService`, which
-:func:`service_stats` summarizes; the cost model's (``cost_model_hits``,
-``calibrations``) stay 0 until it is ported.
+:func:`service_stats` summarizes; the cost model's
+(``cost_model_hits``: bodies planned with a calibrated entry;
+``calibrations``: :func:`repro_torch.core.perfmodel.calibrate` runs) for
+plans and calibrations.
 
 Exchange counting is *static*: the executor derives the counts from the
 plan — one halo exchange per fused-kernel launch (zero for halo-free
@@ -56,8 +58,8 @@ class EngineStats:
     interior_launches: int = 0
     boundary_launches: int = 0
     overlapped_exchanges: int = 0
-    cost_model_hits: int = 0
-    calibrations: int = 0
+    cost_model_hits: int = 0  # plans served by a calibrated cost-model entry
+    calibrations: int = 0  # cost-model calibration runs performed
     mg_hierarchies: int = 0
     mg_levels_built: int = 0
     mg_level_log: Tuple[Tuple[Tuple[int, int, int], bool, bool], ...] = ()

@@ -80,7 +80,10 @@ Without a card every test skips.  Tolerances:
   CPU's (both solved to 1e-11: another dot order, the same tolerance);
 * the service: four workers return one worker's bits, step results equal
   ``make``'s bitwise, and a served chunk (steps, wait, probe) makes no
-  device allocation.
+  device allocation;
+* the cost model: a calibration on the card tags its entry with the card's
+  name, the calibrated ``make`` equals the uncalibrated one bitwise, and a
+  ``cpu``-tagged entry steers no card plan.
 
 The bodies of :data:`K1_BODIES` are shared with ``test_torch_k1.py``, which
 holds their plain version against the JAX reference on the CPU.
@@ -1435,3 +1438,48 @@ def test_cuda_service_chunk_allocates_nothing():
                                 ["allocation.all.allocated"] - a0)
                 assert t.stats.chunks == steps // 8
             assert grown[96] == grown[48], (sig.workload, grown)
+
+
+@pytest.mark.cuda
+def test_cuda_calibration_tags_the_card_and_keeps_the_bits():
+    """``calibrate_program`` on the card (a 64×48×12 heat body at k = 1, 2,
+    4) tags its entry ``"cuda:"`` and the card's name; ``make`` with
+    ``time_tile=None`` and ``overlap="auto"`` then counts one hit and
+    equals the uncalibrated ``make`` bit for bit; an entry for the same
+    body under the ``cpu`` tag gives the card plan no hit."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.core import perfmodel
+    from repro_torch.engine import plan, reset_stats, stats
+
+    T0 = np.random.default_rng(29).uniform(300.0, 500.0,
+                                           (64, 48, 12)).astype(np.float32)
+    opts = RunOptions(backend="pallas", time_tile=None, overlap="auto")
+
+    def make():
+        wse, T = _heat_member(T0, 16)
+        return wse.make(answer=T, options=opts)
+
+    try:
+        perfmodel.cost_model.clear()
+        want = make()
+        wse, _ = _heat_member(T0, 16)
+        entry = perfmodel.calibrate_program(wse.program, ks=(1, 2, 4),
+                                            reps=1, inner=2)["T"]
+        assert entry.device == "cuda:" + torch.cuda.get_device_name(
+            torch.cuda.current_device())
+        reset_stats()
+        got = make()
+        assert stats.cost_model_hits == 1
+        np.testing.assert_array_equal(got, want)
+        group = lower_group(list(wse.program.ops))
+        perfmodel.cost_model.clear()
+        perfmodel.cost_model.put(dataclasses.replace(
+            entry, device="cpu",
+            signature=perfmodel.body_signature(group, 12, np.float32, "cpu")))
+        reset_stats()
+        plan(wse.program, opts)
+        assert stats.cost_model_hits == 0
+    finally:
+        perfmodel.cost_model.clear()

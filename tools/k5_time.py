@@ -90,8 +90,14 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-#: H100 SXM device-memory rate
-HBM_BYTES_PER_S = 3.35e12
+
+
+def hbm_bytes_per_s() -> float:
+    """The H100 SXM device-memory rate, from the cost model of the port
+    under test (importable once ``--src`` is on the path)."""
+    from repro_torch.core.perfmodel import HBM_BYTES_PER_S
+
+    return HBM_BYTES_PER_S
 
 
 def device_ms(fn, n: int) -> float:
@@ -271,7 +277,7 @@ def transfer_ms(repeats: int, runs: int, k4_xc: str) -> dict:
         row = {"coarse": list(coarse),
                "K4_ms": spread(lambda: launch_prolong(c, fine)),
                "K3_ms": spread(lambda: launch_restrict(f)),
-               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_bytes": nbytes}
+               "bound_ms": nbytes / hbm_bytes_per_s() * 1e3, "bound_bytes": nbytes}
         own = getattr(transfer, "k4_launch_shape", None)
         if own is not None:
             s4 = own(*fine)
@@ -467,7 +473,7 @@ def k1_ms(repeats: int, runs: int, blocks: str) -> dict:
                 nbytes += (rx + 2 * pad) * (ry + 2 * pad) * nz * 4
                 if name in kern.written:
                     nbytes += rx * ry * nz * 4
-        return nbytes / HBM_BYTES_PER_S * 1e3
+        return nbytes / hbm_bytes_per_s() * 1e3
 
     out = {}
     for body, (prog, env) in bodies.items():
@@ -588,12 +594,12 @@ def main() -> int:
             "K5_host_us": host_us(lambda: launch_spmv_dot(P, 1.0, -wpsi)),
             "K5_with_partial_sum_host_us": host_us(
                 lambda: ops.spmv_hex_dot(P, 1.0, -wpsi)),
-            "K5_bound_ms": k5_bytes / HBM_BYTES_PER_S * 1e3,
+            "K5_bound_ms": k5_bytes / hbm_bytes_per_s() * 1e3,
             "K6_ms": queued_ms(lambda: launch_stencil7(P, a, w), args.repeats),
-            "K6_bound_ms": k6_bytes / HBM_BYTES_PER_S * 1e3,
+            "K6_bound_ms": k6_bytes / hbm_bytes_per_s() * 1e3,
             "K7_ms": queued_ms(k7, args.repeats),
             "K7_host_us": host_us(k7),
-            "K7_bound_ms": k7_bytes / HBM_BYTES_PER_S * 1e3,
+            "K7_bound_ms": k7_bytes / hbm_bytes_per_s() * 1e3,
         }
         if hasattr(stencil7, "k7_launch_shape"):
             s7 = stencil7.k7_launch_shape(bx, by, nz)
