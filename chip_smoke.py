@@ -281,6 +281,27 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          entry; Eq. 12's rate beside the measured one; the
                          calibration's and the calibrated make's K1
                          launches added to the rows of their routes;
+10k. ``lm_serve``     — the LM serving path (``repro_torch.{models,launch}``,
+                         no kernel of ``kernels/``): qwen3-0.6b at full
+                         width and 28 layers in bfloat16 through ``serve``
+                         (batch 8, prompt 512, gen 64; seeded weights):
+                         tokens in range, the served tokens replayed by
+                         ``prefill`` + ``make_decode_step``; prefill ms and
+                         tokens/s beside its operations bound, decode ms a
+                         token and tokens/s beside its bytes bound, idle
+                         share, peak memory; teacher-forced decode (448 of
+                         512 prefilled) against the forward, bfloat16 and
+                         float32 (the same weights cast, TF32 off), within
+                         ``LM_BF16_REL`` / ``LM_F32_REL`` of max|logit|;
+                         bfloat16 against float32 last-token logits
+                         (relative Frobenius, ``LM_BF16_VS_F32``); the card
+                         against the CPU at ``smoke()`` with the same
+                         weights within ``LM_CARD_CPU_REL``; no kernel of
+                         ``kernels/`` launched or built; the nine other
+                         architectures at published width, each block
+                         kind's first segment capped at two layers, float32
+                         teacher-forced (prompt 64, 8 steps) within
+                         ``LM_F32_REL``;
 11. ``kernels``        — one JSON line describing every kernel of the paths
                          (K1 on six rows: the k = 1 entry in the padded and
                          the margin mode, the sweep at the auto tile, and
@@ -312,7 +333,10 @@ Each main path (``heat3d``, ``hazard_make``, ``ensemble_make``,
 ``legacy_btcs``, ``sharded_make``, ``sharded_solve``, ``overlap_make``,
 ``health_make``, ``health_solve``, ``adjoint_solve``, ``adjoint_make``,
 ``service``, ``cost_model``) runs with the launch counters set to 0 just before it and read just after,
-and fails if one of its kernels was not launched.  Then the card's name and
+and fails if one of its kernels was not launched (``lm_serve``: if one
+was).  K1's k = 1 padded row carries ``F.conv3d``'s time as its library
+call (``heat3d``, within one float32 ulp of K1 on the cells the body
+updates).  Then the card's name and
 power limit, and last the result line.  Any failed check raises: the script exits
 non-zero and prints no result line.  Without a CUDA device it exits
 non-zero before printing anything.
@@ -536,6 +560,29 @@ PREDICTED = {
     "cost_model_calibrated_split": 0,
     "cost_model_calibrated_over_fastest_fused": [1.0, 1.02],
     "cost_model_calibration_s": [0.0, 5.0],
+    # the LM serving path (written before its first run on a card; PERF.md
+    # §6): qwen3-0.6b at full width and depth in bfloat16, batch 8,
+    # prompt 512, gen 64, eager PyTorch.  A decode step issues about 100
+    # small kernels a layer (norms, rotations, casts, the cache's float32
+    # copies, three projections, the MLP), about 2800 a token from the host
+    # at 5-10 us each, so it is host-bound at 10-30 ms a token against its
+    # 0.36 ms bytes bound (1.19 GB of weights at 3.35 TB/s), the card idle
+    # 40-80 % of it; the prefill's 3.6e12 FLOP of bfloat16 products (a 3.7
+    # ms bound at 989 TFLOP/s) run beside float32 attention (TF32 off) and
+    # its 134 MB score tiles, 25-60 ms; 2.5-5 GB at the peak (1.2 GB of
+    # weights, 0.53 GB of cache, the prefill's float32 scores)
+    "lm_decode_ms_per_token": [10.0, 30.0],
+    "lm_decode_tok_per_s": [270.0, 800.0],
+    "lm_decode_idle_share": [0.4, 0.8],
+    "lm_prefill_ms": [25.0, 60.0],
+    "lm_prefill_tok_per_s": [68000.0, 164000.0],
+    "lm_peak_gb": [2.5, 5.0],
+    "lm_forced_bf16_rel": [0.005, 0.05],
+    "lm_bf16_vs_f32_rel_fro": [0.005, 0.05],
+    # K1's k = 1 padded row's library call: one F.conv3d of the padded
+    # 514x514x128 float32 field, one channel, TF32 off (K6's F.pad +
+    # F.conv3d took 6.3992 ms, K3's strided one 0.7586)
+    "k1_conv3d_library_ms": [3.0, 7.0],
 }
 #: H100 SXM device-memory rate and float32 / float64 (non-tensor) peaks
 from repro_torch.core.perfmodel import HBM_BYTES_PER_S, PEAK_FLOPS  # noqa: E402
@@ -1259,6 +1306,35 @@ def sweep_bound_ms(kernel, dtype_name: str) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def k1_conv_library(kernel, padded, omega: float):
+    """The library call beside K1's k = 1 padded launch of the heat3d body:
+    one ``F.conv3d`` of the padded field (x and y wrapped by one cell, z
+    not) with the 7-point 3×3×3 weight, 1 − 6ω at the centre and ω at each
+    face (TF32 off).  It computes the body on every cell the body updates
+    (x, y and z interior; K1 keeps the others).  Returns (ms, max |diff|
+    from K1's output on those cells, one float32 ulp of the field's
+    largest value); fails beyond that ulp (another summation order)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.fused import launch_fused
+
+    P = padded[0]
+    W = seven_point_weight(1.0 - 6.0 * omega, omega, P)
+
+    def lib():
+        return F.conv3d(P[None, None], W)[0, 0]
+
+    got = lib()[1:-1, 1:-1]
+    want = launch_fused(kernel, padded)[0][1:-1, 1:-1, 1:-1]
+    err = float((got.double() - want.double()).abs().max())
+    ulp = float(np.spacing(np.float32(want.abs().max().item())))
+    if err > ulp:
+        raise AssertionError(f"F.conv3d vs K1 on the heat3d body: {err} > "
+                             f"one float32 ulp {ulp}")
+    return cuda_time_ms(lib, repeats=20), err, ulp
+
+
 def phase_heat3d(steps: int, heat):
     import numpy as np
 
@@ -1386,6 +1462,7 @@ def phase_heat3d(steps: int, heat):
                       "host_us_per_step": t["host_us_per_step"]}
                 for tag, t in timing.items()}
     plain_ms = cuda_time_ms(lambda: fused_step_ref(kern, padded), repeats=5)
+    lib_ms, lib_err, lib_ulp = k1_conv_library(kern, padded, cfg.omega)
     b_ms, b_by = bound_ms(kern, cfg.dtype)
     km, ins = heat["margin"]["kernel"], heat["margin"]["inputs"]
     out = margin_outputs(km, ins)
@@ -1415,6 +1492,8 @@ def phase_heat3d(steps: int, heat):
           "timing": timing, "launch_host_us": launch_host,
           "bound_ms_per_step_k1": b_ms, "bound_by": b_by,
           "k1_kernel_ms": k1_ms, "k1_plain_ms": plain_ms,
+          "k1_library_ms": lib_ms,
+          "k1_library_vs_k1": {"max_abs_err": lib_err, "ulp": lib_ulp},
           "k1_margin_kernel_ms": km_ms, "k1_margin_plain_ms": km_plain_ms,
           "k1_margin_bound_ms": bm_ms,
           "sweep_k": ks.k, "sweep_margin_kernel_ms": ks_ms,
@@ -1433,7 +1512,7 @@ def phase_heat3d(steps: int, heat):
         by_mode["margin" if r["resident"] else "padded"] += r["k1_entry_launches"]
     return {"k1_padded": {"launches": by_mode["padded"], "err": heat["err"],
                           "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                          "bound_by": b_by},
+                          "bound_by": b_by, "library_ms": lib_ms},
             "k1_margin": {"launches": by_mode["margin"],
                           "err": heat["margin"]["err"], "ms": km_ms,
                           "plain_ms": km_plain_ms, "bound_ms": bm_ms,
@@ -5017,6 +5096,286 @@ def phase_cost_model(steps: int, cfg=None):
     return by_row
 
 
+LM_ARCH = "qwen3-0.6b"
+#: the served batch: 8 prompts of 512 tokens, 64 generated tokens each
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 512, 64
+#: the teacher-forced check: prefill the first 448 tokens of the 512,
+#: decode the other 64 one at a time against the forward on all 512
+LM_FORCED_S0 = 448
+#: bounds, each × max|logit| of the forward over the compared positions:
+#: float32 decode vs forward (TF32 off; another summation order per
+#: matrix product shape), and the card vs the CPU at ``smoke()``
+LM_F32_REL = 1e-3
+LM_CARD_CPU_REL = 1e-4
+#: bfloat16 decode vs forward at full width and 28 layers, × max|logit|:
+#: the decode's (8, 1, ·) products and the forward's (8, 512, ·) ones
+#: round to bfloat16 after float32 sums of other orders, and 28 layers
+#: compound a bfloat16 ulp (2⁻⁸ ≈ 0.39 % relative) of each residual add.
+#: The first card run read 0.0176 (4.5 ulps of max|logit|; PERF.md §6);
+#: the bound is 13 ulps
+LM_BF16_REL = 0.05
+#: bfloat16 vs float32 last-token logits on the same (bfloat16) weights:
+#: relative Frobenius error; first card run 0.0177, the same 13-ulp bound
+LM_BF16_VS_F32 = 0.05
+#: the other nine architectures: batch, prompt and decode steps of their
+#: float32 teacher-forced check at published width, reduced depth
+LM_OTHER_BATCH, LM_OTHER_PROMPT, LM_OTHER_STEPS = 2, 64, 8
+#: dense bfloat16 tensor-core peak of an H100 SXM (NVIDIA's data sheet,
+#: no sparsity), for the prefill's operations bound
+H100_SXM_BF16_DENSE_FLOPS = 989e12
+
+
+def lm_depth_cut(cfg):
+    """``cfg`` at published width with each block kind's first segment
+    kept, capped at two layers (zamba2: one mamba + mamba_shared period;
+    deepseek-v2: its dense MLA layer and two MoE layers)."""
+    import dataclasses
+
+    seen, segs = set(), []
+    for kind, count in cfg.segments:
+        if kind not in seen:
+            seen.add(kind)
+            segs.append((kind, min(count, 2)))
+    return dataclasses.replace(cfg, segments=tuple(segs),
+                               n_layers=sum(c for _, c in segs))
+
+
+def lm_forced(params, tokens, cfg, s0: int) -> dict:
+    """Teacher-forced decode against the forward: prefill ``tokens[:, :s0]``,
+    decode the rest one token at a time; the largest |difference| of the
+    prefill's and each step's logits from the forward's at the same
+    position, over max|forward logit| there."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    full, _ = M.forward(params, tokens, cfg)
+    want = full[:, s0 - 1:].float()
+    del full
+    got = lm_forced_logits(params, tokens, cfg, s0).float()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    return {"max_abs_err": err, "max_abs_logit": scale,
+            "rel": err / scale, "positions": tokens.shape[1] - s0 + 1,
+            "finite": bool(torch.isfinite(got).all()
+                           and torch.isfinite(want).all())}
+
+
+def lm_forced_logits(params, tokens, cfg, s0: int):
+    """The prefill's logits and each teacher-forced decode step's, along
+    the sequence axis."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    got, cache = M.prefill(params, tokens[:, :s0], cfg, tokens.shape[1])
+    rows = [got]
+    for t in range(s0, tokens.shape[1]):
+        got, cache = M.decode_step(params, cache, tokens[:, t:t + 1], t, cfg)
+        rows.append(got)
+    return torch.cat(rows, dim=1)
+
+
+def lm_bytes(params) -> int:
+    return sum(p.numel() * p.element_size() for p in params.parameters())
+
+
+def phase_lm_serve(seed: int):
+    """The LM serving path (``repro_torch.{models,launch}``) on the card:
+    qwen3-0.6b at full width and depth in bfloat16 through ``serve``
+    (batch 8, prompt 512, gen 64) with its checks and times, the card
+    against the CPU at ``smoke()``, and the nine other architectures'
+    float32 teacher-forced check at published width, reduced depth."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch import compiler
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.convert import lm_params_from_numpy, lm_params_to_numpy
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import model as M
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    B, S, G = LM_BATCH, LM_PROMPT, LM_GEN
+    built = (compiler.stats.kernels_built, len(build._LIBS))
+
+    # --- the main path: serve at full width, counters 0 before, read after
+    reset_counts()
+    torch.cuda.synchronize()
+    # what earlier phases still hold is not the serving path's
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tokens, tok_per_s = serve(cfg, batch=B, prompt_len=S, gen=G, seed=seed,
+                              device=DEV)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    launches = read_counts()
+    # ------------------------------------------------------------------------
+    checks = {"tokens_shape": tuple(tokens.shape) == (B, G),
+              "tokens_in_range": int(tokens.min()) >= 0
+              and int(tokens.max()) < cfg.vocab_size,
+              "no_port_kernel_launched": not any(launches.values())}
+
+    params = M.init_params(cfg, seed=seed, device=DEV)   # serve's weights
+    weight_bytes = lm_bytes(params)
+    layer_params = sum(p.numel() for name, p in params.named_parameters()
+                       if name.startswith("segments."))
+    gen_t = torch.Generator(device=DEV).manual_seed(seed + 1)
+    prompts = torch.randint(1, cfg.vocab_size, (B, S), generator=gen_t,
+                            device=DEV)
+    s_max = S + G
+    prefill_step = make_prefill_step(cfg)
+    decode_step = make_decode_step(cfg)
+    with torch.no_grad():
+        logits, cache = M.prefill(params, prompts, cfg, s_max)
+        first = torch.argmax(logits, dim=-1)
+        checks["served_first_token"] = torch.equal(first, tokens[:, :1])
+        checks["prefill_step_argmax"] = torch.equal(
+            torch.argmax(prefill_step(params, prompts), dim=-1), first)
+
+        def decode_run(n):
+            tok = first
+            for i in range(S, S + n):
+                lg, _ = decode_step(params, cache, tok, i)
+                tok = torch.argmax(lg, dim=-1)
+            return tok
+
+        checks["decode_replays_serve"] = torch.equal(
+            decode_run(G - 1), tokens[:, -1:])
+        prefill_ms = cuda_time_ms(
+            lambda: M.prefill(params, prompts, cfg, s_max), repeats=3)
+        decode_ms = cuda_time_ms(lambda: decode_run(G - 1), repeats=2) \
+            / (G - 1)
+        t0 = time.perf_counter()
+        decode_run(G - 1)
+        torch.cuda.synchronize()
+        decode_host_ms = (time.perf_counter() - t0) * 1e3 / (G - 1)
+        decode_profile = device_breakdown(lambda: decode_run(16))
+        prefill_profile = device_breakdown(
+            lambda: M.prefill(params, prompts, cfg, s_max))
+
+        # (a) teacher-forced decode against the forward, bfloat16
+        forced16 = lm_forced(params, prompts, cfg, LM_FORCED_S0)
+        # (a) in float32 on the same weights cast, and (b) bfloat16 against
+        # float32 on the last prompt token
+        params32 = copy.deepcopy(params).to(torch.float32)
+        forced32 = lm_forced(params32, prompts, cfg32, LM_FORCED_S0)
+        last16 = prefill_step(params, prompts).float()
+        last32 = make_prefill_step(cfg32)(params32, prompts)
+        bf16_vs_f32 = float(torch.linalg.vector_norm(last16 - last32)
+                            / torch.linalg.vector_norm(last32))
+        checks["logits_finite"] = bool(torch.isfinite(logits).all()
+                                       and torch.isfinite(last16).all()
+                                       and forced16["finite"]
+                                       and forced32["finite"])
+        del params, params32, cache, last16, last32
+
+        # (c) the card against the CPU at smoke(), the same weights
+        small = get_config(LM_ARCH).smoke()
+        p_cpu = M.init_params(small, seed=seed, device="cpu")
+        p_gpu = lm_params_from_numpy(lm_params_to_numpy(p_cpu), small, DEV)
+        toks = torch.randint(1, small.vocab_size, (2, 24),
+                             generator=torch.Generator().manual_seed(seed))
+        card_cpu = {}
+        for name, run in (
+                ("forward", lambda p, t: M.forward(p, t, small)[0]),
+                ("forced", lambda p, t: lm_forced_logits(p, t, small, 16))):
+            want = run(p_cpu, toks).float()
+            got = run(p_gpu, toks.to(DEV)).float().cpu()
+            card_cpu[name] = float((got - want).abs().max()
+                                   / want.abs().max())
+        # (d) nothing of kernels/ built
+        checks["no_port_kernel_built"] = built == (
+            compiler.stats.kernels_built, len(build._LIBS))
+
+    checks["forced_f32"] = forced32["rel"] <= LM_F32_REL
+    checks["forced_bf16"] = forced16["rel"] <= LM_BF16_REL
+    checks["bf16_vs_f32"] = bf16_vs_f32 <= LM_BF16_VS_F32
+    checks["card_vs_cpu"] = max(card_cpu.values()) <= LM_CARD_CPU_REL
+    torch.cuda.empty_cache()
+
+    # --- the nine other architectures at published width, reduced depth ---
+    others = {}
+    for arch in ARCHS:
+        if arch == LM_ARCH:
+            continue
+        t0 = time.perf_counter()
+        c = lm_depth_cut(dataclasses.replace(
+            get_config(arch), param_dtype="float32", compute_dtype="float32"))
+        if c.moe:    # no capacity drops in the forward of the comparison
+            c = dataclasses.replace(c, moe=dataclasses.replace(
+                c.moe, capacity_factor=64.0))
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            p = M.init_params(c, seed=seed, device=DEV)
+            shape = (LM_OTHER_BATCH, LM_OTHER_PROMPT + LM_OTHER_STEPS) + (
+                (c.n_codebooks,) if c.n_codebooks > 1 else ())
+            toks = torch.randint(1, c.vocab_size, shape, device=DEV,
+                                 generator=torch.Generator(
+                                     device=DEV).manual_seed(seed))
+            r = lm_forced(p, toks, c, LM_OTHER_PROMPT)
+        others[arch] = dict(r, segments=[list(x) for x in c.segments],
+                            weight_gb=lm_bytes(p) / 1e9,
+                            peak_gb=(torch.cuda.max_memory_allocated()
+                                     - held) / 1e9,
+                            seconds=time.perf_counter() - t0)
+        del p
+        torch.cuda.empty_cache()
+        checks[f"forced_f32_{arch}"] = r["rel"] <= LM_F32_REL and r["finite"]
+
+    # --- bounds (data sheet): decode reads every weight once a token (and
+    # the cache up to its position); prefill does 2 FLOP per weight of the
+    # layers per token, plus causal attention and the head on the last
+    # tokens, at the dense bfloat16 tensor peak
+    cache_bytes = (2 * cfg.n_layers * B * cfg.n_kv_heads * cfg.head_dim * 2
+                   * (S + G // 2))
+    decode_bound = weight_bytes / HBM_BYTES_PER_S * 1e3
+    attn_ops = 4 * cfg.n_layers * B * cfg.n_heads * cfg.head_dim \
+        * S * (S + 1) / 2
+    prefill_ops = 2 * layer_params * B * S + attn_ops \
+        + 2 * B * cfg.d_model * cfg.vocab_size
+    prefill_bound = prefill_ops / H100_SXM_BF16_DENSE_FLOPS * 1e3
+    failed = [k for k, ok in checks.items() if not ok]
+    emit({"phase": "lm_serve", "card": card_line(), "arch": LM_ARCH,
+          "seconds": time.perf_counter() - t_phase,
+          "batch": B, "prompt_len": S, "gen": G, "dtype": cfg.compute_dtype,
+          "weight_gb": weight_bytes / 1e9, "serve_s": serve_s,
+          "serve_decode_tok_per_s": tok_per_s,
+          "prefill_ms": prefill_ms,
+          "prefill_tok_per_s": B * S / prefill_ms * 1e3,
+          "prefill_bound_ms": prefill_bound, "prefill_bound_by": "operations",
+          "prefill_ops": prefill_ops,
+          "decode_ms_per_token": decode_ms,
+          "decode_host_ms_per_token": decode_host_ms,
+          "decode_tok_per_s": B / decode_ms * 1e3,
+          "decode_bound_ms": decode_bound, "decode_bound_by": "bytes",
+          "decode_bound_with_cache_ms": (weight_bytes + cache_bytes)
+          / HBM_BYTES_PER_S * 1e3,
+          "decode_profile": decode_profile,
+          "prefill_profile": prefill_profile, "peak_gb": peak_gb,
+          "held_before_gb": base / 1e9,
+          "forced_bf16": forced16, "forced_f32": forced32,
+          "bf16_vs_f32_rel_fro": bf16_vs_f32, "card_vs_cpu_rel": card_cpu,
+          "bounds": {"forced_f32": LM_F32_REL, "forced_bf16": LM_BF16_REL,
+                     "bf16_vs_f32": LM_BF16_VS_F32,
+                     "card_vs_cpu": LM_CARD_CPU_REL},
+          "launches": launches, "others": others, "checks": checks,
+          "predicted": {k: PREDICTED[k] for k in PREDICTED
+                        if k == "card" or k.startswith("lm_")}})
+    if failed:
+        raise AssertionError(f"lm_serve: {failed} failed")
+
+
 def device_breakdown(fn, top: int = 4) -> dict:
     """Device time by kernel over one ``fn()`` under ``torch.profiler``, and
     the device's idle share: of the profiled call's wall time
@@ -5103,6 +5462,7 @@ def main() -> int:
     phase_rows["adjoint_make"] = phase_adjoint_make(args.seed)
     phase_rows["service"] = phase_service(args.seed)
     phase_rows["cost_model"] = phase_cost_model(args.steps)
+    phase_lm_serve(args.seed)
     csrc = "src/repro_torch/kernels/csrc/"
     # the solves apply their operators through the k = 1 entry, padded;
     # K2 (cg + mg), K3 and K4 run in the multigrid solves of both solve
@@ -5120,7 +5480,7 @@ def main() -> int:
     solve_k1 = solve_counts["K1k1"] + mg_counts["K1k1"]
     rows = [("K1 fused_stencil, k = 1 entry, padded mode", "fused_stencil.cu",
              "src/repro/kernels/fused.py:245",
-             dict(k1["k1_padded"], library_ms=None,
+             dict(k1["k1_padded"],
                   launches=k1["k1_padded"]["launches"] + solve_k1)),
             ("K1 fused_stencil, k = 1 entry, margin mode", "fused_stencil.cu",
              "src/repro/kernels/fused.py:245",

@@ -3,7 +3,9 @@ torch tensors on a device, preserving dtype: whole fields
 (:func:`env_from_numpy` / :func:`env_to_numpy`) and the brick state of the
 legacy drivers (:func:`state_from_numpy` / :func:`state_to_numpy`: a field,
 or an iteration state of fields and scalars), so that both packages start
-from the same arrays.
+from the same arrays; and LM parameter trees (:func:`lm_params_from_numpy`
+/ :func:`lm_params_to_numpy`), the reference's stacked segments split into
+per-layer modules.
 
 >>> import numpy as np
 >>> env = {"T": np.arange(8, dtype=np.float64).reshape(2, 2, 2)}
@@ -65,3 +67,65 @@ def state_to_numpy(state) -> Tuple[np.ndarray, ...]:
     from repro_torch.core.mesh import device_get
 
     return tuple(device_get(x) for x in state)
+
+
+def _leaf_from_numpy(a, device) -> torch.Tensor:
+    """A tensor of ``a``'s values on ``device``; NumPy bfloat16 (the
+    reference's ``ml_dtypes``) goes through float32, which is exact."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.astype(np.float32), device=device).to(
+            torch.bfloat16)
+    return torch.tensor(a, device=device)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def lm_params_from_numpy(tree, cfg, device):
+    """The port's :class:`~repro_torch.models.model.ParamTree` from the
+    reference's parameter pytree as NumPy arrays
+    (``jax.tree.map(np.asarray, init_params(key, cfg))``): each segment's
+    stacked arrays split into its ``count`` layers, the shared block,
+    embeddings (tied or per codebook) and heads as they are."""
+    from repro_torch.models.model import ParamTree
+
+    out = {}
+    for name, value in tree.items():
+        if name == "segments":
+            out[name] = [
+                [_map(lambda a, i=i: _leaf_from_numpy(np.asarray(a)[i],
+                                                      device), seg)
+                 for i in range(count)]
+                for (_, count), seg in zip(cfg.segments, value)]
+        else:
+            out[name] = _map(lambda a: _leaf_from_numpy(a, device), value)
+    return ParamTree(out)
+
+
+def lm_params_to_numpy(params):
+    """The reference's pytree layout from a ParamTree: each segment's
+    layers stacked along a leading axis.  bfloat16 tensors come back as
+    float32 arrays of the same values (NumPy has no bfloat16 of its own)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+    tree = params.tree()
+    out = {}
+    for name, value in tree.items():
+        if name == "segments":
+            out[name] = [_stack([_map(leaf, layer) for layer in seg])
+                         for seg in value]
+        else:
+            out[name] = _map(leaf, value)
+    return out
+
+
+def _stack(layers):
+    if isinstance(layers[0], dict):
+        return {k: _stack([x[k] for x in layers]) for k in layers[0]}
+    return np.stack(layers)

@@ -76,6 +76,7 @@ from repro_torch.compiler.codegen import (compile_group, compile_group_sharded,
 from repro_torch.core import perfmodel
 from repro_torch.core.mesh import Mesh
 from repro_torch.core.program import Program, _group_ops, _interp_step
+from repro_torch.device import resolve_device
 from repro_torch.engine.layout import HaloLayout
 from repro_torch.engine.options import UNSET, resolve_options
 from repro_torch.engine.stats import stats
@@ -137,20 +138,6 @@ class ExecutionPlan:
     #: built for reverse-mode AD: repacking steps only, no halo-resident
     #: layout — see RunOptions.differentiable
     differentiable: bool = False
-
-
-def resolve_device(device) -> torch.device:
-    """``torch.device(device)``; a CUDA device must exist — no CPU carry-on."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"RunOptions(device={str(device)!r}) but CUDA is not available; "
-            "pass RunOptions(device='cpu') to run on the host")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 def compile_body(

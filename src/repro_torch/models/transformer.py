@@ -1,0 +1,240 @@
+"""Block definitions + per-kind (init, apply, prefill, decode, cache)
+dispatch.
+
+The port of ``repro/models/transformer.py`` (with ``_block_prefill`` of
+``repro/models/model.py``).  Every block kind is pre-norm residual.
+``mamba_shared`` is the zamba2 shared-attention step: a Mamba2 block
+followed by the globally-shared attention+MLP block applied to
+``concat(x, x_embed)``; its parameters live once at model level and come
+in as ``shared = (params, config)``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import (mlp_apply, mlp_init, normal, rmsnorm,
+                                       rmsnorm_init)
+
+ATTN_KINDS = ("attn", "attn_moe", "mla", "mla_moe")
+SSM_KINDS = ("mamba", "mamba_shared")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def block_init(gen, kind: str, cfg, dtype) -> Dict[str, Any]:
+    d = cfg.d_model
+    if kind in ATTN_KINDS:
+        p = {"ln1": rmsnorm_init(gen, d, dtype),
+             "ln2": rmsnorm_init(gen, d, dtype)}
+        if kind.startswith("mla"):
+            p["attn"] = mla_mod.mla_init(gen, cfg, dtype)
+        else:
+            p["attn"] = attn.attn_init(gen, cfg, dtype)
+        if kind.endswith("moe"):
+            p["moe"] = moe_mod.moe_init(gen, cfg, dtype)
+        else:
+            p["mlp"] = mlp_init(gen, d, cfg.d_ff, dtype, gated=cfg.gated_mlp)
+        return p
+    if kind == "rwkv":
+        return {"ln1": rmsnorm_init(gen, d, dtype),
+                "ln2": rmsnorm_init(gen, d, dtype),
+                "tm": rwkv_mod.rwkv_init(gen, cfg, dtype),
+                "cm": rwkv_mod.rwkv_ffn_init(gen, cfg, dtype)}
+    if kind in SSM_KINDS:
+        return {"ln1": rmsnorm_init(gen, d, dtype),
+                "ssm": ssm_mod.ssm_init(gen, cfg, dtype)}
+    raise ValueError(f"unknown block kind {kind}")
+
+
+def shared_config(cfg):
+    """The zamba2 shared block's attention config: width 2D over
+    concat(x, x_embed), ``shared_n_heads`` full-MHA heads, full RoPE."""
+    d2 = 2 * cfg.d_model
+    return dataclasses.replace(
+        cfg, d_model=d2, n_heads=cfg.shared_n_heads,
+        n_kv_heads=cfg.shared_n_heads, head_dim=d2 // cfg.shared_n_heads,
+        qk_norm=False, sliding_window=None, rope_fraction=1.0)
+
+
+def shared_block_init(gen, cfg, dtype):
+    """zamba2 shared attention+MLP over concat(x, x_embed) (width 2D)."""
+    d2 = 2 * cfg.d_model
+    return {
+        "ln1": rmsnorm_init(gen, d2, dtype), "ln2": rmsnorm_init(gen, d2, dtype),
+        "attn": attn.attn_init(gen, shared_config(cfg), dtype),
+        "mlp": mlp_init(gen, d2, cfg.shared_d_ff, dtype, gated=True),
+        "out": normal(gen, (d2, cfg.d_model), d2 ** -0.5, dtype),
+    }
+
+
+# ---------------------------------------------------------------------------
+# apply (training / prefill)
+# ---------------------------------------------------------------------------
+
+def _ffn(kind, params, x, cfg):
+    """The second residual half of an attention block: (x, aux)."""
+    h = rmsnorm(params["ln2"], x)
+    if kind.endswith("moe"):
+        h, aux = moe_mod.moe_apply(params["moe"], h, cfg)
+        return x + h, aux
+    return x + mlp_apply(params["mlp"], h, act=cfg.mlp_act), None
+
+
+def _shared_mlp(sp, x, xc):
+    """The zamba2 shared block after its attention: the MLP on ``xc``
+    (concat(x, x_embed) plus attention) projected back onto ``x``."""
+    h = mlp_apply(sp["mlp"], rmsnorm(sp["ln2"], xc), act="silu")
+    return x + (xc + h) @ sp["out"]
+
+
+def block_apply(kind: str, params, x, cfg, pos, shared=None, x_embed=None):
+    """Returns (x, aux) where aux is the MoE load-balance loss (or None)."""
+    x, _, aux = block_prefill(kind, params, x, cfg, pos, None, shared,
+                              x_embed)
+    return x, aux
+
+
+def _pad_cache(arr, s_max: int):
+    """``arr`` (B, S, …) zero-padded along S to ``s_max``."""
+    pad = arr.new_zeros((arr.shape[0], s_max - arr.shape[1]) + arr.shape[2:])
+    return torch.cat([arr, pad], dim=1)
+
+
+def block_prefill(kind: str, params, x, cfg, pos, s_max, shared=None,
+                  x_embed=None):
+    """One block over the whole sequence: (x, cache, aux).  With ``s_max``
+    None no cache is built (the forward); else attention / MLA caches hold
+    positions [0, S) of ``s_max`` and recurrent states their end-of-prompt
+    value."""
+    keep = s_max is not None
+    cache = None
+    if kind in ATTN_KINDS:
+        prefill = (mla_mod.mla_prefill if kind.startswith("mla")
+                   else attn.attn_prefill)
+        h, *kv = prefill(params["attn"], rmsnorm(params["ln1"], x), cfg, pos)
+        if keep:
+            cache = (mla_mod.MLACache if kind.startswith("mla")
+                     else attn.KVCache)(*(_pad_cache(a, s_max) for a in kv))
+        x, aux = _ffn(kind, params, x + h, cfg)
+        return x, cache, aux
+    if kind == "rwkv":
+        h = rmsnorm(params["ln1"], x)
+        hh, _ = rwkv_mod.rwkv_time_mix(params["tm"], h, cfg)
+        x = x + hh
+        h2 = rmsnorm(params["ln2"], x)
+        hh, _ = rwkv_mod.rwkv_channel_mix(params["cm"], h2)
+        if keep:
+            cache = rwkv_mod.RWKVState(h[:, -1, :], h2[:, -1, :],
+                                       rwkv_final_state(params["tm"], h, cfg))
+        return x + hh, cache, None
+    if kind in SSM_KINDS:
+        y, st = ssm_mod.ssm_prefill(params["ssm"], rmsnorm(params["ln1"], x),
+                                    cfg)
+        x = x + y
+        if kind == "mamba":
+            return x, st if keep else None, None
+        sp, acfg = shared
+        xc = torch.cat([x, x_embed], dim=-1)
+        h, k, v = attn.attn_prefill(sp["attn"], rmsnorm(sp["ln1"], xc), acfg,
+                                    pos)
+        x = _shared_mlp(sp, x, xc + h)
+        if keep:
+            cache = {"ssm": st, "shared_kv": attn.KVCache(
+                _pad_cache(k, s_max), _pad_cache(v, s_max))}
+        return x, cache, None
+    raise ValueError(kind)
+
+
+def rwkv_final_state(params, h, cfg):
+    """End-of-prompt WKV state via a cheap rescan (B,H,K,V)."""
+    b, s, d = h.shape
+    xx = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+    _, xk, xv, xw, _ = rwkv_mod._ddlerp(params, h, xx)
+    k = (xk @ params["wk"]).float()
+    v = (xv @ params["wv"]).float()
+    logw = rwkv_mod._decay(params, xw)
+    hk = d // cfg.n_heads
+    kk = k.reshape(b, s, cfg.n_heads, hk)
+    vv = v.reshape(b, s, cfg.n_heads, hk)
+    cl = torch.cumsum(logw.reshape(b, s, cfg.n_heads, hk), dim=1)
+    tail = torch.exp(cl[:, -1:, :, :] - cl)
+    return torch.einsum("bshk,bshv->bhkv", kk * tail, vv)
+
+
+# ---------------------------------------------------------------------------
+# cache init + decode
+# ---------------------------------------------------------------------------
+
+def cache_init(kind: str, cfg, batch: int, s_max: int, dtype, device):
+    """One layer's cache (the reference stacks them per segment)."""
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    if kind in ("attn", "attn_moe"):
+        kv, hd = cfg.n_kv_heads, cfg.head_dim
+        return attn.KVCache(zeros(batch, s_max, kv, hd),
+                            zeros(batch, s_max, kv, hd))
+    if kind in ("mla", "mla_moe"):
+        return mla_mod.MLACache(zeros(batch, s_max, cfg.kv_lora_rank),
+                                zeros(batch, s_max, cfg.qk_rope_dim))
+    if kind == "rwkv":
+        d = cfg.d_model
+        hk = d // cfg.n_heads
+        return rwkv_mod.RWKVState(zeros(batch, d), zeros(batch, d),
+                                  zeros(batch, cfg.n_heads, hk, hk,
+                                        dt=torch.float32))
+    if kind in SSM_KINDS:
+        s = cfg.ssm
+        st = ssm_mod.SSMState(
+            zeros(batch, s.d_conv - 1, s.d_inner + 2 * s.d_state),
+            zeros(batch, s.n_heads, s.d_state, s.headdim, dt=torch.float32))
+        if kind == "mamba_shared":
+            acfg = shared_config(cfg)
+            shape = (batch, s_max, acfg.n_kv_heads, acfg.head_dim)
+            return {"ssm": st, "shared_kv": attn.KVCache(zeros(*shape),
+                                                         zeros(*shape))}
+        return st
+    raise ValueError(kind)
+
+
+def block_decode(kind: str, params, x, cache, cfg, pos, shared=None,
+                 x_embed=None):
+    """One-token step.  x: (B, 1, D) → (x, new_cache)."""
+    if kind in ATTN_KINDS:
+        h = rmsnorm(params["ln1"], x)
+        if kind.startswith("mla"):
+            h, cache = mla_mod.mla_decode(params["attn"], h, cache, cfg, pos)
+        else:
+            h, cache = attn.attn_decode(params["attn"], h, cache, cfg, pos)
+        x, _ = _ffn(kind, params, x + h, cfg)
+        return x, cache
+    if kind == "rwkv":
+        h, cache = rwkv_mod.rwkv_time_mix_decode(
+            params["tm"], rmsnorm(params["ln1"], x), cache, cfg)
+        x = x + h
+        h, cache = rwkv_mod.rwkv_channel_mix_decode(
+            params["cm"], rmsnorm(params["ln2"], x), cache)
+        return x + h, cache
+    if kind in SSM_KINDS:
+        st = cache["ssm"] if kind == "mamba_shared" else cache
+        h, st = ssm_mod.ssm_decode(params["ssm"],
+                                   rmsnorm(params["ln1"], x), st, cfg, pos)
+        x = x + h
+        if kind == "mamba":
+            return x, st
+        sp, acfg = shared
+        xc = torch.cat([x, x_embed], dim=-1)
+        h, kv = attn.attn_decode(sp["attn"], rmsnorm(sp["ln1"], xc),
+                                 cache["shared_kv"], acfg, pos)
+        return _shared_mlp(sp, x, xc + h), {"ssm": st, "shared_kv": kv}
+    raise ValueError(kind)

@@ -83,7 +83,12 @@ Without a card every test skips.  Tolerances:
   device allocation;
 * the cost model: a calibration on the card tags its entry with the card's
   name, the calibrated ``make`` equals the uncalibrated one bitwise, and a
-  ``cpu``-tagged entry steers no card plan.
+  ``cpu``-tagged entry steers no card plan;
+* the LM serving path: every architecture's ``smoke()`` in float32 (TF32
+  off) on the card against the CPU with the same weights — the forward's
+  logits and a teacher-forced prefill + decode's — within
+  ``1e-4·max|logit|`` (float32 products summed in other orders); ``serve``
+  on the card returns in-vocabulary tokens on the card.
 
 The bodies of :data:`K1_BODIES` are shared with ``test_torch_k1.py``, which
 holds their plain version against the JAX reference on the CPU.
@@ -118,6 +123,7 @@ from repro_torch.kernels.stencil7 import (affine_stencil_ref,
                                           launch_stencil_planes,
                                           stencil_planes_ref)
 from repro_torch.solver import record_btcs
+from repro_torch.configs import ARCHS as LM_ARCHS
 
 SHAPES = [(9, 9, 9), (17, 17, 5), (16, 12, 10), (8, 7, 6), (257, 129, 33)]
 #: the fine shapes of the level pairs of the 512×512×128 hierarchy
@@ -1483,3 +1489,69 @@ def test_cuda_calibration_tags_the_card_and_keeps_the_bits():
         assert stats.cost_model_hits == 0
     finally:
         perfmodel.cost_model.clear()
+
+
+@pytest.fixture
+def no_tf32():
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+def _lm_logits(params, tokens, cfg, s0):
+    """The forward's logits, and the prefill's + each teacher-forced
+    decode step's along the sequence axis."""
+    from repro_torch.models import model as M
+
+    full, _ = M.forward(params, tokens, cfg)
+    got, cache = M.prefill(params, tokens[:, :s0], cfg, tokens.shape[1])
+    rows = [got]
+    for t in range(s0, tokens.shape[1]):
+        got, cache = M.decode_step(params, cache, tokens[:, t:t + 1], t, cfg)
+        rows.append(got)
+    return full, torch.cat(rows, dim=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_cuda_lm_matches_the_cpu(arch, no_tf32):
+    """Each architecture's ``smoke()`` on the card against the CPU, the
+    same weights: forward and teacher-forced decode logits within
+    ``1e-4·max|logit|``."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy, lm_params_to_numpy
+    from repro_torch.models import model as M
+
+    cfg = get_config(arch).smoke()
+    p_cpu = M.init_params(cfg, seed=30, device="cpu")
+    p_gpu = lm_params_from_numpy(lm_params_to_numpy(p_cpu), cfg, "cuda")
+    shape = (2, 16) if cfg.n_codebooks == 1 else (2, 16, cfg.n_codebooks)
+    tokens = torch.from_numpy(np.random.default_rng(30).integers(
+        1, cfg.vocab_size, shape))
+    want = _lm_logits(p_cpu, tokens, cfg, 12)
+    got = _lm_logits(p_gpu, tokens.cuda(), cfg, 12)
+    for g, w in zip(got, want):
+        assert g.is_cuda
+        err = float((g.cpu() - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), (arch, err)
+
+
+@pytest.mark.cuda
+def test_cuda_serve_on_the_card():
+    """``serve`` on the card: in-vocabulary tokens of the asked shape on
+    the card, the same on a second run."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+
+    cfg = get_config("qwen3-0.6b").smoke()
+    toks, rate = serve(cfg, batch=2, prompt_len=8, gen=5, seed=3)
+    assert toks.is_cuda and tuple(toks.shape) == (2, 5) and rate > 0
+    assert 0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size
+    again, _ = serve(cfg, batch=2, prompt_len=8, gen=5, seed=3)
+    assert torch.equal(toks, again)
