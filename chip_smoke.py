@@ -302,6 +302,29 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          kind's first segment capped at two layers, float32
                          teacher-forced (prompt 64, 8 steps) within
                          ``LM_F32_REL``;
+10l. ``lm_train``     — LM training on the card
+                         (``repro_torch.{optim,data}``,
+                         ``launch/{steps,train}.py``, no kernel of
+                         ``kernels/``), under
+                         ``torch.use_deterministic_algorithms``: qwen3-0.6b
+                         at full width and 28 layers in bfloat16 with its
+                         ``remat="dots"`` and 8 microbatches, 24 steps of
+                         ``make_train_step`` on ``TokenDataset`` (8 × 512):
+                         every loss and gradient norm finite, the loss
+                         falling (mean of the last 5 below the first 5's);
+                         step ms (CUDA events, median after 2 warm-up
+                         steps), tokens/s, idle share, peak memory beside
+                         the operations bound and the memory floor; a
+                         second run through ``launch/train.py``'s
+                         ``ResilientLoop`` with a fault in step 13 and
+                         checkpoints every 8 steps, bitwise the first
+                         run's parameters, moments and step; ``"dots"``
+                         against ``"none"`` on one batch, bitwise; 4
+                         compressed steps (finite, step 1's loss the
+                         uncompressed one's); the card against the CPU
+                         for one step at ``smoke()`` in float32 within
+                         the CPU parity tests' bounds; no kernel of
+                         ``kernels/`` launched or built;
 11. ``kernels``        — one JSON line describing every kernel of the paths
                          (K1 on six rows: the k = 1 entry in the padded and
                          the margin mode, the sweep at the auto tile, and
@@ -333,10 +356,12 @@ Each main path (``heat3d``, ``hazard_make``, ``ensemble_make``,
 ``legacy_btcs``, ``sharded_make``, ``sharded_solve``, ``overlap_make``,
 ``health_make``, ``health_solve``, ``adjoint_solve``, ``adjoint_make``,
 ``service``, ``cost_model``) runs with the launch counters set to 0 just before it and read just after,
-and fails if one of its kernels was not launched (``lm_serve``: if one
-was).  K1's k = 1 padded row carries ``F.conv3d``'s time as its library
-call (``heat3d``, within one float32 ulp of K1 on the cells the body
-updates).  Then the card's name and
+and fails if one of its kernels was not launched (``lm_serve`` and
+``lm_train``: if one was).  K1's k = 1 rows on the padded field, on 8
+members and on the 2×2 mesh's bricks carry ``F.conv3d``'s time as their
+library call (``heat3d``, ``ensemble_make``, ``sharded_make``: one call
+on the padded field, the 8 padded members, one padded brick; within one
+float32 ulp of K1 on the cells the body updates).  Then the card's name and
 power limit, and last the result line.  Any failed check raises: the script exits
 non-zero and prints no result line.  Without a CUDA device it exits
 non-zero before printing anything.
@@ -348,6 +373,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -355,6 +381,10 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+#: ``lm_train`` runs under ``torch.use_deterministic_algorithms``, which
+#: needs cuBLAS's workspace fixed before cuBLAS starts; ":4096:8" (32 MiB)
+#: is PyTorch's own default on Hopper, so the other phases are unchanged
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 #: what K1's sweep (k > 1 through the column entry) and K5's and K7's
 #: x-marching kernels (K4's, K5's and K7's) were predicted to give on one
@@ -583,7 +613,42 @@ PREDICTED = {
     # 514x514x128 float32 field, one channel, TF32 off (K6's F.pad +
     # F.conv3d took 6.3992 ms, K3's strided one 0.7586)
     "k1_conv3d_library_ms": [3.0, 7.0],
+    # the same call on the 8 padded members (N = 8, about 8 x 6.05 ms) and
+    # on one 258x258x128 padded brick of the 2x2 mesh (about a quarter)
+    # (written before their first run on a card; PERF.md §6)
+    "k1_conv3d_library_members_ms": [40.0, 56.0],
+    "k1_conv3d_library_brick_ms": [1.2, 1.9],
+    # LM training (written before its first run on a card; PERF.md §6):
+    # qwen3-0.6b in bfloat16, remat "dots", 8 microbatches of 1 x 512,
+    # eager PyTorch under deterministic algorithms.  A microbatch's forward
+    # issues about 100 kernels a layer; its backward recomputes the layer
+    # under the selective checkpoint's dispatch mode (a Python call per op)
+    # and runs about twice the forward's kernels: 400-700 launches a
+    # layer, 11,000-20,000 a microbatch, 90,000-160,000 a step at 10-25 us
+    # of host time each (the step at smoke width with 28 layers takes 3.3 s
+    # on the CPU, almost all of it dispatch), so the step is host-bound at
+    # 1.5-4 s against its 15.4 ms operations bound (3 x 5.1e12 FLOP at 989
+    # TFLOP/s), the card idle 80-95 % of it; 1000-2700 tokens/s; a peak of
+    # 11-16 GB against the 9.5 GB floor (16 bytes a parameter: bfloat16
+    # weights and gradients, float32 m, v and accumulator); the loss from
+    # about ln(151936) = 11.9 to 7-11 over the last 5 of 24 steps; the
+    # resumed run and "dots" against "none" bitwise; "dots" at 1.5-3x the
+    # time of "none" (2.7x on the CPU) and under its activation memory
+    "lm_train_step_ms": [1500.0, 4000.0],
+    "lm_train_tok_per_s": [1000.0, 2700.0],
+    "lm_train_idle_share": [0.8, 0.95],
+    "lm_train_dots_over_none_time": [1.5, 3.0],
+    "lm_train_peak_gb": [11.0, 16.0],
+    "lm_train_loss_first5": [11.0, 12.2],
+    "lm_train_loss_last5": [7.0, 11.0],
+    "lm_train_resume": "bitwise",
+    "lm_train_remat_dots_vs_none": "bitwise",
 }
+#: ``F.conv3d`` against K1 on the 8 members' and the bricks' heat3d body:
+#: seven terms summed in another order round at most 3 times apart, so
+#: within 4 float32 ulps of the field's largest value (the single padded
+#: field's call keeps its 1-ulp check)
+LIBRARY_ULPS = 4
 #: H100 SXM device-memory rate and float32 / float64 (non-tensor) peaks
 from repro_torch.core.perfmodel import HBM_BYTES_PER_S, PEAK_FLOPS  # noqa: E402
 #: the kernel libraries of the main paths (csrc/<stem>.cu)
@@ -1306,14 +1371,19 @@ def sweep_bound_ms(kernel, dtype_name: str) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k1_conv_library(kernel, padded, omega: float):
-    """The library call beside K1's k = 1 padded launch of the heat3d body:
-    one ``F.conv3d`` of the padded field (x and y wrapped by one cell, z
-    not) with the 7-point 3×3×3 weight, 1 − 6ω at the centre and ω at each
-    face (TF32 off).  It computes the body on every cell the body updates
-    (x, y and z interior; K1 keeps the others).  Returns (ms, max |diff|
-    from K1's output on those cells, one float32 ulp of the field's
-    largest value); fails beyond that ulp (another summation order)."""
+def k1_conv_library(kernel, padded, omega: float, coords=(0, 0),
+                    margin: bool = False, ulps: int = 1):
+    """The library call beside a K1 k = 1 launch of the heat3d body: one
+    ``F.conv3d`` of the padded field (x and y wrapped by one cell, z not)
+    with the 7-point 3×3×3 weight, 1 − 6ω at the centre and ω at each face
+    (TF32 off); a ``(B, …)`` stack of padded members as B inputs of the one
+    call; with ``margin``, a brick's margin-mode buffer (M = 1, its halo
+    from the exchange) at the brick's ``coords``.  It computes the body on
+    every cell the body updates (x, y and z interior; K1 keeps the
+    others).  Returns (ms, max |diff| from K1's output on the cells one in
+    from the field's or brick's x and y edges and off the z ends, one
+    float32 ulp of the field's largest value); fails beyond ``ulps`` of
+    them (another summation order of the seven terms)."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -1323,15 +1393,23 @@ def k1_conv_library(kernel, padded, omega: float):
     W = seven_point_weight(1.0 - 6.0 * omega, omega, P)
 
     def lib():
-        return F.conv3d(P[None, None], W)[0, 0]
+        y = F.conv3d(P.reshape(-1, 1, *P.shape[-3:]), W)
+        return y.reshape(*P.shape[:-3], *y.shape[-3:])
 
-    got = lib()[1:-1, 1:-1]
-    want = launch_fused(kernel, padded)[0][1:-1, 1:-1, 1:-1]
+    got = lib()[..., 1:-1, 1:-1, :]
+    if margin:
+        if kernel.margin != 1:
+            raise ValueError(f"margin {kernel.margin}: the library call "
+                             "reads a brick with one cell of halo")
+        want = launch_fused(kernel, padded, coords, out=margin_outputs(
+            kernel, padded))[0][..., 2:-2, 2:-2, 1:-1]
+    else:
+        want = launch_fused(kernel, padded)[0][..., 1:-1, 1:-1, 1:-1]
     err = float((got.double() - want.double()).abs().max())
     ulp = float(np.spacing(np.float32(want.abs().max().item())))
-    if err > ulp:
+    if err > ulps * ulp:
         raise AssertionError(f"F.conv3d vs K1 on the heat3d body: {err} > "
-                             f"one float32 ulp {ulp}")
+                             f"{ulps} float32 ulp of {ulp}")
     return cuda_time_ms(lib, repeats=20), err, ulp
 
 
@@ -1814,6 +1892,14 @@ def phase_ensemble_make(steps: int, seed: int, heat):
             cases.append({"route": tag, "k": k, "members": B,
                           "mode": "margin" if margin_mode else "padded",
                           "max_abs_err": err})
+            if tag == "k1" and not margin_mode:
+                # the library call on the B padded members in one call;
+                # cuDNN picks another algorithm at N = 8, whose sum of the
+                # seven terms rounds up to 2 ulps from K1's (first card run)
+                lib_ms, lib_err, lib_ulp = k1_conv_library(
+                    kern, ins, cfg.omega, ulps=LIBRARY_ULPS)
+                rows[tag].update(library_ms=lib_ms, library_vs_k1={
+                    "max_abs_err": lib_err, "ulp": lib_ulp})
             if margin_mode:
                 out = margin_outputs(kern, ins)
                 b_ms, b_by = bound_ms(kern, cfg.dtype)
@@ -1834,6 +1920,7 @@ def phase_ensemble_make(steps: int, seed: int, heat):
             del ins
     measured = {"k1_margin_ms": rows["k1"]["ms"],
                 "sweep_margin_ms": rows["sweep"]["ms"],
+                "k1_conv3d_library_members_ms": rows["k1"]["library_ms"],
                 "ms_per_member_step": {t: v["ms_per_member_step"]
                                        for t, v in timing.items()},
                 "host_us_per_member_step": {t: v["host_us_per_member_step"]
@@ -1847,7 +1934,8 @@ def phase_ensemble_make(steps: int, seed: int, heat):
           "kernel_cases": cases, "resident_allocations": allocs,
           "timing": timing, "launch": rows,
           "predicted": {k: PREDICTED[k] for k in PREDICTED
-                        if k == "card" or k.startswith("ensemble")},
+                        if k == "card" or k.startswith("ensemble")
+                        or k == "k1_conv3d_library_members_ms"},
           "measured": measured})
     by_route = {"k1": sum(r["batch_launches"] for r in runs
                           if r["time_tile"] == 1),
@@ -3188,6 +3276,14 @@ def phase_sharded_make(steps: int, heat):
                 if k > 1:
                     rows[tag]["sweep_schedule_bound_ms"] = brick_bound_ms(
                         kern, dtype, schedule=True)[0]
+                else:
+                    # the library call on one padded brick (its halo from
+                    # the exchange), the first brick's
+                    lib_ms, lib_err, lib_ulp = k1_conv_library(
+                        kern, ins[0], cfg.omega, coords[0], margin=True,
+                        ulps=LIBRARY_ULPS)
+                    rows[tag].update(library_ms=lib_ms, library_vs_k1={
+                        "max_abs_err": lib_err, "ulp": lib_ulp})
                 del out
             del ins
             # the sharded split launch at the same tile: the interior in
@@ -3204,6 +3300,7 @@ def phase_sharded_make(steps: int, heat):
                                if c["route"] == tag)
     measured = {"k1_per_brick_ms": rows["k1"]["ms"],
                 "sweep_per_brick_ms": rows["sweep"]["ms"],
+                "k1_conv3d_library_brick_ms": rows["k1"]["library_ms"],
                 "ms_per_step": {t: v["ms_per_step"] for t, v in timing.items()},
                 "host_us_per_step": {t: v["host_us_per_step"]
                                      for t, v in timing.items()},
@@ -3223,7 +3320,8 @@ def phase_sharded_make(steps: int, heat):
           "resident_allocations": allocs, "kernel_cases": cases,
           "timing": timing, "launch": rows,
           "predicted": {k: PREDICTED[k] for k in PREDICTED
-                        if k == "card" or k.startswith("sharded")},
+                        if k == "card" or k.startswith("sharded")
+                        or k == "k1_conv3d_library_brick_ms"},
           "measured": measured})
     by_mode = {"k1": {"margin": 0, "padded": 0},
                "sweep": {"margin": 0, "padded": 0}}
@@ -5340,10 +5438,7 @@ def phase_lm_serve(seed: int):
     cache_bytes = (2 * cfg.n_layers * B * cfg.n_kv_heads * cfg.head_dim * 2
                    * (S + G // 2))
     decode_bound = weight_bytes / HBM_BYTES_PER_S * 1e3
-    attn_ops = 4 * cfg.n_layers * B * cfg.n_heads * cfg.head_dim \
-        * S * (S + 1) / 2
-    prefill_ops = 2 * layer_params * B * S + attn_ops \
-        + 2 * B * cfg.d_model * cfg.vocab_size
+    prefill_ops = lm_forward_ops(cfg, layer_params, B, S, B)
     prefill_bound = prefill_ops / H100_SXM_BF16_DENSE_FLOPS * 1e3
     failed = [k for k, ok in checks.items() if not ok]
     emit({"phase": "lm_serve", "card": card_line(), "arch": LM_ARCH,
@@ -5376,6 +5471,413 @@ def phase_lm_serve(seed: int):
         raise AssertionError(f"lm_serve: {failed} failed")
 
 
+#: the trained batch: 8 sequences of 512 tokens of ``TokenDataset``, 24
+#: steps of the cosine schedule at 1e-3 after 5 warm-up steps (at the
+#: step's default 3e-4 over 100 warm-up steps the loss moves by about 0.05
+#: in 40 steps of the reference's smoke model, at 1e-3/5 by 0.4)
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 512, 24
+LM_TRAIN_KW = {"peak_lr": 1e-3, "warmup": 5, "total_steps": 24}
+#: the uninterrupted run's first steps run alone on the card: 2 warm-up
+#: steps, then the timed steps (the step time is their median), then one
+#: step under the profiler; the kill-and-resume run (a second process,
+#: ``lm_train_resume``) starts after them and runs beside the rest, so the
+#: phase takes about one run's time, not two (both host-bound, the card
+#: idle most of a step).  The loss-fall window
+LM_TRAIN_WARM_STEPS, LM_TRAIN_SOLO_STEPS = 2, 8
+LM_TRAIN_LOSS_WINDOW = 5
+#: the kill-and-resume process's time limit (s)
+LM_TRAIN_RESUME_TIMEOUT = 900
+#: the kill-and-resume run: a checkpoint every 8 steps, a fault in step 13
+LM_TRAIN_CKPT_EVERY, LM_TRAIN_FAIL_AT = 8, 13
+LM_TRAIN_COMPRESS_STEPS = 4
+#: the card against the CPU at ``smoke()``, one step (the bounds of
+#: ``tests/test_torch_train.py``): loss and gradient norm relative; every
+#: parameter's update within 2·lr (a first AdamW step moves an element by
+#: about lr·sign(g), and a gradient at rounding-noise level may flip
+#: sign); where |g| ≥ 1e-4·max|g| of its leaf, within 1e-3·(lr + |Δp|)
+LM_TRAIN_LOSS_REL, LM_TRAIN_UPDATE_REL, LM_TRAIN_MASK_REL = 1e-5, 1e-3, 1e-4
+
+
+def lm_forward_ops(cfg, layer_params: int, batch: int, seq: int,
+                   head_rows: int) -> float:
+    """A causal forward's operations: 2 per weight of the layers per
+    token, the causal attention's two products, and the head on
+    ``head_rows`` rows (the last token of each sequence in a prefill,
+    every token in training)."""
+    attn_ops = 4 * cfg.n_layers * batch * cfg.n_heads * cfg.head_dim \
+        * seq * (seq + 1) / 2
+    return 2 * layer_params * batch * seq + attn_ops \
+        + 2 * head_rows * cfg.d_model * cfg.vocab_size
+
+
+def _train_state(params, opt) -> list:
+    """The leaves of a training state: parameters, then the optimizer's
+    step, moments (and residual)."""
+    from repro_torch.optim.tree import leaves
+
+    return leaves({"params": params.tree(), "opt": opt})
+
+
+def state_digests(params, opt) -> list:
+    """(dtype, shape, sha256 of the bytes) of every leaf of a training
+    state: two processes' states are bitwise equal when these are."""
+    import hashlib
+
+    import torch
+
+    out = []
+    for t in _train_state(params, opt):
+        raw = t.detach().reshape(-1).view(torch.uint8).cpu().numpy()
+        out.append([str(t.dtype), list(t.shape),
+                    hashlib.sha256(raw.tobytes()).hexdigest()])
+    return out
+
+
+def _train_determinism():
+    """Deterministic algorithms on (so that a replayed step gives the same
+    bits), without the NaN fill of every fresh buffer; returns what to
+    restore."""
+    import torch
+
+    fill = getattr(torch.utils, "deterministic", None)
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            fill.fill_uninitialized_memory if fill else None)
+    torch.use_deterministic_algorithms(True)
+    if fill:
+        fill.fill_uninitialized_memory = False
+    return prev
+
+
+def _restore_determinism(prev) -> None:
+    import torch
+
+    torch.use_deterministic_algorithms(prev[0])
+    fill = getattr(torch.utils, "deterministic", None)
+    if fill:
+        fill.fill_uninitialized_memory = prev[1]
+
+
+def lm_train_resume(seed: int) -> dict:
+    """The kill-and-resume run of ``lm_train``, in a process of its own:
+    ``launch/train.py::train`` (``ResilientLoop``, ``CheckpointManager`` in
+    a temporary directory, a checkpoint every ``LM_TRAIN_CKPT_EVERY``
+    steps) from the same seed, a fault injected in step
+    ``LM_TRAIN_FAIL_AT``; the digests of its final state, its losses in
+    the order they ran, the checkpoints it wrote."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_mod
+    from repro_torch.runtime import FaultInjector
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    prev = _train_determinism()
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as ckpt, FaultInjector(
+                fail_at=(LM_TRAIN_FAIL_AT,), match_tag="train") as inj:
+            params, opt, reached, hist = train_mod.train(
+                get_config(LM_ARCH), steps=LM_TRAIN_STEPS,
+                batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, ckpt_dir=ckpt,
+                ckpt_every=LM_TRAIN_CKPT_EVERY, device=DEV, seed=seed,
+                **LM_TRAIN_KW)
+            ckpt_steps = sorted(os.listdir(ckpt))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        return {"digests": state_digests(params, opt),
+                "losses": [float(h["loss"]) for h in hist],
+                "fired": len(inj.fired), "reached": reached,
+                "checkpoints": ckpt_steps, "seconds": seconds}
+    finally:
+        _restore_determinism(prev)
+
+
+def start_lm_train_resume(seed: int, logdir: str):
+    """Start :func:`lm_train_resume` in a second Python process on the same
+    card; its standard output and errors go to files in ``logdir``."""
+    code = ("import json, sys; sys.path.insert(0, {root!r}); "
+            "import chip_smoke as cs; cs.DEV = {dev!r}; "
+            "print(json.dumps(cs.lm_train_resume({seed})))").format(
+                root=ROOT, dev=DEV, seed=seed)
+    out = open(os.path.join(logdir, "resume.out"), "w")
+    err = open(os.path.join(logdir, "resume.err"), "w")
+    child = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                             stdout=out, stderr=err)
+    return child, out, err
+
+
+def finish_lm_train_resume(child, out, err, logdir: str) -> dict:
+    """Wait for the kill-and-resume process (killed at its time limit) and
+    read its result; raise with its last errors if it failed."""
+    try:
+        rc = child.wait(timeout=LM_TRAIN_RESUME_TIMEOUT)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        out.close()
+        err.close()
+    with open(os.path.join(logdir, "resume.out")) as f:
+        lines = f.read().strip().splitlines()
+    if rc != 0 or not lines:
+        with open(os.path.join(logdir, "resume.err")) as f:
+            tail = f.read()[-3000:]
+        raise AssertionError(f"lm_train: the kill-and-resume process "
+                             f"exited {rc}: {tail}")
+    return json.loads(lines[-1])
+
+
+def lm_card_vs_cpu_step(seed: int) -> dict:
+    """One train step at ``smoke()`` in float32 (TF32 off) with its remat
+    ``"dots"`` and 2 microbatches, the same weights and batch on the card
+    and on the CPU: the loss, gradient norm and rate, and every
+    parameter's update against the CPU's (bounds ``LM_TRAIN_*``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy, lm_params_to_numpy
+    from repro_torch.data import TokenDataset, shard_batch
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import model as M
+    from repro_torch.optim.tree import leaves
+
+    small = get_config(LM_ARCH).smoke(remat="dots", num_microbatches=2)
+    p_cpu = M.init_params(small, seed=seed, device="cpu")
+    p_gpu = lm_params_from_numpy(lm_params_to_numpy(p_cpu), small, DEV)
+    host = TokenDataset(small.vocab_size, 32, 4, seed=seed).next_batch()
+    before = [p.detach().double().clone() for p in p_cpu.parameters()]
+    _, grads = M.value_and_grad(p_cpu, shard_batch(host, "cpu"), small)
+    masks = [g.abs() >= LM_TRAIN_MASK_REL * g.abs().max()
+             for g in leaves(grads)]
+    out = {}
+    for where, params, dev in (("cpu", p_cpu, "cpu"), ("card", p_gpu, DEV)):
+        step = steps_mod.make_train_step(small, **LM_TRAIN_KW)
+        opt = steps_mod.make_opt_state(params)
+        _, _, m = step(params, opt, shard_batch(host, dev))
+        out[where] = ({k: float(v) for k, v in m.items()},
+                      [p.detach().double().cpu() for p in params.parameters()])
+    (mc, pc), (mg, pg) = out["cpu"], out["card"]
+    lr = mc["lr"]
+    worst_all = worst_tight = 0.0
+    for p0, a, b, mask in zip(before, pg, pc, masks):
+        diff = ((a - p0) - (b - p0)).abs()
+        worst_all = max(worst_all, float(diff.max()) / lr)
+        bound = LM_TRAIN_UPDATE_REL * (lr + (b - p0).abs())
+        if mask.any():
+            worst_tight = max(worst_tight, float((diff / bound)[mask].max()))
+    rel = {k: abs(mg[k] - mc[k]) / abs(mc[k]) for k in ("loss", "grad_norm")}
+    return {"config": "smoke(remat='dots', num_microbatches=2), float32",
+            "cpu": mc, "card": mg, "rel": rel,
+            "lr_ulps": abs(mg["lr"] - lr) / float(np.spacing(np.float32(lr))),
+            "update_over_lr_max": worst_all,
+            "significant_update_over_bound_max": worst_tight,
+            "ok": (max(rel.values()) <= LM_TRAIN_LOSS_REL
+                   and abs(mg["lr"] - lr) <= 2 * float(
+                       np.spacing(np.float32(lr)))
+                   and worst_all <= 2.0 and worst_tight <= 1.0)}
+
+
+def phase_lm_train(seed: int):
+    """LM training on the card (``repro_torch.{optim,data}``,
+    ``launch/{steps,train}.py``): qwen3-0.6b at full width and depth in
+    bfloat16 with its ``remat="dots"`` and 8 microbatches, under
+    ``torch.use_deterministic_algorithms`` (so a replayed step gives the
+    same bits): the uninterrupted run, the kill-and-resume run (a second
+    process, beside the uninterrupted run's steps after the solo window),
+    remat, compression and the card against the CPU (docstring, 10l)."""
+    import dataclasses
+    import shutil
+    import statistics
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import compiler
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenDataset, shard_batch
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import model as M
+    from repro_torch.optim.tree import leaves
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    B, S, N = LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS
+    checks = {"config": (cfg.remat, cfg.num_microbatches, cfg.n_layers,
+                         cfg.param_dtype, cfg.compute_dtype)
+              == ("dots", 8, 28, "bfloat16", "bfloat16")}
+    built = (compiler.stats.kernels_built, len(build._LIBS))
+    prev = _train_determinism()
+    logdir = tempfile.mkdtemp()
+    child = None
+    try:
+        # --- the main path: counters 0 before, read after ----------------
+        reset_counts()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params, opt, step = train_mod.build(cfg, device=DEV, seed=seed,
+                                            **LM_TRAIN_KW)
+        ds = TokenDataset(cfg.vocab_size, S, B, seed=seed)
+        history, events = [], []
+        t0 = time.perf_counter()
+        for i in range(N):
+            batch = shard_batch(ds.next_batch(), DEV)
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            if i == LM_TRAIN_SOLO_STEPS - 1:     # the solo window's last
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                prof.start()
+                t_prof = time.perf_counter()
+            ev[0].record()
+            params, opt, m = step(params, opt, batch)
+            ev[1].record()
+            history.append(m)
+            events.append(ev)
+            if i == LM_TRAIN_SOLO_STEPS - 1:
+                torch.cuda.synchronize()
+                prof_us = (time.perf_counter() - t_prof) * 1e6
+                prof.stop()
+                child = start_lm_train_resume(seed, logdir)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+        launches = read_counts()
+        # ---------------------------------------------------------------
+        step_ms = [a.elapsed_time(b) for a, b in events]
+        median_ms = statistics.median(
+            step_ms[LM_TRAIN_WARM_STEPS:LM_TRAIN_SOLO_STEPS - 1])
+        profile_step = profiled_kernels(prof, prof_us, median_ms * 1e3)
+        losses = [float(h["loss"]) for h in history]
+        gnorms = [float(h["grad_norm"]) for h in history]
+        lrs = [float(h["lr"]) for h in history]
+        w = LM_TRAIN_LOSS_WINDOW
+        first, last = (sum(losses[:w]) / w, sum(losses[-w:]) / w)
+        checks["finite"] = all(math.isfinite(x) for x in losses + gnorms)
+        checks["loss_falls"] = last < first
+        checks["no_port_kernel_launched"] = not any(launches.values())
+        state_gb = sum(t.numel() * t.element_size()
+                       for t in _train_state(params, opt)) / 1e9
+        n_params = sum(p.numel() for p in params.parameters())
+        layer_params = sum(p.numel() for name, p in params.named_parameters()
+                           if name.startswith("segments."))
+        digests = state_digests(params, opt)
+        del opt
+        torch.cuda.empty_cache()
+
+        # --- remat: "dots" against "none" on one batch ------------------
+        remat = {}
+        one = shard_batch(TokenDataset(cfg.vocab_size, S, B,
+                                       seed=seed + 1).next_batch(), DEV)
+        grads = {}
+        for policy in ("dots", "none"):
+            c = dataclasses.replace(cfg, remat=policy)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            (loss, _), g = M.value_and_grad(params, one, c)
+            torch.cuda.synchronize()
+            remat[policy] = {
+                "loss": float(loss),
+                "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+            grads[policy] = leaves(g)
+            del g
+            remat[policy]["ms"] = cuda_time_ms(
+                lambda: M.value_and_grad(params, one, c), repeats=2)
+        checks["remat_bitwise"] = (
+            remat["dots"]["loss"] == remat["none"]["loss"] and all(
+                torch.equal(a, b) for a, b in zip(grads["dots"],
+                                                  grads["none"])))
+        del grads, params
+        torch.cuda.empty_cache()
+
+        # --- compression: 4 steps from the same weights and stream ------
+        pc, oc, cstep = train_mod.build(cfg, device=DEV, seed=seed,
+                                        compress=True, **LM_TRAIN_KW)
+        cds = TokenDataset(cfg.vocab_size, S, B, seed=seed)
+        closses = []
+        for _ in range(LM_TRAIN_COMPRESS_STEPS):
+            pc, oc, m = cstep(pc, oc, shard_batch(cds.next_batch(), DEV))
+            closses.append(float(m["loss"]))
+        resid_norm = math.sqrt(sum(float(torch.sum(r.double() ** 2))
+                                   for r in leaves(oc["residual"])))
+        checks["compressed_finite"] = all(math.isfinite(x) for x in closses)
+        checks["compressed_step1_loss"] = closses[0] == losses[0]
+        del pc, oc
+        torch.cuda.empty_cache()
+
+        card_cpu = lm_card_vs_cpu_step(seed)
+        checks["card_vs_cpu"] = card_cpu["ok"]
+        checks["no_port_kernel_built"] = built == (
+            compiler.stats.kernels_built, len(build._LIBS))
+
+        # --- the kill-and-resume run's result ----------------------------
+        resume = finish_lm_train_resume(*child, logdir)
+        child = None
+    finally:
+        if child is not None:          # a check above raised: stop it
+            child[0].kill()
+            child[0].wait()
+            child[1].close()
+            child[2].close()
+        shutil.rmtree(logdir, ignore_errors=True)
+        _restore_determinism(prev)
+    replayed = resume.pop("losses")
+    checks["fault_fired_once"] = resume["fired"] == 1
+    checks["resume_reached_the_end"] = resume["reached"] == N
+    checks["resume_bitwise"] = resume.pop("digests") == digests
+    # the fault in step F loses it; the replay runs steps C..N-1 again
+    restart = LM_TRAIN_FAIL_AT // LM_TRAIN_CKPT_EVERY * LM_TRAIN_CKPT_EVERY
+    checks["replayed_losses_bitwise"] = (
+        replayed[:LM_TRAIN_FAIL_AT] == losses[:LM_TRAIN_FAIL_AT]
+        and replayed[LM_TRAIN_FAIL_AT:] == losses[restart:])
+
+    # --- bounds (data sheet): the step's products are 3× the forward's
+    # (forward, and two in the backward); under "dots" the projections are
+    # saved and the attention's products recomputed, one forward's more
+    fwd_ops = lm_forward_ops(cfg, layer_params, B, S, B * S)
+    attn_ops = lm_forward_ops(cfg, 0, B, S, 0)
+    ops = 3 * fwd_ops + attn_ops
+    ops_bound_ms = 3 * fwd_ops / H100_SXM_BF16_DENSE_FLOPS * 1e3
+    floor_gb = n_params * (2 + 2 + 4 + 4 + 4) / 1e9
+    failed = [k for k, ok in checks.items() if not ok]
+    emit({"phase": "lm_train", "card": card_line(), "arch": LM_ARCH,
+          "seconds": time.perf_counter() - t_phase,
+          "batch": B, "seq": S, "steps": N, "dtype": cfg.compute_dtype,
+          "remat": cfg.remat, "num_microbatches": cfg.num_microbatches,
+          "deterministic": True, "schedule": LM_TRAIN_KW,
+          "params": n_params, "run_s": run_s,
+          "step_ms": step_ms, "step_ms_median": median_ms,
+          "step_ms_median_beside_resume": statistics.median(
+              step_ms[LM_TRAIN_SOLO_STEPS:]),
+          "tok_per_s": B * S / median_ms * 1e3,
+          "ops_bound_ms": ops_bound_ms, "ops_bound_by": "operations",
+          "ops_with_recompute": ops,
+          "ops_with_recompute_bound_ms":
+              ops / H100_SXM_BF16_DENSE_FLOPS * 1e3,
+          "profile_step": profile_step, "peak_gb": peak_gb,
+          "memory_floor_gb": floor_gb, "state_gb": state_gb,
+          "held_before_gb": held / 1e9,
+          "loss": losses, "grad_norm": gnorms, "lr": lrs,
+          "loss_first5_mean": first, "loss_last5_mean": last,
+          "resume": dict(resume, fail_at=LM_TRAIN_FAIL_AT,
+                         ckpt_every=LM_TRAIN_CKPT_EVERY,
+                         steps_run=len(replayed)),
+          "remat_vs_none": remat,
+          "compressed": {"loss": closses, "residual_norm": resid_norm},
+          "card_vs_cpu": card_cpu, "launches": launches, "checks": checks,
+          "predicted": {k: PREDICTED[k] for k in PREDICTED
+                        if k == "card" or k.startswith("lm_train")}})
+    if failed:
+        raise AssertionError(f"lm_train: {failed} failed")
+
+
 def device_breakdown(fn, top: int = 4) -> dict:
     """Device time by kernel over one ``fn()`` under ``torch.profiler``, and
     the device's idle share: of the profiled call's wall time
@@ -5396,6 +5898,15 @@ def device_breakdown(fn, top: int = 4) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    return profiled_kernels(prof, wall_us, plain_wall_us, top)
+
+
+def profiled_kernels(prof, wall_us: float, plain_wall_us: float,
+                     top: int = 4) -> dict:
+    """Device time by kernel in a ``torch.profiler`` trace, its sum, and
+    the idle share of the profiled wall time and of an unprofiled one."""
+    import torch
+
     kernels = []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -5409,6 +5920,7 @@ def device_breakdown(fn, top: int = 4) -> dict:
     busy = sum(k[0] for k in kernels)
     return {"device_kernels_us": [{"kernel": name, "us": us, "calls": n}
                                   for us, name, n in kernels[:top]],
+            "device_kernel_launches": sum(k[2] for k in kernels),
             "device_busy_us": busy,
             "device_idle_share": 1.0 - busy / wall_us if kernels else None,
             "device_idle_share_unprofiled":
@@ -5463,6 +5975,7 @@ def main() -> int:
     phase_rows["service"] = phase_service(args.seed)
     phase_rows["cost_model"] = phase_cost_model(args.steps)
     phase_lm_serve(args.seed)
+    phase_lm_train(args.seed)
     csrc = "src/repro_torch/kernels/csrc/"
     # the solves apply their operators through the k = 1 entry, padded;
     # K2 (cg + mg), K3 and K4 run in the multigrid solves of both solve
@@ -5498,7 +6011,7 @@ def main() -> int:
             (f"K1 fused_stencil, k = 1 entry, {ENSEMBLE_MAKE_MEMBERS} members "
              "per launch, margin mode", "fused_stencil.cu",
              "src/repro/kernels/fused.py:245",
-             dict(ensemble["k1"], library_ms=None,
+             dict(ensemble["k1"],
                   launches=ensemble["k1"]["launches"]
                   + ensemble_solve_counts["K1b"])),
             (f"K1 fused_stencil, sweep, k = {ensemble['sweep']['k']}, "
@@ -5510,7 +6023,7 @@ def main() -> int:
             (f"K1 fused_stencil, k = 1 entry, {mesh_tag} mesh bricks "
              "(wrap=False), margin mode", "fused_stencil.cu",
              "src/repro/kernels/fused.py:245",
-             dict(sharded["k1"], library_ms=None)),
+             dict(sharded["k1"])),
             (f"K1 fused_stencil, sweep, k = {sharded['sweep']['k']}, "
              f"{mesh_tag} mesh bricks (wrap=False), margin mode",
              "fused_stencil.cu", "src/repro/kernels/fused.py:245",

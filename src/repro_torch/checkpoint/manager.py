@@ -7,7 +7,8 @@ The port of ``repro/checkpoint/manager.py``:
 * **async** — ``save(..., blocking=False)`` snapshots to host memory
   synchronously and writes on a background thread;
 * **restore by example** — ``restore(target)`` rebuilds ``target``'s
-  structure (nested dicts, lists and tuples of tensors or arrays) with
+  structure (nested dicts, lists, tuples and NamedTuples such as the
+  optimizer's ``AdamWState``, of tensors or arrays) with
   every leaf on the target leaf's device and in its dtype;
 * **retention** — keeps the newest ``keep`` checkpoints.
 
@@ -55,8 +56,11 @@ def _rebuild(tree, values, prefix=()):
         return {k: _rebuild(v, values, prefix + (str(k),))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(v, values, prefix + (str(i),))
-                          for i, v in enumerate(tree))
+        items = [_rebuild(v, values, prefix + (str(i),))
+                 for i, v in enumerate(tree)]
+        if hasattr(tree, "_fields"):        # a NamedTuple takes its fields
+            return type(tree)(*items)
+        return type(tree)(items)
     return values[SEP.join(prefix)]
 
 

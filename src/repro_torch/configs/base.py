@@ -72,10 +72,11 @@ class ModelConfig:
     shared_d_ff: int = 0
     # modality frontend (musicgen: 4 EnCodec codebooks)
     n_codebooks: int = 1
-    # execution policy.  remat, num_microbatches and scan_layers are kept
-    # so that a config equals its reference field for field; serving
-    # (models/, launch/serve.py) reads none of them: layers run in a
-    # Python loop and nothing is rematerialised
+    # execution policy.  Training reads remat (per-layer
+    # torch.utils.checkpoint in models/model.py::forward while autograd
+    # records) and num_microbatches (launch/steps.py::make_train_step);
+    # serving reads neither.  scan_layers is kept so that a config equals
+    # its reference field for field: layers always run in a Python loop
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     remat: str = "none"              # none | full | dots

@@ -11,11 +11,22 @@ The port of ``repro/models/model.py``.  Parameters are a :class:`ParamTree`
 
 The reference stacks a segment's layers and scans them; here each layer is
 its own module in a ``ModuleList`` per segment and the layers run in a
-Python loop, so its ``scan_layers``, ``remat`` and ``num_microbatches``
-change nothing.  Caches are likewise a list per segment of per-layer
-caches.  Every entry point runs on the device of its parameters;
-:func:`init_params` puts them on the card unless the caller asks for the
-CPU, and raises where there is no card.
+Python loop, so ``scan_layers`` changes nothing.  ``remat`` acts where the
+reference's does, on each layer of :func:`forward` while autograd records
+(the train step): ``"full"`` recomputes the whole layer in the backward,
+``"dots"`` saves the layer's products with no batch dims (the projections
+``x @ W``, which dispatch as ``aten.mm``) and recomputes the rest (the
+attention and expert einsums, ``aten.bmm``, and every elementwise op).
+Neither changes a gradient.  Serving records nothing and runs the layers
+as they are.  ``num_microbatches`` is read by the train step
+(:func:`repro_torch.launch.steps.make_train_step`).  Caches are a list per
+segment of per-layer caches.  Every entry point runs on the device of its
+parameters; :func:`init_params` puts them on the card unless the caller
+asks for the CPU, and raises where there is no card.
+
+The parameters are frozen (``requires_grad=False``), so serving builds no
+autograd graph; the train step records gradients for its own duration
+only (:func:`value_and_grad`).
 """
 from __future__ import annotations
 
@@ -24,10 +35,13 @@ from typing import Any, Dict, List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import embed_init, rmsnorm, rmsnorm_init
+from repro_torch.optim.tree import unflatten
 
 
 class ParamTree(nn.Module):
@@ -130,6 +144,32 @@ def _layers(params, cfg, cdt):
             yield kind, layer.tree(cdt)
 
 
+#: the products that ``remat="dots"`` saves: ``x @ W`` of an activation
+#: and a weight (``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``)
+SAVED_DOTS = (torch.ops.aten.mm.default,)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
+def _remat(fn, cfg):
+    """``fn`` under ``cfg.remat`` while autograd records; else ``fn``."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "full":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    if cfg.remat == "dots":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=_dots_contexts)
+    raise ValueError(f"unknown remat {cfg.remat!r}")
+
+
 def forward(params, tokens, cfg, *, last_only: bool = False):
     """Causal forward.  tokens (B, S[, K]) → (logits (B, S|1, V[, K])
     in the compute dtype, MoE aux loss (float32 scalar))."""
@@ -139,12 +179,17 @@ def forward(params, tokens, cfg, *, last_only: bool = False):
     pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     shared = _shared_ctx(params, cfg, cdt)
 
+    def body(x, kind, layer):
+        return tfm.block_apply(kind, layer.tree(cdt), x, cfg, pos,
+                               shared=shared, x_embed=x_embed)
+
+    body = _remat(body, cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, layer in _layers(params, cfg, cdt):
-        x, aux = tfm.block_apply(kind, layer, x, cfg, pos, shared=shared,
-                                 x_embed=x_embed)
-        if aux is not None:
-            aux_total = aux_total + aux
+    for (kind, _), seg in zip(cfg.segments, params["segments"]):
+        for layer in seg:
+            x, aux = body(x, kind, layer)
+            if aux is not None:
+                aux_total = aux_total + aux
 
     x = rmsnorm(params["final_ln"], x)
     if last_only:
@@ -169,6 +214,25 @@ def loss_fn(params, batch, cfg):
     ce = -ll.mean()
     loss = ce + 0.01 * aux
     return loss, {"ce": ce, "aux": aux}
+
+
+def value_and_grad(params, batch, cfg):
+    """``jax.value_and_grad(loss_fn, has_aux=True)`` on a
+    :class:`ParamTree`: ((loss, metrics), grads) with the grads a tree shaped
+    as ``params.tree()`` in the parameters' dtypes, the loss and metrics
+    detached.  The leaves record gradients only inside this call."""
+    leaves = list(params.parameters())
+    with torch.enable_grad():
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            loss, metrics = loss_fn(params, batch, cfg)
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+    return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
+            unflatten(params.tree(), grads))
 
 
 # ---------------------------------------------------------------------------

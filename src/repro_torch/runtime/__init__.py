@@ -1,7 +1,9 @@
 """repro_torch.runtime — fault tolerance and straggler detection.
 
-The port of ``repro/runtime``: :mod:`~repro_torch.runtime.fault` only
-(``runtime/elastic.py`` belongs to the LM scaffold, not ported yet).
+The port of ``repro/runtime``: :mod:`~repro_torch.runtime.fault`, whose
+``ResilientLoop`` and ``HeartbeatMonitor`` drive LM training
+(``launch/train.py``).  ``runtime/elastic.py`` (remeshing) comes with the
+port's mesh parallelism.
 """
 from repro_torch.runtime.fault import (FaultInjector, HeartbeatMonitor,
                                        InjectedFault, ResilientLoop)

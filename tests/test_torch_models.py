@@ -492,13 +492,18 @@ def test_entry_points_need_a_card():
 
 
 def test_port_imports_no_jax():
-    """No module of ``repro_torch/{models,configs,launch}`` (nor
+    """No module of ``repro_torch/{models,configs,launch,optim,data}`` (nor
     ``convert.py``) imports ``jax`` or ``repro``."""
     root = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+    dirs = ("models", "configs", "launch", "optim", "data")
     files = [root / "convert.py"] + [
-        f for d in ("models", "configs", "launch")
-        for f in sorted((root / d).glob("*.py"))]
-    assert len(files) > 20
+        f for d in dirs for f in sorted((root / d).glob("*.py"))]
+    for d in dirs:
+        assert (root / d / "__init__.py") in files, d
+    for name in ("launch/train.py", "optim/adamw.py", "optim/compression.py",
+                 "optim/schedule.py", "data/pipeline.py"):
+        assert root / name in files, name
+    assert len(files) >= 34
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             names = []
