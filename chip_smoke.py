@@ -307,7 +307,9 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          ``launch/{steps,train}.py``, no kernel of
                          ``kernels/``), under
                          ``torch.use_deterministic_algorithms``: qwen3-0.6b
-                         at full width and 28 layers in bfloat16 with its
+                         at full width, its first ``LM_TRAIN_LAYERS`` (16)
+                         of 28 layers (the smoke's budget; ``lm_train_mesh``
+                         trains all 28), in bfloat16 with its
                          ``remat="dots"`` and 8 microbatches, 24 steps of
                          ``make_train_step`` on ``TokenDataset`` (8 × 512):
                          every loss and gradient norm finite, the loss
@@ -325,6 +327,31 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          for one step at ``smoke()`` in float32 within
                          the CPU parity tests' bounds; no kernel of
                          ``kernels/`` launched or built;
+10m. ``lm_train_mesh`` — LM training on a 2×2 (data, model) mesh of the
+                         card (``repro_torch.parallel``,
+                         ``launch/{mesh,steps,train}.py``,
+                         ``runtime/elastic.py``, ``psum_compressed``; no
+                         kernel of ``kernels/``), under deterministic
+                         algorithms: qwen3-0.6b at full width and 28 layers
+                         in bfloat16, ``"dots"``, 8 microbatches, 16 × 512
+                         rows (each replica one row of each microbatch)
+                         through ``launch/train.py::build`` and the step
+                         under ``use_sharding(rules)``: one warm-up step
+                         under the profiler (the card's kernels only: busy
+                         time, and the idle share of a timed step with it
+                         off), three timed (CUDA events; tokens/s), peak memory
+                         beside one 1×1 step's;
+                         the 2×2 step against the 1×1 step from the same
+                         weights and batch within ``LM_MESH_BF16_REL``;
+                         after step 2 ``remesh`` of {params, opt} onto 1×2
+                         (bitwise) and the next step there with
+                         ``shrink_plan``'s 16 microbatches: its loss,
+                         gradient norm, parameters and moments bitwise the
+                         2×2 run's own step 3's; at ``smoke()`` in
+                         float32 2×2 against 1×1 within ``lm_train``'s
+                         card-against-CPU bounds;
+                         ``psum_compressed`` on the card bitwise its CPU
+                         run; no kernel of ``kernels/`` launched or built;
 11. ``kernels``        — one JSON line describing every kernel of the paths
                          (K1 on six rows: the k = 1 entry in the padded and
                          the margin mode, the sweep at the auto tile, and
@@ -356,8 +383,9 @@ Each main path (``heat3d``, ``hazard_make``, ``ensemble_make``,
 ``legacy_btcs``, ``sharded_make``, ``sharded_solve``, ``overlap_make``,
 ``health_make``, ``health_solve``, ``adjoint_solve``, ``adjoint_make``,
 ``service``, ``cost_model``) runs with the launch counters set to 0 just before it and read just after,
-and fails if one of its kernels was not launched (``lm_serve`` and
-``lm_train``: if one was).  K1's k = 1 rows on the padded field, on 8
+and fails if one of its kernels was not launched (``lm_serve``,
+``lm_train`` and ``lm_train_mesh``: if one was).  K1's k = 1 rows on the
+padded field, on 8
 members and on the 2×2 mesh's bricks carry ``F.conv3d``'s time as their
 library call (``heat3d``, ``ensemble_make``, ``sharded_make``: one call
 on the padded field, the 8 padded members, one padded brick; within one
@@ -641,8 +669,33 @@ PREDICTED = {
     "lm_train_peak_gb": [11.0, 16.0],
     "lm_train_loss_first5": [11.0, 12.2],
     "lm_train_loss_last5": [7.0, 11.0],
+    # the held-out batch's loss (revised before its first card run): about
+    # the first steps' 12.12-12.14 before the run, 0.03-0.2 lower after it
+    "lm_train_held_out_fall": [0.03, 0.2],
     "lm_train_resume": "bitwise",
     "lm_train_remat_dots_vs_none": "bitwise",
+    # LM training on a 2×2 mesh of the card (written before its first run
+    # on a card; PERF.md §6): 16 replica passes of 1 × 512 a step, twice
+    # lm_train's 8, each as host-bound as its (3.3-8.1 s for 8), so 6.5-16
+    # s a step; idle as lm_train's; the 1×1 step's peak (2-row microbatches)
+    # 14-19 GB; the remesh moves 6 GB through pageable host memory both
+    # ways.  Revised before the first card run with one set of
+    # accumulators for the replicas on the card: the 2×2 peak below the
+    # 1×1 step's (1-row passes, the same single float32 accumulator); the
+    # bfloat16 loss within 2e-6 and the gradient norm within 2e-5 of the
+    # 1×1 step's (bounds LM_MESH_BF16_REL); the step after the remesh the
+    # 2×2 run's own, bitwise
+    "lm_mesh_step_ms": [6500.0, 16000.0],
+    "lm_mesh_tok_per_s": [510.0, 1260.0],
+    "lm_mesh_idle_share": [0.8, 0.95],
+    "lm_mesh_peak_gb": [9.0, 13.2],
+    "lm_mesh_one_device_peak_gb": [14.0, 19.0],
+    "lm_mesh_bf16_loss_rel": [0.0, 2e-6],
+    "lm_mesh_bf16_grad_norm_rel": [0.0, 2e-5],
+    "lm_mesh_after_remesh": "bitwise",
+    "lm_mesh_remesh_s": [4.0, 10.0],
+    "lm_mesh_smoke_f32_rel": [0.0, 1e-6],
+    "lm_mesh_psum_compressed": "bitwise",
 }
 #: ``F.conv3d`` against K1 on the 8 members' and the bricks' heat3d body:
 #: seven terms summed in another order round at most 3 times apart, so
@@ -5476,13 +5529,19 @@ def phase_lm_serve(seed: int):
 #: step's default 3e-4 over 100 warm-up steps the loss moves by about 0.05
 #: in 40 steps of the reference's smoke model, at 1e-3/5 by 0.4)
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 512, 24
+#: lm_train's depth: qwen3-0.6b's first 16 of its 28 layers, at full width.
+#: With all 28 here and in ``lm_train_mesh`` the whole smoke took 1189 s of
+#: its 1200 s on a slow host (9.0 s a step here, 411 s for this phase), so
+#: this earlier path runs cut; ``lm_train_mesh`` keeps the full depth
+#: (``tools/lm_train_probe.py`` runs this uninterrupted run at other depths)
+LM_TRAIN_LAYERS = 16
 LM_TRAIN_KW = {"peak_lr": 1e-3, "warmup": 5, "total_steps": 24}
 #: the uninterrupted run's first steps run alone on the card: 2 warm-up
 #: steps, then the timed steps (the step time is their median), then one
 #: step under the profiler; the kill-and-resume run (a second process,
 #: ``lm_train_resume``) starts after them and runs beside the rest, so the
 #: phase takes about one run's time, not two (both host-bound, the card
-#: idle most of a step).  The loss-fall window
+#: idle most of a step).  The window of the reported loss means
 LM_TRAIN_WARM_STEPS, LM_TRAIN_SOLO_STEPS = 2, 8
 LM_TRAIN_LOSS_WINDOW = 5
 #: the kill-and-resume process's time limit (s)
@@ -5496,6 +5555,22 @@ LM_TRAIN_COMPRESS_STEPS = 4
 #: about lr·sign(g), and a gradient at rounding-noise level may flip
 #: sign); where |g| ≥ 1e-4·max|g| of its leaf, within 1e-3·(lr + |Δp|)
 LM_TRAIN_LOSS_REL, LM_TRAIN_UPDATE_REL, LM_TRAIN_MASK_REL = 1e-5, 1e-3, 1e-4
+
+
+def lm_train_config():
+    """qwen3-0.6b at full width, its first ``LM_TRAIN_LAYERS`` layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(LM_ARCH)
+    segs, left = [], LM_TRAIN_LAYERS
+    for kind, count in cfg.segments:
+        if left:
+            segs.append((kind, min(count, left)))
+            left -= segs[-1][1]
+    return dataclasses.replace(cfg, segments=tuple(segs),
+                               n_layers=sum(c for _, c in segs))
 
 
 def lm_forward_ops(cfg, layer_params: int, batch: int, seq: int,
@@ -5533,6 +5608,29 @@ def state_digests(params, opt) -> list:
     return out
 
 
+def held_out_batch(cfg, seed: int) -> dict:
+    """``lm_train``'s held-out batch on the card: the first batch of the
+    stream seeded ``seed + 1``, which the run never trains on."""
+    from repro_torch.data import TokenDataset, shard_batch
+
+    return shard_batch(TokenDataset(cfg.vocab_size, LM_TRAIN_SEQ,
+                                    LM_TRAIN_BATCH, seed=seed + 1)
+                       .next_batch(), DEV)
+
+
+def held_out_loss(params, batch, cfg) -> float:
+    """The loss of ``batch`` under ``params``: one forward, no gradient.
+    Its fall over a run is the run's: the same tokens before and after, so
+    the batch-to-batch swing of the steps' own losses (±0.1-0.2 on the
+    card, each on a fresh batch) does not enter it."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    with torch.no_grad():
+        return float(M.loss_fn(params, batch, cfg)[0])
+
+
 def _train_determinism():
     """Deterministic algorithms on (so that a replayed step gives the same
     bits), without the NaN fill of every fresh buffer; returns what to
@@ -5568,7 +5666,6 @@ def lm_train_resume(seed: int) -> dict:
 
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.launch import train as train_mod
     from repro_torch.runtime import FaultInjector
 
@@ -5580,7 +5677,7 @@ def lm_train_resume(seed: int) -> dict:
         with tempfile.TemporaryDirectory() as ckpt, FaultInjector(
                 fail_at=(LM_TRAIN_FAIL_AT,), match_tag="train") as inj:
             params, opt, reached, hist = train_mod.train(
-                get_config(LM_ARCH), steps=LM_TRAIN_STEPS,
+                lm_train_config(), steps=LM_TRAIN_STEPS,
                 batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, ckpt_dir=ckpt,
                 ckpt_every=LM_TRAIN_CKPT_EVERY, device=DEV, seed=seed,
                 **LM_TRAIN_KW)
@@ -5698,7 +5795,6 @@ def phase_lm_train(seed: int):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import compiler
-    from repro_torch.configs import get_config
     from repro_torch.data import TokenDataset, shard_batch
     from repro_torch.kernels import build
     from repro_torch.launch import train as train_mod
@@ -5706,11 +5802,11 @@ def phase_lm_train(seed: int):
     from repro_torch.optim.tree import leaves
 
     t_phase = time.perf_counter()
-    cfg = get_config(LM_ARCH)
+    cfg = lm_train_config()
     B, S, N = LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS
     checks = {"config": (cfg.remat, cfg.num_microbatches, cfg.n_layers,
                          cfg.param_dtype, cfg.compute_dtype)
-              == ("dots", 8, 28, "bfloat16", "bfloat16")}
+              == ("dots", 8, LM_TRAIN_LAYERS, "bfloat16", "bfloat16")}
     built = (compiler.stats.kernels_built, len(build._LIBS))
     prev = _train_determinism()
     logdir = tempfile.mkdtemp()
@@ -5720,9 +5816,12 @@ def phase_lm_train(seed: int):
         reset_counts()
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
+        params, opt, step, _ = train_mod.build(cfg, device=DEV, seed=seed,
+                                               **LM_TRAIN_KW)
+        one = held_out_batch(cfg, seed)
+        held_out = [held_out_loss(params, one, cfg)]
+        torch.cuda.synchronize()         # the steps' peak, the state's in it
         torch.cuda.reset_peak_memory_stats()
-        params, opt, step = train_mod.build(cfg, device=DEV, seed=seed,
-                                            **LM_TRAIN_KW)
         ds = TokenDataset(cfg.vocab_size, S, B, seed=seed)
         history, events = [], []
         t0 = time.perf_counter()
@@ -5750,6 +5849,7 @@ def phase_lm_train(seed: int):
         peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
         launches = read_counts()
         # ---------------------------------------------------------------
+        held_out.append(held_out_loss(params, one, cfg))
         step_ms = [a.elapsed_time(b) for a, b in events]
         median_ms = statistics.median(
             step_ms[LM_TRAIN_WARM_STEPS:LM_TRAIN_SOLO_STEPS - 1])
@@ -5760,7 +5860,8 @@ def phase_lm_train(seed: int):
         w = LM_TRAIN_LOSS_WINDOW
         first, last = (sum(losses[:w]) / w, sum(losses[-w:]) / w)
         checks["finite"] = all(math.isfinite(x) for x in losses + gnorms)
-        checks["loss_falls"] = last < first
+        # the held-out batch's loss after the run against before it
+        checks["loss_falls"] = held_out[1] < held_out[0]
         checks["no_port_kernel_launched"] = not any(launches.values())
         state_gb = sum(t.numel() * t.element_size()
                        for t in _train_state(params, opt)) / 1e9
@@ -5773,8 +5874,6 @@ def phase_lm_train(seed: int):
 
         # --- remat: "dots" against "none" on one batch ------------------
         remat = {}
-        one = shard_batch(TokenDataset(cfg.vocab_size, S, B,
-                                       seed=seed + 1).next_batch(), DEV)
         grads = {}
         for policy in ("dots", "none"):
             c = dataclasses.replace(cfg, remat=policy)
@@ -5798,8 +5897,8 @@ def phase_lm_train(seed: int):
         torch.cuda.empty_cache()
 
         # --- compression: 4 steps from the same weights and stream ------
-        pc, oc, cstep = train_mod.build(cfg, device=DEV, seed=seed,
-                                        compress=True, **LM_TRAIN_KW)
+        pc, oc, cstep, _ = train_mod.build(cfg, device=DEV, seed=seed,
+                                           compress=True, **LM_TRAIN_KW)
         cds = TokenDataset(cfg.vocab_size, S, B, seed=seed)
         closses = []
         for _ in range(LM_TRAIN_COMPRESS_STEPS):
@@ -5866,6 +5965,7 @@ def phase_lm_train(seed: int):
           "held_before_gb": held / 1e9,
           "loss": losses, "grad_norm": gnorms, "lr": lrs,
           "loss_first5_mean": first, "loss_last5_mean": last,
+          "held_out_loss_before_after": held_out,
           "resume": dict(resume, fail_at=LM_TRAIN_FAIL_AT,
                          ckpt_every=LM_TRAIN_CKPT_EVERY,
                          steps_run=len(replayed)),
@@ -5876,6 +5976,322 @@ def phase_lm_train(seed: int):
                         if k == "card" or k.startswith("lm_train")}})
     if failed:
         raise AssertionError(f"lm_train: {failed} failed")
+
+
+#: ``lm_train_mesh``: qwen3-0.6b trained on a 2×2 (data, model) mesh of the
+#: card: 16 rows of 512 (at 8 rows a microbatch is 1 row, which data = 2
+#: does not divide), 8 microbatches, so each replica takes one row of each;
+#: one warm-up step, under the profiler (its kernels are the timed steps'),
+#: then three timed steps
+LM_MESH, LM_MESH_BATCH = (2, 2), 16
+LM_MESH_TIMED, LM_MESH_STEPS = (1, 2, 3), 4
+#: the remesh after step 2 (index 1) onto 1×2, keeping the global batch
+LM_MESH_REMESH_AFTER, LM_MESH_SHRUNK = 1, (1, 2)
+#: 2×2 against 1×1 in bfloat16, relative (PERF.md §6): the card read the
+#: loss bitwise and the gradient norm 8.6e-6 apart (a row's products give
+#: the same bits at M = 512 and 1024); what differs is the order of the
+#: float32 sums — 16 one-row passes against 8 two-row ones, ≤ 16 roundings
+#: of a sum near 194 (≈ 1.3e-6 of the loss) — and the bfloat16 rounding of
+#: a two-row gradient against two one-row ones.  Dropping one of the 16
+#: rows moves the loss by the row's distance from the mean over 16
+#: (≈ 1e-4 of it at these losses) and half of them the gradient norm by
+#: far more, so the bounds catch a lost replica
+LM_MESH_BF16_REL = {"loss": 1e-5, "grad_norm": 1e-4}
+#: psum_compressed on the card: four parts of this many float32 values,
+#: their scales 1e-2 to 1e1 apart
+LM_MESH_PSUM_N = 1 << 20
+
+
+def _bits(t):
+    """``t``'s bits as integers (bitwise comparison of floats)."""
+    import torch
+
+    size = t.element_size()
+    return t.contiguous().view({1: torch.uint8, 2: torch.int16,
+                                4: torch.int32, 8: torch.int64}[size])
+
+
+def lm_mesh_smoke_step(seed: int) -> dict:
+    """One step at ``smoke()`` in float32 (TF32 off) with 2 microbatches,
+    8 × 32, the same weights and batch, on 1×1 and on a 2×2 mesh of the
+    card: the loss and gradient norm within ``LM_TRAIN_LOSS_REL``, every
+    update within 2·lr (``lm_train``'s card-against-CPU bounds)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenDataset, shard_batch
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh2d
+    from repro_torch.parallel import use_sharding
+
+    small = get_config(LM_ARCH).smoke(num_microbatches=2)
+    host = TokenDataset(small.vocab_size, 32, 8, seed=seed).next_batch()
+    out = {}
+    for shape in ((1, 1), LM_MESH):
+        mesh = make_mesh2d(*shape, device=DEV)
+        params, opt, step, rules = train_mod.build(
+            small, mesh, seed=seed, **LM_TRAIN_KW)
+        before = [p.detach().double().clone() for p in params.parameters()]
+        with use_sharding(rules):
+            _, _, m = step(params, opt, shard_batch(
+                host, rules.sharding(("batch", "seq"), (8, 32))))
+        out[shape] = ({k: float(v) for k, v in m.items()},
+                      [(p.detach().double() - b).cpu()
+                       for p, b in zip(params.parameters(), before)])
+    (m1, d1), (m2, d2) = out[(1, 1)], out[LM_MESH]
+    rel = {k: abs(m2[k] - m1[k]) / abs(m1[k]) for k in ("loss", "grad_norm")}
+    worst = max(float((a - b).abs().max()) for a, b in zip(d2, d1)) / m1["lr"]
+    return {"config": "smoke(num_microbatches=2), float32, 8 x 32",
+            "one": m1, "mesh": m2, "rel": rel, "update_over_lr_max": worst,
+            "ok": max(rel.values()) <= LM_TRAIN_LOSS_REL and worst <= 2.0
+            and m1["lr"] == m2["lr"]}
+
+
+def psum_compressed_card_vs_cpu(seed: int) -> dict:
+    """``psum_compressed`` over ``data`` of 2×2 and 4×1 meshes, on the card
+    and on the CPU, the same seeded parts of different scales: bitwise."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh2d
+    from repro_torch.optim.compression import psum_compressed
+
+    rng = np.random.default_rng(seed)
+    parts = [(rng.standard_normal(LM_MESH_PSUM_N) * 10.0 ** (b - 2))
+             .astype(np.float32) for b in range(4)]
+    out = {}
+    for dims in ((2, 2), (4, 1)):
+        got = {}
+        for dev in (DEV, "cpu"):
+            mesh = make_mesh2d(*dims, device=dev)
+            got[dev] = [t.cpu() for t in psum_compressed(
+                [torch.from_numpy(p).to(dev) for p in parts], mesh, "data")]
+        out["x".join(map(str, dims))] = all(
+            torch.equal(_bits(a), _bits(b)) for a, b in zip(got[DEV],
+                                                              got["cpu"]))
+    return out
+
+
+def phase_lm_train_mesh(seed: int):
+    """LM training on a 2×2 (data, model) mesh of the card
+    (``repro_torch.parallel``, ``launch/{mesh,steps,train}.py``,
+    ``runtime/elastic.py``, ``psum_compressed``): qwen3-0.6b at full width
+    and depth in bfloat16 with its ``remat="dots"`` and 8 microbatches,
+    under deterministic algorithms (docstring, 10m)."""
+    import dataclasses
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import compiler
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenDataset, shard_batch
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh2d
+    from repro_torch.models.model import ParamTree
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.optim.tree import leaves, tree_map
+    from repro_torch.parallel import (PartitionSpec, param_specs_for,
+                                      rules_for, use_sharding)
+    from repro_torch.runtime import remesh, shrink_plan
+
+    t_phase = time.perf_counter()
+    parts, t_part = {}, [t_phase]
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    cfg = get_config(LM_ARCH)
+    B, S = LM_MESH_BATCH, LM_TRAIN_SEQ
+    mb = cfg.num_microbatches
+    checks = {"config": (cfg.remat, mb, cfg.n_layers, cfg.param_dtype)
+              == ("dots", 8, 28, "bfloat16")}
+    built = (compiler.stats.kernels_built, len(build._LIBS))
+    ds = TokenDataset(cfg.vocab_size, S, B, seed=seed)
+    host = [ds.next_batch() for _ in range(LM_MESH_STEPS)]
+    prev = _train_determinism()
+
+    def state_specs(params, mesh):
+        p = param_specs_for(cfg, params.tree(), rules_for(cfg, mesh))
+        return {"params": p, "opt": AdamWState(PartitionSpec(), p, p)}
+
+    try:
+        # --- 1×1: one step, its peak ------------------------------------
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params, opt, step, rules = train_mod.build(
+            cfg, make_mesh2d(1, 1, device=DEV), seed=seed, **LM_TRAIN_KW)
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        with use_sharding(rules):
+            batch = shard_batch(host[0], rules.sharding(("batch", "seq"),
+                                                        (B, S)))
+            ev[0].record()
+            _, _, m = step(params, opt, batch)
+            ev[1].record()
+        torch.cuda.synchronize()
+        one = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "step_ms": ev[0].elapsed_time(ev[1]),
+               "peak_gb": (torch.cuda.max_memory_allocated() - held) / 1e9,
+               "state_gb": sum(t.numel() * t.element_size() for t in
+                               _train_state(params, opt)) / 1e9}
+        del params, opt, step, m, batch, _
+        torch.cuda.empty_cache()
+        part("one_device")
+
+        # --- the main path: 2×2, counters 0 before, read after -----------
+        mesh = make_mesh2d(*LM_MESH, device=DEV)
+        reset_counts()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params, opt, step, rules = train_mod.build(cfg, mesh, seed=seed,
+                                                   **LM_TRAIN_KW)
+        sharding = rules.sharding(("batch", "seq"), (B, S))
+        plan = steps_mod.batch_axes(rules, B // mb)
+        checks["data_parallel"] = plan == (("data",), 2)
+        history, events, batches = [], [], []
+        with use_sharding(rules):
+            for i in range(LM_MESH_STEPS):
+                batch = shard_batch(host[i], sharding)
+                batches.append(batch)
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                profiled = i == 0
+                if profiled:
+                    # the card's kernels only: with the host's ops traced
+                    # as well (2×10^5 launches a step) the phase took 2.3×
+                    # as long on the card, most of it reading the trace
+                    prof = profile(activities=[ProfilerActivity.CUDA])
+                    prof.start()
+                    t_prof = time.perf_counter()
+                ev[0].record()
+                params, opt, m = step(params, opt, batch)
+                ev[1].record()
+                history.append(m)
+                events.append(ev)
+                if profiled:
+                    torch.cuda.synchronize()
+                    prof_us = (time.perf_counter() - t_prof) * 1e6
+                    prof.stop()
+                if i == LM_MESH_REMESH_AFTER:
+                    # the steps' peak, before the remeshed copy is held
+                    torch.cuda.synchronize()
+                    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+                    # --- elastic: {params, opt} onto 1×2 -----------------
+                    t0 = time.perf_counter()
+                    shrunk = make_mesh2d(*LM_MESH_SHRUNK, device=DEV)
+                    state = {"params": params.tree(), "opt": opt}
+                    placed = remesh(state, state_specs(params, shrunk),
+                                    shrunk)
+                    torch.cuda.synchronize()
+                    remesh_s = time.perf_counter() - t0
+                    checks["remesh_bitwise"] = all(
+                        torch.equal(_bits(a.local()), _bits(b))
+                        for a, b in zip(leaves(placed), leaves(state)))
+                    checks["remesh_specs"] = all(
+                        a.mesh is shrunk for a in leaves(placed))
+                    del state
+                if i == LM_MESH_REMESH_AFTER + 1:
+                    # what the remeshed state's step must reproduce
+                    want = [t.clone() for t in _train_state(params, opt)]
+        torch.cuda.synchronize()
+        launches = read_counts()
+        state_gb = sum(t.numel() * t.element_size()
+                       for t in _train_state(params, opt)) / 1e9
+        # ---------------------------------------------------------------
+        step_ms = [a.elapsed_time(b) for a, b in events]
+        median_ms = statistics.median(step_ms[i] for i in LM_MESH_TIMED)
+        part("mesh_steps")
+        profile_step = profiled_kernels(prof, prof_us, median_ms * 1e3)
+        del prof
+        part("profile_read")
+        losses = [float(h["loss"]) for h in history]
+        gnorms = [float(h["grad_norm"]) for h in history]
+        checks["finite"] = all(math.isfinite(x) for x in losses + gnorms)
+        checks["no_port_kernel_launched"] = not any(launches.values())
+        first = {"loss": losses[0], "grad_norm": gnorms[0]}
+        rel = {k: abs(first[k] - one[k]) / abs(one[k])
+               for k in LM_MESH_BF16_REL}
+        checks["mesh_vs_one_device"] = all(
+            rel[k] <= LM_MESH_BF16_REL[k] for k in LM_MESH_BF16_REL)
+        checks["state_not_larger"] = state_gb <= one["state_gb"]
+        del params, opt
+
+        # --- the remeshed state's next step: 1×2, the global batch kept --
+        plan_s = shrink_plan(LM_MESH[0], LM_MESH_SHRUNK[0], B, mb)
+        mb2 = plan_s["keep_global_batch"]["num_microbatches"]
+        checks["keep_global_batch"] = mb2 == 2 * mb
+        c2 = dataclasses.replace(cfg, num_microbatches=mb2)
+        p2 = ParamTree(tree_map(lambda st: st.local(), placed["params"]))
+        o2 = tree_map(lambda st: st.local(), placed["opt"])
+        del placed
+        rules2 = rules_for(c2, make_mesh2d(*LM_MESH_SHRUNK, device=DEV))
+        step2 = steps_mod.make_train_step(c2, **LM_TRAIN_KW)
+        with use_sharding(rules2):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            _, o2, m2 = step2(p2, o2, batches[LM_MESH_REMESH_AFTER + 1])
+            ev[1].record()
+        torch.cuda.synchronize()
+        nxt = LM_MESH_REMESH_AFTER + 1
+        after = {"loss": float(m2["loss"]), "grad_norm":
+                 float(m2["grad_norm"]), "step_ms": ev[0].elapsed_time(ev[1]),
+                 "num_microbatches": mb2, "mesh": list(LM_MESH_SHRUNK),
+                 "batch_axes": steps_mod.batch_axes(rules2, B // mb2),
+                 "step": int(o2.step)}
+        for k, got in (("loss", losses), ("grad_norm", gnorms)):
+            after[k + "_rel"] = abs(after[k] - got[nxt]) / got[nxt]
+        # the 2×2 step's one-row passes in the same order (replica r of
+        # microbatch i is row 2i + r): the run's own next step, bitwise
+        checks["remeshed_step_bitwise"] = (
+            after["loss"] == losses[nxt] and after["grad_norm"] == gnorms[nxt]
+            and after["step"] == nxt + 1 and all(
+                torch.equal(_bits(a), _bits(b)) for a, b in
+                zip(_train_state(p2, o2), want)))
+        del want
+        del p2, o2, batches
+        torch.cuda.empty_cache()
+        part("after_remesh")
+
+        smoke_step = lm_mesh_smoke_step(seed)
+        checks["smoke_f32_mesh_vs_one_device"] = smoke_step["ok"]
+        part("smoke_f32")
+        psum_c = psum_compressed_card_vs_cpu(seed)
+        part("psum_compressed")
+        checks["psum_compressed_card_vs_cpu_bitwise"] = all(psum_c.values())
+        checks["no_port_kernel_built"] = built == (
+            compiler.stats.kernels_built, len(build._LIBS))
+    finally:
+        _restore_determinism(prev)
+
+    failed = [k for k, ok in checks.items() if not ok]
+    emit({"phase": "lm_train_mesh", "card": card_line(), "arch": LM_ARCH,
+          "seconds": time.perf_counter() - t_phase, "seconds_by_part": parts,
+          "mesh": list(LM_MESH), "batch": B, "seq": S,
+          "num_microbatches": mb, "rows_per_replica_pass": B // mb // 2,
+          "dtype": cfg.compute_dtype, "remat": cfg.remat,
+          "deterministic": True, "schedule": LM_TRAIN_KW,
+          "step_ms": step_ms, "step_ms_median": median_ms,
+          "tok_per_s": B * S / median_ms * 1e3,
+          "profile_step": profile_step,
+          "peak_gb": peak_gb, "state_gb": state_gb, "one_device": one,
+          "loss": losses, "grad_norm": gnorms, "mesh_vs_one_device_rel": rel,
+          "bf16_bound": LM_MESH_BF16_REL, "remesh_s": remesh_s,
+          "after_remesh": after, "smoke_f32": smoke_step,
+          "psum_compressed_bitwise": psum_c, "launches": launches,
+          "checks": checks,
+          "predicted": {k: PREDICTED[k] for k in PREDICTED
+                        if k == "card" or k.startswith("lm_mesh")}})
+    if failed:
+        raise AssertionError(f"lm_train_mesh: {failed} failed")
 
 
 def device_breakdown(fn, top: int = 4) -> dict:
@@ -5904,19 +6320,21 @@ def device_breakdown(fn, top: int = 4) -> dict:
 def profiled_kernels(prof, wall_us: float, plain_wall_us: float,
                      top: int = 4) -> dict:
     """Device time by kernel in a ``torch.profiler`` trace, its sum, and
-    the idle share of the profiled wall time and of an unprofiled one."""
+    the idle share of the profiled wall time and of an unprofiled one.
+    The card's events are summed by name straight from the profiler's
+    result, without the per-event objects that ``key_averages`` builds
+    first (a trace of 2×10^5 launches took 37-49 s to read that way, 3 s
+    this way, with the same sums)."""
     import torch
 
-    kernels = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    by = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            kernels.append((us, e.key[:60], e.count))
-    kernels.sort(reverse=True)
+        us, n = by.get(e.name(), (0.0, 0))
+        by[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    kernels = sorted(((us, name[:60], n) for name, (us, n) in by.items()
+                      if us > 0), reverse=True)
     busy = sum(k[0] for k in kernels)
     return {"device_kernels_us": [{"kernel": name, "us": us, "calls": n}
                                   for us, name, n in kernels[:top]],
@@ -5976,6 +6394,7 @@ def main() -> int:
     phase_rows["cost_model"] = phase_cost_model(args.steps)
     phase_lm_serve(args.seed)
     phase_lm_train(args.seed)
+    phase_lm_train_mesh(args.seed)
     csrc = "src/repro_torch/kernels/csrc/"
     # the solves apply their operators through the k = 1 entry, padded;
     # K2 (cg + mg), K3 and K4 run in the multigrid solves of both solve

@@ -1,5 +1,5 @@
-"""A single-process brick mesh: the port's counterpart of the JAX objects the
-legacy brick drivers use.
+"""A single-process device mesh: the port's counterpart of the JAX objects the
+legacy brick drivers and the LM stack use.
 
 The reference decomposes a global ``(X, Y, Z)`` field into x-major bricks of
 a 2-D device mesh (``repro/core/jaxcompat.py::make_mesh``), places it with
@@ -7,10 +7,12 @@ a 2-D device mesh (``repro/core/jaxcompat.py::make_mesh``), places it with
 SPMD program per brick under ``shard_map``.  Here one process drives every
 brick in turn:
 
-* :class:`Mesh` — ``mx × my`` bricks, each with its own device; several
-  bricks may share one device (a 2×2 mesh on one card, or on the CPU);
-* :class:`NamedSharding` — cuts a global tensor into the mesh's bricks and
-  gathers them back;
+* :class:`Mesh` — 1 to 3 named axes (the LM stack's ``(pod, data, model)``),
+  one device per position; several positions may share one device (a 2×2
+  mesh on one card, or on the CPU).  The brick path below takes 2-D meshes
+  only; :mod:`repro_torch.parallel` places tensors on any of them;
+* :class:`NamedSharding` — cuts a global tensor into a 2-D mesh's bricks
+  and gathers them back;
 * :class:`BrickArray` — a sharded field: one tensor per brick, with the
   element-wise arithmetic the drivers need (a replicated 0-d tensor or a
   Python number on one side is used on every brick).  Through
@@ -21,8 +23,9 @@ brick in turn:
 * :func:`device_put` / :func:`device_get` — the JAX spellings.
 
 Bricks exchange data only through :func:`repro_torch.core.halo._ppermute_shift`
-(halo planes) and :func:`psum` (reductions); multi-card transport plugs in
-there.
+(halo planes), :func:`psum` (reductions over the whole mesh) and
+:func:`psum_axes` (over some of its named axes); multi-card transport plugs
+in there.
 
 >>> import torch
 >>> mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
@@ -43,26 +46,34 @@ import torch
 
 
 class Mesh:
-    """``mx × my`` bricks over named axes, brick ``b`` at mesh coordinates
-    ``divmod(b, my)`` (x-major, as ``jax.make_mesh`` lays devices out) on
-    ``devices[b]``."""
+    """Positions over 1 to 3 named axes, position ``b`` at mesh coordinates
+    ``np.unravel_index(b, dims)`` (x-major, as ``jax.make_mesh`` lays
+    devices out) on ``devices[b]``.  The brick path (:class:`NamedSharding`,
+    :class:`BrickArray`, the halo exchange) takes 2-D meshes only."""
 
-    def __init__(self, shape: Tuple[int, int], axis_names: Sequence[str],
+    def __init__(self, shape: Tuple[int, ...], axis_names: Sequence[str],
                  devices: Sequence[torch.device]):
-        if len(shape) != 2 or len(axis_names) != 2:
-            raise ValueError(f"a brick mesh is 2-D; got shape {shape} over "
-                             f"{tuple(axis_names)}")
-        mx, my = (int(n) for n in shape)
-        if mx < 1 or my < 1:
+        if not 1 <= len(shape) <= 3 or len(axis_names) != len(shape):
+            raise ValueError(f"a mesh has 1 to 3 named axes; got shape "
+                             f"{shape} over {tuple(axis_names)}")
+        dims = tuple(int(n) for n in shape)
+        if min(dims) < 1:
             raise ValueError(f"mesh shape {shape} must be positive")
-        if len(devices) != mx * my:
-            raise ValueError(f"{len(devices)} devices for {mx * my} bricks")
+        if len(set(axis_names)) != len(axis_names):
+            raise ValueError(f"mesh axis names {tuple(axis_names)} repeat")
+        n = int(np.prod(dims))
+        if len(devices) != n:
+            raise ValueError(f"{len(devices)} devices for {n} bricks")
         self.axis_names = tuple(axis_names)
-        self.shape: Dict[str, int] = dict(zip(self.axis_names, (mx, my)))
+        self.shape: Dict[str, int] = dict(zip(self.axis_names, dims))
         self.devices = tuple(torch.device(d) for d in devices)
+        # looked up per brick in the sharded steps' host loops
+        self._coords = tuple(tuple(int(c) for c in np.unravel_index(b, dims))
+                             for b in range(n))
+        self._index = {c: b for b, c in enumerate(self._coords)}
 
     @property
-    def dims(self) -> Tuple[int, int]:
+    def dims(self) -> Tuple[int, ...]:
         return tuple(self.shape.values())
 
     @property
@@ -74,22 +85,25 @@ class Mesh:
         """The device that holds replicated values (reduced scalars)."""
         return self.devices[0]
 
-    def coords(self, b: int) -> Tuple[int, int]:
-        """Mesh coordinates ``(cx, cy)`` of brick ``b``."""
-        return divmod(b, self.dims[1])
+    def coords(self, b: int) -> Tuple[int, ...]:
+        """Mesh coordinates of position (brick) ``b``: ``(cx, cy)`` on a
+        2-D mesh."""
+        return self._coords[b]
 
-    def brick(self, cx: int, cy: int) -> int:
-        return cx * self.dims[1] + cy
+    def brick(self, *coords: int) -> int:
+        """The position at mesh coordinates ``coords``."""
+        return self._index[coords]
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, devices={[str(d) for d in self.devices]})"
 
 
 def make_mesh(shape, axis_names=("data", "model"), device="cuda") -> Mesh:
-    """A single-process mesh of ``shape`` bricks.
+    """A single-process mesh of ``shape`` positions.
 
-    ``device`` is one device for every brick (default the card; raises
-    without one) or a sequence of ``mx·my`` devices, brick by brick.
+    ``device`` is one device for every position (default the card; raises
+    without one) or a sequence of ``prod(shape)`` devices, position by
+    position.
     """
     from repro_torch.engine.plan import resolve_device
 
@@ -106,6 +120,8 @@ class NamedSharding:
     ``NamedSharding(mesh, PartitionSpec(ax_x, ax_y, None))``."""
 
     def __init__(self, mesh: Mesh, spec=None):
+        if len(mesh.dims) != 2:
+            raise ValueError(f"a brick mesh is 2-D; got {mesh.shape}")
         spec = tuple(spec) if spec is not None else (*mesh.axis_names, None)
         if spec != (*mesh.axis_names, None):
             raise ValueError(f"only {(*mesh.axis_names, None)} bricks are "
@@ -150,6 +166,8 @@ class BrickArray:
     """A global field held as one tensor per brick of ``sharding.mesh``."""
 
     def __init__(self, bricks: Sequence[torch.Tensor], sharding: NamedSharding):
+        if len(sharding.mesh.dims) != 2:
+            raise ValueError(f"a brick mesh is 2-D; got {sharding.mesh.shape}")
         if len(bricks) != sharding.mesh.size:
             raise ValueError(f"{len(bricks)} bricks for a mesh of "
                              f"{sharding.mesh.size}")
@@ -276,6 +294,54 @@ def psum(parts: Sequence[torch.Tensor], mesh: Mesh) -> torch.Tensor:
     return total
 
 
+def axis_groups(mesh: Mesh, axis_names) -> list:
+    """The positions of ``mesh`` grouped by their coordinates off
+    ``axis_names`` (a name or a sequence of names): each group, in
+    position order, is what a collective over those axes reduces."""
+    names = (axis_names,) if isinstance(axis_names, str) else tuple(axis_names)
+    unknown = [a for a in names if a not in mesh.shape]
+    if unknown:
+        raise ValueError(f"axes {unknown} are not in the mesh {mesh.shape}")
+    reduced = [mesh.axis_names.index(a) for a in names]
+    groups: Dict[tuple, list] = {}
+    for b in range(mesh.size):
+        key = tuple(c for i, c in enumerate(mesh.coords(b))
+                    if i not in reduced)
+        groups.setdefault(key, []).append(b)
+    return list(groups.values())
+
+
+def psum_axes(parts: Sequence, mesh: Mesh, axis_names) -> list:
+    """The reference's ``lax.psum(x, axis_names)`` over some of the mesh's
+    named axes: ``parts`` holds one value per position (x-major), each a
+    tensor or a sequence of tensors summed leaf by leaf; returns one value
+    per position, the sum of the parts of the positions that differ from
+    it only along ``axis_names``, added in position order on the device of
+    the first of them.  Positions whose parts are the same objects (a value
+    replicated over the other axes) share one sum, computed once."""
+    if len(parts) != mesh.size:
+        raise ValueError(f"{len(parts)} parts for a mesh of {mesh.size}")
+    out: list = [None] * mesh.size
+    done: Dict[tuple, object] = {}
+    for members in axis_groups(mesh, axis_names):
+        ids = tuple(id(parts[b]) for b in members)
+        if ids not in done:
+            done[ids] = _sum_parts([parts[b] for b in members],
+                                   mesh.devices[members[0]])
+        for b in members:
+            out[b] = done[ids]
+    return out
+
+
+def _sum_parts(parts: Sequence, device: torch.device):
+    if isinstance(parts[0], torch.Tensor):
+        total = parts[0].to(device, copy=True)
+        for p in parts[1:]:
+            total.add_(p.to(device))
+        return total
+    return [_sum_parts(leaf, device) for leaf in zip(*parts)]
+
+
 def _all(parts: Sequence[torch.Tensor], mesh: Mesh) -> torch.Tensor:
     """Whether every brick's part is true, on the mesh's home device."""
     return torch.stack([p.to(mesh.home) for p in parts]).all()
@@ -294,7 +360,9 @@ def device_put(x, sharding: NamedSharding) -> BrickArray:
 
 def device_get(x) -> np.ndarray:
     """A host NumPy copy: of the gathered global field for a
-    :class:`BrickArray`, of the tensor otherwise (waits for the device)."""
-    if isinstance(x, BrickArray):
+    :class:`BrickArray` (or a placed
+    :class:`~repro_torch.parallel.ShardedTensor`), of the tensor otherwise
+    (waits for the device)."""
+    if not isinstance(x, torch.Tensor):
         x = x.gather("cpu")
     return x.detach().cpu().numpy().copy()

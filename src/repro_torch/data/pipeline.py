@@ -6,7 +6,7 @@ packed into sequences.  The stream is the reference's NumPy code with its
 seeding, so it gives the reference's batches bit for bit.  Determinism is
 per (seed, step), so a restart from a checkpoint replays the identical
 stream — the data-side half of fault tolerance (see runtime/fault.py).
-:func:`shard_batch` copies a host batch to the device.
+:func:`shard_batch` copies a host batch to the device (or to a mesh's).
 """
 from __future__ import annotations
 
@@ -84,9 +84,14 @@ class TokenDataset:
             yield self.next_batch()
 
 
-def shard_batch(batch: dict, device="cuda") -> dict:
-    """A host batch as int64 tensors on ``device`` (the models index their
-    embeddings with them); the card unless the caller asks for the CPU."""
-    dev = resolve_device(device)
+def shard_batch(batch: dict, sharding_or_device="cuda") -> dict:
+    """A host batch as int64 tensors (the models index their embeddings
+    with them) on a device: the card unless the caller asks for the CPU,
+    or, given the reference's spelling, a sharding of ``("batch", "seq")``
+    (``rules.sharding(...)``), the home device of that sharding's mesh,
+    where the train step takes each replica's rows from the whole batch."""
+    mesh = getattr(sharding_or_device, "mesh", None)
+    dev = resolve_device(mesh.home if mesh is not None
+                         else sharding_or_device)
     return {k: torch.from_numpy(np.asarray(v, dtype=np.int64)).to(dev)
             for k, v in batch.items()}

@@ -17,6 +17,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.models.layers import apply_rope, dense_init, full, head_rmsnorm
+from repro_torch.parallel.sharding import pshard
 
 NEG_INF = -1e30
 
@@ -113,6 +114,8 @@ def attn_prefill(params, x, cfg, pos):
     the prefill caches."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, pos)
+    q = pshard(q, "batch", "seq", "kv_heads", None, None)
+    k = pshard(k, "batch", "seq", "kv_heads", None)
     out = chunked_attention(q, k, v, pos, pos, window=cfg.sliding_window)
     out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
     return out @ params["wo"], k, v
@@ -135,7 +138,8 @@ def attn_decode(params, x, cache: KVCache, cfg, pos: int):
 
     cache.k[:, pos] = k_new[:, 0].to(cache.k.dtype)
     cache.v[:, pos] = v_new[:, 0].to(cache.v.dtype)
-    k, v = cache
+    k = pshard(cache.k, "cache_batch", "cache_seq", "cache_heads", None)
+    v = pshard(cache.v, "cache_batch", "cache_seq", "cache_heads", None)
 
     s_max = k.shape[1]
     scale = hd ** -0.5

@@ -18,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.models.attention import NEG_INF, chunked_attention
+from repro_torch.parallel.sharding import pshard
 from repro_torch.models.layers import (apply_rope, dense_init, rmsnorm,
                                        rmsnorm_init)
 
@@ -76,8 +77,11 @@ def mla_prefill(params, x, cfg, pos):
     q, c_kv, k_rope = _latents(params, x, cfg, pos)
     k_nope, v = _expand_kv(params, c_kv, cfg)
     k = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
-    out = chunked_attention(q.reshape(b, s, h, 1, dn + dr), k, v, pos, pos,
-                            window=None, scale=(dn + dr) ** -0.5)
+    q = pshard(q.reshape(b, s, h, 1, dn + dr), "batch", "seq", "heads",
+               None, None)
+    k = pshard(k, "batch", "seq", "heads", None)
+    out = chunked_attention(q, k, v, pos, pos, window=None,
+                            scale=(dn + dr) ** -0.5)
     out = out.reshape(b, s, h * dv)
     return out @ params["wo"], c_kv, k_rope[:, :, 0]
 
@@ -98,7 +102,8 @@ def mla_decode(params, x, cache: MLACache, cfg, pos: int):
 
     cache.c_kv[:, pos] = c_new[:, 0].to(cache.c_kv.dtype)
     cache.k_rope[:, pos] = kr_new[:, 0, 0].to(cache.k_rope.dtype)
-    c_kv, k_rope = cache
+    c_kv = pshard(cache.c_kv, "cache_batch", "cache_seq", None)
+    k_rope = pshard(cache.k_rope, "cache_batch", "cache_seq", None)
 
     s_max = c_kv.shape[1]
     scale = (dn + dr) ** -0.5

@@ -42,6 +42,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import embed_init, rmsnorm, rmsnorm_init
 from repro_torch.optim.tree import unflatten
+from repro_torch.parallel.sharding import pshard
 
 
 class ParamTree(nn.Module):
@@ -174,7 +175,7 @@ def forward(params, tokens, cfg, *, last_only: bool = False):
     """Causal forward.  tokens (B, S[, K]) → (logits (B, S|1, V[, K])
     in the compute dtype, MoE aux loss (float32 scalar))."""
     cdt = _dtype(cfg.compute_dtype)
-    x = _embed(params, tokens, cfg).to(cdt)
+    x = pshard(_embed(params, tokens, cfg).to(cdt), "batch", "seq", "embed")
     x_embed = x
     pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     shared = _shared_ctx(params, cfg, cdt)

@@ -23,6 +23,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.models.layers import _ACTS, dense_init, mlp_apply, mlp_init, normal
+from repro_torch.parallel.sharding import pshard
 
 
 def moe_init(gen, cfg, dtype):
@@ -117,10 +118,12 @@ def moe_apply(params, x, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     bufs, meta = _dispatch(x, topw.reshape(b, s, m.top_k),
                            topi.reshape(b, s, m.top_k), m.n_experts,
                            capacity(s, m))
+    bufs = pshard(bufs, "batch", "experts", None, "embed")
     act = _ACTS[m.act]
     h = act(torch.einsum("becd,edf->becf", bufs, params["w_gate"])) \
         * torch.einsum("becd,edf->becf", bufs, params["w_up"])
     y_buf = torch.einsum("becf,efd->becd", h, params["w_down"])
+    y_buf = pshard(y_buf, "batch", "experts", None, "embed")
     out = _combine(y_buf, meta, s, d).to(x.dtype)
 
     if m.n_shared:

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init, full, normal, rmsnorm_init
+from repro_torch.parallel.sharding import pshard
 
 
 def rwkv_init(gen, cfg, dtype):
@@ -140,11 +141,13 @@ def rwkv_time_mix(params, x, cfg, shift_state=None):
         shift_state = torch.zeros((b, d), dtype=x.dtype, device=x.device)
     xx = torch.cat([shift_state[:, None, :], x[:, :-1, :]], dim=1)
     xr, xk, xv, xw, xg = _ddlerp(params, x, xx)
-    r = xr @ params["wr"]
-    k = xk @ params["wk"]
-    v = xv @ params["wv"]
-    g = F.silu(xg @ params["wg"])
-    logw = _decay(params, xw)
+    # head-sharded projections in the reference (its WKV chunk math stays
+    # local per head)
+    r = pshard(xr @ params["wr"], "batch", "seq", "heads")
+    k = pshard(xk @ params["wk"], "batch", "seq", "heads")
+    v = pshard(xv @ params["wv"], "batch", "seq", "heads")
+    g = F.silu(pshard(xg @ params["wg"], "batch", "seq", "heads"))
+    logw = pshard(_decay(params, xw), "batch", "seq", "heads")
     y = wkv_chunked(r, k, v, logw, params["u"], cfg.n_heads, cfg.rwkv_chunk)
     y = _group_norm(y, params, b, s, d, cfg.n_heads)
     return (y.to(x.dtype) * g) @ params["wo"], x[:, -1, :]
@@ -158,7 +161,13 @@ def rwkv_channel_mix(params, x, shift_state=None):
     xk = x + (xx - x) * params["mu_k"]
     xr = x + (xx - x) * params["mu_r"]
     k = torch.square(F.relu(xk @ params["wk"]))
-    down = k @ params["wv"]
+    if x.shape[1] > 1:
+        # the reference constrains training and prefill only (at S = 1 its
+        # constraint made GSPMD gather the weight)
+        k = pshard(k, "batch", "seq", "mlp")
+        down = pshard(k @ params["wv"], "batch", "seq", "embed")
+    else:
+        down = k @ params["wv"]
     return torch.sigmoid(xr @ params["wr"]) * down, x[:, -1, :]
 
 

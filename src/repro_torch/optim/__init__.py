@@ -1,7 +1,8 @@
 """repro_torch.optim — AdamW (float32 state), schedules, grad compression.
 
-The port of ``repro.optim`` on one device; its ``psum_compressed`` comes
-with the port's mesh parallelism.
+The port of ``repro.optim``, with the reference's exports;
+``compression.psum_compressed`` reduces over a named axis of a
+:class:`~repro_torch.core.mesh.Mesh`.
 """
 from repro_torch.optim.adamw import (adamw_init, adamw_update,
                                      clip_by_global_norm)

@@ -2,11 +2,12 @@
 
 The port of ``repro/runtime``: :mod:`~repro_torch.runtime.fault`, whose
 ``ResilientLoop`` and ``HeartbeatMonitor`` drive LM training
-(``launch/train.py``).  ``runtime/elastic.py`` (remeshing) comes with the
-port's mesh parallelism.
+(``launch/train.py``), and :mod:`~repro_torch.runtime.elastic`'s
+``remesh`` and ``shrink_plan``.
 """
+from repro_torch.runtime.elastic import remesh, shrink_plan
 from repro_torch.runtime.fault import (FaultInjector, HeartbeatMonitor,
                                        InjectedFault, ResilientLoop)
 
 __all__ = ["FaultInjector", "HeartbeatMonitor", "InjectedFault",
-           "ResilientLoop"]
+           "ResilientLoop", "remesh", "shrink_plan"]

@@ -2,8 +2,8 @@
 
 The counterparts of ``tests/test_fault.py``'s heartbeat, resilient-loop,
 injector and fail-fast tests, each under its name with ``_torch`` (its
-``remesh`` / ``shrink_plan`` tests belong to ``runtime/elastic.py``, which
-is not ported).  ``repro_torch.runtime.fault`` is framework-free Python, so
+``remesh`` / ``shrink_plan`` tests are in ``tests/test_torch_elastic.py``).
+``repro_torch.runtime.fault`` is framework-free Python, so
 there is no tolerance: the same scripted inputs give the same flags,
 failures, restores and fired faults as the reference, exactly, and the
 parity tests below drive both packages with one script and compare.  The

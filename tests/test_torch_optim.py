@@ -314,3 +314,64 @@ def test_error_feedback_matches_reference_over_steps():
             ulp = float(np.spacing(np.float32(np.abs(b).max())))
             np.testing.assert_allclose(a.numpy(), b, rtol=0, atol=ULPS * ulp)
             np.testing.assert_allclose(c.numpy(), d, rtol=0, atol=ULPS * ulp)
+
+
+# -- trees holding NamedTuples ------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "deepseek-v2-236b",
+                                  "rwkv6-7b", "zamba2-2.7b"])
+def test_tree_map_rebuilds_namedtuples(arch):
+    """``tree_map`` over the compressed optimizer state (an ``AdamWState``
+    in a dict) and over the decode cache of each kind (``KVCache``,
+    ``MLACache``, ``RWKVState``, ``SSMState`` and zamba2's shared-block
+    dict) keeps every container's type and every leaf's place."""
+    import repro_torch.configs as port_configs
+    from repro_torch.launch.steps import make_opt_state
+    from repro_torch.models import model as M
+
+    cfg = port_configs.get_config(arch).smoke()
+    params = M.init_params(cfg, seed=0, device="cpu")
+    cache = M.init_cache(cfg, 2, 8, device="cpu")
+    for tree in (make_opt_state(params, compress=True), cache):
+        got = port_optim.tree.tree_map(lambda t: t + 1, tree)
+
+        def same_shape(a, b):
+            assert type(a) is type(b)
+            if isinstance(a, dict):
+                assert list(a) == list(b)
+                for k in a:
+                    same_shape(a[k], b[k])
+            elif isinstance(a, (list, tuple)):
+                assert len(a) == len(b)
+                for x, y in zip(a, b):
+                    same_shape(x, y)
+            else:
+                assert torch.equal(a, b - 1)
+
+        same_shape(tree, got)
+    kinds = {type(c).__name__ for seg in cache for c in seg}
+    want = {"qwen3-0.6b": {"KVCache"}, "deepseek-v2-236b": {"MLACache"},
+            "rwkv6-7b": {"RWKVState"}, "zamba2-2.7b": {"SSMState", "dict"}}
+    assert kinds == want[arch]
+
+
+def test_unflatten_keeps_no_reference_to_its_values():
+    """A rebuilt tree is the only holder of its leaves: once it is dropped
+    they are freed at once, not when Python's cycle collector next runs
+    (the train step's gradients, a parameter set each pass, went through
+    ``unflatten`` and lingered that way)."""
+    import gc
+    import weakref
+
+    leaf = torch.zeros(4)
+    ref = weakref.ref(leaf)
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        tree = port_optim.tree.unflatten(
+            {"a": [0, (1,)], "s": AdamWState(0, 1, 2)}, [leaf] * 6)
+        del leaf, tree
+        assert ref() is None
+    finally:
+        if was:
+            gc.enable()

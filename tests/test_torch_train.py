@@ -404,12 +404,15 @@ def test_train_loss_falls_on_the_cpu(tmp_path):
 
 def test_build_needs_a_card():
     """``build(cfg)`` with the default device raises where there is no
-    card; nothing falls back to the host."""
+    card, as does a mesh of the card; nothing falls back to the host."""
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     cfg = port_configs.get_config("qwen3-0.6b").smoke()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port_train.build(cfg)
+    from repro_torch.launch.mesh import make_mesh2d
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh2d(2, 2)
     from repro_torch.data import shard_batch
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         shard_batch({"tokens": np.zeros((1, 2), np.int32)})
