@@ -352,6 +352,28 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          card-against-CPU bounds;
                          ``psum_compressed`` on the card bitwise its CPU
                          run; no kernel of ``kernels/`` launched or built;
+10n. ``dryrun``        — the dry-run analysis (``launch/{specs,roofline,
+                         heat_cell,dryrun}.py``): qwen3-0.6b's three cells
+                         through ``run_cell`` on the 16×16 and 2×16×16
+                         meshes on ``meta`` (each record and its host
+                         seconds; the card's allocated bytes unchanged;
+                         every ``t_total > 0``); the ``lm_train`` model at
+                         full depth (bfloat16, AdamW, 8 × 512) on a 1×1
+                         mesh: ``argument_size_in_bytes`` equal to the
+                         bytes ``init_params`` + ``make_opt_state`` + the
+                         batch request on the card (what the allocator
+                         holds beyond that is read); ``run_heat_cells``
+                         on a 2×2 mesh of the card at the production brick
+                         128×128×512 (256×256×512): each variant's ms a
+                         step (CUDA events) beside its modelled ``t_total``
+                         and 4 × ``t_total``, the five FTCS variants
+                         bitwise, ``implicit_cg_kernel``'s state after one
+                         iteration against ``implicit_cg``'s at
+                         ``legacy_btcs``'s bounds, K5/K6/K7 launched per
+                         brick there; on one brick K6 and K7 bitwise their
+                         plain versions, K5's ``Ap`` bitwise and its dot
+                         within ``K5_REL`` of Σ|c·Ap|, and each timed
+                         (queued);
 11. ``kernels``        — one JSON line describing every kernel of the paths
                          (K1 on six rows: the k = 1 entry in the padded and
                          the margin mode, the sweep at the auto tile, and
@@ -382,7 +404,7 @@ Each main path (``heat3d``, ``hazard_make``, ``ensemble_make``,
 ``solve_heat3d``, ``ensemble_solve``, ``mg_poisson``, ``legacy_ftcs``,
 ``legacy_btcs``, ``sharded_make``, ``sharded_solve``, ``overlap_make``,
 ``health_make``, ``health_solve``, ``adjoint_solve``, ``adjoint_make``,
-``service``, ``cost_model``) runs with the launch counters set to 0 just before it and read just after,
+``service``, ``cost_model``, ``dryrun``) runs with the launch counters set to 0 just before it and read just after,
 and fails if one of its kernels was not launched (``lm_serve``,
 ``lm_train`` and ``lm_train_mesh``: if one was).  K1's k = 1 rows on the
 padded field, on 8
@@ -696,6 +718,23 @@ PREDICTED = {
     "lm_mesh_remesh_s": [4.0, 10.0],
     "lm_mesh_smoke_f32_rel": [0.0, 1e-6],
     "lm_mesh_psum_compressed": "bitwise",
+    # the dry-run phase (written before its first card run; PERF.md §6):
+    # qwen3-0.6b's six records counted in 10-30 s of host time (12 s on
+    # an 8-core CPU host without a card), nothing allocated on the card; the
+    # lm_train model's state 596 049 920 × 10 B + the step + the batch
+    # (5 960 531 972 B) within 512 B a leaf of the card's allocation; the
+    # 2×2 heat bricks host-paced: the explicit variants 0.4-0.8 ms a step
+    # against a model of 0.026 ms a brick (0.105 ms for four), the
+    # Krylov iterations 1-3 ms; at 128×128×512, queued, each launch at
+    # the ratio to its bound that it reads at 512×512×128 (bounds about
+    # 0.020 ms): K6 0.025-0.04 ms, K7 0.022-0.035 ms, K5 0.022-0.04 ms
+    "dryrun_host_s": [10.0, 30.0],
+    "dryrun_state_bytes": 5960531972,
+    "dryrun_heat_explicit_ms_per_step": [0.4, 0.8],
+    "dryrun_heat_implicit_ms_per_iteration": [1.0, 3.0],
+    "dryrun_k6_ms": [0.025, 0.04],
+    "dryrun_k7_ms": [0.022, 0.035],
+    "dryrun_k5_ms": [0.022, 0.04],
 }
 #: ``F.conv3d`` against K1 on the 8 members' and the bricks' heat3d body:
 #: seven terms summed in another order round at most 3 times apart, so
@@ -703,7 +742,8 @@ PREDICTED = {
 #: field's call keeps its 1-ulp check)
 LIBRARY_ULPS = 4
 #: H100 SXM device-memory rate and float32 / float64 (non-tensor) peaks
-from repro_torch.core.perfmodel import HBM_BYTES_PER_S, PEAK_FLOPS  # noqa: E402
+from repro_torch.core.perfmodel import (  # noqa: E402
+    H100_SXM_BF16_DENSE_FLOPS, HBM_BYTES_PER_S, PEAK_FLOPS)
 #: the kernel libraries of the main paths (csrc/<stem>.cu)
 LIBRARIES = ("fused_stencil", "dual_dot", "transfer", "stencil7")
 #: the ``kernels`` row of K1's column entry on a hazard body
@@ -5271,9 +5311,6 @@ LM_BF16_VS_F32 = 0.05
 #: the other nine architectures: batch, prompt and decode steps of their
 #: float32 teacher-forced check at published width, reduced depth
 LM_OTHER_BATCH, LM_OTHER_PROMPT, LM_OTHER_STEPS = 2, 64, 8
-#: dense bfloat16 tensor-core peak of an H100 SXM (NVIDIA's data sheet,
-#: no sparsity), for the prefill's operations bound
-H100_SXM_BF16_DENSE_FLOPS = 989e12
 
 
 def lm_depth_cut(cfg):
@@ -6294,6 +6331,217 @@ def phase_lm_train_mesh(seed: int):
         raise AssertionError(f"lm_train_mesh: {failed} failed")
 
 
+#: the heat cells' grid on the card's 2×2 mesh: the production brick
+#: (2048×2048×512 on 16×16) four times
+DRYRUN_HEAT_GRID = (256, 256, 512)
+#: time steps (FTCS) and iterations (Krylov) of each heat variant's run
+DRYRUN_HEAT_STEPS = 8
+#: the lm_train model's dry-run cell: global batch × sequence
+DRYRUN_STATE_BATCH, DRYRUN_STATE_SEQ = 8, 512
+
+
+def phase_dryrun(seed: int) -> dict:
+    """The dry-run analysis (docstring, 10n); returns K5/K6/K7's launches
+    on its heat path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeCfg, get_config
+    from repro_torch.configs.heat3d import HeatConfig, make_field
+    from repro_torch.convert import state_from_numpy
+    from repro_torch.core.explicit import make_sharded_ftcs
+    from repro_torch.core.halo import halo_pad
+    from repro_torch.core.implicit import make_sharded_iteration
+    from repro_torch.core.mesh import BrickArray, make_mesh
+    from repro_torch.data import TokenDataset
+    from repro_torch.kernels.spmv import launch_spmv_dot, spmv_dot_ref
+    from repro_torch.kernels.stencil7 import (affine_stencil_ref,
+                                              launch_stencil7,
+                                              launch_stencil_planes,
+                                              stencil_planes_ref)
+    from repro_torch.launch import dryrun, heat_cell, steps as steps_mod
+    from repro_torch.launch.mesh import make_mesh2d
+    from repro_torch.models import model as M
+    from repro_torch.optim.tree import leaves
+
+    t_phase = time.perf_counter()
+    checks, errs = {}, {}
+
+    # --- the dry-run of qwen3-0.6b's cells on the production meshes ----------
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    records = []
+    for multi_pod in (False, True):
+        for shape in ("train_4k", "prefill_32k", "decode_32k"):
+            records.append(dryrun.run_cell(LM_ARCH, shape, multi_pod=multi_pod,
+                                           verbose=False))
+    checks["dryrun_allocates_nothing"] = torch.cuda.memory_allocated() == held
+    checks["every_t_total_positive"] = all(r["t_total"] > 0 for r in records)
+    dry_s = time.perf_counter() - t_phase
+
+    # --- the lm_train model's state bytes against the card -------------------
+    cfg = get_config(LM_ARCH)
+    cell = ShapeCfg("lm_train", DRYRUN_STATE_SEQ, DRYRUN_STATE_BATCH, "train")
+    state_rec = dryrun.run_cell(LM_ARCH, cell, mesh=make_mesh2d(1, 1,
+                                                                device="meta"),
+                                cfg=cfg, verbose=False)
+    def held_bytes():
+        torch.cuda.synchronize()
+        stats = torch.cuda.memory_stats()
+        return (stats["requested_bytes.all.current"],
+                torch.cuda.memory_allocated())
+
+    req0, alloc0 = held_bytes()
+    params = M.init_params(cfg, seed=seed, device=DEV)
+    opt = steps_mod.make_opt_state(params)
+    host = TokenDataset(cfg.vocab_size, DRYRUN_STATE_SEQ, DRYRUN_STATE_BATCH,
+                        seed=seed).next_batch()
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(DEV)
+             for k, v in host.items()}
+    req1, alloc1 = held_bytes()
+    state_leaves = leaves(params.tree()) + leaves(opt) + list(batch.values())
+    predicted = state_rec["argument_size_in_bytes"]
+    # what the caching allocator holds beyond the request (its rounding,
+    # and large blocks kept whole) is read, not checked
+    state = {"predicted_bytes": predicted,
+             "requested_bytes": req1 - req0,
+             "allocated_bytes": alloc1 - alloc0,
+             "allocated_gap_bytes": alloc1 - alloc0 - predicted,
+             "leaves": len(state_leaves),
+             "batch_dtype": str(batch["tokens"].dtype),
+             "params": sum(t.numel() for t in leaves(params.tree()))}
+    checks["state_requested_bytes_equal"] = req1 - req0 == predicted
+    del params, opt, batch
+    torch.cuda.empty_cache()
+
+    # --- the heat cells on a 2×2 mesh of the card ----------------------------
+    hc = HeatConfig(nx=DRYRUN_HEAT_GRID[0], ny=DRYRUN_HEAT_GRID[1],
+                    nz=DRYRUN_HEAT_GRID[2])
+    shape, w, n = DRYRUN_HEAT_GRID, hc.omega, DRYRUN_HEAT_STEPS
+    mesh = make_mesh((2, 2), ("data", "model"))
+    models = heat_cell.run_heat_cells(mesh, hc)
+    T0 = torch.tensor(make_field(hc), device=DEV)
+    g = torch.Generator(device=DEV).manual_seed(seed + 33)
+    x0 = 300.0 + 200.0 * torch.rand(shape, device=DEV, generator=g,
+                                    dtype=torch.float64)
+    steps_, outs = {}, {}
+    for name, kw in heat_cell.EXPLICIT.items():
+        k = kw.get("halo_depth", 1)
+        step, sharding = make_sharded_ftcs(mesh, shape, w,
+                                           steps_per_call=n // k, **kw)
+        steps_[name] = (step, sharding.shard(T0), n)
+    for name, method, kernel in heat_cell.IMPLICIT:
+        step, specs = make_sharded_iteration(mesh, shape, w, method=method,
+                                             use_kernel=kernel)
+        st0 = state_from_numpy(initial_iteration_state(method, x0, w),
+                               specs[0].sharding)
+        steps_[name] = (step, st0, 1)
+    # the main path: counters 0 before, read after
+    reset_counts()
+    for name, (step, x, _) in steps_.items():
+        out = step(x)
+        outs[name] = out.gather() if name in heat_cell.EXPLICIT else out
+    torch.cuda.synchronize()
+    counts = read_counts()
+    launches = {k: counts[k] for k in ("K5", "K6", "K7")}
+    checks["k5_k6_k7_launched_per_brick"] = launches == {
+        "K5": mesh.size, "K6": n * mesh.size, "K7": n * mesh.size}
+    base = outs["explicit_baseline"]
+    checks["ftcs_variants_bitwise"] = all(
+        torch.equal(outs[v], base) for v in heat_cell.EXPLICIT)
+    checks["finite"] = bool(torch.isfinite(base).all()) and all(
+        bool(torch.isfinite(outs[v][0].gather()).all())
+        for v, _, _ in heat_cell.IMPLICIT)
+    # K5's iteration against the plain one after one step, at legacy_btcs's
+    # bounds: ITER_ULPS float32 ulp of the field a vector entry, the
+    # recurrence scalar within ITER_SCALAR_REL
+    got, want = ([v.gather() if isinstance(v, BrickArray) else v
+                  for v in outs[k]]
+                 for k in ("implicit_cg_kernel", "implicit_cg"))
+    ulp = float(np.spacing(np.float32(x0.abs().max().item())))
+    cg_kernel = {
+        "vectors_max_abs_err": max(float((a_.double() - b_.double()).abs().max())
+                                   for a_, b_ in zip(got, want) if a_.ndim),
+        "atol": ITER_ULPS * ulp,
+        "scalars_rel_diff": max(abs(float(a_) / float(b_) - 1.0)
+                                for a_, b_ in zip(got, want) if not a_.ndim),
+        "scalars_rel_bound": ITER_SCALAR_REL}
+    checks["cg_kernel_iteration_vs_plain"] = (
+        cg_kernel["vectors_max_abs_err"] <= cg_kernel["atol"]
+        and cg_kernel["scalars_rel_diff"] <= ITER_SCALAR_REL)
+    heat = {}
+    for name, (step, x, per_call) in steps_.items():
+        ms = cuda_time_ms(lambda: step(x), repeats=3) / per_call
+        t = models[name]["t_total"] * 1e3
+        heat[name] = {"ms_per_step": ms, "model_t_total_ms": t,
+                      "model_4_bricks_ms": 4 * t,
+                      "model_bound": models[name]["bound"],
+                      "model_t_memory_ms": models[name]["t_memory"] * 1e3}
+    del steps_, outs
+
+    # --- K5/K6/K7 per launch at the production brick (queued) ---------------
+    bx, by, nz = models["explicit_baseline"]["brick"]
+    br = T0[:bx, :by].contiguous()
+    P = halo_pad([br], 1, make_mesh((1, 1), ("data", "model")))[0]
+    planes = [torch.rand(s_, device=DEV, generator=g) for s_ in
+              ((1, by, nz), (1, by, nz), (bx, 1, nz), (bx, 1, nz))]
+    a, wpsi = 1.0 - 6.0 * w, w / (1.0 + 6.0 * w)
+    # the middle brick of a 3×3 mesh: every plane is read
+    pargs = (br, *planes, (1, 1), a, w, 3 * bx, 3 * by)
+    cells = bx * by * nz
+    # each kernel against its plain version on these inputs: K6 and K7
+    # bitwise, K5's Ap bitwise and its dot within K5_REL of Σ|c·Ap|
+    for key, kern, plain in (
+            ("K6", launch_stencil7(P, a, w), affine_stencil_ref(P, a, w)),
+            ("K7", launch_stencil_planes(*pargs), stencil_planes_ref(*pargs))):
+        checks[f"{key.lower()}_bitwise_plain"] = torch.equal(kern, plain)
+        errs[key] = float((kern.double() - plain.double()).abs().max())
+    av, parts = launch_spmv_dot(P, 1.0, -wpsi)
+    want_av, _ = spmv_dot_ref(P, 1.0, -wpsi)
+    prod = P[1:-1, 1:-1].double() * want_av.double()
+    errs["K5"] = float((av.double() - want_av.double()).abs().max())
+    k5_dot_err = abs(float(torch.sum(parts)) - float(prod.sum()))
+    k5_ratio = k5_dot_err / float(prod.abs().sum())
+    checks["k5_ap_bitwise_plain"] = torch.equal(av, want_av)
+    checks["k5_dot_within_bound"] = k5_ratio <= K5_REL["float32"]
+    partials = parts.numel()
+    del av, want_av, prod
+    per_launch = {}
+    for key, kern, plain, nbytes, ops_n in (
+            ("K5", lambda: launch_spmv_dot(P, 1.0, -wpsi),
+             lambda: spmv_dot_ref(P, 1.0, -wpsi),
+             4 * (P.numel() + cells + partials), 10 * cells),
+            ("K6", lambda: launch_stencil7(P, a, w),
+             lambda: affine_stencil_ref(P, a, w), 4 * (P.numel() + cells),
+             8 * cells),
+            ("K7", lambda: launch_stencil_planes(*pargs),
+             lambda: stencil_planes_ref(*pargs),
+             4 * (2 * cells + 2 * (bx + by) * nz), 8 * cells)):
+        b_ms, b_by = roofline(nbytes, ops_n, "float32")
+        per_launch[key] = {"brick": [bx, by, nz], "max_abs_err": errs[key],
+                           "timed": "queued behind a sleep kernel (queued_ms)",
+                           "ms": queued_ms(kern, repeats=200),
+                           "plain_ms": cuda_time_ms(plain, repeats=10),
+                           "bound_ms": b_ms, "bound_by": b_by}
+
+    failed = [k for k, ok in checks.items() if not ok]
+    emit({"phase": "dryrun", "card": card_line(),
+          "seconds": time.perf_counter() - t_phase, "dryrun_host_s": dry_s,
+          "records": records, "note": "records are models, not measurements",
+          "state_vs_card": state, "heat_grid": list(shape),
+          "heat_mesh": list(mesh.dims), "heat_steps": n, "heat": heat,
+          "heat_models": models, "launches": launches,
+          "cg_kernel_vs_plain": cg_kernel,
+          "k5_dot_abs_err": k5_dot_err, "k5_dot_err_over_sum_abs": k5_ratio,
+          "k5_bound": K5_REL["float32"],
+          "per_launch": per_launch, "checks": checks,
+          "predicted": {k: PREDICTED[k] for k in PREDICTED
+                        if k == "card" or k.startswith("dryrun")}})
+    if failed:
+        raise AssertionError(f"dryrun: {failed} failed")
+    return launches
+
+
 def device_breakdown(fn, top: int = 4) -> dict:
     """Device time by kernel over one ``fn()`` under ``torch.profiler``, and
     the device's idle share: of the profiled call's wall time
@@ -6395,6 +6643,7 @@ def main() -> int:
     phase_lm_serve(args.seed)
     phase_lm_train(args.seed)
     phase_lm_train_mesh(args.seed)
+    phase_rows["dryrun"] = phase_dryrun(args.seed)
     csrc = "src/repro_torch/kernels/csrc/"
     # the solves apply their operators through the k = 1 entry, padded;
     # K2 (cg + mg), K3 and K4 run in the multigrid solves of both solve
@@ -6478,7 +6727,8 @@ def main() -> int:
     # belong to
     row_of = {"k1_padded": 0, "k1_margin": 1, "sweep": 2, "members_k1": 4,
               "members_sweep": 5, "bricks_k1": 6, "bricks_sweep": 7,
-              "region": 8, "shell": 9, "K2": 10, "K3": 11, "K4": 12}
+              "region": 8, "shell": 9, "K2": 10, "K3": 11, "K4": 12,
+              "K5": 13, "K6": 14, "K7": 15}
     for phase, by_row in phase_rows.items():
         for key, n in by_row.items():
             r = rows[row_of[key]][3]

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import stencil as st
-from repro_torch.core.mesh import Mesh, make_mesh
+from repro_torch.core.mesh import Mesh, collectives, make_mesh
 from repro_torch.kernels.stencil7 import moat_mask
 
 
@@ -46,8 +46,10 @@ def _ppermute_shift(parts: Sequence[torch.Tensor], mesh: Mesh, axis_name: str,
     with ``out`` (one destination view per brick, on the receiver's
     device, overlapping no part) it is copied or zero-filled there, and
     nothing is allocated.  This is the only place bricks exchange planes:
-    multi-card transport plugs in here.
+    multi-card transport plugs in here.  Each call counts one
+    ``collective-permute`` in :data:`repro_torch.core.mesh.collectives`.
     """
+    collectives["collective-permute"] += 1
     axis = mesh.axis_names.index(axis_name)
     n = mesh.dims[axis]
     res = []

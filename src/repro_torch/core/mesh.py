@@ -285,9 +285,24 @@ def _on(o, b: int, device: torch.device):
     return o
 
 
+#: the collectives bricks have made since :func:`reset_collectives`, by the
+#: reference's HLO op names: one ``collective-permute`` per plane shift
+#: over a mesh axis (:func:`repro_torch.core.halo._ppermute_shift`), one
+#: ``all-reduce`` per reduction over the mesh or some of its axes
+#: (:func:`psum`, :func:`psum_axes`, a whole-field ``torch.all``).
+#: :mod:`repro_torch.launch.heat_cell` reads one step's schedule here.
+collectives: Dict[str, int] = {"collective-permute": 0, "all-reduce": 0}
+
+
+def reset_collectives() -> None:
+    for k in collectives:
+        collectives[k] = 0
+
+
 def psum(parts: Sequence[torch.Tensor], mesh: Mesh) -> torch.Tensor:
     """Sum of one value per brick, in brick order, on the mesh's home
     device: the reference's ``lax.psum`` over both mesh axes."""
+    collectives["all-reduce"] += 1
     total = parts[0].to(mesh.home)
     for p in parts[1:]:
         total = total + p.to(mesh.home)
@@ -321,6 +336,7 @@ def psum_axes(parts: Sequence, mesh: Mesh, axis_names) -> list:
     replicated over the other axes) share one sum, computed once."""
     if len(parts) != mesh.size:
         raise ValueError(f"{len(parts)} parts for a mesh of {mesh.size}")
+    collectives["all-reduce"] += 1
     out: list = [None] * mesh.size
     done: Dict[tuple, object] = {}
     for members in axis_groups(mesh, axis_names):
@@ -344,6 +360,7 @@ def _sum_parts(parts: Sequence, device: torch.device):
 
 def _all(parts: Sequence[torch.Tensor], mesh: Mesh) -> torch.Tensor:
     """Whether every brick's part is true, on the mesh's home device."""
+    collectives["all-reduce"] += 1
     return torch.stack([p.to(mesh.home) for p in parts]).all()
 
 

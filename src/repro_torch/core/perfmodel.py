@@ -15,7 +15,8 @@ is the three-term roofline  t = max(t_compute, t_memory) + t_collective
 (collective unoverlapped, matching Eq. 7's max(comp, comm) + t_b structure),
 evaluated from per-step FLOPs / bytes / collective-bytes.  Constants are the
 H100 SXM data sheet's: 67 TFLOP/s float32 and 34 TFLOP/s float64 outside
-the tensor cores, 3.35 TB/s of HBM3, NVLink at 450 GB/s per direction.
+the tensor cores, 989 TFLOP/s bfloat16 on them (dense), 3.35 TB/s of HBM3,
+NVLink at 450 GB/s per direction.
 
 Measured cost model
 -------------------
@@ -57,6 +58,7 @@ WSE_CLOCK_HZ = 850e6          # CS-2 nominal fabric clock (used for Eq. 6/16)
 
 H100_SXM_FP32_FLOPS = 67e12   # float32 FLOP/s outside the tensor cores
 H100_SXM_FP64_FLOPS = 34e12   # float64 FLOP/s outside the tensor cores
+H100_SXM_BF16_DENSE_FLOPS = 989e12  # bfloat16 FLOP/s on the tensor cores, dense
 H100_SXM_HBM_BW = 3.35e12     # B/s of HBM3 per card
 H100_NVLINK_BW = 450e9        # B/s per direction (900 GB/s both ways)
 H100_NVLINK_LAT = 1e-6        # s per transfer (order of magnitude)

@@ -29,11 +29,30 @@ def einsum(eq: str, *operands) -> torch.Tensor:
 # init helpers
 # ---------------------------------------------------------------------------
 
+class MetaDraws:
+    """What the initialisers take in place of a generator on the ``meta``
+    device: every draw is an empty meta tensor of its shape and dtype, so
+    a model's shapes come from its own initialiser with nothing drawn or
+    allocated (the reference's ``jax.eval_shape`` over ``init_params``)."""
+
+    device = torch.device("meta")
+
+
 def normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
     """``N(0, scale²)`` drawn in float32 on ``gen``'s device, cast to
     ``dtype`` (the reference's ``normal(key, shape, f32) * scale``)."""
+    if isinstance(gen, MetaDraws):
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     return (torch.randn(shape, generator=gen, device=gen.device,
                         dtype=torch.float32) * scale).to(dtype)
+
+
+def uniform(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+    """``U[0, 1)`` drawn in float32 on ``gen``'s device, cast to ``dtype``."""
+    if isinstance(gen, MetaDraws):
+        return torch.empty(shape, dtype=dtype, device=gen.device)
+    return torch.rand(shape, generator=gen, device=gen.device,
+                      dtype=torch.float32).to(dtype)
 
 
 def dense_init(gen, d_in: int, d_out: int, dtype, scale: Optional[float] = None):

@@ -40,7 +40,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import embed_init, rmsnorm, rmsnorm_init
+from repro_torch.models.layers import (MetaDraws, embed_init, rmsnorm,
+                                      rmsnorm_init)
 from repro_torch.optim.tree import unflatten
 from repro_torch.parallel.sharding import pshard
 
@@ -95,9 +96,13 @@ def _dtype(name: str) -> torch.dtype:
 
 def init_params(cfg, *, seed: int = 0, device="cuda") -> ParamTree:
     """Random parameters with the reference's distributions and scales,
-    drawn from a ``torch.Generator`` seeded with ``seed`` on ``device``."""
+    drawn from a ``torch.Generator`` seeded with ``seed`` on ``device``.
+    On ``device="meta"`` nothing is drawn: every leaf is an empty meta
+    tensor of its shape and dtype (:class:`~repro_torch.models.layers.
+    MetaDraws`), the dry-run's parameters."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (MetaDraws() if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     dtype = _dtype(cfg.param_dtype)
     params: Dict[str, Any] = {}
     if cfg.n_codebooks > 1:

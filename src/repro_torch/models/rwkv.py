@@ -18,7 +18,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, full, normal, rmsnorm_init
+from repro_torch.models.layers import (dense_init, full, normal,
+                                      rmsnorm_init, uniform)
 from repro_torch.parallel.sharding import pshard
 
 
@@ -27,8 +28,7 @@ def rwkv_init(gen, cfg, dtype):
     lora = cfg.rwkv_lora
     return {
         # DDLerp token-shift: 5 streams (r, k, v, w, g)
-        "mu": torch.rand((5, d), generator=gen, device=gen.device,
-                         dtype=torch.float32).to(dtype),
+        "mu": uniform(gen, (5, d), dtype),
         "ts_a": dense_init(gen, d, 5 * lora, dtype, scale=0.01),
         "ts_b": normal(gen, (5, lora, d), 0.01, dtype),
         # decay LoRA

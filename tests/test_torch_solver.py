@@ -323,17 +323,25 @@ def test_compiler_stats_match_reference(system, rng):
 
 # -- K2's plain version vs the reference's dual_dot --------------------------
 
-def test_dual_dot_ref_matches_reference(rng):
+def test_dual_dot_ref_matches_reference():
+    """The two float32 dots sum in other orders than the reference's, and
+    a dot can cancel, so each is bounded by ``1e-6·Σ|aᵢbᵢ|`` (the measure
+    that bounds a sum's rounding, and the card check's for K2), not
+    relative to the result; the data are the test's own."""
     from repro.kernels import ops as ref_ops
     from repro_torch.kernels import ops as port_ops
     from repro_torch.kernels.dotprod import dual_dot_ref
 
+    rng = np.random.default_rng(33)
     a, b, c, d = (rng.normal(size=(9, 10, 11)).astype(np.float32)
                   for _ in range(4))
     ref = np.asarray(ref_ops.dual_dot(a, b, c, d))
     got = dual_dot_ref(*(torch.tensor(v) for v in (a, b, c, d))).numpy()
     assert got.dtype == np.float32
-    np.testing.assert_allclose(got, ref, rtol=1e-6)
+    scale = np.array([np.abs(a.astype(np.float64) * b).sum(),
+                      np.abs(c.astype(np.float64) * d).sum()])
+    assert np.all(np.abs(got.astype(np.float64) - ref) <= 1e-6 * scale), \
+        (got, ref, scale)
     # the device dispatch on CPU tensors is the plain version
     via_ops = port_ops.dual_dot(*(torch.tensor(v) for v in (a, b, c, d)))
     np.testing.assert_array_equal(via_ops.numpy(), got)
