@@ -659,6 +659,29 @@ PREDICTED = {
     "lm_peak_gb": [2.5, 5.0],
     "lm_forced_bf16_rel": [0.005, 0.05],
     "lm_bf16_vs_f32_rel_fro": [0.005, 0.05],
+    # LM serving on 2×2 and 1×4 meshes of the card with the model axis
+    # split by hand (written before its first run on a card; PERF.md §6):
+    # the same model, batch and lengths as lm_serve.  Every unit (row block
+    # × model position) issues its own products, the softmax and context
+    # run per sequence block, and each reduction over model is a chain of
+    # copies and adds on the host's clock: about 1.5-3× the one-device
+    # decode's launches a token, host-bound at 100-250 ms a token (32-80
+    # tokens/s), 80-95 % idle; prefill 90-250 ms; the peak 3-6.5 GB (the
+    # placed weights, a copy of the drawn ones while serve places them, the
+    # cache); 132 120 576 B of cache a position on both meshes (a quarter
+    # of 528 482 304); prefill and 16 teacher-forced decode steps within
+    # 0.01-0.04 of max|logit| of the one-device run (each bfloat16 partial
+    # rounded before its sum); 141 all-reduces a decode step (1 + 5 × 28);
+    # the card's float32 2×2 at smoke() within 1e-6 of the CPU's
+    "lm_serve_mesh_decode_ms_per_token": [100.0, 250.0],
+    "lm_serve_mesh_decode_tok_per_s": [32.0, 80.0],
+    "lm_serve_mesh_idle_share": [0.8, 0.95],
+    "lm_serve_mesh_prefill_ms": [90.0, 250.0],
+    "lm_serve_mesh_peak_gb": [3.0, 6.5],
+    "lm_serve_mesh_cache_bytes_a_position": 132120576,
+    "lm_serve_mesh_vs_one_device_rel": [0.01, 0.04],
+    "lm_serve_mesh_all_reduces_a_decode_step": 141,
+    "lm_serve_mesh_card_vs_cpu_rel": [0.0, 1e-6],
     # K1's k = 1 padded row's library call: one F.conv3d of the padded
     # 514x514x128 float32 field, one channel, TF32 off (K6's F.pad +
     # F.conv3d took 6.3992 ms, K3's strided one 0.7586)
@@ -5556,9 +5579,214 @@ def phase_lm_serve(seed: int):
                      "card_vs_cpu": LM_CARD_CPU_REL},
           "launches": launches, "others": others, "checks": checks,
           "predicted": {k: PREDICTED[k] for k in PREDICTED
-                        if k == "card" or k.startswith("lm_")}})
+                        if k == "card" or (k.startswith("lm_")
+                                           and "mesh" not in k)}})
     if failed:
         raise AssertionError(f"lm_serve: {failed} failed")
+    return {"prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+            "decode_tok_per_s": B / decode_ms * 1e3,
+            "serve_decode_tok_per_s": tok_per_s,
+            "decode_idle_share_unprofiled":
+                decode_profile["device_idle_share_unprofiled"],
+            "peak_gb": peak_gb}
+
+
+#: lm_serve_mesh: the meshes of the card, (data, model)
+LM_SERVE_MESHES = ((2, 2), (1, 4))
+#: teacher-forced decode steps of its mesh-against-one-device check (timed
+#: with CUDA events), and decode steps of its profiled run
+LM_SERVE_MESH_FORCED, LM_SERVE_MESH_PROFILED = 16, 2
+#: the mesh against one device, × max|logit|: bfloat16 (lm_serve's bound of
+#: the forward), and the card's float32 2×2 against the CPU's at smoke()
+LM_SERVE_MESH_BF16_REL = 0.05
+LM_SERVE_MESH_CARD_CPU_REL = 1e-4
+
+
+def lm_mesh_forced(params, prompts, forced, cfg, s_max: int, rules=None,
+                   timed: bool = False):
+    """The prefill's last-token logits, then one decode step's logits for
+    each teacher-forced token of ``forced`` (B, n), the ``all-reduce``
+    count of each decode step (split where ``params`` are placed) and the
+    cache; ``timed``: also the prefill's ms and the decode's ms a step by
+    CUDA events."""
+    import torch
+
+    from repro_torch.core import mesh as mesh_mod
+    from repro_torch.models import model as M
+    from repro_torch.parallel import use_sharding
+
+    s = prompts.shape[1]
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)] \
+        if timed else []
+    with torch.no_grad(), use_sharding(rules):
+        for e in marks[:1]:
+            e.record()
+        logits, cache = M.prefill(params, prompts, cfg, s_max)
+        for e in marks[1:2]:
+            e.record()
+        rows, reduces = [logits], []
+        for i in range(forced.shape[1]):
+            mesh_mod.reset_collectives()
+            lg, cache = M.decode_step(params, cache, forced[:, i:i + 1],
+                                      s + i, cfg)
+            reduces.append(mesh_mod.collectives["all-reduce"])
+            rows.append(lg)
+        for e in marks[2:]:
+            e.record()
+    out = (torch.cat(rows, dim=1), reduces, cache)
+    if not timed:
+        return out
+    torch.cuda.synchronize()
+    return out + (marks[0].elapsed_time(marks[1]),
+                  marks[1].elapsed_time(marks[2]) / forced.shape[1])
+
+
+def phase_lm_serve_mesh(seed: int, one_device=None):
+    """LM serving on 2×2 and 1×4 (data, model) meshes of the card with the
+    model axis split by hand (``repro_torch.parallel.tensor``): qwen3-0.6b
+    at full width and depth in bfloat16 through ``serve(cfg, mesh)`` (batch
+    8, prompt 512, gen 64), its prefill and teacher-forced decode against
+    the one-device run, the reductions a decode step, and the card's
+    float32 2×2 against the CPU's at ``smoke()``.  ``one_device``: the
+    lm_serve phase's 1×1 numbers, printed beside."""
+    import torch
+
+    from repro_torch import compiler
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy, lm_params_to_numpy
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_mesh2d
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+    from repro_torch.parallel import rules_for, use_sharding
+    from repro_torch.parallel.tensor import place_params
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    B, S, G = LM_BATCH, LM_PROMPT, LM_GEN
+    s_max = S + G
+    n_forced = LM_SERVE_MESH_FORCED
+    built = (compiler.stats.kernels_built, len(build._LIBS))
+    want_reduces = 1 + 5 * cfg.n_layers
+
+    params = M.init_params(cfg, seed=seed, device=DEV)      # serve's weights
+    gen_t = torch.Generator(device=DEV).manual_seed(seed + 1)
+    prompts = torch.randint(1, cfg.vocab_size, (B, S), generator=gen_t,
+                            device=DEV)
+    forced = torch.randint(1, cfg.vocab_size, (B, n_forced), device=DEV,
+                           generator=torch.Generator(
+                               device=DEV).manual_seed(seed + 2))
+    want, _, cache = lm_mesh_forced(params, prompts, forced, cfg, s_max)
+    del cache
+    want = want.float()
+    scale = float(want.abs().max())
+    checks, meshes = {}, {}
+    for dims in LM_SERVE_MESHES:
+        tag = "x".join(map(str, dims))
+        t_mesh = time.perf_counter()
+        mesh = make_mesh2d(*dims, device=DEV)
+        # --- the main path: serve on the mesh, counters 0 before, read after
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        tokens, tok_per_s = serve(cfg, mesh, batch=B, prompt_len=S, gen=G,
+                                  seed=seed, device=DEV)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = read_counts()
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        # ------------------------------------------------------------------
+        rules = rules_for(cfg, mesh)
+        placed = place_params(params, rules, cfg)
+        got, reduces, cache, prefill_ms, decode_ms = lm_mesh_forced(
+            placed, prompts, forced, cfg, s_max, rules, timed=True)
+        first = torch.argmax(got[:, :1], dim=-1)
+        got = got.float()
+        err_prefill = float((got[:, :1] - want[:, :1]).abs().max()) / scale
+        err_decode = float((got[:, 1:] - want[:, 1:]).abs().max()) / scale
+        cache_bytes = sum(
+            st.block(mesh.coords(0)).numel() * st.dtype.itemsize
+            for seg in cache for layer in seg for st in layer)
+
+        def decode_run(n):
+            tok = first
+            with torch.no_grad(), use_sharding(rules):
+                for i in range(S, S + n):
+                    lg, _ = M.decode_step(placed, cache, tok, i, cfg)
+                    tok = torch.argmax(lg, dim=-1)
+            return tok
+
+        profile = device_breakdown(lambda: decode_run(LM_SERVE_MESH_PROFILED))
+
+        def prefill_run():
+            with torch.no_grad(), use_sharding(rules):
+                M.prefill(placed, prompts, cfg, s_max)
+
+        prefill_profile = device_breakdown(prefill_run)
+        checks[f"{tag}_tokens_shape"] = tuple(tokens.shape) == (B, G)
+        checks[f"{tag}_served_first_token"] = torch.equal(first,
+                                                          tokens[:, :1])
+        checks[f"{tag}_prefill_vs_one_device"] = \
+            err_prefill <= LM_SERVE_MESH_BF16_REL
+        checks[f"{tag}_decode_vs_one_device"] = \
+            err_decode <= LM_SERVE_MESH_BF16_REL
+        checks[f"{tag}_finite"] = bool(torch.isfinite(got).all())
+        checks[f"{tag}_all_reduces_a_decode_step"] = \
+            reduces == [want_reduces] * n_forced
+        checks[f"{tag}_no_port_kernel_launched"] = not any(launches.values())
+        meshes[tag] = {
+            "seconds": time.perf_counter() - t_mesh, "serve_s": serve_s,
+            "serve_decode_tok_per_s": tok_per_s, "prefill_ms": prefill_ms,
+            "prefill_tok_per_s": B * S / prefill_ms * 1e3,
+            "decode_ms_per_token": decode_ms,
+            "decode_tok_per_s": B / decode_ms * 1e3,
+            "decode_idle_share_unprofiled":
+                profile["device_idle_share_unprofiled"],
+            "decode_profile": profile, "prefill_profile": prefill_profile,
+            "peak_gb": peak_gb,
+            "cache_bytes_a_position": cache_bytes,
+            "prefill_vs_one_device_rel": err_prefill,
+            "decode_vs_one_device_rel": err_decode,
+            "all_reduces_a_decode_step": reduces[0], "launches": launches}
+        del placed, cache, got
+    del params
+    torch.cuda.empty_cache()
+
+    # the card's float32 2×2 against the CPU's at smoke(), the same weights
+    small = get_config(LM_ARCH).smoke()
+    p_cpu = M.init_params(small, seed=seed, device="cpu")
+    p_gpu = lm_params_from_numpy(lm_params_to_numpy(p_cpu), small, DEV)
+    toks = torch.randint(1, small.vocab_size, (4, 24),
+                         generator=torch.Generator().manual_seed(seed))
+    runs = {}
+    for dev, p in (("cpu", p_cpu), (DEV, p_gpu)):
+        rules = rules_for(small, make_mesh2d(*LM_MESH, device=dev))
+        t = toks.to(dev)
+        runs[dev] = lm_mesh_forced(place_params(p, rules, small), t[:, :16],
+                                   t[:, 16:], small, 24, rules)[0].cpu()
+    card_cpu = float((runs[DEV] - runs["cpu"]).abs().max()
+                     / runs["cpu"].abs().max())
+    checks["card_vs_cpu_f32_2x2"] = card_cpu <= LM_SERVE_MESH_CARD_CPU_REL
+    checks["no_port_kernel_built"] = built == (
+        compiler.stats.kernels_built, len(build._LIBS))
+
+    failed = [k for k, ok in checks.items() if not ok]
+    emit({"phase": "lm_serve_mesh", "card": card_line(), "arch": LM_ARCH,
+          "seconds": time.perf_counter() - t_phase,
+          "batch": B, "prompt_len": S, "gen": G, "dtype": cfg.compute_dtype,
+          "meshes": meshes, "one_device": one_device,
+          "card_vs_cpu_f32_2x2_rel": card_cpu,
+          "bounds": {"mesh_vs_one_device": LM_SERVE_MESH_BF16_REL,
+                     "card_vs_cpu": LM_SERVE_MESH_CARD_CPU_REL,
+                     "all_reduces_a_decode_step": want_reduces},
+          "checks": checks,
+          "predicted": {k: PREDICTED[k] for k in PREDICTED
+                        if k == "card" or k.startswith("lm_serve_mesh")}})
+    if failed:
+        raise AssertionError(f"lm_serve_mesh: {failed} failed")
 
 
 #: the trained batch: 8 sequences of 512 tokens of ``TokenDataset``, 24
@@ -6640,7 +6868,8 @@ def main() -> int:
     phase_rows["adjoint_make"] = phase_adjoint_make(args.seed)
     phase_rows["service"] = phase_service(args.seed)
     phase_rows["cost_model"] = phase_cost_model(args.steps)
-    phase_lm_serve(args.seed)
+    one_device = phase_lm_serve(args.seed)
+    phase_lm_serve_mesh(args.seed, one_device)
     phase_lm_train(args.seed)
     phase_lm_train_mesh(args.seed)
     phase_rows["dryrun"] = phase_dryrun(args.seed)

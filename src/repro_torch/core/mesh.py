@@ -24,8 +24,8 @@ brick in turn:
 
 Bricks exchange data only through :func:`repro_torch.core.halo._ppermute_shift`
 (halo planes), :func:`psum` (reductions over the whole mesh) and
-:func:`psum_axes` (over some of its named axes); multi-card transport plugs
-in there.
+:func:`psum_axes` / :func:`pmax_axes` (over some of its named axes);
+multi-card transport plugs in there.
 
 >>> import torch
 >>> mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
@@ -71,6 +71,7 @@ class Mesh:
         self._coords = tuple(tuple(int(c) for c in np.unravel_index(b, dims))
                              for b in range(n))
         self._index = {c: b for b, c in enumerate(self._coords)}
+        self._groups: Dict[tuple, list] = {}    # axis_groups, by axes
 
     @property
     def dims(self) -> Tuple[int, ...]:
@@ -289,7 +290,8 @@ def _on(o, b: int, device: torch.device):
 #: reference's HLO op names: one ``collective-permute`` per plane shift
 #: over a mesh axis (:func:`repro_torch.core.halo._ppermute_shift`), one
 #: ``all-reduce`` per reduction over the mesh or some of its axes
-#: (:func:`psum`, :func:`psum_axes`, a whole-field ``torch.all``).
+#: (:func:`psum`, :func:`psum_axes`, :func:`pmax_axes`, a whole-field
+#: ``torch.all``).
 #: :mod:`repro_torch.launch.heat_cell` reads one step's schedule here.
 collectives: Dict[str, int] = {"collective-permute": 0, "all-reduce": 0}
 
@@ -314,6 +316,13 @@ def axis_groups(mesh: Mesh, axis_names) -> list:
     ``axis_names`` (a name or a sequence of names): each group, in
     position order, is what a collective over those axes reduces."""
     names = (axis_names,) if isinstance(axis_names, str) else tuple(axis_names)
+    groups = mesh._groups.get(names)
+    if groups is None:
+        groups = mesh._groups[names] = _axis_groups(mesh, names)
+    return groups
+
+
+def _axis_groups(mesh: Mesh, names: tuple) -> list:
     unknown = [a for a in names if a not in mesh.shape]
     if unknown:
         raise ValueError(f"axes {unknown} are not in the mesh {mesh.shape}")
@@ -334,6 +343,21 @@ def psum_axes(parts: Sequence, mesh: Mesh, axis_names) -> list:
     it only along ``axis_names``, added in position order on the device of
     the first of them.  Positions whose parts are the same objects (a value
     replicated over the other axes) share one sum, computed once."""
+    return _reduce_axes(parts, mesh, axis_names, torch.Tensor.add_)
+
+
+def pmax_axes(parts: Sequence, mesh: Mesh, axis_names) -> list:
+    """:func:`psum_axes` with the element-wise maximum in place of the sum:
+    the reference's ``lax.pmax``, which GSPMD emits as an ``all-reduce``
+    (a softmax over an axis sharded on ``axis_names``)."""
+    return _reduce_axes(parts, mesh, axis_names, _max_into)
+
+
+def _max_into(total: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    return torch.maximum(total, p, out=total)
+
+
+def _reduce_axes(parts: Sequence, mesh: Mesh, axis_names, combine) -> list:
     if len(parts) != mesh.size:
         raise ValueError(f"{len(parts)} parts for a mesh of {mesh.size}")
     collectives["all-reduce"] += 1
@@ -342,20 +366,20 @@ def psum_axes(parts: Sequence, mesh: Mesh, axis_names) -> list:
     for members in axis_groups(mesh, axis_names):
         ids = tuple(id(parts[b]) for b in members)
         if ids not in done:
-            done[ids] = _sum_parts([parts[b] for b in members],
-                                   mesh.devices[members[0]])
+            done[ids] = _combine_parts([parts[b] for b in members],
+                                       mesh.devices[members[0]], combine)
         for b in members:
             out[b] = done[ids]
     return out
 
 
-def _sum_parts(parts: Sequence, device: torch.device):
+def _combine_parts(parts: Sequence, device: torch.device, combine):
     if isinstance(parts[0], torch.Tensor):
         total = parts[0].to(device, copy=True)
         for p in parts[1:]:
-            total.add_(p.to(device))
+            combine(total, p.to(device))
         return total
-    return [_sum_parts(leaf, device) for leaf in zip(*parts)]
+    return [_combine_parts(leaf, device, combine) for leaf in zip(*parts)]
 
 
 def _all(parts: Sequence[torch.Tensor], mesh: Mesh) -> torch.Tensor:

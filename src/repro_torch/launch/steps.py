@@ -28,9 +28,9 @@ GSPMD; the port does it by hand, in one process (``_accumulate``):
   would sum the devices' accumulators with
   :func:`~repro_torch.core.mesh.psum_axes`);
 * parameters, AdamW's moments and the compute are replicated over
-  ``model`` (the reference's tensor parallelism over ``model`` is not
-  ported): every position of the mesh must be on the parameters' device,
-  which holds the state once;
+  ``model`` (the reference's tensor parallelism over ``model`` is ported
+  for serving only, :mod:`repro_torch.parallel.tensor`): every position of
+  the mesh must be on the parameters' device, which holds the state once;
 * where the batch axes do not divide the rows, or span one position, the
   step is the one-device step, bit for bit.
 
@@ -167,6 +167,10 @@ def make_opt_state(params, *, compress: bool = False):
 
 
 def make_prefill_step(cfg):
+    """``prefill_step(params, tokens)``: the last token's logits.  With
+    placed parameters (:func:`~repro_torch.parallel.tensor.place_params`)
+    under ``use_sharding(rules)`` it runs the model split, as the model
+    functions it calls do; the train step above never does."""
     def prefill_step(params, tokens):
         logits, _ = M.forward(params, tokens, cfg, last_only=True)
         return logits
@@ -174,6 +178,8 @@ def make_prefill_step(cfg):
 
 
 def make_decode_step(cfg):
+    """``decode_step(params, cache, tokens, pos)``: one token, the cache
+    written in place; split over ``model`` as :func:`make_prefill_step`."""
     def decode_step(params, cache, tokens, pos):
         return M.decode_step(params, cache, tokens, pos, cfg)
     return decode_step

@@ -153,3 +153,14 @@ def mlp_apply(params, x, act: str = "silu"):
     else:
         up = f(up)
     return up @ params["down"]
+
+
+def mlp_apply_split(split, params, xs, act: str = "silu"):
+    """:func:`mlp_apply` over the model axis (:mod:`repro_torch.parallel.
+    tensor`): each unit its ``mlp`` columns of ``up`` / ``gate`` and rows
+    of ``down``, the partial outputs summed over ``model``.  ``xs`` and the
+    result are lists a row block."""
+    n = split.parts(params["down"], 0)
+    return split.psum([[mlp_apply(split.local(params, r, j),
+                                  split.on(x, r, j), act) for j in range(n)]
+                       for r, x in enumerate(xs)])

@@ -27,9 +27,16 @@ asks for the CPU, and raises where there is no card.
 The parameters are frozen (``requires_grad=False``), so serving builds no
 autograd graph; the train step records gradients for its own duration
 only (:func:`value_and_grad`).
+
+Serving on a mesh: parameters placed by their specs
+(:func:`repro_torch.parallel.tensor.place_params`) make :func:`forward`,
+:func:`prefill` and :func:`decode_step` run the model split by hand under
+``use_sharding(rules)`` (:func:`model_split`): GSPMD's split in the
+reference, for the attention kinds.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -43,7 +50,8 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (MetaDraws, embed_init, rmsnorm,
                                       rmsnorm_init)
 from repro_torch.optim.tree import unflatten
-from repro_torch.parallel.sharding import pshard
+from repro_torch.parallel.sharding import current_rules, pshard
+from repro_torch.parallel.tensor import ModelSplit, PlacedParams, place_cache
 
 
 class ParamTree(nn.Module):
@@ -178,7 +186,11 @@ def _remat(fn, cfg):
 
 def forward(params, tokens, cfg, *, last_only: bool = False):
     """Causal forward.  tokens (B, S[, K]) → (logits (B, S|1, V[, K])
-    in the compute dtype, MoE aux loss (float32 scalar))."""
+    in the compute dtype, MoE aux loss (float32 scalar)).  Placed
+    parameters run the model split (:func:`model_split`)."""
+    split = model_split(params, tokens, cfg)
+    if split is not None:
+        return _forward_split(split, params, tokens, cfg, last_only)
     cdt = _dtype(cfg.compute_dtype)
     x = pshard(_embed(params, tokens, cfg).to(cdt), "batch", "seq", "embed")
     x_embed = x
@@ -245,18 +257,26 @@ def value_and_grad(params, batch, cfg):
 # serving
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg, batch: int, s_max: int, device="cuda") -> List[list]:
-    """Zeroed caches: per segment, per layer (the reference's is stacked)."""
+def init_cache(cfg, batch: int, s_max: int, device="cuda",
+               rules=None) -> List[list]:
+    """Zeroed caches: per segment, per layer (the reference's is stacked).
+    With ``rules`` each leaf is placed on ``rules.mesh`` by
+    ``cache_specs_for`` (the decode cache of placed parameters)."""
     dev = resolve_device(device)
     cdt = _dtype(cfg.compute_dtype)
-    return [[tfm.cache_init(kind, cfg, batch, s_max, cdt, dev)
-             for _ in range(count)] for kind, count in cfg.segments]
+    cache = [[tfm.cache_init(kind, cfg, batch, s_max, cdt, dev)
+              for _ in range(count)] for kind, count in cfg.segments]
+    return cache if rules is None else place_cache(cache, rules, cfg)
 
 
 def decode_step(params, cache, tokens, pos: int, cfg):
     """One token for the whole batch.  tokens (B, 1[, K]); pos the
     position it takes.  Attention caches are written in place; returns
-    (logits (B, 1, V[, K]), the caches)."""
+    (logits (B, 1, V[, K]), the caches).  Placed parameters run the model
+    split on the placed cache that their prefill returned."""
+    split = model_split(params, tokens, cfg)
+    if split is not None:
+        return _decode_split(split, params, cache, tokens, pos, cfg)
     cdt = _dtype(cfg.compute_dtype)
     x = _embed(params, tokens, cfg).to(cdt)
     x_embed = x
@@ -283,8 +303,14 @@ def prefill(params, tokens, cfg, s_max: int):
     """Run the prompt, return (last-token logits, filled caches).
 
     Attention/MLA caches hold positions [0, S) of ``s_max``; recurrent
-    states carry their end-of-prompt value.
+    states carry their end-of-prompt value.  Placed parameters run the
+    model split, and their caches come back placed: the sequence over
+    ``model``, the rows over the batch axes (the reference's
+    ``cache_specs_for``).
     """
+    split = model_split(params, tokens, cfg)
+    if split is not None:
+        return _prefill_split(split, params, tokens, cfg, s_max)
     cdt = _dtype(cfg.compute_dtype)
     x = _embed(params, tokens, cfg).to(cdt)
     x_embed = x
@@ -297,3 +323,118 @@ def prefill(params, tokens, cfg, s_max: int):
         caches.append(lc)
     x = rmsnorm(params["final_ln"], x[:, -1:, :])
     return _lm_head(params, x, cfg), _regroup(caches, cfg)
+
+
+# ---------------------------------------------------------------------------
+# the model split: serving on a mesh, the model axis by hand
+# ---------------------------------------------------------------------------
+
+def model_split(params, tokens, cfg) -> Optional[ModelSplit]:
+    """The model split of a call (:mod:`repro_torch.parallel.tensor`), or
+    None for a :class:`ParamTree`, which runs as on one device (the train
+    step's, under any rules).  Placed parameters
+    (:func:`~repro_torch.parallel.tensor.place_params`) run under
+    ``use_sharding(rules)`` of their mesh, attention kinds only."""
+    if not isinstance(params, PlacedParams):
+        return None
+    rules = current_rules()
+    if rules is None or rules.mesh is not params.mesh:
+        raise ValueError("placed parameters run under use_sharding(rules) "
+                         "of the mesh they are placed on")
+    tfm.check_split(cfg)
+    return ModelSplit(rules, tokens.shape[0], _dtype(cfg.compute_dtype))
+
+
+def _split_layers(params, cfg):
+    for (kind, _), seg in zip(cfg.segments, params["segments"]):
+        for layer in seg:
+            yield kind, layer
+
+
+def _embed_split(split, params, tokens, cfg):
+    """:func:`_embed` on the vocab-sharded table, lists a row block in the
+    compute dtype: each unit looks up the ids in its vocab rows and writes
+    zeros elsewhere, and the units' lookups are summed over ``model`` —
+    one non-zero term a token, so the sum is the lookup bit for bit (the
+    codebooks' lookups are summed over ``model`` each, then over codebooks
+    in order, as on one device)."""
+    emb = params["embed"]
+    vdim = len(emb.shape) - 2
+    parts = []
+    for r, t in enumerate(split.rows_of(tokens)):
+        row = []
+        for j in range(split.parts(emb, vdim)):
+            blk = split.block(emb, r, j)
+            first = split.index(emb, r, j)[vdim].start or 0
+            ids = split.on(t, r, j) - first
+            hit = (ids >= 0) & (ids < blk.shape[vdim])
+            ids = ids.clamp(0, blk.shape[vdim] - 1)
+            if cfg.n_codebooks > 1:
+                row.append(torch.stack([
+                    torch.where(hit[..., k, None], blk[k][ids[..., k]], 0.0)
+                    for k in range(cfg.n_codebooks)]))
+            else:
+                row.append(torch.where(hit[..., None], blk[ids], 0.0))
+        parts.append(row)
+    xs = split.psum(parts)
+    if cfg.n_codebooks > 1:
+        xs = [functools.reduce(torch.add, x.unbind(0)) for x in xs]
+    return [x.to(split.dtype) for x in xs]
+
+
+def _lm_head_split(split, params, xs, cfg):
+    """:func:`_lm_head` with each unit's vocab block of the logits (tied,
+    untied, per codebook), gathered over ``model`` a row block, so that an
+    ``argmax`` breaks ties at the lowest id as on one device."""
+    if cfg.n_codebooks > 1:
+        w, vdim = params["lm_head"], 2
+        head = lambda x, blk: torch.einsum("bsd,kdv->bskv", x, blk)  # noqa: E731
+    elif cfg.tie_embeddings:
+        w, vdim = params["embed"], 0
+        head = lambda x, blk: x @ blk.T                              # noqa: E731
+    else:
+        w, vdim = params["lm_head"], 1
+        head = lambda x, blk: x @ blk                                # noqa: E731
+    return [split.gather([head(split.on(x, r, j),
+                               split.block(w, r, j).to(x.dtype))
+                          for j in range(split.parts(w, vdim))], -1, r)
+            for r, x in enumerate(xs)]
+
+
+def _final(split, params, xs, cfg, last_only: bool):
+    xs = [rmsnorm(split.local(params["final_ln"], r, 0),
+                  x[:, -1:, :] if last_only else x) for r, x in enumerate(xs)]
+    return split.join(_lm_head_split(split, params, xs, cfg))
+
+
+def _forward_split(split, params, tokens, cfg, last_only: bool):
+    xs = _embed_split(split, params, tokens, cfg)
+    pos = torch.arange(xs[0].shape[1], dtype=torch.int32, device=xs[0].device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=split.mesh.home)
+    for kind, layer in _split_layers(params, cfg):
+        xs, _, aux = tfm.block_prefill_split(kind, split, layer, xs, cfg, pos,
+                                             None)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return _final(split, params, xs, cfg, last_only), aux_total
+
+
+def _prefill_split(split, params, tokens, cfg, s_max: int):
+    xs = _embed_split(split, params, tokens, cfg)
+    pos = torch.arange(xs[0].shape[1], dtype=torch.int32, device=xs[0].device)
+    caches = []
+    for kind, layer in _split_layers(params, cfg):
+        xs, lc, _ = tfm.block_prefill_split(kind, split, layer, xs, cfg, pos,
+                                            s_max)
+        caches.append(lc)
+    return _final(split, params, xs, cfg, True), _regroup(caches, cfg)
+
+
+def _decode_split(split, params, cache, tokens, pos: int, cfg):
+    xs = _embed_split(split, params, tokens, cfg)
+    flat = [c for seg in cache for c in seg]
+    new = []
+    for (kind, layer), lc in zip(_split_layers(params, cfg), flat):
+        xs, lc = tfm.block_decode_split(kind, split, layer, xs, lc, cfg, pos)
+        new.append(lc)
+    return _final(split, params, xs, cfg, False), _regroup(new, cfg)

@@ -14,6 +14,9 @@ gathers each token's k expert outputs and sums them left to right in
 expert order — the order of the reference's scatter-add over the sorted
 assignments — instead of a scatter-add, so a token's sum is the same on
 every run and device.
+
+:func:`moe_apply_split` splits the experts (or each expert's hidden
+width) over the model axis (:mod:`repro_torch.parallel.tensor`).
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.models.layers import _ACTS, dense_init, mlp_apply, mlp_init, normal
+from repro_torch.models.layers import (_ACTS, dense_init, mlp_apply,
+                                      mlp_apply_split, mlp_init, normal)
 from repro_torch.parallel.sharding import pshard
 
 
@@ -119,20 +123,71 @@ def moe_apply(params, x, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
                            topi.reshape(b, s, m.top_k), m.n_experts,
                            capacity(s, m))
     bufs = pshard(bufs, "batch", "experts", None, "embed")
-    act = _ACTS[m.act]
-    h = act(torch.einsum("becd,edf->becf", bufs, params["w_gate"])) \
-        * torch.einsum("becd,edf->becf", bufs, params["w_up"])
-    y_buf = torch.einsum("becf,efd->becd", h, params["w_down"])
+    y_buf = _experts(params, bufs, m.act)
     y_buf = pshard(y_buf, "batch", "experts", None, "embed")
     out = _combine(y_buf, meta, s, d).to(x.dtype)
 
     if m.n_shared:
         out = out + mlp_apply(params["shared"], x, act=m.act)
+    return out, _aux(probs, topi, m.n_experts)
 
-    # Switch-style load-balance aux loss
+
+def _experts(params, bufs, act: str):
+    """The experts' gated MLPs on their slots: (B, E, C, D) → (B, E, C, D)."""
+    f = _ACTS[act]
+    h = f(torch.einsum("becd,edf->becf", bufs, params["w_gate"])) \
+        * torch.einsum("becd,edf->becf", bufs, params["w_up"])
+    return torch.einsum("becf,efd->becd", h, params["w_down"])
+
+
+def _aux(probs, topi, n_experts: int):
+    """Switch-style load-balance aux loss over every routed token."""
     pe = probs.mean(dim=0)                                      # (E,)
-    onehot = torch.nn.functional.one_hot(topi[:, 0], m.n_experts).float()
+    onehot = torch.nn.functional.one_hot(topi[:, 0], n_experts).float()
     fe = onehot.mean(dim=0)
-    aux = m.n_experts * torch.sum(pe * fe)
-    return out, aux
+    return n_experts * torch.sum(pe * fe)
+
+
+def moe_apply_split(split, params, xs, cfg):
+    """:func:`moe_apply` over the model axis, lists a row block.  The router
+    and the dispatch run replicated, once a row block; the aux term is
+    over every row, as the one-device (and GSPMD's) is.  Experts on
+    ``model`` (deepseek-v2): each unit runs its experts' slice of the slots
+    and the outputs are gathered over experts, no sum split.  ``expert_mlp``
+    on ``model`` (mixtral): each unit its columns of every expert's
+    ``w_gate`` / ``w_up`` and rows of ``w_down``, the slot outputs summed
+    over ``model``.  Shared experts split as an MLP does."""
+    m = cfg.moe
+    routed = []
+    for r, x in enumerate(xs):
+        b, s, d = x.shape
+        logits = x @ split.local(params["router"], r, 0)
+        topw, topi, probs = _route(logits.reshape(b * s, m.n_experts),
+                                   m.top_k, m.norm_topk)
+        bufs, meta = _dispatch(x, topw.reshape(b, s, m.top_k),
+                               topi.reshape(b, s, m.top_k), m.n_experts,
+                               capacity(s, m))
+        routed.append((bufs, meta, topi, probs))
+    experts = {k: params[k] for k in ("w_gate", "w_up", "w_down")}
+    ne = split.parts(params["w_gate"], 0)
+    if ne > 1:
+        y = [split.gather([_experts(
+            split.local(experts, r, j),
+            split.on(bufs[:, split.index(params["w_gate"], r, j)[0]], r, j),
+            m.act) for j in range(ne)], 1, r)
+             for r, (bufs, *_) in enumerate(routed)]
+    else:
+        nf = split.parts(params["w_gate"], 2)
+        y = split.psum([[_experts(split.local(experts, r, j),
+                                  split.on(bufs, r, j), m.act)
+                         for j in range(nf)]
+                        for r, (bufs, *_) in enumerate(routed)])
+    outs = [_combine(yb, meta, x.shape[1], x.shape[2]).to(x.dtype)
+            for yb, (_, meta, _, _), x in zip(y, routed, xs)]
+    if m.n_shared:
+        shared = mlp_apply_split(split, params["shared"], xs, m.act)
+        outs = [o + sh for o, sh in zip(outs, shared)]
+    aux = _aux(split.join([p for *_, p in routed]),
+               split.join([t for *_, t, _ in routed]), m.n_experts)
+    return outs, aux
 

@@ -6,7 +6,10 @@ The port of ``repro/models/transformer.py`` (with ``_block_prefill`` of
 ``mamba_shared`` is the zamba2 shared-attention step: a Mamba2 block
 followed by the globally-shared attention+MLP block applied to
 ``concat(x, x_embed)``; its parameters live once at model level and come
-in as ``shared = (params, config)``.
+in as ``shared = (params, config)``.  ``block_prefill_split`` /
+``block_decode_split`` run the attention kinds over the model axis
+(:mod:`repro_torch.parallel.tensor`); :func:`check_split` refuses the
+recurrent ones there.
 """
 from __future__ import annotations
 
@@ -20,8 +23,8 @@ from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (mlp_apply, mlp_init, normal, rmsnorm,
-                                       rmsnorm_init)
+from repro_torch.models.layers import (mlp_apply, mlp_apply_split, mlp_init,
+                                      normal, rmsnorm, rmsnorm_init)
 
 ATTN_KINDS = ("attn", "attn_moe", "mla", "mla_moe")
 SSM_KINDS = ("mamba", "mamba_shared")
@@ -153,6 +156,82 @@ def block_prefill(kind: str, params, x, cfg, pos, s_max, shared=None,
                 _pad_cache(k, s_max), _pad_cache(v, s_max))}
         return x, cache, None
     raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# the model split (repro_torch.parallel.tensor): lists a row block
+# ---------------------------------------------------------------------------
+
+def check_split(cfg) -> None:
+    """Raise ``NotImplementedError`` where ``cfg`` has a block kind that the
+    model split does not run: the recurrent mixers, whose split needs a
+    reduction inside a norm, are not ported to it yet."""
+    for kind, _ in cfg.segments:
+        if kind not in ATTN_KINDS:
+            raise NotImplementedError(
+                f"block kind {kind!r} of {cfg.name} has no split over the "
+                f"'model' axis yet (ROADMAP.md, queue 1: the recurrent "
+                f"mixers on model); run it on a mesh whose model axis is 1")
+
+
+def _ffn_split(kind, split, params, xs, cfg):
+    """:func:`_ffn` over the model axis: (xs, aux)."""
+    hs = [rmsnorm(split.local(params["ln2"], r, 0), x)
+          for r, x in enumerate(xs)]
+    aux = None
+    if kind.endswith("moe"):
+        hs, aux = moe_mod.moe_apply_split(split, params["moe"], hs, cfg)
+    else:
+        hs = mlp_apply_split(split, params["mlp"], hs, cfg.mlp_act)
+    return [x + h for x, h in zip(xs, hs)], aux
+
+
+def block_prefill_split(kind: str, split, params, xs, cfg, pos, s_max):
+    """:func:`block_prefill` over the model axis for the attention kinds:
+    (xs, cache, aux), the norms once a row block on the replicated
+    activations; with ``s_max`` the cache's leaves are placed sequence-
+    sharded (:func:`_place_kv`)."""
+    hs = [rmsnorm(split.local(params["ln1"], r, 0), x)
+          for r, x in enumerate(xs)]
+    if kind.startswith("mla"):
+        hs, *kv = mla_mod.mla_prefill_split(split, params["attn"], hs, cfg,
+                                            pos)
+        cache_type = mla_mod.MLACache
+    else:
+        hs, *kv = attn.attn_prefill_split(split, params["attn"], hs, cfg, pos)
+        cache_type = attn.KVCache
+    cache = None
+    if s_max is not None:
+        cache = cache_type(*(_place_kv(split, name, rows, s_max) for name, rows
+                             in zip(cache_type._fields, kv)))
+    xs, aux = _ffn_split(kind, split, params, [x + h for x, h in zip(xs, hs)],
+                         cfg)
+    return xs, cache, aux
+
+
+def _place_kv(split, name: str, rows, s_max: int):
+    """:func:`_pad_cache` on the mesh: cache leaf ``name`` (B, s_max, …)
+    placed by the rules' cache axes (the sequence over ``model``), with
+    each row block's prefill values written into the blocks that own their
+    positions and zeros after them."""
+    shape = (split.dp * split.rows, s_max) + tuple(rows[0].shape[2:])
+    st = split.cache_zeros(name, shape, rows[0].dtype)
+    for r, a in enumerate(rows):
+        split.write_seq(st, r, a, 0)
+    return st
+
+
+def block_decode_split(kind: str, split, params, xs, cache, cfg, pos: int):
+    """:func:`block_decode` over the model axis for the attention kinds, on
+    the placed, sequence-sharded cache (written in place): (xs, cache)."""
+    hs = [rmsnorm(split.local(params["ln1"], r, 0), x)
+          for r, x in enumerate(xs)]
+    decode = (mla_mod.mla_decode_split if kind.startswith("mla")
+              else attn.attn_decode_split)
+    hs, cache = decode(split, params["attn"], hs, cache, cfg, pos)
+    xs, _ = _ffn_split(kind, split, params, [x + h for x, h in zip(xs, hs)],
+                       cfg)
+    return xs, cache
 
 
 def rwkv_final_state(params, h, cfg):

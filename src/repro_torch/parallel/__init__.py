@@ -1,5 +1,6 @@
 """repro_torch.parallel — logical-axis sharding rules, the mesh context and
-placement by spec (the port of ``repro.parallel``)."""
+placement by spec (the port of ``repro.parallel``), and the model axis's
+split by hand (``tensor``, the port's own)."""
 from repro_torch.parallel.params import (cache_specs_for, param_specs_for,
                                          rules_for)
 from repro_torch.parallel.sharding import (AxisInfo, NamedSharding,

@@ -16,8 +16,10 @@ What the port does with the specs, by hand and in one process:
   backward per replica, the gradients summed into the float32
   accumulators of the one device that holds every position.  Parameters,
   moments and the
-  compute are replicated over ``model``: the reference's tensor
-  parallelism over ``model`` is not ported;
+  compute are replicated over ``model``;
+* serving (:mod:`repro_torch.parallel.tensor`) splits heads, ``mlp``,
+  vocab, experts and the decode caches' sequence over ``model`` by hand,
+  on parameters and caches placed by their specs;
 * :func:`place` puts a tensor on a mesh by a spec as a
   :class:`ShardedTensor`, whose blocks are JAX's
   ``NamedSharding(mesh, spec).devices_indices_map(shape)`` blocks;
@@ -185,6 +187,8 @@ class ShardedTensor:
         self.dtype = dtype
         self._whole = whole
         self._blocks = blocks
+        self._views: Dict[tuple, torch.Tensor] = {}
+        self._index: Dict[tuple, tuple] = {}
 
     @property
     def spec(self) -> PartitionSpec:
@@ -198,9 +202,21 @@ class ShardedTensor:
         """The block at mesh coordinates ``coords``, on its position's
         device."""
         coords = tuple(coords)
-        if self._whole is not None:
-            return self._whole[self.sharding.index(coords, self.shape)]
-        return self._blocks[self.mesh.brick(*coords)]
+        if self._whole is None:
+            return self._blocks[self.mesh.brick(*coords)]
+        view = self._views.get(coords)
+        if view is None:    # a view of the whole, kept: looked up per layer
+            view = self._views[coords] = self._whole[self.index(coords)]
+        return view
+
+    def index(self, coords) -> tuple:
+        """The slices of the block at mesh coordinates ``coords``."""
+        coords = tuple(coords)
+        idx = self._index.get(coords)
+        if idx is None:
+            idx = self._index[coords] = self.sharding.index(coords,
+                                                            self.shape)
+        return idx
 
     def blocks(self) -> list:
         """Every position's block, x-major."""

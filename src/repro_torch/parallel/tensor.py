@@ -1,0 +1,297 @@
+"""Tensor parallelism over the mesh's ``model`` axis, by hand.
+
+The port's own module: the reference has no counterpart, because there
+GSPMD does this work.  The reference places the LM's parameters by their
+specs (``param_specs_for``) and runs prefill and decode under
+``use_sharding(rules)``; XLA then splits every product whose operand is
+sharded over ``model`` — heads, ``mlp``, vocab, experts, and the decode
+caches' sequence — and inserts the collectives.  The port has no such
+compiler, so its model functions take a split path when their parameters
+are a :class:`PlacedParams` (:func:`place_params`), with one
+:class:`ModelSplit` a call:
+
+* a *unit* ``(r, j)`` is row block ``r`` of the batch (the rows of the
+  rules' ``batch`` axes, x-major over them, as the data-parallel train step
+  splits them) at coordinate ``j`` of ``model``.  The first mesh position
+  with those coordinates computes it, on its device, with its blocks of
+  the parameters and caches (:meth:`ShardedTensor.block
+  <repro_torch.parallel.sharding.ShardedTensor.block>`);
+* an activation replicated over ``model`` is a list with one tensor a row
+  block, on the device of the block's ``j = 0`` position;
+* where GSPMD all-reduces, :meth:`ModelSplit.psum` / :meth:`ModelSplit.pmax`
+  reduce the units' partials over ``model`` through
+  :func:`~repro_torch.core.mesh.psum_axes` / ``pmax_axes``: one counted
+  ``all-reduce`` each, the parts combined in ``model`` order.  Where it
+  all-gathers, :meth:`ModelSplit.gather` concatenates the blocks.
+
+Where every position is on one device (one card, or the CPU) a placed
+tensor is one tensor and its blocks are views, so the split holds the
+weights once.  Where positions sit on several devices each partial stays on
+its unit's device until its reduction or gather; that case has not run.
+
+>>> import torch
+>>> from repro_torch.core.mesh import make_mesh
+>>> from repro_torch.parallel.sharding import ShardingRules
+>>> split = ModelSplit(ShardingRules(make_mesh((2, 2), ("data", "model"),
+...                                             device="cpu")), 4)
+>>> (split.dp, split.m, split.rows)
+(2, 2, 2)
+>>> [float(t) for t in split.psum([[torch.tensor(1.), torch.tensor(2.)],
+...                                [torch.tensor(3.), torch.tensor(4.)]])]
+[3.0, 7.0]
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Sequence
+
+import torch
+
+from repro_torch.core.mesh import pmax_axes, psum_axes
+from repro_torch.optim.tree import tree_map
+from repro_torch.parallel.params import (_CACHE_AXES, cache_specs_for,
+                                         param_specs_for)
+from repro_torch.parallel.sharding import (NamedSharding, ShardedTensor,
+                                           _axes, place)
+
+MODEL = "model"
+
+
+class PlacedParams(dict):
+    """A parameter tree (the dicts and lists of ``ParamTree.tree()``)
+    whose leaves are :class:`ShardedTensor` s placed on :attr:`mesh` by
+    their specs: what the model functions split over ``model``."""
+
+    mesh = None
+
+
+def place_params(params, rules, cfg) -> PlacedParams:
+    """``params`` (a ``ParamTree`` or its tree) placed on ``rules.mesh`` by
+    ``param_specs_for``: the reference's ``device_put`` of each leaf with
+    ``NamedSharding(mesh, spec)``."""
+    tree = params.tree() if hasattr(params, "tree") else params
+    specs = param_specs_for(cfg, tree, rules)
+    out = PlacedParams(tree_map(lambda x, s: place(x, rules.mesh, s),
+                                tree, specs))
+    out.mesh = rules.mesh
+    return out
+
+
+def place_cache(cache, rules, cfg):
+    """A decode cache (per segment, per layer) placed on ``rules.mesh`` by
+    ``cache_specs_for``: the sequence over ``model``, rows over the batch
+    axes."""
+    specs = cache_specs_for(cfg, cache, rules)
+    return tree_map(lambda x, s: place(x, rules.mesh, s), cache, specs)
+
+
+def zeros(shape, dtype, mesh, spec) -> ShardedTensor:
+    """A zeroed tensor of ``shape`` placed on ``mesh`` by ``spec``,
+    allocated in place (one tensor where every position is on one device,
+    else one block a position)."""
+    sharding = NamedSharding(mesh, spec)
+    shape = sharding._check(shape)
+    devices = set(mesh.devices)
+    if len(devices) == 1:
+        (dev,) = devices
+        return ShardedTensor(sharding, shape, dtype,
+                             whole=torch.zeros(shape, dtype=dtype, device=dev))
+    blocks = []
+    for b, dev in enumerate(mesh.devices):
+        idx = sharding.index(mesh.coords(b), shape)
+        blocks.append(torch.zeros(
+            [len(range(*s.indices(n))) for s, n in zip(idx, shape)],
+            dtype=dtype, device=dev))
+    return ShardedTensor(sharding, shape, dtype, blocks=blocks)
+
+
+class ModelSplit:
+    """One call's split of ``rows`` batch rows over ``rules.mesh``: ``dp``
+    row blocks of :attr:`rows` rows (the rules' ``batch`` axes, where they
+    divide the rows) by :attr:`m` positions of ``model``.  ``dtype`` is
+    the compute dtype that :meth:`local` casts parameter blocks to.
+    :attr:`scratch` holds what one call computes once for every layer (the
+    decode masks)."""
+
+    def __init__(self, rules, rows: int, dtype=None):
+        mesh = rules.mesh
+        if MODEL not in mesh.shape:
+            raise ValueError(f"the model split needs a {MODEL!r} axis; got "
+                             f"{mesh.shape}")
+        self.mesh, self.rules, self.dtype = mesh, rules, dtype
+        self.scratch: dict = {}
+        self.m = mesh.shape[MODEL]
+        self.batch_axes = _axes(rules.mesh_axes("batch", rows))
+        if MODEL in self.batch_axes:
+            raise ValueError("the batch and the model split share an axis")
+        self.dp = math.prod(mesh.shape[a] for a in self.batch_axes)
+        self.rows = rows // self.dp
+        self._units, self._first = [], {}
+        for b in range(mesh.size):
+            c = dict(zip(mesh.axis_names, mesh.coords(b)))
+            r = 0
+            for a in self.batch_axes:
+                r = r * mesh.shape[a] + c[a]
+            self._units.append((r, c[MODEL]))
+            self._first.setdefault((r, c[MODEL]), b)
+
+    # -- where a unit is ---------------------------------------------------
+
+    def coords(self, r: int, j: int = 0) -> tuple:
+        """Mesh coordinates of the position that computes unit ``(r, j)``."""
+        return self.mesh.coords(self._first[(r, j)])
+
+    def device(self, r: int, j: int = 0) -> torch.device:
+        return self.mesh.devices[self._first[(r, j)]]
+
+    def on(self, x: torch.Tensor, r: int, j: int = 0) -> torch.Tensor:
+        """``x`` on unit ``(r, j)``'s device (itself where it is there)."""
+        return x.to(self.device(r, j))
+
+    # -- blocks ------------------------------------------------------------
+
+    def parts(self, st: ShardedTensor, dim: int) -> int:
+        """How many blocks ``st`` has along ``dim`` over ``model``: ``m``
+        where its spec puts ``model`` there, else 1 (whole)."""
+        axes = _axes(st.spec[dim]) if dim < len(st.spec) else ()
+        if not axes:
+            return 1
+        if axes != (MODEL,):
+            raise NotImplementedError(f"dimension {dim} of a {st.shape} "
+                                      f"tensor is split over {axes}; the "
+                                      f"model split takes {MODEL!r} alone")
+        return self.m
+
+    def index(self, st: ShardedTensor, r: int, j: int) -> tuple:
+        """The slices of ``st``'s block at unit ``(r, j)``."""
+        return st.index(self.coords(r, j))
+
+    def block(self, st: ShardedTensor, r: int, j: int) -> torch.Tensor:
+        return st.block(self.coords(r, j))
+
+    def local(self, tree, r: int, j: int):
+        """Unit ``(r, j)``'s blocks of a tree of placed parameters, cast to
+        the compute dtype (the one-device path's ``layer.tree(cdt)``)."""
+        coords = self.coords(r, j)
+        return tree_map(lambda st: st.block(coords).to(self.dtype), tree)
+
+    def whole(self, st: ShardedTensor, r: int) -> torch.Tensor:
+        """A placed parameter gathered whole on row block ``r``'s device,
+        in the compute dtype (where it is one tensor there: itself)."""
+        dev = self.device(r)
+        try:
+            w = st.local()
+        except ValueError:
+            w = st.gather(dev)
+        return w.to(dev, self.dtype)
+
+    # -- rows --------------------------------------------------------------
+
+    def rows_of(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """``x`` (batch first) cut into the row blocks, each on its
+        block's device."""
+        n = self.rows
+        return [self.on(x[r * n:(r + 1) * n], r) for r in range(self.dp)]
+
+    def join(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The row blocks concatenated on the mesh's home device."""
+        if len(xs) == 1:
+            return xs[0].to(self.mesh.home)
+        return torch.cat([x.to(self.mesh.home) for x in xs], dim=0)
+
+    # -- collectives over model --------------------------------------------
+
+    def _reduce(self, reduce, parts) -> list:
+        if len(parts[0]) == 1:          # not split: nothing to reduce
+            return [p[0] for p in parts]
+        out = reduce([parts[r][j] for r, j in self._units], self.mesh, MODEL)
+        return [out[self._first[(r, 0)]] for r in range(self.dp)]
+
+    def psum(self, parts) -> list:
+        """``parts[r][j]``, unit ``(r, j)``'s partial, summed over ``model``
+        in ``j`` order: one value a row block, on its device.  A row of one
+        part (a product that is not split) is its own value, with no
+        reduction."""
+        return self._reduce(psum_axes, parts)
+
+    def pmax(self, parts) -> list:
+        """:meth:`psum` with the element-wise maximum."""
+        return self._reduce(pmax_axes, parts)
+
+    def gather(self, parts: Sequence[torch.Tensor], dim: int,
+               r: int) -> torch.Tensor:
+        """Row block ``r``'s blocks over ``model`` concatenated along
+        ``dim`` on its device (an all-gather)."""
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([self.on(p, r) for p in parts], dim=dim)
+
+    # -- products ----------------------------------------------------------
+
+    def mm_cols(self, params, r: int):
+        """``mm(x, name)``: ``x @ params[name]`` for row block ``r``, each
+        unit with its columns of the weight, gathered (column-parallel)."""
+        def mm(x, name):
+            w = params[name]
+            return self.gather(
+                [self.on(x, r, j) @ self.local(w, r, j)
+                 for j in range(self.parts(w, len(w.shape) - 1))], -1, r)
+        return mm
+
+    def mm_rows(self, x: torch.Tensor, w: ShardedTensor, r: int) -> list:
+        """The partials of ``x @ w`` for row block ``r``: unit ``j``'s
+        columns of ``x`` by its rows of ``w`` (row-parallel), to be summed
+        with :meth:`psum`."""
+        return [self.on(x[..., self.index(w, r, j)[0]], r, j)
+                @ self.local(w, r, j) for j in range(self.parts(w, 0))]
+
+    def softmax(self, scores) -> list:
+        """The softmax over the last axis of scores whose blocks along it
+        are ``scores[r][j]`` (GSPMD's softmax over an axis sharded on
+        ``model``): one max-reduction, ``exp(s − max)`` a block, a
+        sum-reduction of the denominators, each block divided by it."""
+        top = self.pmax([[s.amax(dim=-1, keepdim=True) for s in row]
+                         for row in scores])
+        ex = [[torch.exp(s - self.on(top[r], r, j)) for j, s in enumerate(row)]
+              for r, row in enumerate(scores)]
+        den = self.psum([[e.sum(dim=-1, keepdim=True) for e in row]
+                         for row in ex])
+        return [[e / self.on(den[r], r, j) for j, e in enumerate(row)]
+                for r, row in enumerate(ex)]
+
+    # -- decode caches (sequence over model) --------------------------------
+
+    def cache_zeros(self, name: str, shape, dtype) -> ShardedTensor:
+        """A zeroed cache leaf ``name`` (a field of ``KVCache`` /
+        ``MLACache``) placed by the rules' cache axes."""
+        return zeros(shape, dtype, self.mesh,
+                     self.rules.spec(_CACHE_AXES[name], shape))
+
+    def cache_block(self, st: ShardedTensor, r: int, j: int) -> torch.Tensor:
+        """Row block ``r``'s rows of the cache block at unit ``(r, j)``: a
+        view."""
+        blk = self.block(st, r, j)
+        axes = _axes(st.spec[0]) if st.spec else ()
+        if axes == self.batch_axes:
+            return blk
+        if axes:
+            raise ValueError(f"a cache's rows are split over {axes}, the "
+                             f"batch over {self.batch_axes}")
+        return blk[r * self.rows:(r + 1) * self.rows] if self.dp > 1 else blk
+
+    def seq_blocks(self, st: ShardedTensor, r: int) -> list:
+        """``(first position, block)`` of each of row block ``r``'s
+        sequence blocks of a cache leaf, in ``model`` order."""
+        n = self.parts(st, 1)
+        size = st.shape[1] // n
+        return [(j * size, self.cache_block(st, r, j)) for j in range(n)]
+
+    def write_seq(self, st: ShardedTensor, r: int, x: torch.Tensor,
+                  start: int) -> None:
+        """Write ``x`` (row block ``r``'s rows, positions ``start`` on)
+        into the sequence blocks that own those positions, in place."""
+        end = start + x.shape[1]
+        for off, blk in self.seq_blocks(st, r):
+            lo, hi = max(start, off), min(end, off + blk.shape[1])
+            if lo < hi:
+                blk[:, lo - off:hi - off].copy_(x[:, lo - start:hi - start])

@@ -747,9 +747,9 @@ def test_train_module_runs_on_the_production_mesh(tmp_path):
 
 
 def test_mesh_modules_import_no_jax():
-    """No module of ``repro_torch/{parallel,runtime}``, nor
-    ``core/mesh.py`` or ``launch/mesh.py``, imports ``jax`` or
-    ``repro``."""
+    """No module of ``repro_torch/{parallel,runtime}`` (the model axis's
+    split by hand, ``parallel/tensor.py``, included), nor ``core/mesh.py``
+    or ``launch/mesh.py``, imports ``jax`` or ``repro``."""
     import ast
     import pathlib
 
@@ -758,6 +758,7 @@ def test_mesh_modules_import_no_jax():
         f for d in ("parallel", "runtime") for f in sorted((root / d).glob(
             "*.py"))]
     assert root / "parallel" / "params.py" in files
+    assert root / "parallel" / "tensor.py" in files
     assert root / "runtime" / "elastic.py" in files
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
@@ -772,6 +773,7 @@ def test_mesh_modules_import_no_jax():
 
 
 @pytest.mark.parametrize("name", ["repro_torch.parallel.sharding",
+                                  "repro_torch.parallel.tensor",
                                   "repro_torch.core.mesh"])
 def test_module_doctests_run(name):
     import doctest
