@@ -302,6 +302,22 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          kind's first segment capped at two layers, float32
                          teacher-forced (prompt 64, 8 steps) within
                          ``LM_F32_REL``;
+10k'. ``lm_serve_mesh`` — the same model through ``serve(cfg, mesh)`` on
+                         2×2 and 1×4 meshes of the card with the model axis
+                         split by hand (``repro_torch.parallel.tensor``):
+                         prefill and 16 teacher-forced decode steps within
+                         ``LM_SERVE_MESH_BF16_REL`` of max|logit| of one
+                         device, the design's all-reduces a decode step,
+                         the card's float32 2×2 against the CPU's at
+                         ``smoke()`` within ``LM_SERVE_MESH_CARD_CPU_REL``;
+10k''. ``lm_serve_mesh_recurrent`` — rwkv6-7b (4 layers) and zamba2-2.7b
+                         (12 layers, two periods) at full width in bfloat16
+                         through ``serve(cfg, mesh)`` on 2×2 of the card
+                         (batch 8, prompt 512, 16 generated): the same
+                         checks as ``lm_serve_mesh`` (the all-reduces 1 a
+                         rwkv layer, 2 a mamba, 7 a mamba_shared, and 1 for
+                         the embedding), prefill and decode ms by CUDA
+                         events, idle share, launches a token, peak GB;
 10l. ``lm_train``     — LM training on the card
                          (``repro_torch.{optim,data}``,
                          ``launch/{steps,train}.py``, no kernel of
@@ -682,6 +698,40 @@ PREDICTED = {
     "lm_serve_mesh_vs_one_device_rel": [0.01, 0.04],
     "lm_serve_mesh_all_reduces_a_decode_step": 141,
     "lm_serve_mesh_card_vs_cpu_rel": [0.0, 1e-6],
+    # the recurrent mixers on 2×2 of the card, the model axis split by hand
+    # (written before its first run on a card; PERF.md §6): rwkv6-7b
+    # (its first 4 of 32 layers) and zamba2-2.7b (its first 12 of 54: two
+    # periods of 5 mamba + 1 mamba_shared) at full width in bfloat16, batch
+    # 8, prompt 512, 16 teacher-forced decode steps.  A rwkv layer issues
+    # about 125 kernels a row block on 2×2 (two head blocks of the time
+    # mix, two d blocks of the channel mix), a mamba layer about 115 and a
+    # mamba_shared one about 115 + 300 (lm_serve_mesh's attention layer):
+    # about 1000 and 3400 launches a token at lm_serve_mesh's 25-45 us a
+    # launch, host-
+    # bound against bytes bounds of 1.7 and 1.1 ms (each row block reads
+    # its units' weights); prefill 40-300 and 100-600 ms (the chunked
+    # scans' Python loops, 8 chunks of 64); the peak about twice the
+    # weights (2.8 and 1.8 GB: serve's drawn and placed copies); within
+    # 0.005-0.04 of max|logit| of one device (bfloat16 partials, as PR
+    # 34's); 1 + 4 = 5 and 1 + 10·2 + 2·7 = 35 all-reduces a decode step;
+    # the card's float32 2×2 at smoke() within 1e-6 of the CPU's; the
+    # phase 30-90 s
+    "lm_serve_mesh_recurrent_decode_ms_per_token": {
+        "rwkv6-7b": [20.0, 80.0], "zamba2-2.7b": [60.0, 250.0]},
+    "lm_serve_mesh_recurrent_decode_tok_per_s": {
+        "rwkv6-7b": [100.0, 400.0], "zamba2-2.7b": [32.0, 130.0]},
+    "lm_serve_mesh_recurrent_prefill_ms": {
+        "rwkv6-7b": [40.0, 300.0], "zamba2-2.7b": [100.0, 600.0]},
+    "lm_serve_mesh_recurrent_idle_share": [0.8, 0.97],
+    "lm_serve_mesh_recurrent_launches_a_token": {
+        "rwkv6-7b": [800, 2000], "zamba2-2.7b": [2500, 6000]},
+    "lm_serve_mesh_recurrent_peak_gb": {
+        "rwkv6-7b": [5.5, 7.5], "zamba2-2.7b": [3.5, 6.0]},
+    "lm_serve_mesh_recurrent_vs_one_device_rel": [0.005, 0.04],
+    "lm_serve_mesh_recurrent_all_reduces_a_decode_step": {
+        "rwkv6-7b": 5, "zamba2-2.7b": 35},
+    "lm_serve_mesh_recurrent_card_vs_cpu_rel": [0.0, 1e-6],
+    "lm_serve_mesh_recurrent_seconds": [30.0, 90.0],
     # K1's k = 1 padded row's library call: one F.conv3d of the padded
     # 514x514x128 float32 field, one channel, TF32 off (K6's F.pad +
     # F.conv3d took 6.3992 ms, K3's strided one 0.7586)
@@ -691,6 +741,12 @@ PREDICTED = {
     # (written before their first run on a card; PERF.md §6)
     "k1_conv3d_library_members_ms": [40.0, 56.0],
     "k1_conv3d_library_brick_ms": [1.2, 1.9],
+    # the overlap's interior at k = 1 (region mode, 510² cells of the
+    # 512×512×128 field): one F.conv3d of its 512×512×128 padded window,
+    # a strided view (about 0.99 of the padded field's 6.05-6.09 ms, plus
+    # the view's copy) (written before its first run on a card; PERF.md
+    # §6)
+    "overlap_k1_conv3d_library_region_ms": [5.5, 6.6],
     # LM training (written before its first run on a card; PERF.md §6):
     # qwen3-0.6b in bfloat16, remat "dots", 8 microbatches of 1 x 512,
     # eager PyTorch under deterministic algorithms.  A microbatch's forward
@@ -1526,6 +1582,38 @@ def k1_conv_library(kernel, padded, omega: float, coords=(0, 0),
     if err > ulps * ulp:
         raise AssertionError(f"F.conv3d vs K1 on the heat3d body: {err} > "
                              f"{ulps} float32 ulp of {ulp}")
+    return cuda_time_ms(lib, repeats=20), err, ulp
+
+
+def k1_region_conv_library(kernel, ins, out, omega: float):
+    """The library call beside K1's region-mode launch at k = 1 (the
+    overlap's interior): one ``F.conv3d`` of the region's padded window —
+    its ``rx × ry`` cells and one cell around them in the margin-mode
+    buffer, all z — with the 7-point weight (TF32 off).  Returns (ms, max
+    |diff| from K1's output ``out`` on the region's cells off the z ends,
+    one float32 ulp of its largest value); fails beyond ``LIBRARY_ULPS``
+    of them (another summation order of the seven terms)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    if kernel.k != 1 or kernel.halo != 1 or kernel.batch != 1:
+        raise ValueError("the region's library call is the k = 1, halo-1, "
+                         "single-member launch's")
+    rx, ry = kernel.span
+    lo = kernel.margin + kernel.origin          # the region's first cell
+    win = ins[0][lo - 1:lo + rx + 1, lo - 1:lo + ry + 1, :]
+    W = seven_point_weight(1.0 - 6.0 * omega, omega, win)
+
+    def lib():
+        return F.conv3d(win.reshape(1, 1, *win.shape), W)
+
+    got = lib()[0, 0]
+    want = out[0][lo:lo + rx, lo:lo + ry, 1:-1]
+    err = float((got.double() - want.double()).abs().max())
+    ulp = float(np.spacing(np.float32(want.abs().max().item())))
+    if err > LIBRARY_ULPS * ulp:
+        raise AssertionError(f"F.conv3d vs K1's region launch: {err} > "
+                             f"{LIBRARY_ULPS} float32 ulp of {ulp}")
     return cuda_time_ms(lib, repeats=20), err, ulp
 
 
@@ -3751,6 +3839,9 @@ def phase_overlap_make(steps: int, seed: int, heat):
         if k > 1:
             row["sweep_schedule_bound_ms"] = brick_bound_ms(
                 kern, cfg.dtype, schedule=True)[0]
+        else:
+            row["library_ms"], row["library_err"], row["library_ulp"] = \
+                k1_region_conv_library(kern, ins, out, cfg.omega)
         shells = []
         for sk, wins, coords in handles["shells"]:
             held = launch_fused(sk, wins, coords)
@@ -3798,6 +3889,8 @@ def phase_overlap_make(steps: int, seed: int, heat):
               "launches_by_tile": launches["region"], "err": err,
               "ms": one["ms"], "plain_ms": one["plain_ms"],
               "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
+              "library_ms": one["library_ms"],
+              "library_err": one["library_err"],
               "region": one["region"], "sweep_ms": auto["ms"],
               "sweep_schedule_bound_ms": auto["sweep_schedule_bound_ms"]}
     # the shells' row: the mean of the four k = 1 shells
@@ -5591,8 +5684,13 @@ def phase_lm_serve(seed: int):
             "peak_gb": peak_gb}
 
 
-#: lm_serve_mesh: the meshes of the card, (data, model)
+#: lm_serve_mesh: the meshes of the card, (data, model), and the tokens
+#: ``serve`` generates on each: the 1×4 run's cut to 16 (with the recurrent
+#: phase the whole smoke took 1039 s on one H100 80GB HBM3 at 700 W, over
+#: the 950 s at which ROADMAP.md cuts this first; the 2×2 run keeps
+#: ``LM_GEN``)
 LM_SERVE_MESHES = ((2, 2), (1, 4))
+LM_SERVE_MESH_GEN = {(2, 2): LM_GEN, (1, 4): 16}
 #: teacher-forced decode steps of its mesh-against-one-device check (timed
 #: with CUDA events), and decode steps of its profiled run
 LM_SERVE_MESH_FORCED, LM_SERVE_MESH_PROFILED = 16, 2
@@ -5692,7 +5790,8 @@ def phase_lm_serve_mesh(seed: int, one_device=None):
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
-        tokens, tok_per_s = serve(cfg, mesh, batch=B, prompt_len=S, gen=G,
+        gen = LM_SERVE_MESH_GEN[dims]
+        tokens, tok_per_s = serve(cfg, mesh, batch=B, prompt_len=S, gen=gen,
                                   seed=seed, device=DEV)
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
@@ -5726,7 +5825,7 @@ def phase_lm_serve_mesh(seed: int, one_device=None):
                 M.prefill(placed, prompts, cfg, s_max)
 
         prefill_profile = device_breakdown(prefill_run)
-        checks[f"{tag}_tokens_shape"] = tuple(tokens.shape) == (B, G)
+        checks[f"{tag}_tokens_shape"] = tuple(tokens.shape) == (B, gen)
         checks[f"{tag}_served_first_token"] = torch.equal(first,
                                                           tokens[:, :1])
         checks[f"{tag}_prefill_vs_one_device"] = \
@@ -5739,6 +5838,7 @@ def phase_lm_serve_mesh(seed: int, one_device=None):
         checks[f"{tag}_no_port_kernel_launched"] = not any(launches.values())
         meshes[tag] = {
             "seconds": time.perf_counter() - t_mesh, "serve_s": serve_s,
+            "serve_gen": gen,
             "serve_decode_tok_per_s": tok_per_s, "prefill_ms": prefill_ms,
             "prefill_tok_per_s": B * S / prefill_ms * 1e3,
             "decode_ms_per_token": decode_ms,
@@ -5784,9 +5884,174 @@ def phase_lm_serve_mesh(seed: int, one_device=None):
                      "all_reduces_a_decode_step": want_reduces},
           "checks": checks,
           "predicted": {k: PREDICTED[k] for k in PREDICTED
-                        if k == "card" or k.startswith("lm_serve_mesh")}})
+                        if k == "card" or (k.startswith("lm_serve_mesh") and
+                        not k.startswith("lm_serve_mesh_recurrent"))}})
     if failed:
         raise AssertionError(f"lm_serve_mesh: {failed} failed")
+
+
+#: lm_serve_mesh_recurrent: the recurrent archs at full width, their first
+#: layers (rwkv6-7b 4 of 32; zamba2-2.7b 12 of 54, two periods of 5 mamba +
+#: 1 mamba_shared), on the 2×2 (data, model) mesh of the card; the design's
+#: all-reduces a decode step a layer of each kind (and 1 for the embedding)
+LM_RECURRENT_LAYERS = {"rwkv6-7b": 4, "zamba2-2.7b": 12}
+LM_RECURRENT_MESH = (2, 2)
+LM_RECURRENT_REDUCES = {"rwkv": 1, "mamba": 2, "mamba_shared": 7}
+
+
+def lm_first_layers(cfg, n: int):
+    """``cfg`` at published width with its first ``n`` layers."""
+    import dataclasses
+
+    segs, left = [], n
+    for kind, count in cfg.segments:
+        if left == 0:
+            break
+        segs.append((kind, min(count, left)))
+        left -= segs[-1][1]
+    return dataclasses.replace(cfg, segments=tuple(segs), n_layers=n)
+
+
+def phase_lm_serve_mesh_recurrent(seed: int):
+    """The recurrent mixers on the 2×2 (data, model) mesh of the card with
+    the model axis split by hand (``repro_torch.models.{rwkv,ssm}``'s
+    ``*_split``): rwkv6-7b and zamba2-2.7b at full width, their first
+    layers (``LM_RECURRENT_LAYERS``), in bfloat16 through ``serve(cfg,
+    mesh)`` (batch 8, prompt 512, 16 generated), the prefill and 16
+    teacher-forced decode steps against the same weights unsplit on the
+    card, the all-reduces a decode step against the design's, and the
+    card's float32 2×2 against the CPU's at ``smoke()``."""
+    import torch
+
+    from repro_torch import compiler
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy, lm_params_to_numpy
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_mesh2d
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+    from repro_torch.parallel import rules_for, use_sharding
+    from repro_torch.parallel.tensor import place_params
+
+    t_phase = time.perf_counter()
+    B, S, n_forced = LM_BATCH, LM_PROMPT, LM_SERVE_MESH_FORCED
+    s_max = S + n_forced
+    built = (compiler.stats.kernels_built, len(build._LIBS))
+    tag = "x".join(map(str, LM_RECURRENT_MESH))
+    checks, archs = {}, {}
+    for arch, layers in LM_RECURRENT_LAYERS.items():
+        t_arch = time.perf_counter()
+        cfg = lm_first_layers(get_config(arch), layers)
+        want_reduces = 1 + sum(LM_RECURRENT_REDUCES[k] * c
+                               for k, c in cfg.segments)
+        params = M.init_params(cfg, seed=seed, device=DEV)  # serve's weights
+        gen_t = torch.Generator(device=DEV).manual_seed(seed + 1)
+        prompts = torch.randint(1, cfg.vocab_size, (B, S), generator=gen_t,
+                                device=DEV)
+        forced = torch.randint(1, cfg.vocab_size, (B, n_forced), device=DEV,
+                               generator=torch.Generator(
+                                   device=DEV).manual_seed(seed + 2))
+        want, _, cache = lm_mesh_forced(params, prompts, forced, cfg, s_max)
+        del cache
+        want = want.float()
+        scale = float(want.abs().max())
+        mesh = make_mesh2d(*LM_RECURRENT_MESH, device=DEV)
+        # --- the main path: serve on the mesh, counters 0 before, read after
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        tokens, tok_per_s = serve(cfg, mesh, batch=B, prompt_len=S,
+                                  gen=n_forced, seed=seed, device=DEV)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = read_counts()
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        # ------------------------------------------------------------------
+        rules = rules_for(cfg, mesh)
+        placed = place_params(params, rules, cfg)
+        got, reduces, cache, prefill_ms, decode_ms = lm_mesh_forced(
+            placed, prompts, forced, cfg, s_max, rules, timed=True)
+        first = torch.argmax(got[:, :1], dim=-1)
+        got = got.float()
+        err_prefill = float((got[:, :1] - want[:, :1]).abs().max()) / scale
+        err_decode = float((got[:, 1:] - want[:, 1:]).abs().max()) / scale
+
+        def decode_run(n):
+            tok = first
+            with torch.no_grad(), use_sharding(rules):
+                for i in range(S, S + n):
+                    lg, _ = M.decode_step(placed, cache, tok, i, cfg)
+                    tok = torch.argmax(lg, dim=-1)
+            return tok
+
+        profile = device_breakdown(lambda: decode_run(LM_SERVE_MESH_PROFILED))
+        checks[f"{arch}_tokens_shape"] = tuple(tokens.shape) == (B, n_forced)
+        checks[f"{arch}_served_first_token"] = torch.equal(first,
+                                                           tokens[:, :1])
+        checks[f"{arch}_prefill_vs_one_device"] = \
+            err_prefill <= LM_SERVE_MESH_BF16_REL
+        checks[f"{arch}_decode_vs_one_device"] = \
+            err_decode <= LM_SERVE_MESH_BF16_REL
+        checks[f"{arch}_finite"] = bool(torch.isfinite(got).all())
+        checks[f"{arch}_all_reduces_a_decode_step"] = \
+            reduces == [want_reduces] * n_forced
+        checks[f"{arch}_no_port_kernel_launched"] = not any(launches.values())
+        archs[arch] = {
+            "layers": cfg.n_layers, "segments": [list(s) for s in cfg.segments],
+            "weights_gb": lm_bytes(params) / 1e9,
+            "seconds": time.perf_counter() - t_arch, "serve_s": serve_s,
+            "serve_decode_tok_per_s": tok_per_s, "prefill_ms": prefill_ms,
+            "prefill_tok_per_s": B * S / prefill_ms * 1e3,
+            "decode_ms_per_token": decode_ms,
+            "decode_tok_per_s": B / decode_ms * 1e3,
+            "decode_idle_share_unprofiled":
+                profile["device_idle_share_unprofiled"],
+            "launches_a_token": profile["device_kernel_launches"]
+            / LM_SERVE_MESH_PROFILED,
+            "decode_profile": profile, "peak_gb": peak_gb,
+            "prefill_vs_one_device_rel": err_prefill,
+            "decode_vs_one_device_rel": err_decode,
+            "all_reduces_a_decode_step": reduces[0],
+            "design_all_reduces": want_reduces, "launches": launches}
+        del params, placed, cache, got, want
+        torch.cuda.empty_cache()
+
+        # the card's float32 2×2 against the CPU's at smoke(), same weights
+        small = get_config(arch).smoke()
+        p_cpu = M.init_params(small, seed=seed, device="cpu")
+        p_gpu = lm_params_from_numpy(lm_params_to_numpy(p_cpu), small, DEV)
+        toks = torch.randint(1, small.vocab_size, (4, 24),
+                             generator=torch.Generator().manual_seed(seed))
+        runs = {}
+        for dev, p in (("cpu", p_cpu), (DEV, p_gpu)):
+            r = rules_for(small, make_mesh2d(*LM_RECURRENT_MESH, device=dev))
+            t = toks.to(dev)
+            runs[dev] = lm_mesh_forced(place_params(p, r, small), t[:, :16],
+                                       t[:, 16:], small, 24, r)[0].cpu()
+        card_cpu = float((runs[DEV] - runs["cpu"]).abs().max()
+                         / runs["cpu"].abs().max())
+        archs[arch]["card_vs_cpu_f32_2x2_rel"] = card_cpu
+        checks[f"{arch}_card_vs_cpu_f32_2x2"] = \
+            card_cpu <= LM_SERVE_MESH_CARD_CPU_REL
+    checks["no_port_kernel_built"] = built == (
+        compiler.stats.kernels_built, len(build._LIBS))
+
+    failed = [k for k, ok in checks.items() if not ok]
+    emit({"phase": "lm_serve_mesh_recurrent", "card": card_line(),
+          "mesh": tag, "seconds": time.perf_counter() - t_phase,
+          "batch": B, "prompt_len": S, "gen": n_forced, "dtype": "bfloat16",
+          "archs": archs,
+          "bounds": {"mesh_vs_one_device": LM_SERVE_MESH_BF16_REL,
+                     "card_vs_cpu": LM_SERVE_MESH_CARD_CPU_REL},
+          "checks": checks,
+          "predicted": {k: PREDICTED[k] for k in PREDICTED
+                        if k == "card"
+                        or k.startswith("lm_serve_mesh_recurrent")}})
+    if failed:
+        raise AssertionError(f"lm_serve_mesh_recurrent: {failed} failed")
 
 
 #: the trained batch: 8 sequences of 512 tokens of ``TokenDataset``, 24
@@ -6870,6 +7135,7 @@ def main() -> int:
     phase_rows["cost_model"] = phase_cost_model(args.steps)
     one_device = phase_lm_serve(args.seed)
     phase_lm_serve_mesh(args.seed, one_device)
+    phase_lm_serve_mesh_recurrent(args.seed)
     phase_lm_train(args.seed)
     phase_lm_train_mesh(args.seed)
     phase_rows["dryrun"] = phase_dryrun(args.seed)
@@ -6930,7 +7196,7 @@ def main() -> int:
             # beside it), and the four shells' padded launches, launch-bound
             ("K1 fused_stencil, region mode (interior), k = 1, margin mode",
              "fused_stencil.cu", "src/repro/kernels/fused.py:245",
-             dict(region, library_ms=None)),
+             dict(region)),
             ("K1 fused_stencil, shell (padded, launch-bound), k = 1",
              "fused_stencil.cu", "src/repro/kernels/fused.py:245",
              dict(shell, library_ms=None)),
@@ -6977,7 +7243,8 @@ def main() -> int:
                              "sweep_schedule_bound_ms", "k1_ms",
                              "k1_plain_ms", "k1_bound_ms", "k1_err",
                              "single_ms", "launches_by_tile", "sweep_ms",
-                             "region", "extents", "launches_by_phase")
+                             "region", "extents", "launches_by_phase",
+                             "library_err")
            if k in r})
         for name, src, where, r in rows]})
     print(card_line(), flush=True)

@@ -3,12 +3,13 @@
 The port of ``repro/launch/serve.py``.  It serves random weights from
 ``seed`` and random prompts from ``seed + 1``, on the card unless
 ``device="cpu"``.  On a mesh whose ``model`` axis has more than one
-position it places the parameters by their specs and runs the model split
-(:mod:`repro_torch.parallel.tensor`: heads, ``mlp``, vocab and experts over
-``model``, the decode caches' sequence over ``model``, rows over the batch
-axes); every position must be on ``device``'s type, the first on
-``device``.  ``main`` builds the reference's mesh over the cards, 1×1 on
-one card::
+position it places the parameters by their specs and runs the model
+split (:mod:`repro_torch.parallel.tensor`: heads, ``mlp``, vocab and
+experts over ``model``, the attention caches' sequence over ``model``,
+the recurrent mixers' heads, ``conv_dim`` and ``ssm_inner`` over
+``model``, rows over the batch axes), for all ten archs; every position
+must be on ``device``'s type, the first on ``device``.  ``main`` builds
+the reference's mesh over the cards, 1×1 on one card::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --batch 8 --prompt-len 512 --gen 64
@@ -26,7 +27,6 @@ from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import make_mesh2d
 from repro_torch.models import model as M
-from repro_torch.models.transformer import check_split
 from repro_torch.parallel import rules_for, use_sharding
 from repro_torch.parallel.tensor import MODEL, place_params
 
@@ -53,8 +53,6 @@ def serve(cfg, mesh=None, *, batch: int, prompt_len: int, gen: int,
                          f"position is on it and every position on a "
                          f"{dev.type} device; got "
                          f"{[str(d) for d in mesh.devices]}")
-    if split:
-        check_split(cfg)
     params = M.init_params(cfg, seed=seed, device=dev)
     shape = ((batch, prompt_len) if cfg.n_codebooks == 1
              else (batch, prompt_len, cfg.n_codebooks))

@@ -32,7 +32,7 @@ Serving on a mesh: parameters placed by their specs
 (:func:`repro_torch.parallel.tensor.place_params`) make :func:`forward`,
 :func:`prefill` and :func:`decode_step` run the model split by hand under
 ``use_sharding(rules)`` (:func:`model_split`): GSPMD's split in the
-reference, for the attention kinds.
+reference, for every block kind.
 """
 from __future__ import annotations
 
@@ -334,14 +334,13 @@ def model_split(params, tokens, cfg) -> Optional[ModelSplit]:
     None for a :class:`ParamTree`, which runs as on one device (the train
     step's, under any rules).  Placed parameters
     (:func:`~repro_torch.parallel.tensor.place_params`) run under
-    ``use_sharding(rules)`` of their mesh, attention kinds only."""
+    ``use_sharding(rules)`` of their mesh."""
     if not isinstance(params, PlacedParams):
         return None
     rules = current_rules()
     if rules is None or rules.mesh is not params.mesh:
         raise ValueError("placed parameters run under use_sharding(rules) "
                          "of the mesh they are placed on")
-    tfm.check_split(cfg)
     return ModelSplit(rules, tokens.shape[0], _dtype(cfg.compute_dtype))
 
 
@@ -349,6 +348,13 @@ def _split_layers(params, cfg):
     for (kind, _), seg in zip(cfg.segments, params["segments"]):
         for layer in seg:
             yield kind, layer
+
+
+def _shared_split(params, cfg):
+    """The placed zamba2 shared block and its config, or None."""
+    if "shared" not in params:
+        return None
+    return params["shared"], tfm.shared_config(cfg)
 
 
 def _embed_split(split, params, tokens, cfg):
@@ -408,33 +414,37 @@ def _final(split, params, xs, cfg, last_only: bool):
 
 
 def _forward_split(split, params, tokens, cfg, last_only: bool):
-    xs = _embed_split(split, params, tokens, cfg)
+    xs = x_embed = _embed_split(split, params, tokens, cfg)
     pos = torch.arange(xs[0].shape[1], dtype=torch.int32, device=xs[0].device)
     aux_total = torch.zeros((), dtype=torch.float32, device=split.mesh.home)
+    shared = _shared_split(params, cfg)
     for kind, layer in _split_layers(params, cfg):
         xs, _, aux = tfm.block_prefill_split(kind, split, layer, xs, cfg, pos,
-                                             None)
+                                             None, shared, x_embed)
         if aux is not None:
             aux_total = aux_total + aux
     return _final(split, params, xs, cfg, last_only), aux_total
 
 
 def _prefill_split(split, params, tokens, cfg, s_max: int):
-    xs = _embed_split(split, params, tokens, cfg)
+    xs = x_embed = _embed_split(split, params, tokens, cfg)
     pos = torch.arange(xs[0].shape[1], dtype=torch.int32, device=xs[0].device)
+    shared = _shared_split(params, cfg)
     caches = []
     for kind, layer in _split_layers(params, cfg):
         xs, lc, _ = tfm.block_prefill_split(kind, split, layer, xs, cfg, pos,
-                                            s_max)
+                                            s_max, shared, x_embed)
         caches.append(lc)
     return _final(split, params, xs, cfg, True), _regroup(caches, cfg)
 
 
 def _decode_split(split, params, cache, tokens, pos: int, cfg):
-    xs = _embed_split(split, params, tokens, cfg)
+    xs = x_embed = _embed_split(split, params, tokens, cfg)
+    shared = _shared_split(params, cfg)
     flat = [c for seg in cache for c in seg]
     new = []
     for (kind, layer), lc in zip(_split_layers(params, cfg), flat):
-        xs, lc = tfm.block_decode_split(kind, split, layer, xs, lc, cfg, pos)
+        xs, lc = tfm.block_decode_split(kind, split, layer, xs, lc, cfg, pos,
+                                        shared, x_embed)
         new.append(lc)
     return _final(split, params, xs, cfg, False), _regroup(new, cfg)

@@ -10,6 +10,12 @@ is evaluated in chunks (GLA-style), in float32 with the reference's
 chunking and cumulative log-decays: within a chunk a decay-weighted
 lower-triangular attention; across chunks a loop carries the (H, K, V)
 state.
+
+The ``*_split`` functions run it over the model axis
+(:mod:`repro_torch.parallel.tensor`): heads over ``model`` in the time mix
+(a unit's columns of the projections, its heads' recurrence and group
+norm, its rows of ``wo``), ``d_ff`` and ``d`` column blocks in the channel
+mix, the WKV state held a unit's heads at a time.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch.nn.functional as F
 from repro_torch.models.layers import (dense_init, full, normal,
                                       rmsnorm_init, uniform)
 from repro_torch.parallel.sharding import pshard
+from repro_torch.parallel.tensor import MODEL
 
 
 def rwkv_init(gen, cfg, dtype):
@@ -126,12 +133,42 @@ class RWKVState(NamedTuple):
     wkv: torch.Tensor        # (B, H, K, V) fp32
 
 
-def _group_norm(y, params, b, s, d, n_heads):
-    """Per-head group norm ≈ rmsnorm over the head dim, float32."""
+def _group_norm(y, scale, n_heads):
+    """Per-head group norm ≈ rmsnorm over the head dim, float32.  y (B, S,
+    D') holds ``n_heads`` whole heads; ``scale`` their (D',) columns."""
+    b, s, d = y.shape
     yh = y.reshape(b, s, n_heads, d // n_heads)
     var = torch.mean(yh * yh, dim=-1, keepdim=True)
     yh = yh * torch.rsqrt(var + 1e-6)
-    return yh.reshape(b, s, d) * params["ln_x"]["scale"].float()
+    return yh.reshape(b, s, d) * scale.float()
+
+
+def wkv_end_state(k, v, logw, n_heads: int):
+    """The WKV state after a prompt from a zero state: k, v, logw (B, S,
+    D') of ``n_heads`` whole heads → (B, H', K, V) float32."""
+    b, s, d = k.shape
+    hk = d // n_heads
+    kk = k.float().reshape(b, s, n_heads, hk)
+    vv = v.float().reshape(b, s, n_heads, hk)
+    cl = torch.cumsum(logw.reshape(b, s, n_heads, hk), dim=1)
+    tail = torch.exp(cl[:, -1:, :, :] - cl)
+    return torch.einsum("bshk,bshv->bhkv", kk * tail, vv)
+
+
+def _wkv_step(r, k, v, w, u, wkv, n_heads: int):
+    """One token of the recurrence: r, k, v, w (B, 1, D') float32 of
+    ``n_heads`` whole heads, u (D',), the state (B, H', K, V) → (y (B, 1,
+    D'), the next state)."""
+    b, _, d = r.shape
+    hk = d // n_heads
+    rh = r.reshape(b, n_heads, hk)
+    kh = k.reshape(b, n_heads, hk)
+    vh = v.reshape(b, n_heads, hk)
+    wh = w.reshape(b, n_heads, hk)
+    uh = u.reshape(n_heads, hk)
+    kv = torch.einsum("bhk,bhv->bhkv", kh, vh)
+    y = torch.einsum("bhk,bhkv->bhv", rh, wkv + uh[None, ..., None] * kv)
+    return y.reshape(b, 1, d), wkv * wh[..., None] + kv
 
 
 def rwkv_time_mix(params, x, cfg, shift_state=None):
@@ -149,7 +186,7 @@ def rwkv_time_mix(params, x, cfg, shift_state=None):
     g = F.silu(pshard(xg @ params["wg"], "batch", "seq", "heads"))
     logw = pshard(_decay(params, xw), "batch", "seq", "heads")
     y = wkv_chunked(r, k, v, logw, params["u"], cfg.n_heads, cfg.rwkv_chunk)
-    y = _group_norm(y, params, b, s, d, cfg.n_heads)
+    y = _group_norm(y, params["ln_x"]["scale"], cfg.n_heads)
     return (y.to(x.dtype) * g) @ params["wo"], x[:, -1, :]
 
 
@@ -173,7 +210,6 @@ def rwkv_channel_mix(params, x, shift_state=None):
 
 def rwkv_time_mix_decode(params, x, state: RWKVState, cfg):
     """One token.  x (B, 1, D)."""
-    b, _, d = x.shape
     xx = state.tm_shift[:, None, :]
     xr, xk, xv, xw, xg = _ddlerp(params, x, xx)
     r = (xr @ params["wr"]).float()
@@ -181,16 +217,8 @@ def rwkv_time_mix_decode(params, x, state: RWKVState, cfg):
     v = (xv @ params["wv"]).float()
     g = F.silu(xg @ params["wg"])
     w = torch.exp(_decay(params, xw))                    # (B,1,D)
-    hk = d // cfg.n_heads
-    rh = r.reshape(b, cfg.n_heads, hk)
-    kh = k.reshape(b, cfg.n_heads, hk)
-    vh = v.reshape(b, cfg.n_heads, hk)
-    wh = w.reshape(b, cfg.n_heads, hk)
-    uh = params["u"].reshape(cfg.n_heads, hk)
-    kv = torch.einsum("bhk,bhv->bhkv", kh, vh)
-    y = torch.einsum("bhk,bhkv->bhv", rh, state.wkv + uh[None, ..., None] * kv)
-    S = state.wkv * wh[..., None] + kv
-    y = _group_norm(y, params, b, 1, d, cfg.n_heads)
+    y, S = _wkv_step(r, k, v, w, params["u"], state.wkv, cfg.n_heads)
+    y = _group_norm(y, params["ln_x"]["scale"], cfg.n_heads)
     out = (y.to(x.dtype) * g) @ params["wo"]
     return out, RWKVState(x[:, -1, :], state.cm_shift, S)
 
@@ -198,3 +226,145 @@ def rwkv_time_mix_decode(params, x, state: RWKVState, cfg):
 def rwkv_channel_mix_decode(params, x, state: RWKVState):
     y, last = rwkv_channel_mix(params, x, state.cm_shift)
     return y, RWKVState(state.tm_shift, last, state.wkv)
+
+
+# ---------------------------------------------------------------------------
+# the model split (repro_torch.parallel.tensor): lists a row block
+# ---------------------------------------------------------------------------
+
+_TM_COLS = ("wr", "wk", "wv", "wg")
+
+
+def _tm_blocks(split, params, n_heads: int) -> int:
+    """How many head blocks a row block's time mix runs in: ``m`` where
+    the rules put ``rwkv_heads`` on ``model`` and ``wr`` / ``wk`` / ``wv``
+    / ``wg`` (by columns) and ``wo`` (by rows) are split there, so that a
+    unit's columns are its whole heads; else 1, every head on unit
+    ``(r, 0)`` with the projections gathered."""
+    m = split.m
+    if (split.rules.mesh_axes("rwkv_heads", n_heads) == MODEL
+            and all(split.parts(params[w], 1) == m for w in _TM_COLS)
+            and split.parts(params["wo"], 0) == m):
+        return m
+    return 1
+
+
+def _tm_units(split, params, x, xx, r: int, n: int):
+    """Row block ``r``'s time-mix inputs, one entry a head block ``j`` of
+    ``n``: (r, k, v, g, log-decay, the block's columns, the unit's
+    parameters), each on unit ``(r, j)``.  The token shift and the LoRAs
+    run once on the replicated ``mu`` / ``ts_*`` / ``w_a``; a unit takes
+    its columns of ``w_b`` and ``w0``."""
+    p0 = split.local(params, r, 0)
+    xr, xk, xv, xw, xg = _ddlerp(p0, x, xx)
+    lora = torch.tanh(xw @ p0["w_a"])
+    out = []
+    for j in range(n):
+        if n == 1:
+            mm, cols, p = split.mm_cols(params, r), slice(None), p0
+        else:
+            p = split.local(params, r, j)
+            cols = split.index(params["wr"], r, j)[1]
+            mm = (lambda a, name, p=p, j=j: split.on(a, r, j) @ p[name])
+        lo = split.on(lora, r, j) @ p["w_b"][:, cols]
+        logw = -torch.exp(p["w0"][cols] + lo.float())
+        out.append((mm(xr, "wr"), mm(xk, "wk"), mm(xv, "wv"),
+                    F.silu(mm(xg, "wg")), logw, cols, p))
+    return out
+
+
+def _wo_parts(split, params, ys, r: int, n: int) -> list:
+    """Row block ``r``'s partials of ``wo``: each head block's output by
+    its unit's rows where the heads are split, else by ``wo``'s row
+    blocks (:meth:`~repro_torch.parallel.tensor.ModelSplit.mm_rows`)."""
+    if n == 1:
+        return split.mm_rows(ys[0], params["wo"], r)
+    return [y @ split.local(params["wo"], r, j) for j, y in enumerate(ys)]
+
+
+def rwkv_time_mix_split(split, params, hs, cfg, keep: bool = False):
+    """:func:`rwkv_time_mix` from a zero shift (a prompt) over the model
+    axis: each unit its heads' columns of ``wr`` / ``wk`` / ``wv`` / ``wg``
+    (:func:`_tm_blocks`), its heads' WKV and group norm (per head: no
+    reduction), its rows of ``wo``; the partials summed over ``model``,
+    one reduction.  ``hs`` and the outputs are lists a row block; with
+    ``keep`` also the end-of-prompt WKV state a row block, a list of the
+    head blocks' (B_r, H/n, K, V) (:func:`wkv_end_state`)."""
+    n = _tm_blocks(split, params, cfg.n_heads)
+    hn = cfg.n_heads // n
+    parts, states = [], []
+    for r, x in enumerate(hs):
+        xx = torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+        ys, st = [], []
+        for rr, k, v, g, logw, cols, p in _tm_units(split, params, x, xx, r,
+                                                    n):
+            y = wkv_chunked(rr, k, v, logw, p["u"][cols], hn, cfg.rwkv_chunk)
+            y = _group_norm(y, p["ln_x"]["scale"][cols], hn)
+            ys.append(y.to(x.dtype) * g)
+            if keep:
+                st.append(wkv_end_state(k, v, logw, hn))
+        parts.append(_wo_parts(split, params, ys, r, n))
+        states.append(st)
+    return split.psum(parts), states if keep else None
+
+
+def rwkv_time_mix_decode_split(split, params, hs, state: RWKVState, cfg):
+    """:func:`rwkv_time_mix_decode` over the model axis on the placed
+    state: each unit steps its heads' block of ``wkv`` in place
+    (:meth:`~repro_torch.parallel.tensor.ModelSplit.blocks_along`), and
+    ``tm_shift`` (replicated over ``model``) takes the token.  One
+    reduction (``wo``)."""
+    n = _tm_blocks(split, params, cfg.n_heads)
+    hn = cfg.n_heads // n
+    parts = []
+    for r, x in enumerate(hs):
+        shift = split.cache_block(state.tm_shift, r, 0)
+        blocks = split.blocks_along(state.wkv, r, 1, n)
+        ys = []
+        for j, (rr, k, v, g, logw, cols, p) in enumerate(
+                _tm_units(split, params, x, shift[:, None, :], r, n)):
+            y, S = _wkv_step(rr.float(), k.float(), v.float(), torch.exp(logw),
+                             p["u"][cols], split.on(blocks[j], r, j), hn)
+            blocks[j].copy_(S)
+            y = _group_norm(y, p["ln_x"]["scale"][cols], hn)
+            ys.append(y.to(x.dtype) * g)
+        shift.copy_(x[:, -1])
+        parts.append(_wo_parts(split, params, ys, r, n))
+    return split.psum(parts)
+
+
+def rwkv_channel_mix_split(split, params, hs, shifts=None):
+    """:func:`rwkv_channel_mix` over the model axis, by the reference's
+    specs: ``wk`` (d × d_ff) by columns, so each unit squares its
+    ``d_ff`` block and the blocks are gathered; ``wv`` (d_ff × d) matches
+    the name table's ``"wv"`` and is split over its *output* columns, as
+    ``wr`` is, so each unit takes the whole ``k`` and computes its ``d``
+    block of the output, and the blocks are gathered.  No reduction.
+    ``shifts``: the previous token a row block (a decode), else zeros."""
+    n = split.parts(params["wv"], 1)       # wr's too: both d, "heads_flat"
+    out = []
+    for r, x in enumerate(hs):
+        p0 = split.local(params, r, 0)
+        prev = (torch.zeros_like(x[:, :1]) if shifts is None
+                else shifts[r][:, None, :])
+        xx = torch.cat([prev, x[:, :-1]], dim=1)
+        xk = x + (xx - x) * p0["mu_k"]
+        xr = x + (xx - x) * p0["mu_r"]
+        k = torch.square(F.relu(split.mm_cols(params, r)(xk, "wk")))
+        out.append(split.gather([
+            torch.sigmoid(split.on(xr, r, j) @ split.local(params["wr"], r, j))
+            * (split.on(k, r, j) @ split.local(params["wv"], r, j))
+            for j in range(n)], -1, r))
+    return out
+
+
+def rwkv_channel_mix_decode_split(split, params, hs, state: RWKVState):
+    """:func:`rwkv_channel_mix_decode` over the model axis: the channel
+    mix from ``cm_shift`` (replicated over ``model``), which takes the
+    token in place."""
+    shifts = [split.cache_block(state.cm_shift, r, 0)
+              for r in range(len(hs))]
+    out = rwkv_channel_mix_split(split, params, hs, shifts)
+    for s, x in zip(shifts, hs):
+        s.copy_(x[:, -1])
+    return out

@@ -8,6 +8,12 @@ einsum; across chunks a loop carries the (H, N, P) state.  Decode carries
 
 Shapes: d_inner = expand·d_model, H = d_inner / headdim heads, state N,
 single B/C group (n_groups=1).
+
+``ssm_prefill_split`` / ``ssm_decode_split`` run the block over the model
+axis (:mod:`repro_torch.parallel.tensor`) by the reference's specs:
+``in_proj`` and the conv by ``conv_dim`` blocks, the SSD by head blocks,
+``out_proj`` by ``ssm_inner`` rows, with the gated RMSNorm's sum of squares
+reduced over ``model``.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import (dense_init, einsum, full, normal,
                                        rmsnorm, rmsnorm_init)
+from repro_torch.parallel.tensor import MODEL
 
 
 def ssm_init(gen, cfg, dtype):
@@ -134,18 +141,53 @@ def ssm_prefill(params, x, cfg):
     dtf = _softplus_dt(dt, params["dt_bias"])
     bsz, seq, _ = x.shape
     xh = xs.reshape(bsz, seq, s.n_heads, s.headdim)
-    y = ssd_chunked(xh, dtf, params["a_log"], B, C, chunk=s.chunk)
-    y = y + params["d_skip"][None, None, :, None] * xh.to(y.dtype)
+    y, S = _ssd_heads(xh, dtf, params["a_log"], params["d_skip"], B, C,
+                      s.chunk)
     out = _gate_out(params, y, z, x.dtype, (bsz, seq, s.d_inner))
+    return out, SSMState(_conv_tail(xbc, s.d_conv), S)
+
+
+def _ssd_heads(xh, dtf, a_log, d_skip, B, C, chunk: int):
+    """The SSD of whole heads over a prompt from a zero state, with the
+    skip: xh (B, S, H', P), dtf (B, S, H') post-softplus, the heads' a_log
+    and d_skip (H',), whole B / C (B, S, N) → (y (B, S, H', P), the end
+    state (B, H', N, P) float32)."""
+    y = ssd_chunked(xh, dtf, a_log, B, C, chunk=chunk)
+    y = y + d_skip[None, None, :, None] * xh.to(y.dtype)
     # final state: rerun decay accumulation over the whole sequence
-    A = -torch.exp(params["a_log"])
+    A = -torch.exp(a_log)
     cl = torch.cumsum(dtf * A, dim=1)                           # (B,S,H)
     tail = torch.exp(cl[:, -1:, :] - cl)
     xd = xh * dtf[..., None]
     S = einsum("bsh,bsn,bshp->bhnp", tail, B, xd.float())
-    # the last d_conv − 1 inputs, zeros before the first
-    conv_tail = F.pad(xbc, (0, 0, max(0, s.d_conv - 1 - seq), 0))
-    return out, SSMState(conv_tail[:, -(s.d_conv - 1):, :], S)
+    return y, S
+
+
+def _conv_tail(xbc, d_conv: int):
+    """The last d_conv − 1 inputs of the conv, zeros before the first."""
+    tail = F.pad(xbc, (0, 0, max(0, d_conv - 1 - xbc.shape[1]), 0))
+    return tail[:, -(d_conv - 1):, :]
+
+
+def _conv_step(conv, xbc, w, b):
+    """One token of the depthwise conv: the state (B, d_conv − 1, C'),
+    the token's xbc (B, C') and the channels' w (d_conv, C') / b (C') →
+    (its output, the state shifted by one position)."""
+    conv_hist = torch.cat([conv, xbc[:, None, :]], dim=1)
+    out = F.silu(torch.einsum("bkc,kc->bc", conv_hist, w) + b)
+    return out, conv_hist[:, 1:, :]
+
+
+def _ssd_step(xh, dt, a_log, d_skip, B, C, ssm, dtype):
+    """One token of the SSD for whole heads: xh (B, H', P), dt (B, H')
+    post-softplus, the heads' a_log / d_skip, whole B / C (B, N) and
+    state (B, H', N, P) → (y (B, H', P), the next state)."""
+    a = torch.exp(dt * -torch.exp(a_log))                        # (B,H)
+    xd = xh * dt[..., None]
+    S = (ssm * a[..., None, None]
+         + einsum("bn,bhp->bhnp", B, xd.float()))
+    y = torch.einsum("bn,bhnp->bhp", C, S.to(dtype))
+    return y + d_skip[None, :, None].to(dtype) * xh, S
 
 
 def ssm_decode(params, x, state: SSMState, cfg, pos):
@@ -153,21 +195,162 @@ def ssm_decode(params, x, state: SSMState, cfg, pos):
     s = cfg.ssm
     proj = x @ params["in_proj"]
     z, xbc, dt = _split_proj(proj[:, 0], cfg)            # (B, ·)
-    conv_hist = torch.cat([state.conv, xbc[:, None, :]], dim=1)
-    xbc_c = F.silu(torch.einsum("bkc,kc->bc", conv_hist, params["conv_w"])
-                   + params["conv_b"])
-    new_conv = conv_hist[:, 1:, :]
-
+    xbc_c, new_conv = _conv_step(state.conv, xbc, params["conv_w"],
+                                 params["conv_b"])
     xs = xbc_c[..., :s.d_inner]
     B = xbc_c[..., s.d_inner:s.d_inner + s.d_state]
     C = xbc_c[..., s.d_inner + s.d_state:]
     dt = _softplus_dt(dt, params["dt_bias"])                     # (B,H)
-    a = torch.exp(dt * -torch.exp(params["a_log"]))              # (B,H)
     xh = xs.reshape(-1, s.n_heads, s.headdim)
-    xd = xh * dt[..., None]
-    S = (state.ssm * a[..., None, None]
-         + einsum("bn,bhp->bhnp", B, xd.float()))
-    y = torch.einsum("bn,bhnp->bhp", C, S.to(x.dtype))
-    y = y + params["d_skip"][None, :, None].to(x.dtype) * xh
+    y, S = _ssd_step(xh, dt, params["a_log"], params["d_skip"], B, C,
+                     state.ssm, x.dtype)
     out = _gate_out(params, y, z[:, None, :], x.dtype, (-1, 1, s.d_inner))
     return out, SSMState(new_conv, S)
+
+
+# ---------------------------------------------------------------------------
+# the model split (repro_torch.parallel.tensor): lists a row block
+# ---------------------------------------------------------------------------
+
+def _ssd_blocks(split, cfg) -> int:
+    """How many head blocks the SSD runs in a row block: ``m`` where the
+    rules put ``ssm_heads`` on ``model`` (the ``ssm`` state's placement),
+    else 1 (every head on unit ``(r, 0)``)."""
+    h = cfg.ssm.n_heads
+    return split.m if split.rules.mesh_axes("ssm_heads", h) == MODEL else 1
+
+
+def _conv_blocks(split, params, r: int) -> list:
+    """Row block ``r``'s ``conv_dim`` column slices of ``conv_w``'s blocks
+    (one, whole, where ``conv_dim`` does not divide ``model``)."""
+    return [split.index(params["conv_w"], r, j)[1]
+            for j in range(split.parts(params["conv_w"], 1))]
+
+
+def _gate_out_split(split, params, ys, zs, dtype):
+    """:func:`_gate_out` over ``out_proj``'s row blocks (``ssm_inner`` on
+    ``model``): ``ys[r]`` the SSD's output in blocks of ``d_inner`` (the
+    head blocks, re-cut where they are not ``out_proj``'s), ``zs[r]`` the
+    whole gate.  Each unit gates its ``d_inner`` block; the gated RMSNorm
+    over all of ``d_inner`` sums the units' float32 sums of squares over
+    ``model`` (one reduction, in float32); each unit scales its block by
+    its slice of ``norm.scale`` and multiplies it by its rows of
+    ``out_proj``, whose partials are summed (a second)."""
+    w = params["out_proj"]
+    n, di = split.parts(w, 0), w.shape[0]
+    gated = []
+    for r, (parts, z) in enumerate(zip(ys, zs)):
+        rows = [split.index(w, r, j)[0] for j in range(n)]
+        if len(parts) != n:
+            y = split.gather(parts, -1, r)
+            parts = [y[..., sl] for sl in rows]
+        gated.append([split.on(y, r, j).to(dtype)
+                      * F.silu(split.on(z[..., sl], r, j))
+                      for j, (y, sl) in enumerate(zip(parts, rows))])
+    ssq = split.psum([[torch.sum(torch.square(g.float()), dim=-1,
+                                 keepdim=True) for g in row]
+                      for row in gated])
+    parts = []
+    for r, row in enumerate(gated):
+        out = []
+        for j, g in enumerate(row):
+            p = split.local(params, r, j)
+            scale = p["norm"]["scale"][split.index(w, r, j)[0]]
+            inv = torch.rsqrt(split.on(ssq[r], r, j) / di + 1e-6)
+            out.append((g.float() * inv * scale.float()).to(dtype)
+                       @ p["out_proj"])
+        parts.append(out)
+    return split.psum(parts)
+
+
+def ssm_prefill_split(split, params, hs, cfg, keep: bool = False):
+    """:func:`ssm_prefill` over the model axis, by the reference's specs,
+    which do not follow the heads: ``in_proj`` column-parallel (its
+    ``[z | x | B | C | dt]`` columns cut contiguously), gathered; the
+    depthwise conv a ``conv_dim`` block a unit (per channel: local),
+    gathered; the SSD a head block a unit (:func:`_ssd_blocks`) with its
+    slices of ``dt_bias`` / ``a_log`` / ``d_skip`` and whole ``B`` / ``C``
+    (one group); then :func:`_gate_out_split`: two reductions.  ``hs`` and
+    the outputs are lists a row block; with ``keep`` also the states a
+    row block: (the conv tails a ``conv_dim`` block, the SSD end states
+    a head block)."""
+    s = cfg.ssm
+    nh = _ssd_blocks(split, cfg)
+    hn = s.n_heads // nh
+    ys, zs, states = [], [], []
+    for r, x in enumerate(hs):
+        bsz, seq, _ = x.shape
+        z, xbc, dt = _split_proj(split.mm_cols(params, r)(x, "in_proj"), cfg)
+        cols = _conv_blocks(split, params, r)
+        convs = []
+        for j, sl in enumerate(cols):
+            p = split.local(params, r, j)
+            convs.append(_causal_conv(split.on(xbc[..., sl], r, j),
+                                      p["conv_w"], p["conv_b"]))
+        xbc_c = split.gather(convs, -1, r)
+        xh = xbc_c[..., :s.d_inner].reshape(bsz, seq, s.n_heads, s.headdim)
+        B = xbc_c[..., s.d_inner:s.d_inner + s.d_state]
+        C = xbc_c[..., s.d_inner + s.d_state:]
+        row_y, row_s = [], []
+        for j in range(nh):
+            p = split.local(params, r, j)
+            heads = slice(j * hn, (j + 1) * hn)
+            dtf = _softplus_dt(split.on(dt[..., heads], r, j),
+                               p["dt_bias"][heads])
+            y, S = _ssd_heads(split.on(xh[:, :, heads], r, j), dtf,
+                              p["a_log"][heads], p["d_skip"][heads],
+                              split.on(B, r, j), split.on(C, r, j), s.chunk)
+            row_y.append(y.reshape(bsz, seq, hn * s.headdim))
+            row_s.append(S)
+        ys.append(row_y)
+        zs.append(z)
+        if keep:
+            states.append(([_conv_tail(split.on(xbc[..., sl], r, j),
+                                       s.d_conv)
+                            for j, sl in enumerate(cols)], row_s))
+    out = _gate_out_split(split, params, ys, zs, hs[0].dtype)
+    return out, states if keep else None
+
+
+def ssm_decode_split(split, params, hs, state: SSMState, cfg):
+    """:func:`ssm_decode` over the model axis on the placed state, written
+    in place: each unit shifts its ``conv_dim`` block of ``conv`` by one
+    position and steps its head block of ``ssm``
+    (:meth:`~repro_torch.parallel.tensor.ModelSplit.blocks_along`); the
+    products and reductions as :func:`ssm_prefill_split`'s."""
+    s = cfg.ssm
+    nh = _ssd_blocks(split, cfg)
+    hn = s.n_heads // nh
+    ys, zs = [], []
+    for r, x in enumerate(hs):
+        proj = split.mm_cols(params, r)(x, "in_proj")
+        z, xbc, dt = _split_proj(proj[:, 0], cfg)
+        cols = _conv_blocks(split, params, r)
+        convs = []
+        for j, (sl, blk) in enumerate(zip(
+                cols, split.blocks_along(state.conv, r, 2, len(cols)))):
+            p = split.local(params, r, j)
+            out, shifted = _conv_step(split.on(blk, r, j),
+                                      split.on(xbc[:, sl], r, j),
+                                      p["conv_w"], p["conv_b"])
+            blk.copy_(shifted)
+            convs.append(out)
+        xbc_c = split.gather(convs, -1, r)
+        xh = xbc_c[..., :s.d_inner].reshape(-1, s.n_heads, s.headdim)
+        B = xbc_c[..., s.d_inner:s.d_inner + s.d_state]
+        C = xbc_c[..., s.d_inner + s.d_state:]
+        row = []
+        for j, blk in enumerate(split.blocks_along(state.ssm, r, 1, nh)):
+            p = split.local(params, r, j)
+            heads = slice(j * hn, (j + 1) * hn)
+            y, S = _ssd_step(split.on(xh[:, heads], r, j),
+                             _softplus_dt(split.on(dt[:, heads], r, j),
+                                          p["dt_bias"][heads]),
+                             p["a_log"][heads], p["d_skip"][heads],
+                             split.on(B, r, j), split.on(C, r, j),
+                             split.on(blk, r, j), x.dtype)
+            blk.copy_(S)
+            row.append(y.reshape(-1, 1, hn * s.headdim))
+        ys.append(row)
+        zs.append(z[:, None, :])
+    return _gate_out_split(split, params, ys, zs, hs[0].dtype)

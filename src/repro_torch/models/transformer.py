@@ -7,9 +7,8 @@ The port of ``repro/models/transformer.py`` (with ``_block_prefill`` of
 followed by the globally-shared attention+MLP block applied to
 ``concat(x, x_embed)``; its parameters live once at model level and come
 in as ``shared = (params, config)``.  ``block_prefill_split`` /
-``block_decode_split`` run the attention kinds over the model axis
-(:mod:`repro_torch.parallel.tensor`); :func:`check_split` refuses the
-recurrent ones there.
+``block_decode_split`` run every kind over the model axis
+(:mod:`repro_torch.parallel.tensor`).
 """
 from __future__ import annotations
 
@@ -162,22 +161,9 @@ def block_prefill(kind: str, params, x, cfg, pos, s_max, shared=None,
 # the model split (repro_torch.parallel.tensor): lists a row block
 # ---------------------------------------------------------------------------
 
-def check_split(cfg) -> None:
-    """Raise ``NotImplementedError`` where ``cfg`` has a block kind that the
-    model split does not run: the recurrent mixers, whose split needs a
-    reduction inside a norm, are not ported to it yet."""
-    for kind, _ in cfg.segments:
-        if kind not in ATTN_KINDS:
-            raise NotImplementedError(
-                f"block kind {kind!r} of {cfg.name} has no split over the "
-                f"'model' axis yet (ROADMAP.md, queue 1: the recurrent "
-                f"mixers on model); run it on a mesh whose model axis is 1")
-
-
 def _ffn_split(kind, split, params, xs, cfg):
     """:func:`_ffn` over the model axis: (xs, aux)."""
-    hs = [rmsnorm(split.local(params["ln2"], r, 0), x)
-          for r, x in enumerate(xs)]
+    hs = _norm_split(split, params["ln2"], xs)
     aux = None
     if kind.endswith("moe"):
         hs, aux = moe_mod.moe_apply_split(split, params["moe"], hs, cfg)
@@ -186,13 +172,21 @@ def _ffn_split(kind, split, params, xs, cfg):
     return [x + h for x, h in zip(xs, hs)], aux
 
 
-def block_prefill_split(kind: str, split, params, xs, cfg, pos, s_max):
-    """:func:`block_prefill` over the model axis for the attention kinds:
-    (xs, cache, aux), the norms once a row block on the replicated
-    activations; with ``s_max`` the cache's leaves are placed sequence-
-    sharded (:func:`_place_kv`)."""
-    hs = [rmsnorm(split.local(params["ln1"], r, 0), x)
-          for r, x in enumerate(xs)]
+def block_prefill_split(kind: str, split, params, xs, cfg, pos, s_max,
+                        shared=None, x_embed=None):
+    """:func:`block_prefill` over the model axis: (xs, cache, aux), the
+    norms once a row block on the replicated activations; ``shared`` the
+    placed shared block and its config, ``x_embed`` the embedded tokens a
+    row block (``mamba_shared``).  With ``s_max`` the attention caches'
+    leaves are placed sequence-sharded (:func:`_place_kv`), the recurrent
+    states by their heads or channels (:func:`_place_state`)."""
+    keep = s_max is not None
+    if kind == "rwkv":
+        return _rwkv_prefill_split(split, params, xs, cfg, keep) + (None,)
+    if kind in SSM_KINDS:
+        return _ssm_prefill_split(kind, split, params, xs, cfg, pos, s_max,
+                                  shared, x_embed) + (None,)
+    hs = _norm_split(split, params["ln1"], xs)
     if kind.startswith("mla"):
         hs, *kv = mla_mod.mla_prefill_split(split, params["attn"], hs, cfg,
                                             pos)
@@ -201,12 +195,70 @@ def block_prefill_split(kind: str, split, params, xs, cfg, pos, s_max):
         hs, *kv = attn.attn_prefill_split(split, params["attn"], hs, cfg, pos)
         cache_type = attn.KVCache
     cache = None
-    if s_max is not None:
+    if keep:
         cache = cache_type(*(_place_kv(split, name, rows, s_max) for name, rows
                              in zip(cache_type._fields, kv)))
     xs, aux = _ffn_split(kind, split, params, [x + h for x, h in zip(xs, hs)],
                          cfg)
     return xs, cache, aux
+
+
+def _norm_split(split, params, xs):
+    """``rmsnorm`` of the replicated activations, once a row block."""
+    return [rmsnorm(split.local(params, r, 0), x) for r, x in enumerate(xs)]
+
+
+def _rwkv_prefill_split(split, params, xs, cfg, keep: bool):
+    hs = _norm_split(split, params["ln1"], xs)
+    out, wkv = rwkv_mod.rwkv_time_mix_split(split, params["tm"], hs, cfg,
+                                            keep)
+    xs = [x + h for x, h in zip(xs, out)]
+    h2s = _norm_split(split, params["ln2"], xs)
+    out = rwkv_mod.rwkv_channel_mix_split(split, params["cm"], h2s)
+    cache = None
+    if keep:
+        cache = rwkv_mod.RWKVState(
+            _place_state(split, "tm_shift", [[h[:, -1]] for h in hs], 1),
+            _place_state(split, "cm_shift", [[h[:, -1]] for h in h2s], 1),
+            _place_state(split, "wkv", wkv, 1))
+    return [x + h for x, h in zip(xs, out)], cache
+
+
+def _ssm_prefill_split(kind, split, params, xs, cfg, pos, s_max, shared,
+                       x_embed):
+    keep = s_max is not None
+    ys, states = ssm_mod.ssm_prefill_split(
+        split, params["ssm"], _norm_split(split, params["ln1"], xs), cfg,
+        keep)
+    xs = [x + y for x, y in zip(xs, ys)]
+    st = None
+    if keep:
+        st = ssm_mod.SSMState(
+            _place_state(split, "conv", [c for c, _ in states], 2),
+            _place_state(split, "ssm", [s for _, s in states], 1))
+    if kind == "mamba":
+        return xs, st
+    sp, acfg = shared
+    xcs = [torch.cat([x, e], dim=-1) for x, e in zip(xs, x_embed)]
+    hs, ks, vs = attn.attn_prefill_split(
+        split, sp["attn"], _norm_split(split, sp["ln1"], xcs), acfg, pos)
+    xs = _shared_mlp_split(split, sp, xs, [xc + h for xc, h in zip(xcs, hs)])
+    cache = None
+    if keep:
+        cache = {"ssm": st, "shared_kv": attn.KVCache(
+            _place_kv(split, "k", ks, s_max),
+            _place_kv(split, "v", vs, s_max))}
+    return xs, cache
+
+
+def _shared_mlp_split(split, sp, xs, xcs):
+    """:func:`_shared_mlp` over the model axis: the MLP split by ``mlp``
+    (one reduction); ``out`` (``(None, "embed")``) is replicated, so each
+    row block applies it whole."""
+    hs = mlp_apply_split(split, sp["mlp"], _norm_split(split, sp["ln2"], xcs),
+                         "silu")
+    return [x + (xc + h) @ split.local(sp["out"], r, 0)
+            for r, (x, xc, h) in enumerate(zip(xs, xcs, hs))]
 
 
 def _place_kv(split, name: str, rows, s_max: int):
@@ -221,11 +273,54 @@ def _place_kv(split, name: str, rows, s_max: int):
     return st
 
 
-def block_decode_split(kind: str, split, params, xs, cache, cfg, pos: int):
-    """:func:`block_decode` over the model axis for the attention kinds, on
-    the placed, sequence-sharded cache (written in place): (xs, cache)."""
-    hs = [rmsnorm(split.local(params["ln1"], r, 0), x)
-          for r, x in enumerate(xs)]
+def _place_state(split, name: str, rows, dim: int):
+    """A recurrent state leaf ``name`` placed by the rules' cache axes:
+    ``rows[r]`` is row block ``r``'s value as equal blocks along ``dim``
+    (a unit's heads or channels; one block where it is whole), each
+    written into the placed blocks that hold it
+    (:meth:`~repro_torch.parallel.tensor.ModelSplit.blocks_along`)."""
+    first = rows[0]
+    shape = list(first[0].shape)
+    shape[0] = split.dp * split.rows
+    shape[dim] *= len(first)
+    st = split.cache_zeros(name, tuple(shape), first[0].dtype)
+    for r, parts in enumerate(rows):
+        for blk, p in zip(split.blocks_along(st, r, dim, len(parts)), parts):
+            blk.copy_(p)
+    return st
+
+
+def block_decode_split(kind: str, split, params, xs, cache, cfg, pos: int,
+                       shared=None, x_embed=None):
+    """:func:`block_decode` over the model axis on the placed cache
+    (written in place): (xs, cache).  The attention caches are
+    sequence-sharded; rwkv's and mamba's states are held by heads and
+    channels (:mod:`repro_torch.models.rwkv`, :mod:`repro_torch.models.
+    ssm`)."""
+    if kind == "rwkv":
+        hs = _norm_split(split, params["ln1"], xs)
+        out = rwkv_mod.rwkv_time_mix_decode_split(split, params["tm"], hs,
+                                                  cache, cfg)
+        xs = [x + h for x, h in zip(xs, out)]
+        out = rwkv_mod.rwkv_channel_mix_decode_split(
+            split, params["cm"], _norm_split(split, params["ln2"], xs), cache)
+        return [x + h for x, h in zip(xs, out)], cache
+    if kind in SSM_KINDS:
+        st = cache["ssm"] if kind == "mamba_shared" else cache
+        ys = ssm_mod.ssm_decode_split(
+            split, params["ssm"], _norm_split(split, params["ln1"], xs), st,
+            cfg)
+        xs = [x + y for x, y in zip(xs, ys)]
+        if kind == "mamba":
+            return xs, cache
+        sp, acfg = shared
+        xcs = [torch.cat([x, e], dim=-1) for x, e in zip(xs, x_embed)]
+        hs, _ = attn.attn_decode_split(
+            split, sp["attn"], _norm_split(split, sp["ln1"], xcs),
+            cache["shared_kv"], acfg, pos)
+        return _shared_mlp_split(split, sp, xs, [xc + h for xc, h
+                                                 in zip(xcs, hs)]), cache
+    hs = _norm_split(split, params["ln1"], xs)
     decode = (mla_mod.mla_decode_split if kind.startswith("mla")
               else attn.attn_decode_split)
     hs, cache = decode(split, params["attn"], hs, cache, cfg, pos)
@@ -236,18 +331,10 @@ def block_decode_split(kind: str, split, params, xs, cache, cfg, pos: int):
 
 def rwkv_final_state(params, h, cfg):
     """End-of-prompt WKV state via a cheap rescan (B,H,K,V)."""
-    b, s, d = h.shape
     xx = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
     _, xk, xv, xw, _ = rwkv_mod._ddlerp(params, h, xx)
-    k = (xk @ params["wk"]).float()
-    v = (xv @ params["wv"]).float()
-    logw = rwkv_mod._decay(params, xw)
-    hk = d // cfg.n_heads
-    kk = k.reshape(b, s, cfg.n_heads, hk)
-    vv = v.reshape(b, s, cfg.n_heads, hk)
-    cl = torch.cumsum(logw.reshape(b, s, cfg.n_heads, hk), dim=1)
-    tail = torch.exp(cl[:, -1:, :, :] - cl)
-    return torch.einsum("bshk,bshv->bhkv", kk * tail, vv)
+    return rwkv_mod.wkv_end_state(xk @ params["wk"], xv @ params["wv"],
+                                  rwkv_mod._decay(params, xw), cfg.n_heads)
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,13 @@ are a :class:`PlacedParams` (:func:`place_params`), with one
   reduce the units' partials over ``model`` through
   :func:`~repro_torch.core.mesh.psum_axes` / ``pmax_axes``: one counted
   ``all-reduce`` each, the parts combined in ``model`` order.  Where it
-  all-gathers, :meth:`ModelSplit.gather` concatenates the blocks.
+  all-gathers, :meth:`ModelSplit.gather` concatenates the blocks;
+* a recurrent state (``rwkv_heads``, ``ssm_heads`` or ``conv_dim`` over
+  ``model``) is read and written in place a unit's block at a time
+  (:meth:`ModelSplit.blocks_along`); a replicated parameter that a unit
+  uses in part (``w0``, ``u``, ``ln_x``; ``a_log``, ``dt_bias``,
+  ``d_skip``, the gated norm's ``scale``) is sliced by the block index of
+  the weight that splits its axis (:meth:`ModelSplit.index`).
 
 Where every position is on one device (one card, or the CPU) a placed
 tensor is one tensor and its blocks are views, so the split holds the
@@ -285,6 +291,27 @@ class ModelSplit:
         n = self.parts(st, 1)
         size = st.shape[1] // n
         return [(j * size, self.cache_block(st, r, j)) for j in range(n)]
+
+    # -- recurrent states (heads or channels over model) --------------------
+
+    def blocks_along(self, st: ShardedTensor, r: int, dim: int,
+                     n: int) -> list:
+        """Row block ``r``'s value of a state leaf cut into ``n`` equal
+        blocks along ``dim``, in ``model`` order, to be read and written in
+        place: the leaf's own blocks where its spec splits ``dim`` ``n``
+        ways over ``model`` (the units' ``rwkv_heads``, ``ssm_heads`` or
+        ``conv_dim`` blocks), else slices of its block at ``j = 0`` where
+        ``dim`` is whole (a unit computing heads that the leaf holds
+        replicated, as ``smoke()``'s two SSM heads on 1×4)."""
+        k = self.parts(st, dim)
+        if k == n:
+            return [self.cache_block(st, r, j) for j in range(n)]
+        if k != 1:
+            raise ValueError(f"a {st.shape} leaf in {k} blocks along "
+                             f"{dim} read as {n}")
+        whole = self.cache_block(st, r, 0)
+        size = whole.shape[dim] // n
+        return [whole.narrow(dim, j * size, size) for j in range(n)]
 
     def write_seq(self, st: ShardedTensor, r: int, x: torch.Tensor,
                   start: int) -> None:

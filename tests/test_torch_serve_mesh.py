@@ -2,27 +2,32 @@
 (``repro_torch.parallel.tensor`` and the models' split path) against the
 JAX reference's GSPMD run on 4 host devices, on the CPU.
 
-The reference side runs once, in one subprocess with 4 fake devices
-(``REF_SCRIPT``): for each (arch, mesh) of :data:`CASES` at ``smoke()``,
-``PRNGKey(1)`` weights placed by ``param_specs_for``, the forward, the
-prefill of the first ``S0`` tokens and the teacher-forced decode of the
-rest under ``use_sharding(rules_for(cfg, mesh))``.  The port runs the same
-weights (``convert.lm_params_from_numpy``) placed on a CPU mesh of the same
-shape.  Bounds:
+The reference side runs once, in three concurrent subprocesses with 4 fake
+devices each (``REF_SCRIPT``): for each (arch, mesh) of :data:`CASES` at
+``smoke()``, ``PRNGKey(1)`` weights placed by ``param_specs_for``, the
+forward, the prefill of the first ``S0`` tokens and the teacher-forced
+decode of the rest under ``use_sharding(rules_for(cfg, mesh))``.  The port
+runs the same weights (``convert.lm_params_from_numpy``) placed on a CPU
+mesh of the same shape.  Bounds:
 
 * logits (forward, prefill, every decode step) within ``REL·max|logit|``
-  of the reference's and every cache leaf, block by block of its
-  sequence-sharded placement, within ``REL·max|leaf|``: the single-device
+  of the reference's and every cache leaf, block by block of its placement
+  (the attention caches' sequence, rwkv's heads, mamba's ``conv_dim`` and
+  heads over ``model``), within ``REL·max|leaf|``: the single-device
   parity bound of ``tests/test_torch_models.py`` (float32; the libraries
   sum products, and the split sums partials, in other orders);
 * the port's split against its own one-device path within the same bound;
-* the vocab-sharded embedding lookup, and ``serve`` on a 1×1 mesh,
-  bitwise the one-device ones (one non-zero term a token; the same path);
+* the vocab-sharded embedding lookup, and ``serve`` on a 1×1 mesh (and
+  the recurrent archs' on 2×1), bitwise the one-device ones (one non-zero
+  term a token; the same path);
 * the number of ``all-reduce`` s one decode step counts, equal to the
-  design's: one for the embedding, four a layer for the attention
-  (max, denominator, context, ``wo``) and one for its MLP (mixtral: the
-  experts' ``expert_mlp`` partials; deepseek-v2: the shared experts — its
-  routed experts are gathered, not summed).
+  design's (:data:`DECODE_REDUCES`): one for the embedding, then a layer
+  five for the attention kinds (max, denominator, context, ``wo``; one for
+  the MLP — mixtral: the experts' ``expert_mlp`` partials; deepseek-v2: the
+  shared experts, its routed experts gathered, not summed), one for rwkv
+  (``wo``; the channel mix gathers), two for mamba (the gated norm's sum of
+  squares, ``out_proj``) and seven for mamba_shared (mamba's two and the
+  shared block's five).
 """
 import dataclasses
 import json
@@ -46,7 +51,10 @@ from repro_torch.launch.serve import serve
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import attention as port_attn
 from repro_torch.models import model as M
-from repro_torch.parallel import ShardedTensor, rules_for, use_sharding
+from repro_torch.models import ssm as port_ssm
+from repro_torch.optim.tree import leaves, tree_map
+from repro_torch.parallel import (ShardedTensor, cache_specs_for, rules_for,
+                                  use_sharding)
 from repro_torch.parallel.tensor import (ModelSplit, PlacedParams,
                                          place_params)
 
@@ -57,12 +65,18 @@ SPLIT_ARCHS = ["qwen3-0.6b", "glm4-9b", "starcoder2-3b", "chameleon-34b",
                "musicgen-medium", "mixtral-8x7b", "deepseek-v2-236b",
                "minicpm3-4b"]
 RECURRENT_ARCHS = ["rwkv6-7b", "zamba2-2.7b"]
-#: every split arch on 2×2; on 1×4 the non-aligned kv split (qwen3-0.6b,
-#: glm4-9b: 2 kv heads at smoke()), the window of 8 (mixtral-8x7b) and two
-#: of 8 experts a position (deepseek-v2-236b)
-CASES = [(a, (2, 2)) for a in SPLIT_ARCHS] + [
+#: every arch on 2×2; on 1×4 the non-aligned kv split (qwen3-0.6b,
+#: glm4-9b: 2 kv heads at smoke()), the window of 8 (mixtral-8x7b), two
+#: of 8 experts a position (deepseek-v2-236b), one rwkv head a position and
+#: zamba2's replicated leaves (``in_proj``'s 290 columns, its 2 SSM heads)
+#: beside split ones (40 ``conv_dim`` channels, 32 ``out_proj`` rows)
+CASES = [(a, (2, 2)) for a in SPLIT_ARCHS + RECURRENT_ARCHS] + [
     (a, (1, 4)) for a in ("qwen3-0.6b", "glm4-9b", "mixtral-8x7b",
-                          "deepseek-v2-236b")]
+                          "deepseek-v2-236b", *RECURRENT_ARCHS)]
+#: the design's all-reduces a decode step, a layer of each kind (and one
+#: for the embedding)
+DECODE_REDUCES = {"attn": 5, "attn_moe": 5, "mla": 5, "mla_moe": 5,
+                  "rwkv": 1, "mamba": 2, "mamba_shared": 7}
 IDS = [f"{a}-{d}x{m}" for a, (d, m) in CASES]
 
 REF_SCRIPT = r"""
@@ -131,20 +145,46 @@ def _close(got, want, rel, what=""):
     assert err <= rel * scale, f"{what}: {err} > {rel}·{scale}"
 
 
+def _ref_groups():
+    """:data:`CASES` in three groups of about the same reference time, one
+    process each, run at once: the attention archs, and the recurrent
+    archs by mesh (zamba2's 27 ``smoke()`` layers compile for about 25 s a
+    mesh on a CPU)."""
+    groups = {}
+    for arch, dims in CASES:
+        key = dims if arch in RECURRENT_ARCHS else "attention"
+        groups.setdefault(key, []).append((arch, dims))
+    return list(groups.values())
+
+
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
-    """The reference's GSPMD results for every case, from one 4-device
-    process."""
-    path = str(tmp_path_factory.mktemp("serve_mesh") / "ref.npz")
+    """The reference's GSPMD results for every case, from 4-device
+    processes (:func:`_ref_groups`)."""
+    tmp = tmp_path_factory.mktemp("serve_mesh")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    run = subprocess.run(
-        [sys.executable, "-c", REF_SCRIPT, path,
-         json.dumps([CASES, (B, S, S0, S_MAX)])],
-        capture_output=True, text=True, env=env, timeout=900)
-    assert run.returncode == 0, run.stderr[-4000:]
-    return dict(np.load(path))
+    runs = []
+    try:
+        for i, cases in enumerate(_ref_groups()):
+            path = str(tmp / f"ref{i}.npz")
+            runs.append((path, subprocess.Popen(
+                [sys.executable, "-c", REF_SCRIPT, path,
+                 json.dumps([cases, (B, S, S0, S_MAX)])],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=env)))
+        out = {}
+        for path, run in runs:
+            _, err = run.communicate(timeout=900)
+            assert run.returncode == 0, err[-4000:]
+            out.update(np.load(path))
+        return out
+    finally:
+        for _, run in runs:
+            if run.poll() is None:
+                run.kill()
+                run.wait()
 
 
 _PARAMS = {}
@@ -173,8 +213,7 @@ def _run(params, cfg, tokens, rules=None):
     with torch.no_grad(), use_sharding(rules):
         out["logits"], out["aux"] = M.forward(params, tokens, cfg)
         out["prefill"], cache = M.prefill(params, tokens[:, :S0], cfg, S_MAX)
-        out["prefill_cache"] = [[type(c)(*(_snap(x) for x in c)) for c in seg]
-                                for seg in cache]
+        out["prefill_cache"] = tree_map(_snap, cache)
         out["decode"], out["reduces"] = [], []
         for t in range(S0, S):
             mesh_mod.reset_collectives()
@@ -210,15 +249,30 @@ def _case(ref, arch, dims):
     return _RUNS[(arch, dims)]
 
 
-def _blocks_close(port_cache, ref, key, rel, what):
-    """Each placed cache leaf, block by block of its placement, against
-    the reference's global (layer-stacked) leaf."""
-    for si, seg in enumerate(port_cache):
-        for li, layer in enumerate(seg):
-            for field in layer._fields:
-                st = getattr(layer, field)
-                want = ref[f"{key}[{si}].{field}"][li]
-                assert st.spec[1] == "model", (what, field, st.spec)
+def _cache_leaves(tree, path=""):
+    """``(key, leaf)`` of one layer's cache, the key as JAX's ``keystr``
+    spells the path below a segment (``.k``, ``['ssm'].conv``)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _cache_leaves(v, f"{path}['{k}']")
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for f, v in zip(tree._fields, tree):
+            yield from _cache_leaves(v, f"{path}.{f}")
+    else:
+        yield path, tree
+
+
+def _blocks_close(port_cache, ref, key, rel, what, cfg, rules):
+    """Each placed cache leaf, on the spec ``cache_specs_for`` gives it,
+    block by block of its placement, against the reference's global
+    (layer-stacked) leaf."""
+    specs = cache_specs_for(cfg, port_cache, rules)
+    for si, (seg, seg_specs) in enumerate(zip(port_cache, specs)):
+        for li, (layer, layer_specs) in enumerate(zip(seg, seg_specs)):
+            for (path, st), (_, spec) in zip(_cache_leaves(layer),
+                                             _cache_leaves(layer_specs)):
+                want = ref[f"{key}[{si}]{path}"][li]
+                assert st.spec == spec, (what, path, st.spec, spec)
                 scale = float(np.abs(want).max()) or 1.0
                 for b in range(st.mesh.size):
                     coords = st.mesh.coords(b)
@@ -226,7 +280,7 @@ def _blocks_close(port_cache, ref, key, rel, what):
                     blk = want[st.sharding.index(coords, st.shape)]
                     err = float(np.abs(got - blk).max())
                     assert err <= rel * scale, \
-                        f"{what} [{si}][{li}].{field} @ {coords}: {err}"
+                        f"{what} [{si}][{li}]{path} @ {coords}: {err}"
 
 
 # ---------------------------------------------------------------------------
@@ -247,22 +301,23 @@ def test_forward_matches_reference(ref, arch, dims):
 def test_prefill_matches_reference(ref, arch, dims):
     """The split prefill's last-token logits and its sequence-sharded
     caches, block by block, against GSPMD's."""
-    _, _, split, _ = _case(ref, arch, dims)
+    cfg, rules, split, _ = _case(ref, arch, dims)
     key = f"{arch}|{dims[0]}x{dims[1]}|"
     _close(split["prefill"], ref[key + "prefill"], REL, "prefill")
     _blocks_close(split["prefill_cache"], ref, key + "prefill_cache", REL,
-                  "prefill cache")
+                  "prefill cache", cfg, rules)
 
 
 @pytest.mark.parametrize("arch,dims", CASES, ids=IDS)
 def test_decode_matches_reference(ref, arch, dims):
     """Every teacher-forced decode step's logits and the final caches,
     block by block, against GSPMD's."""
-    _, _, split, _ = _case(ref, arch, dims)
+    cfg, rules, split, _ = _case(ref, arch, dims)
     key = f"{arch}|{dims[0]}x{dims[1]}|"
     for t, lg in zip(range(S0, S), split["decode"]):
         _close(lg, ref[key + f"decode{t}"], REL, f"decode {t}")
-    _blocks_close(split["cache"], ref, key + "cache", REL, "decode cache")
+    _blocks_close(split["cache"], ref, key + "cache", REL, "decode cache",
+                  cfg, rules)
 
 
 @pytest.mark.parametrize("arch,dims", CASES, ids=IDS)
@@ -274,20 +329,18 @@ def test_split_matches_one_device(ref, arch, dims):
         _close(split[name], one[name].numpy(), REL, name)
     for got, want in zip(split["decode"], one["decode"]):
         _close(got, want.numpy(), REL, "decode")
-    for s_seg, o_seg in zip(split["cache"], one["cache"]):
-        for s_layer, o_layer in zip(s_seg, o_seg):
-            for st, t in zip(s_layer, o_layer):
-                _close(st.gather(), t.numpy(), REL, "cache")
+    for st, t in zip(leaves(split["cache"]), leaves(one["cache"])):
+        _close(st.gather(), t.numpy(), REL, "cache")
 
 
 @pytest.mark.parametrize("arch,dims", CASES, ids=IDS)
 def test_decode_all_reduce_count(ref, arch, dims):
-    """One decode step counts the design's ``all-reduce`` s: the
-    embedding's sum, then a layer four for the attention (max, denominator,
-    context, ``wo``) and one for its MLP or experts; the one-device path
-    counts none."""
+    """One decode step counts the design's ``all-reduce`` s
+    (:data:`DECODE_REDUCES`): the embedding's sum, then a layer five for
+    the attention kinds, one for rwkv, two for mamba, seven for
+    mamba_shared; the one-device path counts none."""
     cfg, _, split, one = _case(ref, arch, dims)
-    want = 1 + 5 * sum(c for _, c in cfg.segments)
+    want = 1 + sum(DECODE_REDUCES[k] * c for k, c in cfg.segments)
     assert split["reduces"] == [want] * (S - S0)
     assert one["reduces"] == [0] * (S - S0)
 
@@ -313,7 +366,8 @@ def test_embedding_lookup_is_bitwise(ref, arch, dims):
     assert torch.equal(got, M._embed(params, tokens, cfg))
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "deepseek-v2-236b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "deepseek-v2-236b",
+                                  *RECURRENT_ARCHS])
 def test_serve_on_a_1x1_mesh_is_bitwise(arch):
     """``serve(cfg, make_mesh2d(1, 1))`` is ``serve(cfg)`` bit for bit; on
     2×2 the split serves the same greedy tokens."""
@@ -335,20 +389,11 @@ def test_serve_refuses_a_mesh_off_its_device():
 
 
 @pytest.mark.parametrize("arch", RECURRENT_ARCHS)
-def test_recurrent_kinds_raise_at_model_above_one(arch):
-    """rwkv / mamba / mamba_shared have no split yet: ``serve`` and the
-    model functions on placed parameters raise ``NotImplementedError``
-    naming the kind and the queue; a model axis of 1 serves as today."""
+def test_recurrent_serve_on_a_2x1_mesh_is_bitwise(arch):
+    """A model axis of 1 splits nothing: ``serve`` on a (2, 1) mesh is
+    ``serve`` on one device bit for bit for the recurrent archs."""
     cfg = port_configs.get_config(arch).smoke()
     kw = dict(batch=2, prompt_len=4, gen=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):
-        serve(cfg, make_mesh2d(1, 2, device="cpu"), **kw)
-    params = M.init_params(cfg, seed=0, device="cpu")
-    rules = rules_for(cfg, make_mesh2d(2, 2, device="cpu"))
-    placed = place_params(params, rules, cfg)
-    with use_sharding(rules), pytest.raises(NotImplementedError,
-                                            match="mamba|rwkv"):
-        M.forward(placed, _tokens(cfg, b=2, s=4), cfg)
     want, _ = serve(cfg, **kw)
     got, _ = serve(cfg, make_mesh2d(2, 1, device="cpu"), **kw)
     assert torch.equal(got, want)
@@ -445,6 +490,37 @@ def test_placed_init_cache_decodes_as_one_device(ref):
                "prefill step")
 
 
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_placed_recurrent_init_cache_decodes_as_one_device(ref, arch):
+    """``init_cache(..., rules=)`` places zero recurrent states by heads
+    and channels (``wkv`` over ``rwkv_heads``, ``conv`` over
+    ``conv_dim``, ``ssm`` over ``ssm_heads``); the split decodes from them
+    as the one-device path does from its own."""
+    cfg = port_configs.get_config(arch).smoke()
+    params = _params(ref, arch)
+    rules = rules_for(cfg, make_mesh2d(2, 2, device="cpu"))
+    placed = place_params(params, rules, cfg)
+    cache = M.init_cache(cfg, B, S_MAX, device="cpu", rules=rules)
+    st = cache[0][0]
+    if arch == "rwkv6-7b":
+        assert st.wkv.spec == ("data", "model", None, None)
+        assert st.tm_shift.spec == ("data", None)
+    else:
+        assert st.conv.spec == ("data", None, "model")
+        assert st.ssm.spec == ("data", "model", None, None)
+    one = M.init_cache(cfg, B, S_MAX, device="cpu")
+    tokens = _tokens(cfg)
+    step = make_decode_step(cfg)
+    with torch.no_grad():
+        for t in range(4):
+            with use_sharding(rules):
+                got, cache = step(placed, cache, tokens[:, t:t + 1], t)
+            want, one = step(params, one, tokens[:, t:t + 1], t)
+            _close(got, want.numpy(), REL, f"decode {t}")
+    for g, w in zip(leaves(cache), leaves(one)):
+        _close(g.gather(), w.numpy(), REL, "cache")
+
+
 def test_softmax_over_blocks_past_pos_adds_zero():
     """A block wholly masked (``NEG_INF``) gets probability exactly 0 and no
     NaN; the blocks' softmax is the softmax of the concatenated scores."""
@@ -475,3 +551,78 @@ def test_pmax_axes_is_an_all_reduce():
     assert torch.equal(out[0], torch.tensor([3.0, 5.0])) and out[0] is out[1]
     assert torch.equal(out[2], torch.tensor([0.0, 4.0]))
     assert torch.equal(parts[0], torch.tensor([1.0, 5.0]))
+
+
+def _zamba_layer(dims, dtype):
+    """zamba2's first mamba layer at ``smoke()`` in ``dtype``: its
+    parameters (one device, cast as the model casts them), the same placed
+    on a CPU mesh of ``dims``, the config and the rules."""
+    name = str(dtype).removeprefix("torch.")
+    cfg = port_configs.get_config("zamba2-2.7b").smoke(param_dtype=name,
+                                                       compute_dtype=name)
+    params = M.init_params(cfg, seed=3, device="cpu")
+    rules = rules_for(cfg, make_mesh2d(*dims, device="cpu"))
+    placed = place_params(params, rules, cfg)
+    return (params["segments"][0][0]["ssm"].tree(dtype),
+            placed["segments"][0][0]["ssm"], cfg, rules)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims", [(2, 2), (1, 4)])
+def test_gated_norm_sums_squares_over_model_in_float32(dims, dtype):
+    """The gated RMSNorm over ``d_inner`` split by ``out_proj``'s rows: the
+    first reduction sums the units' float32 sums of squares (never cast to
+    the compute dtype), equal to one device's float32 sum within float32
+    rounding (positive terms: ``d_inner``·2⁻²⁴ relative); in float32 the
+    block's output is one device's within ``REL``."""
+    one, placed, cfg, rules = _zamba_layer(dims, dtype)
+    di = cfg.ssm.d_inner
+    assert placed["out_proj"].spec[0] == "model"
+    g = torch.Generator().manual_seed(4)
+    y = torch.randn(4, 5, di, generator=g)              # the SSD's, float32
+    z = torch.randn(4, 5, di, generator=g).to(dtype)
+    split = ModelSplit(rules, 4, dtype)
+    seen = []
+    psum = split.psum
+    split.psum = lambda parts: seen.append(parts) or psum(parts)
+    got = split.join(port_ssm._gate_out_split(
+        split, placed, [[b] for b in split.rows_of(y)], split.rows_of(z),
+        dtype))
+    assert all(p.dtype == torch.float32 for row in seen[0] for p in row)
+    assert all(len(row) == split.m for row in seen[0])
+    ssq = split.join(psum(seen[0]))
+    gated = (y.to(dtype) * torch.nn.functional.silu(z)).float()
+    want = torch.sum(gated * gated, dim=-1, keepdim=True)
+    torch.testing.assert_close(ssq, want, rtol=di * 2.0 ** -24, atol=0)
+    if dtype == torch.float32:
+        _close(got, port_ssm._gate_out(one, y, z, dtype, y.shape).numpy(),
+               REL, "gated norm and out_proj")
+
+
+@pytest.mark.parametrize("dims", [(2, 2), (1, 4)])
+def test_conv_state_shifts_in_place_by_blocks(dims):
+    """Decode steps shift the placed ``conv`` state by one position inside
+    each ``conv_dim`` block, in place (the blocks keep their storage): after
+    six steps the state, and each step's output, is one device's within
+    ``REL``; the SSD state too."""
+    one, placed, cfg, rules = _zamba_layer(dims, torch.float32)
+    s = cfg.ssm
+    split = ModelSplit(rules, B, torch.float32)
+    state = port_ssm.SSMState(
+        split.cache_zeros("conv", (B, s.d_conv - 1, s.d_inner + 2 * s.d_state),
+                          torch.float32),
+        split.cache_zeros("ssm", (B, s.n_heads, s.d_state, s.headdim),
+                          torch.float32))
+    assert state.conv.spec[2] == "model"
+    storage = [blk.data_ptr() for blk in state.conv.blocks()]
+    ref_state = port_ssm.SSMState(state.conv.gather(), state.ssm.gather())
+    g = torch.Generator().manual_seed(6)
+    for t in range(6):
+        x = torch.randn(B, 1, cfg.d_model, generator=g)
+        got = split.join(port_ssm.ssm_decode_split(
+            split, placed, split.rows_of(x), state, cfg))
+        want, ref_state = port_ssm.ssm_decode(one, x, ref_state, cfg, t)
+        _close(got, want.numpy(), REL, f"step {t}")
+    assert [blk.data_ptr() for blk in state.conv.blocks()] == storage
+    _close(state.conv.gather(), ref_state.conv.numpy(), REL, "conv state")
+    _close(state.ssm.gather(), ref_state.ssm.numpy(), REL, "ssm state")
