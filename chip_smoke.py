@@ -367,7 +367,40 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          float32 2×2 against 1×1 within ``lm_train``'s
                          card-against-CPU bounds;
                          ``psum_compressed`` on the card bitwise its CPU
-                         run; no kernel of ``kernels/`` launched or built;
+                         run; no kernel of ``kernels/`` launched or built.
+                         The parameters stay a replicated ``ParamTree``
+                         (``build`` now places them on this mesh);
+10m'. ``lm_train_split`` — LM training on a 2×2 (data, model) mesh of the
+                         card with the ``model`` axis split by hand
+                         (placed parameters through ``launch/train.py::
+                         build``, ``launch/steps.py``'s placed step,
+                         ``models/model.py::value_and_grad`` over
+                         ``parallel/tensor.py``'s split; no kernel of
+                         ``kernels/``), under deterministic algorithms:
+                         qwen3-0.6b at full width, its first
+                         ``LM_SPLIT_LAYERS`` (4) of 28 layers, bfloat16,
+                         ``"dots"``, 8 microbatches, 16 × 512 rows: every
+                         loss and gradient norm finite; the first step
+                         against the same weights' 1×1 step on the same
+                         batch within ``LM_SPLIT_BF16_REL``, and each
+                         leaf's first moment after it (the gradients,
+                         leaf by leaf) within ``LM_SPLIT_GRAD_REL``; the
+                         all-reduces of a step equal to the
+                         design's
+                         (``lm_split_design_reduces``); after step 2
+                         ``remesh`` of the placed {params, opt} onto 1×2
+                         (bitwise, placed again) and the next step there at
+                         ``shrink_plan``'s 16 microbatches bitwise the 2×2
+                         run's own step 3; step ms (CUDA events, median of
+                         steps 1-2 after the warm-up step 0), tokens/s, the
+                         idle share of an unprofiled step (step 3 profiled,
+                         the card's kernels only), launches a step, peak GB
+                         beside the 1×1 step's; at ``smoke()`` in float32
+                         the card's 2×2 split step against the CPU's
+                         (loss and gradient norm within ``LM_TRAIN_LOSS_REL``,
+                         updates within 2·lr) and a checkpoint save and
+                         restore of its placed state, bitwise; no kernel of
+                         ``kernels/`` launched or built;
 10n. ``dryrun``        — the dry-run analysis (``launch/{specs,roofline,
                          heat_cell,dryrun}.py``): qwen3-0.6b's three cells
                          through ``run_cell`` on the 16×16 and 2×16×16
@@ -797,6 +830,40 @@ PREDICTED = {
     "lm_mesh_remesh_s": [4.0, 10.0],
     "lm_mesh_smoke_f32_rel": [0.0, 1e-6],
     "lm_mesh_psum_compressed": "bitwise",
+    # LM training with the model axis split on 2×2 (written before its first
+    # run on a card; PERF.md §6): qwen3-0.6b's first 4 layers, 16 passes of
+    # 1 × 512 a step; lm_train_mesh's 14.5 s for 28 replicated layers is
+    # about 0.5 s a layer-step of host-paced launches, and the split runs
+    # each layer as two units (1.9-2.7× the launches in serving), so 3-10
+    # s a step and 4-12 × 10^4 launches, the card idle 80-97 % of it; the
+    # 2×2 peak 3.5-7 GB (one set of float32 accumulators; 1-row passes)
+    # beside the 1×1 step's 4-9 GB (2-row passes); 545 all-reduces a step
+    # (16 passes × (2 + 4 × 8) + 1); the bfloat16 loss within 1e-3 and the
+    # gradient norm within 1e-2 of the 1×1 step's (bounds 5e-3 / 5e-2);
+    # the remeshed step and the checkpoint bitwise; float32 card against
+    # CPU within 1e-6; the phase within 60 s
+    "lm_split_step_ms": [3000.0, 10000.0],
+    "lm_split_tok_per_s": [820.0, 2730.0],
+    "lm_split_idle_share": [0.8, 0.97],
+    "lm_split_launches_a_step": [40000, 120000],
+    "lm_split_peak_gb": [3.5, 7.0],
+    "lm_split_one_device_peak_gb": [4.0, 9.0],
+    "lm_split_all_reduces_a_step": 545,
+    "lm_split_bf16_loss_rel": [0.0, 1e-3],
+    "lm_split_bf16_grad_norm_rel": [0.0, 1e-2],
+    # each leaf's first moment against the 1×1 step's, over its max (added
+    # with LM_SPLIT_GRAD_REL, written before its first card run): one or
+    # two bfloat16 ulps (2^-8) of the largest gradients, partly averaged
+    # over the 8 microbatches
+    "lm_split_grad_rel_max": [2e-3, 2e-2],
+    # the same leaves' ||Δm|| / ||m||, added after that run read 7.6e-3 to
+    # 2.73e-2 of max|m| (written before its first card run): noise that
+    # the norm averages, a few bfloat16 ulps of the typical element
+    "lm_split_grad_l2_max": [2e-3, 3e-2],
+    "lm_split_after_remesh": "bitwise",
+    "lm_split_checkpoint": "bitwise",
+    "lm_split_smoke_f32_rel": [0.0, 1e-6],
+    "lm_split_phase_s": [25.0, 60.0],
     # the dry-run phase (written before its first card run; PERF.md §6):
     # qwen3-0.6b's six records counted in 10-30 s of host time (12 s on
     # an 8-core CPU host without a card), nothing allocated on the card; the
@@ -5687,10 +5754,10 @@ def phase_lm_serve(seed: int):
 #: lm_serve_mesh: the meshes of the card, (data, model), and the tokens
 #: ``serve`` generates on each: the 1×4 run's cut to 16 (with the recurrent
 #: phase the whole smoke took 1039 s on one H100 80GB HBM3 at 700 W, over
-#: the 950 s at which ROADMAP.md cuts this first; the 2×2 run keeps
-#: ``LM_GEN``)
+#: the 950 s at which ROADMAP.md cuts this first), and the 2×2 run's too,
+#: to make room for ``lm_train_split`` (918 s before it)
 LM_SERVE_MESHES = ((2, 2), (1, 4))
-LM_SERVE_MESH_GEN = {(2, 2): LM_GEN, (1, 4): 16}
+LM_SERVE_MESH_GEN = {(2, 2): 16, (1, 4): 16}
 #: teacher-forced decode steps of its mesh-against-one-device check (timed
 #: with CUDA events), and decode steps of its profiled run
 LM_SERVE_MESH_FORCED, LM_SERVE_MESH_PROFILED = 16, 2
@@ -6541,6 +6608,21 @@ def _bits(t):
                                 4: torch.int32, 8: torch.int64}[size])
 
 
+def replicated_build(cfg, mesh, seed: int):
+    """``launch/train.py::build``'s four values with the parameters left
+    a ``ParamTree``, replicated over ``model``: the data-parallel step
+    that ``lm_train_mesh`` measures (``build`` places the parameters where
+    the rules split a leaf over ``model``, as on 2×2)."""
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import model as M
+    from repro_torch.parallel import rules_for
+
+    params = M.init_params(cfg, seed=seed, device=mesh.home)
+    return (params, steps_mod.make_opt_state(params),
+            steps_mod.make_train_step(cfg, **LM_TRAIN_KW),
+            rules_for(cfg, mesh))
+
+
 def lm_mesh_smoke_step(seed: int) -> dict:
     """One step at ``smoke()`` in float32 (TF32 off) with 2 microbatches,
     8 × 32, the same weights and batch, on 1×1 and on a 2×2 mesh of the
@@ -6550,7 +6632,6 @@ def lm_mesh_smoke_step(seed: int) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.data import TokenDataset, shard_batch
-    from repro_torch.launch import train as train_mod
     from repro_torch.launch.mesh import make_mesh2d
     from repro_torch.parallel import use_sharding
 
@@ -6559,8 +6640,7 @@ def lm_mesh_smoke_step(seed: int) -> dict:
     out = {}
     for shape in ((1, 1), LM_MESH):
         mesh = make_mesh2d(*shape, device=DEV)
-        params, opt, step, rules = train_mod.build(
-            small, mesh, seed=seed, **LM_TRAIN_KW)
+        params, opt, step, rules = replicated_build(small, mesh, seed)
         before = [p.detach().double().clone() for p in params.parameters()]
         with use_sharding(rules):
             _, _, m = step(params, opt, shard_batch(
@@ -6681,8 +6761,7 @@ def phase_lm_train_mesh(seed: int):
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        params, opt, step, rules = train_mod.build(cfg, mesh, seed=seed,
-                                                   **LM_TRAIN_KW)
+        params, opt, step, rules = replicated_build(cfg, mesh, seed)
         sharding = rules.sharding(("batch", "seq"), (B, S))
         plan = steps_mod.batch_axes(rules, B // mb)
         checks["data_parallel"] = plan == (("data",), 2)
@@ -6822,6 +6901,350 @@ def phase_lm_train_mesh(seed: int):
                         if k == "card" or k.startswith("lm_mesh")}})
     if failed:
         raise AssertionError(f"lm_train_mesh: {failed} failed")
+
+
+#: lm_train_split: qwen3-0.6b at full width, its first 4 of 28 layers (the
+#: smoke's budget: about a minute for the phase), bfloat16, "dots", 8
+#: microbatches of 16 × 512 rows on a 2×2 (data, model) mesh of the card,
+#: the model axis split; remeshed onto 1×2 after step 2
+LM_SPLIT_LAYERS = 4
+LM_SPLIT_MESH, LM_SPLIT_SHRUNK, LM_SPLIT_BATCH = (2, 2), (1, 2), 16
+#: steps on 2×2: 0 the warm-up (and the comparison with 1×1), 1-2 timed,
+#: 3 profiled (and the remeshed step's reference)
+LM_SPLIT_STEPS, LM_SPLIT_TIMED, LM_SPLIT_REMESH_AFTER = 4, (1, 2), 2
+#: the split's first step against the same weights' 1×1 step, relative
+#: (PERF.md §6).  The card read loss 9.67e-6 and grad_norm 2.29e-6
+#: apart, the same in three runs (deterministic kernels): what differs is
+#: the bfloat16 partials that the psums add and 16 one-row passes against
+#: 8 two-row ones, over 4 layers.  Another batch moves the loss by about
+#: 2e-3 of it and other weights by 1.6e-3, and a lost unit's share of a
+#: product moves both by far more, so the bounds catch a split that is
+#: wrong in the forward or the backward
+LM_SPLIT_BF16_REL = {"loss": 5e-5, "grad_norm": 5e-5}
+#: each leaf's first moment after step 0 (0.1 × the clipped float32 mean
+#: gradient) against the 1×1 step's: max|Δm| over the leaf's max|m| and
+#: ‖Δm‖ over ‖m‖, the gradients leaf by leaf (PERF.md §6).  The
+#: card read at most 2.73e-2 and 2.78e-2 over the 46 leaves (medians
+#: 1.7e-2), the same in two runs: bfloat16's own rounding, as
+#: ``tools/split_grad_noise.py`` shows on the CPU, where the bfloat16 1×1
+#: step's leaves lie 1.5e-2 (median ‖Δm‖/‖m‖) from the float32 step's and
+#: the split's as far.  A unit's share lost in the backward moves a leaf by
+#: tens of percent
+LM_SPLIT_GRAD_REL = {"max": 4e-2, "l2": 4e-2}
+
+
+def lm_split_config():
+    """qwen3-0.6b at full width, its first ``LM_SPLIT_LAYERS`` layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(LM_ARCH)
+    (kind, _), = cfg.segments
+    return dataclasses.replace(cfg, segments=((kind, LM_SPLIT_LAYERS),),
+                               n_layers=LM_SPLIT_LAYERS)
+
+
+def lm_split_design_reduces(cfg, m: int, dp: int, mb: int) -> int:
+    """The design's all-reduces of a split step of an attention model
+    (``tests/test_torch_train_split.py::design_reduces``, PERF.md §3):
+    each of the ``dp·mb`` passes the embedding's sum and the lm_head's
+    input gradient, a layer the forward's 2 (wo, the MLP), the backward's
+    2 (x into the q/k/v units, into the MLP's) and 2 more with qk-norm
+    on whole kv heads a unit (the norms' scales each unit applies), and
+    under ``remat`` the forward's 2 again; then the clip's 1."""
+    f = 2
+    b = 2 + (2 if cfg.qk_norm and cfg.n_kv_heads % m == 0 else 0)
+    per_layer = f + b + (f if cfg.remat != "none" else 0)
+    return dp * mb * (2 + cfg.n_layers * per_layer) + 1
+
+
+def lm_split_smoke(seed: int, tmp: str) -> dict:
+    """At ``smoke()`` in float32 (TF32 off): the card's placed 2×2 step
+    against the CPU's on the same weights and batch (loss and gradient
+    norm within ``LM_TRAIN_LOSS_REL``, every update within 2·lr), and a
+    checkpoint save and restore of the card's placed state, bitwise."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy, lm_params_to_numpy
+    from repro_torch.data import TokenDataset, shard_batch
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh2d
+    from repro_torch.models import model as M
+    from repro_torch.optim.tree import leaves
+    from repro_torch.parallel import ShardedTensor, rules_for, use_sharding
+    from repro_torch.parallel.tensor import place_params
+
+    small = get_config(LM_ARCH).smoke(num_microbatches=2)
+    host = TokenDataset(small.vocab_size, 32, 8, seed=seed).next_batch()
+    # the same weights on both: drawn on the CPU, carried to the card
+    drawn = lm_params_to_numpy(M.init_params(small, seed=seed, device="cpu"))
+    out = {}
+    for dev in (DEV, "cpu"):
+        mesh = make_mesh2d(*LM_SPLIT_MESH, device=dev)
+        rules = rules_for(small, mesh)
+        params = place_params(lm_params_from_numpy(drawn, small, dev), rules,
+                              small)
+        opt = steps_mod.make_opt_state(params)
+        step = steps_mod.make_train_step(small, **LM_TRAIN_KW)
+        before = [st.gather().double() for st in leaves(params)]
+        with use_sharding(rules):
+            _, opt, m = step(params, opt, shard_batch(
+                host, rules.sharding(("batch", "seq"), (8, 32))))
+        out[dev] = ({k: float(v) for k, v in m.items()},
+                    [st.gather().double() - b
+                     for st, b in zip(leaves(params), before)])
+        if dev == DEV:
+            state = {"params": params, "opt": opt}
+            mgr = CheckpointManager(tmp)
+            mgr.save(1, state)
+            target = {"params": train_mod.build(small, mesh, seed=seed + 1)[0],
+                      "opt": opt._replace(step=opt.step * 0)}
+            got, _, _ = mgr.restore(target)
+            ckpt_ok = all(
+                (a.spec == t.spec if isinstance(t, ShardedTensor) else True)
+                and torch.equal(_bits(a.gather() if isinstance(
+                    a, ShardedTensor) else a), _bits(b.gather() if isinstance(
+                        b, ShardedTensor) else b))
+                for a, b, t in zip(leaves(got), leaves(state),
+                                   leaves(target)))
+    (mg, dg), (mc, dc) = out[DEV], out["cpu"]
+    rel = {k: abs(mg[k] - mc[k]) / abs(mc[k]) for k in ("loss", "grad_norm")}
+    worst = max(float((a - b).abs().max()) for a, b in zip(dg, dc)) / mc["lr"]
+    return {"config": "smoke(num_microbatches=2), float32, 8 x 32, 2x2",
+            "card": mg, "cpu": mc, "rel": rel, "update_over_lr_max": worst,
+            "checkpoint_bitwise": ckpt_ok,
+            "ok": max(rel.values()) <= LM_TRAIN_LOSS_REL and worst <= 2.0
+            and mg["lr"] == mc["lr"]}
+
+
+def phase_lm_train_split(seed: int):
+    """LM training with the ``model`` axis split by hand on a 2×2 mesh of
+    the card (docstring, 10m')."""
+    import dataclasses
+    import statistics
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import compiler
+    from repro_torch.core import mesh as mesh_mod
+    from repro_torch.data import TokenDataset, shard_batch
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh2d
+    from repro_torch.models.model import ParamTree
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.optim.tree import leaves
+    from repro_torch.parallel import (PartitionSpec, ShardedTensor,
+                                      param_specs_for, rules_for,
+                                      use_sharding)
+    from repro_torch.parallel.tensor import PlacedParams
+    from repro_torch.runtime import remesh, shrink_plan
+
+    t_phase = time.perf_counter()
+    parts, t_part = {}, [t_phase]
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    def held(tree):
+        return [t.local() if isinstance(t, ShardedTensor) else t
+                for t in leaves(tree)]
+
+    cfg = lm_split_config()
+    B, S, mb = LM_SPLIT_BATCH, LM_TRAIN_SEQ, cfg.num_microbatches
+    checks = {"config": (cfg.remat, mb, cfg.n_layers, cfg.param_dtype,
+                         cfg.d_model, cfg.vocab_size)
+              == ("dots", 8, LM_SPLIT_LAYERS, "bfloat16", 1024, 151936)}
+    built = (compiler.stats.kernels_built, len(build._LIBS))
+    ds = TokenDataset(cfg.vocab_size, S, B, seed=seed)
+    host = [ds.next_batch() for _ in range(LM_SPLIT_STEPS)]
+    prev = _train_determinism()
+    try:
+        # --- 1×1: the same weights' step on batch 0, its peak --------------
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params, opt, step, rules = train_mod.build(
+            cfg, make_mesh2d(1, 1, device=DEV), seed=seed, **LM_TRAIN_KW)
+        checks["one_device_is_a_param_tree"] = isinstance(params, ParamTree)
+        with use_sharding(rules):
+            _, opt, m = step(params, opt, shard_batch(
+                host[0], rules.sharding(("batch", "seq"), (B, S))))
+        torch.cuda.synchronize()
+        one = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+        one_m = [t.cpu() for t in leaves(opt.m)]
+        del params, opt, step, m
+        torch.cuda.empty_cache()
+        part("one_device")
+
+        # --- the main path: 2×2, counters 0 before, read after --------------
+        mesh = make_mesh2d(*LM_SPLIT_MESH, device=DEV)
+        reset_counts()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params, opt, step, rules = train_mod.build(cfg, mesh, seed=seed,
+                                                   **LM_TRAIN_KW)
+        checks["placed"] = isinstance(params, PlacedParams) and all(
+            a.spec == p.spec for a, p in zip(leaves(opt.m), leaves(params)))
+        sharding = rules.sharding(("batch", "seq"), (B, S))
+        dp = steps_mod.batch_axes(rules, B // mb)[1]
+        design = lm_split_design_reduces(cfg, LM_SPLIT_MESH[1], dp, mb)
+        history, events, reduces, batches = [], [], [], []
+        with use_sharding(rules):
+            for i in range(LM_SPLIT_STEPS):
+                batch = shard_batch(host[i], sharding)
+                batches.append(batch)
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                profiled = i == LM_SPLIT_STEPS - 1
+                if profiled:
+                    prof = profile(activities=[ProfilerActivity.CUDA])
+                    prof.start()
+                    t_prof = time.perf_counter()
+                mesh_mod.reset_collectives()
+                ev[0].record()
+                params, opt, m = step(params, opt, batch)
+                ev[1].record()
+                reduces.append(mesh_mod.collectives["all-reduce"])
+                history.append(m)
+                events.append(ev)
+                if i == 0:
+                    split_m = [t.gather() for t in leaves(opt.m)]
+                if profiled:
+                    torch.cuda.synchronize()
+                    prof_us = (time.perf_counter() - t_prof) * 1e6
+                    prof.stop()
+                if i == LM_SPLIT_REMESH_AFTER:
+                    torch.cuda.synchronize()
+                    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+                    # --- elastic: the placed {params, opt} onto 1×2 ---------
+                    t0 = time.perf_counter()
+                    shrunk = make_mesh2d(*LM_SPLIT_SHRUNK, device=DEV)
+                    p_specs = param_specs_for(cfg, params,
+                                              rules_for(cfg, shrunk))
+                    state = {"params": params, "opt": opt}
+                    placed = remesh(state, {"params": p_specs, "opt":
+                                            AdamWState(PartitionSpec(),
+                                                       p_specs, p_specs)},
+                                    shrunk)
+                    torch.cuda.synchronize()
+                    remesh_s = time.perf_counter() - t0
+                    checks["remesh_bitwise"] = all(
+                        torch.equal(_bits(a.local()), _bits(b))
+                        for a, b in zip(leaves(placed), held(state)))
+                    checks["remesh_placed"] = isinstance(
+                        placed["params"], PlacedParams) and all(
+                        a.mesh is shrunk for a in leaves(placed))
+                    del state
+        torch.cuda.synchronize()
+        launches = read_counts()
+        step_ms = [a.elapsed_time(b) for a, b in events]
+        median_ms = statistics.median(step_ms[i] for i in LM_SPLIT_TIMED)
+        part("split_steps")
+        profile_step = profiled_kernels(prof, prof_us, median_ms * 1e3)
+        del prof
+        part("profile_read")
+        want = [t.clone() for t in held({"p": params, "o": opt})]
+        losses = [float(h["loss"]) for h in history]
+        gnorms = [float(h["grad_norm"]) for h in history]
+        checks["finite"] = all(math.isfinite(x) for x in losses + gnorms)
+        checks["no_port_kernel_launched"] = not any(launches.values())
+        checks["all_reduces_a_step"] = reduces == [design] * LM_SPLIT_STEPS
+        rel = {"loss": abs(losses[0] - one["loss"]) / abs(one["loss"]),
+               "grad_norm": abs(gnorms[0] - one["grad_norm"])
+               / abs(one["grad_norm"])}
+        checks["split_vs_one_device"] = all(
+            rel[k] <= LM_SPLIT_BF16_REL[k] for k in LM_SPLIT_BF16_REL)
+        grad_rel = [float((a - b).abs().max()) / (float(b.abs().max()) or 1.0)
+                    for a, b in zip(split_m, one_m)]
+        grad_l2 = [float((a - b).norm()) / (float(b.norm()) or 1.0)
+                   for a, b in zip(split_m, one_m)]
+        checks["gradients_vs_one_device"] = len(split_m) == len(one_m) and all(
+            a.shape == b.shape and a.dtype == b.dtype == torch.float32
+            for a, b in zip(split_m, one_m)) \
+            and max(grad_rel) <= LM_SPLIT_GRAD_REL["max"] \
+            and max(grad_l2) <= LM_SPLIT_GRAD_REL["l2"]
+        del params, opt, split_m, one_m
+
+        # --- the remeshed state's next step: 1×2, the global batch kept -----
+        mb2 = shrink_plan(LM_SPLIT_MESH[0], LM_SPLIT_SHRUNK[0], B, mb)[
+            "keep_global_batch"]["num_microbatches"]
+        checks["keep_global_batch"] = mb2 == 2 * mb
+        c2 = dataclasses.replace(cfg, num_microbatches=mb2)
+        rules2 = rules_for(c2, placed["params"].mesh)
+        with use_sharding(rules2):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            p2, o2, m2 = steps_mod.make_train_step(c2, **LM_TRAIN_KW)(
+                placed["params"], placed["opt"],
+                batches[LM_SPLIT_REMESH_AFTER + 1])
+            ev[1].record()
+        torch.cuda.synchronize()
+        nxt = LM_SPLIT_REMESH_AFTER + 1
+        after = {"loss": float(m2["loss"]),
+                 "grad_norm": float(m2["grad_norm"]),
+                 "step_ms": ev[0].elapsed_time(ev[1]),
+                 "num_microbatches": mb2, "mesh": list(LM_SPLIT_SHRUNK),
+                 "step": int(o2.step)}
+        checks["remeshed_step_bitwise"] = (
+            after["loss"] == losses[nxt] and after["grad_norm"] == gnorms[nxt]
+            and after["step"] == nxt + 1 and all(
+                torch.equal(_bits(a), _bits(b)) for a, b in
+                zip(held({"p": p2, "o": o2}), want)))
+        del want, placed, p2, o2, batches
+        torch.cuda.empty_cache()
+        part("after_remesh")
+
+        with tempfile.TemporaryDirectory() as tmp:
+            small = lm_split_smoke(seed, tmp)
+        checks["smoke_f32_card_vs_cpu"] = small["ok"]
+        checks["checkpoint_bitwise"] = small["checkpoint_bitwise"]
+        part("smoke_f32")
+        checks["no_port_kernel_built"] = built == (
+            compiler.stats.kernels_built, len(build._LIBS))
+    finally:
+        _restore_determinism(prev)
+
+    failed = [k for k, ok in checks.items() if not ok]
+    emit({"phase": "lm_train_split", "card": card_line(), "arch": LM_ARCH,
+          "seconds": time.perf_counter() - t_phase, "seconds_by_part": parts,
+          "mesh": list(LM_SPLIT_MESH), "layers": cfg.n_layers, "batch": B,
+          "seq": S, "num_microbatches": mb, "replicas": dp,
+          "dtype": cfg.compute_dtype, "remat": cfg.remat,
+          "deterministic": True, "schedule": LM_TRAIN_KW,
+          "step_ms": step_ms, "step_ms_median": median_ms,
+          "tok_per_s": B * S / median_ms * 1e3,
+          "profile_step": profile_step,
+          "launches_a_step": profile_step["device_kernel_launches"],
+          "idle_share_unprofiled":
+              profile_step["device_idle_share_unprofiled"],
+          "peak_gb": peak_gb, "one_device": one,
+          "all_reduces_a_step": reduces, "design_all_reduces": design,
+          "loss": losses, "grad_norm": gnorms,
+          "split_vs_one_device_rel": rel, "bf16_bound": LM_SPLIT_BF16_REL,
+          "grad_vs_one_device_rel": grad_rel,
+          "grad_vs_one_device_rel_max": max(grad_rel),
+          "grad_vs_one_device_l2": grad_l2,
+          "grad_vs_one_device_l2_max": max(grad_l2),
+          "grad_bound": LM_SPLIT_GRAD_REL,
+          "remesh_s": remesh_s, "after_remesh": after, "smoke_f32": small,
+          "launches": launches, "checks": checks,
+          "predicted": {k: PREDICTED[k] for k in PREDICTED
+                        if k == "card" or k.startswith("lm_split")}})
+    if failed:
+        raise AssertionError(f"lm_train_split: {failed} failed")
 
 
 #: the heat cells' grid on the card's 2×2 mesh: the production brick
@@ -7138,6 +7561,7 @@ def main() -> int:
     phase_lm_serve_mesh_recurrent(args.seed)
     phase_lm_train(args.seed)
     phase_lm_train_mesh(args.seed)
+    phase_lm_train_split(args.seed)
     phase_rows["dryrun"] = phase_dryrun(args.seed)
     csrc = "src/repro_torch/kernels/csrc/"
     # the solves apply their operators through the k = 1 entry, padded;

@@ -8,13 +8,16 @@ The port of ``repro/checkpoint/manager.py``:
   synchronously and writes on a background thread;
 * **restore by example** — ``restore(target)`` rebuilds ``target``'s
   structure (nested dicts, lists, tuples and NamedTuples such as the
-  optimizer's ``AdamWState``, of tensors or arrays) with
-  every leaf on the target leaf's device and in its dtype;
+  optimizer's ``AdamWState``, of tensors, arrays or placed
+  :class:`~repro_torch.parallel.ShardedTensor` s) with every leaf on the
+  target leaf's device, or in its sharding, and in its dtype;
 * **retention** — keeps the newest ``keep`` checkpoints.
 
 Each leaf's dtype is recorded beside the arrays: ``bfloat16``, which npz
 cannot store, is written as its exact float32 upcast and cast back on
-restore, so a round trip is the identity.
+restore, so a round trip is the identity.  A placed leaf is saved as its
+gathered global array (the reference's ``np.asarray`` of a sharded
+array), so a checkpoint does not depend on the mesh it was taken on.
 
 >>> import tempfile, torch
 >>> d = tempfile.mkdtemp()
@@ -34,6 +37,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.parallel.sharding import ShardedTensor, place
 
 SEP = "/"
 
@@ -65,7 +70,7 @@ def _rebuild(tree, values, prefix=()):
 
 
 def _dtype_name(leaf) -> str:
-    if isinstance(leaf, torch.Tensor):
+    if isinstance(leaf, (torch.Tensor, ShardedTensor)):
         return str(leaf.dtype).removeprefix("torch.")
     return np.asarray(leaf).dtype.name
 
@@ -76,6 +81,8 @@ def _flatten(tree) -> tuple:
     flat, dtypes = {}, {}
     for key, leaf in _leaves(tree):
         dtypes[key] = _dtype_name(leaf)
+        if isinstance(leaf, ShardedTensor):
+            leaf = leaf.gather("cpu")
         if isinstance(leaf, torch.Tensor):
             t = leaf.detach()
             if t.dtype == torch.bfloat16:
@@ -147,8 +154,10 @@ class CheckpointManager:
         extra)``.
 
         Each array is first cast back to the dtype it was *saved* with,
-        then to the target leaf's dtype, and placed on the target leaf's
-        device (a tensor leaf) or left on the host (an array leaf).
+        then to the target leaf's dtype, and put on the target leaf's
+        device (a tensor leaf), placed in its sharding (a
+        :class:`~repro_torch.parallel.ShardedTensor`) or left on the host
+        (an array leaf).
         """
         self.wait()  # before listing: an async writer may still be renaming
         step = step if step is not None else self.latest_step()
@@ -165,7 +174,10 @@ class CheckpointManager:
                 saved = saved_dtypes.get(key)
                 if saved is not None and _dtype_name(t) != saved:
                     t = t.to(getattr(torch, saved))
-                if isinstance(leaf, torch.Tensor):
+                if isinstance(leaf, ShardedTensor):
+                    values[key] = place(t.to(leaf.dtype), leaf.mesh,
+                                        leaf.spec)
+                elif isinstance(leaf, torch.Tensor):
                     values[key] = t.to(device=leaf.device, dtype=leaf.dtype)
                 else:
                     values[key] = t.numpy().astype(np.asarray(leaf).dtype,

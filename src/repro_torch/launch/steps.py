@@ -27,17 +27,30 @@ GSPMD; the port does it by hand, in one process (``_accumulate``):
   whatever ``dp``, and there is nothing to reduce (multi-card transport
   would sum the devices' accumulators with
   :func:`~repro_torch.core.mesh.psum_axes`);
-* parameters, AdamW's moments and the compute are replicated over
-  ``model`` (the reference's tensor parallelism over ``model`` is ported
-  for serving only, :mod:`repro_torch.parallel.tensor`): every position of
-  the mesh must be on the parameters' device, which holds the state once;
+* parameters placed by their specs
+  (:class:`~repro_torch.parallel.tensor.PlacedParams`, what
+  :func:`repro_torch.launch.train.build` returns where the rules split a
+  leaf over ``model``) split each pass over ``model`` as the reference's
+  GSPMD step does: replica ``r``'s pass runs the model split bound to its
+  row block and positions (:meth:`~repro_torch.parallel.tensor.ModelSplit.
+  bind`), its backward through the collectives' transposes; the
+  gradients, the float32 accumulators, AdamW's ``m`` and ``v`` and the
+  compression residual are :class:`~repro_torch.parallel.ShardedTensor` s
+  with the parameters' shardings, held once on the one device of every
+  position; the clip's sum of squares is each unit's over its distinct
+  blocks, summed over ``model`` (one ``all-reduce``), and AdamW and
+  compression update each distinct block once (on one device: each
+  element once);
+* a :class:`~repro_torch.models.model.ParamTree` is replicated over
+  ``model``: every position of the mesh must be on the parameters'
+  device, which holds the state once;
 * where the batch axes do not divide the rows, or span one position, the
-  step is the one-device step, bit for bit.
+  step on a ``ParamTree`` is the one-device step, bit for bit.
 
-So the step on ``dp`` replicas is the one-device step at ``dp·mb``
-microbatches, bit for bit.  Against the one-device step at ``mb`` only
-the order of the sums differs, but for MoE: its load-balance term is not
-linear in the rows (``E·Σ pe·fe`` over the tokens a pass sees), so the
+So the step on ``dp`` replicas is the step on one replica at ``dp·mb``
+microbatches, bit for bit, placed or not.  Against ``mb`` on one replica
+only the order of the sums differs, but for MoE: its load-balance term is
+not linear in the rows (``E·Σ pe·fe`` over the tokens a pass sees), so the
 mean of the replicas' terms is not the term of the whole microbatch
 (``tests/test_torch_parallel.py`` measures it).
 """
@@ -47,11 +60,15 @@ import math
 
 import torch
 
+from repro_torch.core.mesh import psum_axes
 from repro_torch.models import model as M
 from repro_torch.optim import (adamw_init, adamw_update, clip_by_global_norm,
                                compress_error_feedback, cosine_schedule)
+from repro_torch.optim.adamw import AdamWState
 from repro_torch.optim.tree import leaves, tree_map, unflatten
-from repro_torch.parallel.sharding import current_rules, pshard
+from repro_torch.parallel.sharding import (ShardedTensor, _axes,
+                                           current_rules, pshard)
+from repro_torch.parallel.tensor import MODEL, PlacedParams, zeros
 
 
 def _zeros32(p):
@@ -112,12 +129,86 @@ def _accumulate(params, batch, cfg, mb: int, dp: int = 1, mesh=None):
     return unflatten(tree, sums), acc[-1] / n
 
 
+def _zeros_placed(st, dtype=torch.float32) -> ShardedTensor:
+    """A zeroed tensor placed as ``st`` is."""
+    return zeros(st.shape, dtype, st.mesh, st.spec)
+
+
+def _accumulate_placed(params: PlacedParams, batch, cfg, mb: int):
+    """:func:`_accumulate` on placed parameters, under the rules of their
+    mesh: microbatch ``i``, then replica ``r``, each pass the model split
+    bound to replica ``r`` (module docstring); float32 accumulators placed
+    by the parameters' specs, one set whatever ``dp``."""
+    split = _split(batch, mb)
+    whole = M.model_split(params, split["tokens"][0], cfg)
+    dp, per = whole.dp, whole.rows
+    acc = tree_map(_zeros_placed, params)
+    total = torch.zeros((), dtype=torch.float32, device=params.mesh.home)
+    for i in range(mb):
+        for r in range(dp):
+            rows = slice(r * per, (r + 1) * per)
+            (loss, _), grads = M.value_and_grad(
+                params, {k: v[i, rows] for k, v in split.items()}, cfg,
+                split=whole.bind(r))
+            for a, g in zip(leaves(acc), leaves(grads)):
+                a.local().add_(g.local().float())
+            del grads
+            total.add_(loss)
+    n = dp * mb
+    for a in leaves(acc):
+        a.local().div_(n)
+    if mb == 1:
+        acc = tree_map(lambda a, p: a.like(a.local().to(p.dtype)), acc,
+                       params)
+    return acc, total / n
+
+
+def clip_placed(grads, max_norm: float):
+    """:func:`~repro_torch.optim.clip_by_global_norm` on placed gradients:
+    unit ``j`` of ``model`` takes the float32 sum of squares of its
+    distinct blocks (its ``model`` block of each leaf split there, and at
+    ``j = 0`` each leaf replicated over ``model``, so that such a leaf
+    counts once), and the units' sums are summed over ``model`` (one
+    counted ``all-reduce``).  Returns (clipped grads, ‖g‖)."""
+    gl = leaves(grads)
+    mesh = gl[0].mesh
+    m = mesh.shape[MODEL]
+    axis = mesh.axis_names.index(MODEL)
+    sq = []
+    for j in range(m):
+        coords = tuple(j if a == axis else 0 for a in range(len(mesh.dims)))
+        split_only = j > 0
+        sq.append(sum((torch.sum(torch.square(st.block(coords).float()))
+                       for st in gl if not split_only
+                       or any(MODEL in _axes(e) for e in st.spec)),
+                      torch.zeros((), dtype=torch.float32,
+                                  device=mesh.devices[mesh.brick(*coords)])))
+    parts = [sq[c[axis]] for c in (mesh.coords(b) for b in range(mesh.size))]
+    norm = torch.sqrt(psum_axes(parts, mesh, MODEL)[0])
+    scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-12), max=1.0)
+    return tree_map(lambda st: st.like(st.local() * scale.to(st.dtype)),
+                    grads), norm
+
+
+def _held(tree):
+    """The one tensor of each placed leaf (a tensor leaf as it is)."""
+    return tree_map(lambda t: t.local() if isinstance(t, ShardedTensor)
+                    else t, tree)
+
+
+def _like(like, values):
+    """``values`` (tensors) placed as the leaves of ``like`` are, where
+    those are placed."""
+    return tree_map(lambda a, t: a.like(t) if isinstance(a, ShardedTensor)
+                    else t, like, values)
+
+
 def make_train_step(cfg, *, peak_lr: float = 3e-4, warmup: int = 100,
                     total_steps: int = 10000, clip: float = 1.0,
                     compress: bool = False):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
-    {"loss", "grad_norm", "lr"})`` for a :class:`ParamTree` ``params`` and
-    a batch of int64 tensors on its device.
+    {"loss", "grad_norm", "lr"})`` for a :class:`ParamTree` ``params``
+    (or placed ones) and a batch of int64 tensors on its device.
 
     With ``cfg.num_microbatches = mb > 1`` microbatch ``i`` is batch rows
     ``[i·B/mb, (i+1)·B/mb)``; each one's gradients are added into float32
@@ -126,26 +217,42 @@ def make_train_step(cfg, *, peak_lr: float = 3e-4, warmup: int = 100,
     one replica the bits of the pass's own gradients), so the clip
     of bfloat16 parameters runs in bfloat16, as the reference's does.
     Under ``use_sharding(rules)`` whose batch axes divide a microbatch's
-    rows the step is data-parallel over them (module docstring)."""
+    rows the step is data-parallel over them; placed parameters
+    (:class:`~repro_torch.parallel.tensor.PlacedParams`, under the rules
+    of their mesh) also split each pass over ``model`` (module
+    docstring)."""
     mb = cfg.num_microbatches
 
     @torch.no_grad()
     def train_step(params, opt_state, batch):
-        rules = current_rules()
-        plan = batch_axes(rules, batch["tokens"].shape[0] // mb)
-        grads, loss = _accumulate(params, batch, cfg, mb,
-                                  *((plan[1], rules.mesh) if plan else ()))
+        placed = isinstance(params, PlacedParams)
+        if placed:
+            grads, loss = _accumulate_placed(params, batch, cfg, mb)
+        else:
+            rules = current_rules()
+            plan = batch_axes(rules, batch["tokens"].shape[0] // mb)
+            grads, loss = _accumulate(params, batch, cfg, mb,
+                                      *((plan[1], rules.mesh) if plan
+                                        else ()))
 
         if compress:
-            grads, resid = compress_error_feedback(grads,
-                                                   opt_state["residual"])
-            opt_state = dict(opt_state, residual=resid)
+            g, resid = compress_error_feedback(_held(grads),
+                                               _held(opt_state["residual"]))
+            grads = _like(grads, g)
+            opt_state = dict(opt_state, residual=_like(grads, resid))
 
-        grads, gnorm = clip_by_global_norm(grads, clip)
+        grads, gnorm = (clip_placed if placed else clip_by_global_norm)(
+            grads, clip)
         adam = opt_state["adam"] if isinstance(opt_state, dict) else opt_state
-        lr = cosine_schedule(adam.step + 1, peak_lr=peak_lr, warmup=warmup,
+        step = _held(adam.step)
+        lr = cosine_schedule(step + 1, peak_lr=peak_lr, warmup=warmup,
                              total=total_steps)
-        _, adam = adamw_update(params.tree(), grads, adam, lr)
+        # in place on the parameters' and moments' tensors (placed: their
+        # one tensor each); the moments stay the trees they were
+        _, held = adamw_update(_held(params if placed else params.tree()),
+                               _held(grads), AdamWState(step, _held(adam.m),
+                                                        _held(adam.v)), lr)
+        adam = AdamWState(held.step, adam.m, adam.v)
         if isinstance(opt_state, dict):
             opt_state = dict(opt_state, adam=adam)
         else:
@@ -158,7 +265,18 @@ def make_train_step(cfg, *, peak_lr: float = 3e-4, warmup: int = 100,
 
 def make_opt_state(params, *, compress: bool = False):
     """AdamW's state for a :class:`ParamTree` (with a float32 zero residual
-    per parameter when ``compress``), on the parameters' device."""
+    per parameter when ``compress``), on the parameters' device.  For
+    placed parameters ``m``, ``v`` and the residual are placed by the
+    parameters' specs (the reference's ``adamw_init`` over placed
+    parameters), the step on the mesh's home device."""
+    if isinstance(params, PlacedParams):
+        adam = AdamWState(torch.zeros((), dtype=torch.int32,
+                                      device=params.mesh.home),
+                          tree_map(_zeros_placed, params),
+                          tree_map(_zeros_placed, params))
+        if not compress:
+            return adam
+        return {"adam": adam, "residual": tree_map(_zeros_placed, params)}
     tree = params.tree()
     adam = adamw_init(tree)
     if not compress:
@@ -170,7 +288,7 @@ def make_prefill_step(cfg):
     """``prefill_step(params, tokens)``: the last token's logits.  With
     placed parameters (:func:`~repro_torch.parallel.tensor.place_params`)
     under ``use_sharding(rules)`` it runs the model split, as the model
-    functions it calls do; the train step above never does."""
+    functions it calls do, and as the train step above does."""
     def prefill_step(params, tokens):
         logits, _ = M.forward(params, tokens, cfg, last_only=True)
         return logits

@@ -11,8 +11,10 @@ The mesh is single-process and every position is on the run's device
 (``launch/mesh.py``): the reference's default ``(n/2) × 2`` over the
 ``n`` cards (1×1 on one card or the CPU), or with ``--production-mesh``
 its 16×16.  Where the rules' batch axes divide a microbatch's rows the step
-is data-parallel over them (:mod:`repro_torch.launch.steps`); parameters
-and moments are replicated, held once on the device.
+is data-parallel over them; where the rules split a parameter over
+``model`` the parameters and AdamW's moments are placed by their specs
+and every pass splits over ``model`` (:mod:`repro_torch.launch.steps`),
+all held once on the device.
 
 Each step fires the engine's step hook with its step number and the tag
 ``"train"``, so a :class:`~repro_torch.runtime.FaultInjector` armed with
@@ -37,7 +39,9 @@ from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.mesh import make_mesh2d, make_production_mesh
 from repro_torch.models import model as M
 from repro_torch.optim.tree import leaves
-from repro_torch.parallel import rules_for, use_sharding
+from repro_torch.parallel import param_specs_for, rules_for, use_sharding
+from repro_torch.parallel.sharding import _axes
+from repro_torch.parallel.tensor import MODEL, PlacedParams, place_params
 from repro_torch.runtime import HeartbeatMonitor, ResilientLoop
 
 
@@ -48,12 +52,24 @@ def build(cfg, mesh=None, *, compress: bool = False, seed: int = 0,
     device, fresh AdamW state, the step of
     :func:`~repro_torch.launch.steps.make_train_step` (``step_kw`` its
     schedule and clip) and the config's rule table on the mesh.  Call the
-    step under ``use_sharding(rules)``; each leaf's spec is
-    ``param_specs_for(cfg, params.tree(), rules)``."""
+    step under ``use_sharding(rules)``.  As the reference's ``build``
+    does, the weights are placed by their specs
+    (``param_specs_for(cfg, params, rules)``): where the rules split some
+    leaf over ``model`` they come back as
+    :class:`~repro_torch.parallel.tensor.PlacedParams` (the drawn tree
+    freed once placed) and AdamW's moments placed alike; else the
+    :class:`~repro_torch.models.model.ParamTree`, replicated."""
     if mesh is None:
         mesh = make_mesh2d(1, 1, device=device)
     rules = rules_for(cfg, mesh)
     params = M.init_params(cfg, seed=seed, device=resolve_device(mesh.home))
+    specs = param_specs_for(cfg, params.tree(), rules)
+    if mesh.shape.get(MODEL, 1) > 1 and any(
+            MODEL in _axes(e) for spec in leaves(specs) for e in spec):
+        tree = params.tree()
+        del params
+        params = place_params(tree, rules, cfg, specs)
+        del tree
     opt = steps_mod.make_opt_state(params, compress=compress)
     step_fn = steps_mod.make_train_step(cfg, compress=compress, **step_kw)
     return params, opt, step_fn, rules
@@ -76,7 +92,8 @@ def train(cfg, *, steps: int, batch: int, seq: int, ckpt_dir: str,
                       n_codebooks=cfg.n_codebooks)
     mgr = CheckpointManager(ckpt_dir)
     batch_sharding = rules.sharding(("batch", "seq"), (batch, seq))
-    live = {"params": params.tree(), "opt": opt}
+    live = {"params": params if isinstance(params, PlacedParams)
+            else params.tree(), "opt": opt}
     history = []
 
     def one_step(state, batch):
@@ -92,6 +109,8 @@ def train(cfg, *, steps: int, batch: int, seq: int, ckpt_dir: str,
         mgr.save(step, state, blocking=False, extra={"data": ds.state()})
 
     def restore_fn():
+        # the restored values go into the live tensors (a placed one's
+        # single tensor), which the step updates in place
         restored, step, extra = mgr.restore(live)
         with torch.no_grad():
             for dst, src in zip(leaves(live), leaves(restored)):

@@ -151,16 +151,20 @@ def attn_prefill_split(split, params, xs, cfg, pos):
     """:func:`attn_prefill` over the model axis (:mod:`repro_torch.parallel.
     tensor`): ``xs`` and the results are lists a row block; each unit takes
     its ``heads_flat`` columns of ``wq`` / ``wk`` / ``wv`` and its rows of
-    ``wo``, and the output's partials are summed over ``model``.  Returns
+    ``wo``, and the output's partials are summed over ``model`` (the units
+    read ``x`` and the qk-norm scales through :meth:`~repro_torch.parallel.
+    tensor.ModelSplit.fan`).  Returns
     (outputs, keys, values), the keys and values whole (B, S, KV, hd) a row
     block, for the caches."""
     h, kv = cfg.n_heads, cfg.n_kv_heads
     m = split.m
     if heads_split(split, params, "kv_heads", kv, ("wq", "wk", "wv")):
         lcfg = dataclasses.replace(cfg, n_heads=h // m, n_kv_heads=kv // m)
-        res = [[attn_prefill(split.local(params, r, j), split.on(x, r, j),
-                             lcfg, split.on(pos, r, j)) for j in range(m)]
-               for r, x in enumerate(xs)]
+        res = []
+        for r, x in enumerate(xs):
+            ps, xj = split.unit_params(params, r, m), split.fan(x, r, m)
+            res.append([attn_prefill(ps[j], xj[j], lcfg, split.on(pos, r, j))
+                        for j in range(m)])
         return (split.psum([[o for o, _, _ in row] for row in res]),
                 [split.gather([k for _, k, _ in row], 2, r)
                  for r, row in enumerate(res)],

@@ -161,6 +161,6 @@ def mlp_apply_split(split, params, xs, act: str = "silu"):
     of ``down``, the partial outputs summed over ``model``.  ``xs`` and the
     result are lists a row block."""
     n = split.parts(params["down"], 0)
-    return split.psum([[mlp_apply(split.local(params, r, j),
-                                  split.on(x, r, j), act) for j in range(n)]
+    return split.psum([[mlp_apply(split.local(params, r, j), xj, act)
+                        for j, xj in enumerate(split.fan(x, r, n))]
                        for r, x in enumerate(xs)])

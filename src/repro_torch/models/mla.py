@@ -105,15 +105,20 @@ def _mla_context(params, x, cfg, pos, mm=None):
 def mla_prefill_split(split, params, xs, cfg, pos):
     """:func:`mla_prefill` over the model axis: each unit its heads'
     columns of ``wq_b`` / ``wkv_b`` (``heads_flat``) and its rows of
-    ``wo``, the output's partials summed over ``model``; the latents, which
-    are replicated, once a row block.  Lists a row block, as
+    ``wo``, the output's partials summed over ``model``.  Under a heads
+    split each unit computes the latents itself, from the replicated
+    ``wq_a`` / ``wkv_a`` and norms, which it reads through
+    :meth:`~repro_torch.parallel.tensor.ModelSplit.unit_params`; else they
+    are computed once a row block.  Lists a row block, as
     :func:`repro_torch.models.attention.attn_prefill_split`."""
     h, m = cfg.n_heads, split.m
     if heads_split(split, params, "heads", h, ("wq_b", "wkv_b")):
         lcfg = dataclasses.replace(cfg, n_heads=h // m)
-        res = [[mla_prefill(split.local(params, r, j), split.on(x, r, j),
-                            lcfg, split.on(pos, r, j)) for j in range(m)]
-               for r, x in enumerate(xs)]
+        res = []
+        for r, x in enumerate(xs):
+            ps, xj = split.unit_params(params, r, m), split.fan(x, r, m)
+            res.append([mla_prefill(ps[j], xj[j], lcfg, split.on(pos, r, j))
+                        for j in range(m)])
         return (split.psum([[o for o, _, _ in row] for row in res]),
                 [row[0][1] for row in res], [row[0][2] for row in res])
     parts, c_kvs, k_ropes = [], [], []

@@ -28,11 +28,14 @@ The parameters are frozen (``requires_grad=False``), so serving builds no
 autograd graph; the train step records gradients for its own duration
 only (:func:`value_and_grad`).
 
-Serving on a mesh: parameters placed by their specs
+On a mesh: parameters placed by their specs
 (:func:`repro_torch.parallel.tensor.place_params`) make :func:`forward`,
-:func:`prefill` and :func:`decode_step` run the model split by hand under
-``use_sharding(rules)`` (:func:`model_split`): GSPMD's split in the
-reference, for every block kind.
+:func:`prefill`, :func:`decode_step` and :func:`value_and_grad` run the
+model split by hand under ``use_sharding(rules)`` (:func:`model_split`):
+GSPMD's split in the reference, for every block kind, in serving and in
+the train step, the backward through the collectives' transposes
+(:mod:`repro_torch.parallel.tensor`) and ``remat`` applied to each layer
+as on one device.
 """
 from __future__ import annotations
 
@@ -43,13 +46,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
-                                    create_selective_checkpoint_contexts)
+                                    create_selective_checkpoint_contexts,
+                                    set_checkpoint_early_stop)
 
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (MetaDraws, embed_init, rmsnorm,
                                       rmsnorm_init)
-from repro_torch.optim.tree import unflatten
+from repro_torch.optim.tree import leaves, unflatten
 from repro_torch.parallel.sharding import current_rules, pshard
 from repro_torch.parallel.tensor import ModelSplit, PlacedParams, place_cache
 
@@ -172,23 +176,34 @@ def _dots_contexts():
     return create_selective_checkpoint_contexts(_save_dots)
 
 
-def _remat(fn, cfg):
-    """``fn`` under ``cfg.remat`` while autograd records; else ``fn``."""
+def _remat(fn, cfg, *, early_stop: bool = True):
+    """``fn`` under ``cfg.remat`` while autograd records; else ``fn``.
+    ``early_stop=False`` makes the backward's recompute run the whole of
+    ``fn`` again, as the reference's rematerialized layer does: the model
+    split's reductions with it, so a step counts each of them twice
+    whatever the layer saves."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
     if cfg.remat == "full":
-        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
-    if cfg.remat == "dots":
-        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
-                                     context_fn=_dots_contexts)
-    raise ValueError(f"unknown remat {cfg.remat!r}")
+        kw = {}
+    elif cfg.remat == "dots":
+        kw = {"context_fn": _dots_contexts}
+    else:
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+
+    def run(*a):
+        with set_checkpoint_early_stop(early_stop):
+            return checkpoint(fn, *a, use_reentrant=False, **kw)
+    return run
 
 
-def forward(params, tokens, cfg, *, last_only: bool = False):
+def forward(params, tokens, cfg, *, last_only: bool = False, split=None):
     """Causal forward.  tokens (B, S[, K]) → (logits (B, S|1, V[, K])
     in the compute dtype, MoE aux loss (float32 scalar)).  Placed
-    parameters run the model split (:func:`model_split`)."""
-    split = model_split(params, tokens, cfg)
+    parameters run the model split (:func:`model_split`), or ``split``
+    where the caller gives one (a replica's, :meth:`~repro_torch.parallel.
+    tensor.ModelSplit.bind`)."""
+    split = split or model_split(params, tokens, cfg)
     if split is not None:
         return _forward_split(split, params, tokens, cfg, last_only)
     cdt = _dtype(cfg.compute_dtype)
@@ -224,9 +239,10 @@ def _lm_head(params, x, cfg):
     return x @ params["lm_head"].to(cdt)
 
 
-def loss_fn(params, batch, cfg):
-    """batch: {tokens (B,S[,K]), labels (B,S[,K])} → (loss, metrics)."""
-    logits, aux = forward(params, batch["tokens"], cfg)
+def loss_fn(params, batch, cfg, split=None):
+    """batch: {tokens (B,S[,K]), labels (B,S[,K])} → (loss, metrics);
+    ``split`` as in :func:`forward`."""
+    logits, aux = forward(params, batch["tokens"], cfg, split=split)
     logp = F.log_softmax(logits.float(), dim=-1)
     ll = torch.gather(logp, -1, batch["labels"][..., None])
     ce = -ll.mean()
@@ -234,23 +250,50 @@ def loss_fn(params, batch, cfg):
     return loss, {"ce": ce, "aux": aux}
 
 
-def value_and_grad(params, batch, cfg):
-    """``jax.value_and_grad(loss_fn, has_aux=True)`` on a
-    :class:`ParamTree`: ((loss, metrics), grads) with the grads a tree shaped
-    as ``params.tree()`` in the parameters' dtypes, the loss and metrics
-    detached.  The leaves record gradients only inside this call."""
-    leaves = list(params.parameters())
+def value_and_grad(params, batch, cfg, split=None):
+    """``jax.value_and_grad(loss_fn, has_aux=True)``: ((loss, metrics),
+    grads), the loss and metrics detached.  On a :class:`ParamTree` the
+    grads are a tree shaped as ``params.tree()`` in the parameters'
+    dtypes.  On :class:`~repro_torch.parallel.tensor.PlacedParams` (every
+    position on one device) the pass runs the model split (``split``, or
+    the batch's under the current rules) and records gradients on each
+    leaf's one tensor, whose blocks the units compute with; the grads are
+    a tree of :class:`~repro_torch.parallel.ShardedTensor` s with the
+    parameters' shardings.  The leaves record gradients only inside this
+    call."""
+    placed = isinstance(params, PlacedParams)
+    if placed:
+        split = split or model_split(params, batch["tokens"], cfg)
+        held = [_recording(st) for st in leaves(params)]
+    else:
+        held = list(params.parameters())
     with torch.enable_grad():
-        for p in leaves:
+        for p in held:
             p.requires_grad_(True)
         try:
-            loss, metrics = loss_fn(params, batch, cfg)
-            grads = torch.autograd.grad(loss, leaves)
+            loss, metrics = loss_fn(params, batch, cfg, split=split)
+            grads = torch.autograd.grad(loss, held)
         finally:
-            for p in leaves:
+            for p in held:
                 p.requires_grad_(False)
+    if placed:
+        grads = unflatten(params, (st.like(g) for st, g
+                                   in zip(leaves(params), grads)))
+    else:
+        grads = unflatten(params.tree(), grads)
     return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
-            unflatten(params.tree(), grads))
+            grads)
+
+
+def _recording(st) -> torch.Tensor:
+    """The one tensor that holds placed leaf ``st``: what its gradient is
+    recorded on."""
+    try:
+        return st.local()
+    except ValueError:
+        raise ValueError("the placed train step records gradients on the "
+                         "one tensor of each leaf: every position of the "
+                         "mesh on one device") from None
 
 
 # ---------------------------------------------------------------------------
@@ -331,10 +374,11 @@ def prefill(params, tokens, cfg, s_max: int):
 
 def model_split(params, tokens, cfg) -> Optional[ModelSplit]:
     """The model split of a call (:mod:`repro_torch.parallel.tensor`), or
-    None for a :class:`ParamTree`, which runs as on one device (the train
-    step's, under any rules).  Placed parameters
+    None for a :class:`ParamTree`, which runs as on one device under any
+    rules (the data-parallel train step's passes too).  Placed parameters
     (:func:`~repro_torch.parallel.tensor.place_params`) run under
-    ``use_sharding(rules)`` of their mesh."""
+    ``use_sharding(rules)`` of their mesh, in serving and in the train
+    step alike."""
     if not isinstance(params, PlacedParams):
         return None
     rules = current_rules()
@@ -401,9 +445,9 @@ def _lm_head_split(split, params, xs, cfg):
     else:
         w, vdim = params["lm_head"], 1
         head = lambda x, blk: x @ blk                                # noqa: E731
-    return [split.gather([head(split.on(x, r, j),
-                               split.block(w, r, j).to(x.dtype))
-                          for j in range(split.parts(w, vdim))], -1, r)
+    return [split.gather([head(xj, split.block(w, r, j).to(x.dtype))
+                          for j, xj in enumerate(
+                              split.fan(x, r, split.parts(w, vdim)))], -1, r)
             for r, x in enumerate(xs)]
 
 
@@ -414,13 +458,22 @@ def _final(split, params, xs, cfg, last_only: bool):
 
 
 def _forward_split(split, params, tokens, cfg, last_only: bool):
+    """:func:`forward` on the model split, ``cfg.remat`` on each layer
+    while autograd records (its recompute runs the whole layer, its
+    reductions included: :func:`_remat` without early stop)."""
     xs = x_embed = _embed_split(split, params, tokens, cfg)
     pos = torch.arange(xs[0].shape[1], dtype=torch.int32, device=xs[0].device)
     aux_total = torch.zeros((), dtype=torch.float32, device=split.mesh.home)
     shared = _shared_split(params, cfg)
-    for kind, layer in _split_layers(params, cfg):
+
+    def body(xs, kind, layer):
         xs, _, aux = tfm.block_prefill_split(kind, split, layer, xs, cfg, pos,
                                              None, shared, x_embed)
+        return xs, aux
+
+    body = _remat(body, cfg, early_stop=False)
+    for kind, layer in _split_layers(params, cfg):
+        xs, aux = body(xs, kind, layer)
         if aux is not None:
             aux_total = aux_total + aux
     return _final(split, params, xs, cfg, last_only), aux_total

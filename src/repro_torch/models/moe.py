@@ -178,9 +178,8 @@ def moe_apply_split(split, params, xs, cfg):
              for r, (bufs, *_) in enumerate(routed)]
     else:
         nf = split.parts(params["w_gate"], 2)
-        y = split.psum([[_experts(split.local(experts, r, j),
-                                  split.on(bufs, r, j), m.act)
-                         for j in range(nf)]
+        y = split.psum([[_experts(split.local(experts, r, j), bj, m.act)
+                         for j, bj in enumerate(split.fan(bufs, r, nf))]
                         for r, (bufs, *_) in enumerate(routed)])
     outs = [_combine(yb, meta, x.shape[1], x.shape[2]).to(x.dtype)
             for yb, (_, meta, _, _), x in zip(y, routed, xs)]

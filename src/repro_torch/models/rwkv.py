@@ -258,18 +258,22 @@ def _tm_units(split, params, x, xx, r: int, n: int):
     p0 = split.local(params, r, 0)
     xr, xk, xv, xw, xg = _ddlerp(p0, x, xx)
     lora = torch.tanh(xw @ p0["w_a"])
+    # the units read the streams and the decay's LoRA whole
+    streams = [split.fan(a, r, n) for a in (xr, xk, xv, xg, lora)]
     out = []
     for j in range(n):
         if n == 1:
             mm, cols, p = split.mm_cols(params, r), slice(None), p0
+            ar, ak, av, ag = xr, xk, xv, xg
         else:
             p = split.local(params, r, j)
             cols = split.index(params["wr"], r, j)[1]
-            mm = (lambda a, name, p=p, j=j: split.on(a, r, j) @ p[name])
-        lo = split.on(lora, r, j) @ p["w_b"][:, cols]
+            mm = (lambda a, name, p=p: a @ p[name])
+            ar, ak, av, ag = (s[j] for s in streams[:4])
+        lo = streams[4][j] @ p["w_b"][:, cols]
         logw = -torch.exp(p["w0"][cols] + lo.float())
-        out.append((mm(xr, "wr"), mm(xk, "wk"), mm(xv, "wv"),
-                    F.silu(mm(xg, "wg")), logw, cols, p))
+        out.append((mm(ar, "wr"), mm(ak, "wk"), mm(av, "wv"),
+                    F.silu(mm(ag, "wg")), logw, cols, p))
     return out
 
 
@@ -352,9 +356,10 @@ def rwkv_channel_mix_split(split, params, hs, shifts=None):
         xr = x + (xx - x) * p0["mu_r"]
         k = torch.square(F.relu(split.mm_cols(params, r)(xk, "wk")))
         out.append(split.gather([
-            torch.sigmoid(split.on(xr, r, j) @ split.local(params["wr"], r, j))
-            * (split.on(k, r, j) @ split.local(params["wv"], r, j))
-            for j in range(n)], -1, r))
+            torch.sigmoid(xrj @ split.local(params["wr"], r, j))
+            * (kj @ split.local(params["wv"], r, j))
+            for j, (xrj, kj) in enumerate(zip(split.fan(xr, r, n),
+                                              split.fan(k, r, n)))], -1, r))
     return out
 
 

@@ -253,10 +253,10 @@ def _gate_out_split(split, params, ys, zs, dtype):
     parts = []
     for r, row in enumerate(gated):
         out = []
-        for j, g in enumerate(row):
+        for j, (g, sq) in enumerate(zip(row, split.fan(ssq[r], r, len(row)))):
             p = split.local(params, r, j)
             scale = p["norm"]["scale"][split.index(w, r, j)[0]]
-            inv = torch.rsqrt(split.on(ssq[r], r, j) / di + 1e-6)
+            inv = torch.rsqrt(sq / di + 1e-6)
             out.append((g.float() * inv * scale.float()).to(dtype)
                        @ p["out_proj"])
         parts.append(out)
@@ -292,14 +292,15 @@ def ssm_prefill_split(split, params, hs, cfg, keep: bool = False):
         B = xbc_c[..., s.d_inner:s.d_inner + s.d_state]
         C = xbc_c[..., s.d_inner + s.d_state:]
         row_y, row_s = [], []
-        for j in range(nh):
+        for j, (Bj, Cj) in enumerate(zip(split.fan(B, r, nh),
+                                         split.fan(C, r, nh))):
             p = split.local(params, r, j)
             heads = slice(j * hn, (j + 1) * hn)
             dtf = _softplus_dt(split.on(dt[..., heads], r, j),
                                p["dt_bias"][heads])
             y, S = _ssd_heads(split.on(xh[:, :, heads], r, j), dtf,
                               p["a_log"][heads], p["d_skip"][heads],
-                              split.on(B, r, j), split.on(C, r, j), s.chunk)
+                              Bj, Cj, s.chunk)
             row_y.append(y.reshape(bsz, seq, hn * s.headdim))
             row_s.append(S)
         ys.append(row_y)

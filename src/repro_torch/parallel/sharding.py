@@ -14,12 +14,11 @@ What the port does with the specs, by hand and in one process:
 * the LM train step (:func:`repro_torch.launch.steps.make_train_step`)
   shards the batch over the rules' ``batch`` axes: one forward and
   backward per replica, the gradients summed into the float32
-  accumulators of the one device that holds every position.  Parameters,
-  moments and the
-  compute are replicated over ``model``;
-* serving (:mod:`repro_torch.parallel.tensor`) splits heads, ``mlp``,
-  vocab, experts and the decode caches' sequence over ``model`` by hand,
-  on parameters and caches placed by their specs;
+  accumulators of the one device that holds every position;
+* serving and, on placed parameters, the train step
+  (:mod:`repro_torch.parallel.tensor`) split heads, ``mlp``, vocab,
+  experts and the decode caches' sequence over ``model`` by hand, on
+  parameters, optimizer state and caches placed by their specs;
 * :func:`place` puts a tensor on a mesh by a spec as a
   :class:`ShardedTensor`, whose blocks are JAX's
   ``NamedSharding(mesh, spec).devices_indices_map(shape)`` blocks;
@@ -200,10 +199,15 @@ class ShardedTensor:
 
     def block(self, coords) -> torch.Tensor:
         """The block at mesh coordinates ``coords``, on its position's
-        device."""
+        device.  While the whole records gradients (the train step's
+        pass) the block is a fresh view of it, so that autograd carries
+        the block's gradient into the whole; a view kept from before would
+        be a leaf of its own."""
         coords = tuple(coords)
         if self._whole is None:
             return self._blocks[self.mesh.brick(*coords)]
+        if self._whole.requires_grad:
+            return self._whole[self.index(coords)]
         view = self._views.get(coords)
         if view is None:    # a view of the whole, kept: looked up per layer
             view = self._views[coords] = self._whole[self.index(coords)]
@@ -228,6 +232,18 @@ class ShardedTensor:
             raise ValueError("a tensor placed on several devices is held "
                              "as blocks only")
         return self._whole
+
+    def like(self, whole: torch.Tensor) -> "ShardedTensor":
+        """``whole`` (this tensor's global shape, on the device of every
+        position) as a tensor placed by this one's sharding, not copied."""
+        return ShardedTensor(self.sharding, self.shape, whole.dtype,
+                             whole=whole)
+
+    def copy_(self, src: "ShardedTensor") -> "ShardedTensor":
+        """Copy ``src`` (the same global shape, every position on one
+        device) into this tensor, in place."""
+        self.local().copy_(src.local())
+        return self
 
     def gather(self, device="cpu") -> torch.Tensor:
         """The global tensor on ``device``, a copy."""

@@ -15,7 +15,9 @@ are a :class:`PlacedParams` (:func:`place_params`), with one
   splits them) at coordinate ``j`` of ``model``.  The first mesh position
   with those coordinates computes it, on its device, with its blocks of
   the parameters and caches (:meth:`ShardedTensor.block
-  <repro_torch.parallel.sharding.ShardedTensor.block>`);
+  <repro_torch.parallel.sharding.ShardedTensor.block>`).  A split bound
+  to one replica (:meth:`ModelSplit.bind`, the train step's pass) has one
+  row block, computed at that replica's positions;
 * an activation replicated over ``model`` is a list with one tensor a row
   block, on the device of the block's ``j = 0`` position;
 * where GSPMD all-reduces, :meth:`ModelSplit.psum` / :meth:`ModelSplit.pmax`
@@ -23,6 +25,19 @@ are a :class:`PlacedParams` (:func:`place_params`), with one
   :func:`~repro_torch.core.mesh.psum_axes` / ``pmax_axes``: one counted
   ``all-reduce`` each, the parts combined in ``model`` order.  Where it
   all-gathers, :meth:`ModelSplit.gather` concatenates the blocks;
+* under autograd (the train step) each collective has its transpose as
+  its backward: :meth:`~ModelSplit.psum` hands each part the sum's
+  gradient; a tensor that several units read whole goes to them through
+  :meth:`~ModelSplit.fan` (an activation: the input of a column-parallel
+  product, a gathered or reduced value; a parameter replicated over
+  ``model`` that each unit applies whole, :meth:`~ModelSplit.unit_params`),
+  whose backward sums the units' gradients over ``model`` through
+  ``psum_axes`` — GSPMD's all-reduce of such an input's gradient; a
+  gather's backward is the concatenation's own, each unit its slice.
+  Parts that units read in disjoint slices (``mm_rows``' columns, the
+  experts' slots, rwkv's and mamba's per-head parameters) get their
+  gradients assembled, not reduced.  ``pmax`` (the decode's softmax) does
+  not record gradients: no pass that records reaches it;
 * a recurrent state (``rwkv_heads``, ``ssm_heads`` or ``conv_dim`` over
   ``model``) is read and written in place a unit's block at a time
   (:meth:`ModelSplit.blocks_along`); a replicated parameter that a unit
@@ -32,8 +47,10 @@ are a :class:`PlacedParams` (:func:`place_params`), with one
 
 Where every position is on one device (one card, or the CPU) a placed
 tensor is one tensor and its blocks are views, so the split holds the
-weights once.  Where positions sit on several devices each partial stays on
-its unit's device until its reduction or gather; that case has not run.
+weights once, and the train step records gradients on that tensor.
+Where positions sit on several devices each partial stays on its unit's
+device until its reduction or gather; serving there has not run, and the
+train step refuses it.
 
 >>> import torch
 >>> from repro_torch.core.mesh import make_mesh
@@ -48,13 +65,14 @@ its unit's device until its reduction or gather; that case has not run.
 """
 from __future__ import annotations
 
+import copy
 import math
 from typing import List, Sequence
 
 import torch
 
-from repro_torch.core.mesh import pmax_axes, psum_axes
-from repro_torch.optim.tree import tree_map
+from repro_torch.core.mesh import Mesh, pmax_axes, psum_axes
+from repro_torch.optim.tree import leaves, tree_map, unflatten
 from repro_torch.parallel.params import (_CACHE_AXES, cache_specs_for,
                                          param_specs_for)
 from repro_torch.parallel.sharding import (NamedSharding, ShardedTensor,
@@ -71,12 +89,13 @@ class PlacedParams(dict):
     mesh = None
 
 
-def place_params(params, rules, cfg) -> PlacedParams:
+def place_params(params, rules, cfg, specs=None) -> PlacedParams:
     """``params`` (a ``ParamTree`` or its tree) placed on ``rules.mesh`` by
-    ``param_specs_for``: the reference's ``device_put`` of each leaf with
-    ``NamedSharding(mesh, spec)``."""
+    ``specs`` (default ``param_specs_for``): the reference's ``device_put``
+    of each leaf with ``NamedSharding(mesh, spec)``."""
     tree = params.tree() if hasattr(params, "tree") else params
-    specs = param_specs_for(cfg, tree, rules)
+    if specs is None:
+        specs = param_specs_for(cfg, tree, rules)
     out = PlacedParams(tree_map(lambda x, s: place(x, rules.mesh, s),
                                 tree, specs))
     out.mesh = rules.mesh
@@ -140,6 +159,31 @@ class ModelSplit:
                 r = r * mesh.shape[a] + c[a]
             self._units.append((r, c[MODEL]))
             self._first.setdefault((r, c[MODEL]), b)
+        self._bound = False
+        self._row_meshes: dict = {}
+
+    def bind(self, r: int) -> "ModelSplit":
+        """This split bound to row block ``r``: a split of that block's
+        :attr:`rows` rows alone (``dp = 1``), each unit ``(0, j)`` computed
+        at row block ``r``'s position of ``model`` coordinate ``j`` and its
+        reductions over those positions — one replica's pass of the train
+        step."""
+        out = copy.copy(self)
+        out.dp, out.scratch, out._bound = 1, {}, True
+        out._first = {(0, j): self._first[(r, j)] for j in range(self.m)}
+        out._units = [(0, j) for _, j in self._units]
+        out._row_meshes = {}
+        return out
+
+    def _row_mesh(self, r: int) -> Mesh:
+        """Row block ``r``'s positions along ``model``, as a mesh of that
+        axis alone: what a reduction of one row block's parts runs on."""
+        mesh = self._row_meshes.get(r)
+        if mesh is None:
+            mesh = self._row_meshes[r] = Mesh(
+                (self.m,), (MODEL,), [self.device(r, j)
+                                      for j in range(self.m)])
+        return mesh
 
     # -- where a unit is ---------------------------------------------------
 
@@ -181,6 +225,23 @@ class ModelSplit:
         coords = self.coords(r, j)
         return tree_map(lambda st: st.block(coords).to(self.dtype), tree)
 
+    def unit_params(self, tree, r: int, n: int) -> list:
+        """:meth:`local` for units ``(r, 0) … (r, n − 1)`` at once: a tree
+        a unit, each leaf that is replicated over ``model`` (a unit applies
+        it whole) handed to the units through :meth:`fan`, so that under
+        autograd their gradients of it are summed over ``model``."""
+        if n == 1:
+            return [self.local(tree, r, 0)]
+        per = [[] for _ in range(n)]
+        for st in leaves(tree):
+            if any(MODEL in _axes(e) for e in st.spec):
+                views = [self.block(st, r, j) for j in range(n)]
+            else:
+                views = self.fan(self.block(st, r, 0), r, n)
+            for j, v in enumerate(views):
+                per[j].append(v.to(self.dtype))
+        return [unflatten(tree, vals) for vals in per]
+
     def whole(self, st: ShardedTensor, r: int) -> torch.Tensor:
         """A placed parameter gathered whole on row block ``r``'s device,
         in the compute dtype (where it is one tensor there: itself)."""
@@ -210,6 +271,8 @@ class ModelSplit:
     def _reduce(self, reduce, parts) -> list:
         if len(parts[0]) == 1:          # not split: nothing to reduce
             return [p[0] for p in parts]
+        if self._bound:
+            return [reduce(list(parts[0]), self._row_mesh(0), MODEL)[0]]
         out = reduce([parts[r][j] for r, j in self._units], self.mesh, MODEL)
         return [out[self._first[(r, 0)]] for r in range(self.dp)]
 
@@ -217,17 +280,49 @@ class ModelSplit:
         """``parts[r][j]``, unit ``(r, j)``'s partial, summed over ``model``
         in ``j`` order: one value a row block, on its device.  A row of one
         part (a product that is not split) is its own value, with no
-        reduction."""
+        reduction.  Under autograd its backward hands every part the sum's
+        gradient, with no reduction."""
+        if len(parts[0]) == 1:
+            return [p[0] for p in parts]
+        flat = [p for row in parts for p in row]
+        if torch.is_grad_enabled() and any(p.requires_grad for p in flat):
+            return list(_PSum.apply(self, len(parts[0]), *flat))
         return self._reduce(psum_axes, parts)
 
     def pmax(self, parts) -> list:
-        """:meth:`psum` with the element-wise maximum."""
+        """:meth:`psum` with the element-wise maximum (written with
+        ``out=``: it records no gradient, and only the decode's
+        :meth:`softmax` takes it)."""
         return self._reduce(pmax_axes, parts)
+
+    def fan(self, x: torch.Tensor, r: int, n: int) -> list:
+        """``x``, a value of row block ``r`` that ``n`` units read whole,
+        one tensor a unit ``(r, j)`` on its device.  Under autograd the
+        units' gradients of ``x`` are summed over ``model`` in ``j`` order
+        (:func:`~repro_torch.core.mesh.psum_axes` over row block ``r``'s
+        positions: one counted ``all-reduce``, GSPMD's reduction of the
+        input gradient of a column-parallel product); else (serving) it is
+        ``x`` on each unit's device."""
+        if n > 1 and torch.is_grad_enabled() and x.requires_grad:
+            return list(_Fan.apply(self, r, n, x))
+        return [self.on(x, r, j) for j in range(n)]
+
+    def _fan_grad(self, grads, r: int, device: torch.device):
+        """The backward of :meth:`fan`: the units' gradients summed over
+        ``model`` onto ``device``, ``x``'s (none where no unit's was used,
+        the one where one was)."""
+        used = [g for g in grads if g is not None]
+        if len(used) <= 1:
+            return used[0].to(device) if used else None
+        grads = [torch.zeros_like(used[0], device=self.device(r, j))
+                 if g is None else g for j, g in enumerate(grads)]
+        return psum_axes(grads, self._row_mesh(r), MODEL)[0].to(device)
 
     def gather(self, parts: Sequence[torch.Tensor], dim: int,
                r: int) -> torch.Tensor:
         """Row block ``r``'s blocks over ``model`` concatenated along
-        ``dim`` on its device (an all-gather)."""
+        ``dim`` on its device (an all-gather; under autograd its backward
+        hands each unit its slice)."""
         if len(parts) == 1:
             return parts[0]
         return torch.cat([self.on(p, r) for p in parts], dim=dim)
@@ -236,12 +331,18 @@ class ModelSplit:
 
     def mm_cols(self, params, r: int):
         """``mm(x, name)``: ``x @ params[name]`` for row block ``r``, each
-        unit with its columns of the weight, gathered (column-parallel)."""
+        unit with its columns of the weight, gathered (column-parallel).
+        The units read ``x`` through :meth:`fan`, once for successive
+        products of the same ``x`` (the q, k, v projections)."""
+        last = {}
+
         def mm(x, name):
             w = params[name]
-            return self.gather(
-                [self.on(x, r, j) @ self.local(w, r, j)
-                 for j in range(self.parts(w, len(w.shape) - 1))], -1, r)
+            n = self.parts(w, len(w.shape) - 1)
+            if last.get("x") is not x or last.get("n") != n:
+                last.update(x=x, n=n, xs=self.fan(x, r, n))
+            return self.gather([xj @ self.local(w, r, j)
+                                for j, xj in enumerate(last["xs"])], -1, r)
         return mm
 
     def mm_rows(self, x: torch.Tensor, w: ShardedTensor, r: int) -> list:
@@ -322,3 +423,43 @@ class ModelSplit:
             lo, hi = max(start, off), min(end, off + blk.shape[1])
             if lo < hi:
                 blk[:, lo - off:hi - off].copy_(x[:, lo - start:hi - start])
+
+
+class _PSum(torch.autograd.Function):
+    """:meth:`ModelSplit.psum` under autograd: the forward is the counted
+    reduction, the backward hands each unit's part its row block's
+    gradient (on the part's device), with no reduction."""
+
+    @staticmethod
+    def forward(ctx, split, width, *flat):
+        ctx.width = width
+        ctx.devices = [p.device for p in flat]
+        rows = [flat[i:i + width] for i in range(0, len(flat), width)]
+        return tuple(split._reduce(psum_axes, rows))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *(
+            None if grads[i // ctx.width] is None
+            else grads[i // ctx.width].to(dev)
+            for i, dev in enumerate(ctx.devices)))
+
+
+class _Fan(torch.autograd.Function):
+    """:meth:`ModelSplit.fan` under autograd: ``x`` to each of ``n`` units
+    (a view where the unit is on ``x``'s device); the backward sums the
+    units' gradients over ``model`` (:meth:`ModelSplit._fan_grad`)."""
+
+    @staticmethod
+    def forward(ctx, split, r, n, x):
+        ctx.split, ctx.r, ctx.device = split, r, x.device
+        out = []
+        for j in range(n):
+            dev = split.device(r, j)
+            out.append(x.view_as(x) if dev == x.device else x.to(dev))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return None, None, None, ctx.split._fan_grad(grads, ctx.r,
+                                                     ctx.device)

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.optim.tree import tree_map
 from repro_torch.parallel.sharding import ShardedTensor, place
+from repro_torch.parallel.tensor import PlacedParams
 
 
 def _to_host(leaf):
@@ -33,9 +34,25 @@ def remesh(tree, specs_tree, new_mesh):
     :class:`~repro_torch.parallel.ShardedTensor` or a NumPy array; dicts,
     lists and ``NamedTuple`` s such as ``AdamWState`` between them) to its
     spec in ``specs_tree`` on ``new_mesh``: gathered to the host, then
-    placed.  Returns the tree of placed tensors."""
-    return tree_map(lambda leaf, spec: place(_to_host(leaf), new_mesh, spec),
-                    tree, specs_tree)
+    placed.  Returns the tree of placed tensors; placed parameters
+    (:class:`~repro_torch.parallel.tensor.PlacedParams`) anywhere in it
+    come back as placed parameters on ``new_mesh``, which the train step
+    there takes."""
+    out = tree_map(lambda leaf, spec: place(_to_host(leaf), new_mesh, spec),
+                   tree, specs_tree)
+    return _as_placed(tree, out, new_mesh)
+
+
+def _as_placed(old, new, mesh):
+    """``new`` with each dict that is :class:`PlacedParams` in ``old`` made
+    one again, on ``mesh``."""
+    if isinstance(old, PlacedParams):
+        out = PlacedParams(new)
+        out.mesh = mesh
+        return out
+    if isinstance(old, dict):
+        return {k: _as_placed(old[k], v, mesh) for k, v in new.items()}
+    return new
 
 
 def shrink_plan(old_dp: int, new_dp: int, global_batch: int,

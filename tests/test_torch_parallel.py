@@ -576,6 +576,32 @@ def test_sharded_train_step_matches_reference(ref):
     assert losses[-1] < losses[0], losses
 
 
+def test_placed_train_step_matches_reference(ref):
+    """:func:`test_sharded_train_step_matches_reference` with the
+    reference's weights placed by their specs, as the reference's
+    ``build`` places them: the step splits each pass over ``model`` and
+    its first 3 losses and gradient norms are within ``LOSS_REL`` of the
+    same 4-device run's."""
+    from repro_torch.parallel.tensor import PlacedParams, place_params
+
+    cfg = _qwen_mb2()
+    mesh = make_mesh2d(2, 2, device="cpu")
+    _, _, step, rules = port_train.build(cfg, mesh, **TRAIN_KW)
+    params = place_params(_ref_weights(ref, cfg), rules, cfg)
+    assert isinstance(params, PlacedParams)
+    opt = port_steps.make_opt_state(params)
+    ds = TokenDataset(cfg.vocab_size, 32, 8)
+    sh = rules.sharding(("batch", "seq"), (8, 32))
+    with tp.use_sharding(rules):
+        for k in range(REF_STEPS):
+            params, opt, m = step(params, opt, shard_batch(ds.next_batch(),
+                                                           sh))
+            assert abs(float(m["loss"]) - ref["loss"][k]) \
+                <= LOSS_REL * ref["loss"][k]
+            assert abs(float(m["grad_norm"]) - ref["grad_norm"][k]) \
+                <= LOSS_REL * ref["grad_norm"][k]
+
+
 def _one_step(cfg, mesh, batch, seed=5):
     params = M.init_params(cfg, seed=seed, device="cpu")
     opt = port_steps.make_opt_state(params)
@@ -707,14 +733,17 @@ def test_moe_aux_term_on_a_mesh(arch):
 
 
 def test_build_returns_the_reference_four_values():
+    """(params, opt, step, rules); on 2×2 the parameters are placed by
+    their specs, as the reference's ``build`` places them."""
     cfg = port_configs.get_config("qwen3-0.6b").smoke()
     mesh = make_mesh2d(2, 2, device="cpu")
     params, opt, step, rules = port_train.build(cfg, mesh)
     assert rules.mesh is mesh and callable(step)
-    assert next(params.parameters()).device.type == "cpu"
+    assert all(st.local().device.type == "cpu" for st in leaves(params))
     assert int(opt.step) == 0
-    specs = tp.param_specs_for(cfg, params.tree(), rules)
+    specs = tp.param_specs_for(cfg, params, rules)
     assert specs["embed"] == ("model", None)
+    assert params["embed"].spec == specs["embed"]
 
 
 def test_train_runs_on_a_mesh(tmp_path):
@@ -735,7 +764,8 @@ def test_train_runs_on_a_mesh(tmp_path):
 def test_train_module_runs_on_the_production_mesh(tmp_path):
     """``python -m repro_torch.launch.train --smoke --steps 2
     --production-mesh --device cpu`` runs (16×16: the batch axes do not
-    divide 8 rows, so the step runs as on one device)."""
+    divide 8 rows, so one replica; the vocab of 256 splits 16 ways, so the
+    parameters are placed and each pass splits over ``model``)."""
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
          "--steps", "2", "--production-mesh", "--device", "cpu",
