@@ -323,7 +323,7 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          ``launch/{steps,train}.py``, no kernel of
                          ``kernels/``), under
                          ``torch.use_deterministic_algorithms``: qwen3-0.6b
-                         at full width, its first ``LM_TRAIN_LAYERS`` (16)
+                         at full width, its first ``LM_TRAIN_LAYERS`` (12)
                          of 28 layers (the smoke's budget; ``lm_train_mesh``
                          trains all 28), in bfloat16 with its
                          ``remat="dots"`` and 8 microbatches, 24 steps of
@@ -406,7 +406,19 @@ Drives the port (``src/repro_torch``) and nothing of the JAX package:
                          through ``run_cell`` on the 16×16 and 2×16×16
                          meshes on ``meta`` (each record and its host
                          seconds; the card's allocated bytes unchanged;
-                         every ``t_total > 0``); the ``lm_train`` model at
+                         every ``t_total > 0``), with each record's
+                         collectives a chip by kind: the ``model`` axis's
+                         all-reduces and all-gathers, counted from the
+                         port's split on ``meta``, and the data-parallel
+                         ring (every prefill and decode record charged
+                         more than 0, every train record more than its
+                         ring); on a 2×2 ``meta`` mesh the dry-run's
+                         all-reduces a chip equal to what the card read:
+                         qwen3-0.6b's decode step those of
+                         ``lm_serve_mesh`` (141), ``lm_train_split``'s step
+                         (4 layers, 8 microbatches of 16 × 512) one
+                         replica's passes and the clip, (545 − 1)/2 + 1 =
+                         273; the ``lm_train`` model at
                          full depth (bfloat16, AdamW, 8 × 512) on a 1×1
                          mesh: ``argument_size_in_bytes`` equal to the
                          bytes ``init_params`` + ``make_opt_state`` + the
@@ -881,6 +893,34 @@ PREDICTED = {
     "dryrun_k6_ms": [0.025, 0.04],
     "dryrun_k7_ms": [0.022, 0.035],
     "dryrun_k5_ms": [0.022, 0.04],
+    # the model axis's collectives in the dry-run (written before their
+    # first card run; PERF.md §6): the counts are host code, so each
+    # record's bytes equal the CPU's to the byte.  qwen3-0.6b's train_4k
+    # is charged about 90 GB a chip on 16×16 (the vocab all-gather of the
+    # logits and the q/k/v gathers about half, the all-reduces the rest;
+    # 45 GB on 2×16×16, half the rows a replica) and turns collective-
+    # bound at about 0.2 s; prefill_32k about 28 GB on 16×16, bound
+    # memory; decode_32k about 9 MB, about 20 us, bound memory; on a 2×2
+    # meta mesh 141 all-reduces a chip for the decode and 273 for
+    # lm_train_split's step, the card's readings; the six records in
+    # 40-120 s of host time, the 2×2 counts in 5-20 s
+    "dryrun_model_collective_bytes": {
+        "16x16": {"train_4k": [6e10, 1.2e11], "prefill_32k": [2e10, 4e10],
+                  "decode_32k": [5e6, 1.5e7]},
+        "2x16x16": {"train_4k": [3e10, 6e10], "prefill_32k": [1e10, 2e10],
+                    "decode_32k": [2.5e6, 7.5e6]}},
+    "dryrun_model_bound": {"train_4k": "collective", "prefill_32k": "memory",
+                           "decode_32k": "memory"},
+    "dryrun_2x2_decode_all_reduces": 141,
+    "dryrun_2x2_train_split_all_reduces": 273,
+    "dryrun_split_host_s": [40.0, 120.0],
+    "dryrun_2x2_host_s": [5.0, 20.0],
+    # after the serving cells came to count one replica's positions, as
+    # train does (written before that change's first card run): the same
+    # bytes to the byte, the six records in 10-25 s of host time (15.3 s
+    # on the CPU that wrote this), the 2x2 counts under 2 s
+    "dryrun_split_host_s_one_replica": [10.0, 25.0],
+    "dryrun_2x2_host_s_one_replica": [0.1, 2.0],
 }
 #: ``F.conv3d`` against K1 on the 8 members' and the bricks' heat3d body:
 #: seven terms summed in another order round at most 3 times apart, so
@@ -5955,6 +5995,7 @@ def phase_lm_serve_mesh(seed: int, one_device=None):
                         not k.startswith("lm_serve_mesh_recurrent"))}})
     if failed:
         raise AssertionError(f"lm_serve_mesh: {failed} failed")
+    return meshes["2x2"]["all_reduces_a_decode_step"]
 
 
 #: lm_serve_mesh_recurrent: the recurrent archs at full width, their first
@@ -6126,12 +6167,15 @@ def phase_lm_serve_mesh_recurrent(seed: int):
 #: step's default 3e-4 over 100 warm-up steps the loss moves by about 0.05
 #: in 40 steps of the reference's smoke model, at 1e-3/5 by 0.4)
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 512, 24
-#: lm_train's depth: qwen3-0.6b's first 16 of its 28 layers, at full width.
+#: lm_train's depth: qwen3-0.6b's first 12 of its 28 layers, at full width.
 #: With all 28 here and in ``lm_train_mesh`` the whole smoke took 1189 s of
 #: its 1200 s on a slow host (9.0 s a step here, 411 s for this phase), so
 #: this earlier path runs cut; ``lm_train_mesh`` keeps the full depth
-#: (``tools/lm_train_probe.py`` runs this uninterrupted run at other depths)
-LM_TRAIN_LAYERS = 16
+#: (``tools/lm_train_probe.py`` runs this uninterrupted run at other
+#: depths).  16 layers until the whole smoke passed 950 s with them (947.5
+#: and 975.3 s on one H100 80GB HBM3 at 700 W, this phase 201.5 and 247.9
+#: s of it), the point at which this cut was planned
+LM_TRAIN_LAYERS = 12
 LM_TRAIN_KW = {"peak_lr": 1e-3, "warmup": 5, "total_steps": 24}
 #: the uninterrupted run's first steps run alone on the card: 2 warm-up
 #: steps, then the timed steps (the step time is their median), then one
@@ -7245,6 +7289,7 @@ def phase_lm_train_split(seed: int):
                         if k == "card" or k.startswith("lm_split")}})
     if failed:
         raise AssertionError(f"lm_train_split: {failed} failed")
+    return {"all_reduces_a_step": reduces[0], "dp": dp}
 
 
 #: the heat cells' grid on the card's 2×2 mesh: the production brick
@@ -7256,9 +7301,11 @@ DRYRUN_HEAT_STEPS = 8
 DRYRUN_STATE_BATCH, DRYRUN_STATE_SEQ = 8, 512
 
 
-def phase_dryrun(seed: int) -> dict:
-    """The dry-run analysis (docstring, 10n); returns K5/K6/K7's launches
-    on its heat path."""
+def phase_dryrun(seed: int, serve_reduces: int, train_split: dict) -> dict:
+    """The dry-run analysis (docstring, 10n); ``serve_reduces`` is the
+    all-reduces of a 2×2 decode step that ``lm_serve_mesh`` read on the
+    card, ``train_split`` ``lm_train_split``'s reading of a step and its
+    replicas.  Returns K5/K6/K7's launches on its heat path."""
     import numpy as np
     import torch
 
@@ -7275,8 +7322,11 @@ def phase_dryrun(seed: int) -> dict:
                                               launch_stencil7,
                                               launch_stencil_planes,
                                               stencil_planes_ref)
-    from repro_torch.launch import dryrun, heat_cell, steps as steps_mod
-    from repro_torch.launch.mesh import make_mesh2d
+    from repro_torch.launch import dryrun, heat_cell
+    from repro_torch.launch import roofline as model_roofline
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_mesh2d, make_production_mesh
+    from repro_torch.launch.specs import cell_specs
     from repro_torch.models import model as M
     from repro_torch.optim.tree import leaves
 
@@ -7294,6 +7344,58 @@ def phase_dryrun(seed: int) -> dict:
     checks["dryrun_allocates_nothing"] = torch.cuda.memory_allocated() == held
     checks["every_t_total_positive"] = all(r["t_total"] > 0 for r in records)
     dry_s = time.perf_counter() - t_phase
+
+    # --- each record's collectives a chip, by kind (the model axis's from
+    # the split on meta, cached by run_cell; the data-parallel ring) -------
+    collectives = {}
+    for rec in records:
+        mesh = make_production_mesh(multi_pod="pod" in rec["mesh"],
+                                    device="meta")
+        spec = cell_specs(LM_ARCH, rec["shape"], mesh)
+        model = model_roofline.per_chip(model_roofline.cell_collectives(spec))
+        ring = model_roofline.gradient_reduction(spec, mesh)["all-reduce"]
+        tag = "x".join(map(str, mesh.dims))
+        collectives[f"{tag}/{rec['shape']}"] = {
+            "model": {k: model[k] for k in ("all-reduce", "all-reduce_n",
+                                            "all-gather", "all-gather_n")},
+            "ring_all_reduce": ring,
+            "collective_bytes_per_chip": rec["collective_bytes_per_chip"],
+            "t_collective": rec["t_collective"], "t_total": rec["t_total"],
+            "bound": rec["bound"]}
+        checks[f"{tag}_{rec['shape']}_charged_the_model_terms"] = (
+            rec["collective_bytes_per_chip"] > ring
+            and model["all-reduce_n"] > 0)
+
+    # --- the dry-run's all-reduces a chip against the card's readings ------
+    t_2x2 = time.perf_counter()
+    mesh = make_mesh2d(2, 2, device="meta")
+    decode = model_roofline.per_chip(model_roofline.cell_collectives(
+        cell_specs(LM_ARCH, "decode_32k", mesh)))
+    split_cfg = lm_split_config()
+    split_cell = ShapeCfg("lm_train_split", LM_TRAIN_SEQ, LM_SPLIT_BATCH,
+                          "train")
+    train = model_roofline.per_chip(model_roofline.cell_collectives(
+        cell_specs(LM_ARCH, split_cell, make_mesh2d(*LM_SPLIT_MESH,
+                                                    device="meta"),
+                   cfg=split_cfg)))
+    torch.cuda.synchronize()
+    checks["model_counts_allocate_nothing"] = \
+        torch.cuda.memory_allocated() == held
+    reads = train_split["all_reduces_a_step"]
+    by_card = {
+        "decode_2x2": {"dry_run": decode["all-reduce_n"],
+                       "card": serve_reduces},
+        "train_split_2x2": {"dry_run": train["all-reduce_n"],
+                            "card_step": reads,
+                            "card_a_chip": (reads - 1)
+                            // train_split["dp"] + 1}}
+    checks["decode_2x2_all_reduces_as_the_card"] = (
+        decode["all-reduce_n"] == serve_reduces
+        == PREDICTED["dryrun_2x2_decode_all_reduces"])
+    checks["train_split_2x2_all_reduces_as_the_card"] = (
+        train["all-reduce_n"] == by_card["train_split_2x2"]["card_a_chip"]
+        == PREDICTED["dryrun_2x2_train_split_all_reduces"])
+    by_card["seconds"] = time.perf_counter() - t_2x2
 
     # --- the lm_train model's state bytes against the card -------------------
     cfg = get_config(LM_ARCH)
@@ -7444,6 +7546,8 @@ def phase_dryrun(seed: int) -> dict:
     emit({"phase": "dryrun", "card": card_line(),
           "seconds": time.perf_counter() - t_phase, "dryrun_host_s": dry_s,
           "records": records, "note": "records are models, not measurements",
+          "collectives_a_chip": collectives,
+          "all_reduces_a_chip_vs_card": by_card,
           "state_vs_card": state, "heat_grid": list(shape),
           "heat_mesh": list(mesh.dims), "heat_steps": n, "heat": heat,
           "heat_models": models, "launches": launches,
@@ -7557,12 +7661,13 @@ def main() -> int:
     phase_rows["service"] = phase_service(args.seed)
     phase_rows["cost_model"] = phase_cost_model(args.steps)
     one_device = phase_lm_serve(args.seed)
-    phase_lm_serve_mesh(args.seed, one_device)
+    serve_reduces = phase_lm_serve_mesh(args.seed, one_device)
     phase_lm_serve_mesh_recurrent(args.seed)
     phase_lm_train(args.seed)
     phase_lm_train_mesh(args.seed)
-    phase_lm_train_split(args.seed)
-    phase_rows["dryrun"] = phase_dryrun(args.seed)
+    train_split = phase_lm_train_split(args.seed)
+    phase_rows["dryrun"] = phase_dryrun(args.seed, serve_reduces,
+                                        train_split)
     csrc = "src/repro_torch/kernels/csrc/"
     # the solves apply their operators through the k = 1 entry, padded;
     # K2 (cg + mg), K3 and K4 run in the multigrid solves of both solve

@@ -25,7 +25,10 @@ brick in turn:
 Bricks exchange data only through :func:`repro_torch.core.halo._ppermute_shift`
 (halo planes), :func:`psum` (reductions over the whole mesh) and
 :func:`psum_axes` / :func:`pmax_axes` (over some of its named axes);
-multi-card transport plugs in there.
+multi-card transport plugs in there.  :data:`collectives` counts them;
+:data:`position_collectives` tallies, position by position, the
+reductions over named axes and the gathers that
+:mod:`repro_torch.parallel.tensor` records, with their bytes.
 
 >>> import torch
 >>> mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
@@ -39,7 +42,7 @@ True
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,10 +52,15 @@ class Mesh:
     """Positions over 1 to 3 named axes, position ``b`` at mesh coordinates
     ``np.unravel_index(b, dims)`` (x-major, as ``jax.make_mesh`` lays
     devices out) on ``devices[b]``.  The brick path (:class:`NamedSharding`,
-    :class:`BrickArray`, the halo exchange) takes 2-D meshes only."""
+    :class:`BrickArray`, the halo exchange) takes 2-D meshes only.
+    ``positions`` names, for a mesh cut out of a larger one (one row block
+    of the model split along ``model``), the larger mesh's positions that
+    its positions are: what :data:`position_collectives` is keyed by
+    (default its own, ``0 … size − 1``)."""
 
     def __init__(self, shape: Tuple[int, ...], axis_names: Sequence[str],
-                 devices: Sequence[torch.device]):
+                 devices: Sequence[torch.device],
+                 positions: Optional[Sequence[int]] = None):
         if not 1 <= len(shape) <= 3 or len(axis_names) != len(shape):
             raise ValueError(f"a mesh has 1 to 3 named axes; got shape "
                              f"{shape} over {tuple(axis_names)}")
@@ -67,6 +75,10 @@ class Mesh:
         self.axis_names = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names, dims))
         self.devices = tuple(torch.device(d) for d in devices)
+        self.positions = tuple(range(n) if positions is None else positions)
+        if len(self.positions) != n:
+            raise ValueError(f"{len(self.positions)} positions for {n} "
+                             "bricks")
         # looked up per brick in the sharded steps' host loops
         self._coords = tuple(tuple(int(c) for c in np.unravel_index(b, dims))
                              for b in range(n))
@@ -296,9 +308,53 @@ def _on(o, b: int, device: torch.device):
 collectives: Dict[str, int] = {"collective-permute": 0, "all-reduce": 0}
 
 
+#: the collectives each position has taken part in since
+#: :func:`reset_collectives`: ``position_collectives[b][(kind, n)] =
+#: [count, bytes]``, ``b`` a position of the mesh (:attr:`Mesh.positions`),
+#: ``kind`` the reference's HLO name, ``n`` the size of the group.
+#: :func:`psum_axes` / :func:`pmax_axes` write an ``all-reduce`` at every
+#: position of every group of more than one;
+#: :meth:`repro_torch.parallel.tensor.ModelSplit.gather` and ``whole`` an
+#: ``all-gather``.  The bytes are result bytes, what the reference's
+#: ``collective_bytes`` reads from HLO: a position's part of an
+#: all-reduce, the gathered result of an all-gather.  A group of one
+#: position moves nothing and is not tallied.
+#: :func:`repro_torch.launch.roofline.per_chip` reads it and turns the
+#: bytes into what a position sends on a ring.
+position_collectives: Dict[int, Dict[Tuple[str, int], list]] = {}
+
+
 def reset_collectives() -> None:
     for k in collectives:
         collectives[k] = 0
+    position_collectives.clear()
+
+
+def nbytes(parts) -> int:
+    """Bytes of a tensor or of a (nested) sequence of tensors."""
+    if isinstance(parts, torch.Tensor):
+        return parts.numel() * parts.element_size()
+    return sum(nbytes(p) for p in parts)
+
+
+def record_collective(kind: str, mesh: Mesh, members: Sequence[int],
+                      result_bytes: int) -> None:
+    """Tally one ``kind`` collective (``"all-reduce"`` or ``"all-gather"``)
+    at each of ``members``, positions of ``mesh`` that form one group:
+    ``result_bytes`` is a position's part of an all-reduce, or the
+    gathered result of an all-gather (:data:`position_collectives`)."""
+    n = len(members)
+    if n < 2:
+        return
+    key = (kind, n)
+    for b in members:
+        tally = position_collectives.setdefault(mesh.positions[b], {})
+        entry = tally.get(key)
+        if entry is None:
+            tally[key] = [1, result_bytes]
+        else:
+            entry[0] += 1
+            entry[1] += result_bytes
 
 
 def psum(parts: Sequence[torch.Tensor], mesh: Mesh) -> torch.Tensor:
@@ -364,6 +420,8 @@ def _reduce_axes(parts: Sequence, mesh: Mesh, axis_names, combine) -> list:
     out: list = [None] * mesh.size
     done: Dict[tuple, object] = {}
     for members in axis_groups(mesh, axis_names):
+        record_collective("all-reduce", mesh, members,
+                          nbytes(parts[members[0]]))
         ids = tuple(id(parts[b]) for b in members)
         if ids not in done:
             done[ids] = _combine_parts([parts[b] for b in members],

@@ -7,7 +7,10 @@ hardware:
   the mesh),
 * what one position holds (the argument, output and donated bytes), and
 * what a step costs (the counted FLOPs, bytes and collectives → roofline
-  terms on H100 constants, :mod:`repro_torch.launch.roofline`).
+  terms on H100 constants, :mod:`repro_torch.launch.roofline`): the
+  collectives are the ``model`` axis's all-reduces and all-gathers that
+  the port's split makes in the step, counted on ``meta``, and for train
+  the data-parallel ring of the gradient accumulators.
 
 The production meshes are the full 16×16 and 2×16×16, with every position
 on the ``meta`` device: the reference fakes 512 host devices through
@@ -23,10 +26,12 @@ has: ``lower_s`` and ``compile_s`` (there is no compile),
 assignment and code), ``total_bytes_per_device`` (a sum over the temp
 bytes), ``hbm_fused_bytes_per_chip`` / ``t_memory_fused`` (the HLO
 parser's; the port's HBM bytes already count at op granularity) and the
-``raw_*`` keys (uncalibrated XLA counts).  It adds
-``matmul_bytes_per_chip`` (the counted ops' operand and result bytes) and
-``count_s`` (host seconds the cell took to count).  Every time in a record
-is a model, not a measurement.
+``raw_*`` keys (uncalibrated XLA counts).  ``collective_bytes_per_chip``,
+``t_collective``, ``t_total`` and ``bound`` include the ``model`` terms.
+It adds ``matmul_bytes_per_chip`` (the counted ops' operand and result
+bytes) and ``count_s`` (host seconds the cell took to count, the split's
+count of its collectives included).  Every time in a record is a model,
+not a measurement.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape train_4k
@@ -70,7 +75,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     else:
         counts = roofline.count_cell(spec["cfg"], spec["shape"],
                                      seq_direct=spec["shape"].seq_len)
-    terms = roofline.terms(spec, mesh, counts, mem)
+    tally = roofline.cell_collectives(spec, calibrate=calibrate)
+    terms = roofline.terms(spec, mesh, counts, mem, tally)
     terms.pop("collective_breakdown")
     rec.update(terms)
 

@@ -23,20 +23,38 @@ HLO text).  The port has no compiler to ask, so it counts:
   divided by ``chips``).  This stands in for the reference's
   ``fused_bytes_estimate``; XLA's own ``bytes accessed`` has no
   counterpart.
-* **Collective bytes** — modelled, not what the port runs: ``train`` is
-  charged the ring all-reduce (``2(n−1)/n`` of the bytes) that a
-  data-parallel step over several cards would make of its float32
-  gradient accumulators over the rules' batch axes, each position holding
-  its blocks of the spec table (:func:`gradient_reduction`).  The port's
-  step keeps every position on one card with one set of accumulators and
-  makes no reduction (:mod:`repro_torch.launch.steps`).  ``prefill`` and
-  ``decode`` are charged none.  The model axis's collectives (tensor
-  parallelism of the step) are not ported yet, and GSPMD's are not
-  modelled.
+* **Collective bytes** — per chip, two parts.  The ``model`` axis's: the
+  all-reduces and all-gathers that the port's own split
+  (:mod:`repro_torch.parallel.tensor`) makes in one step of the cell,
+  counted while it runs on ``meta`` parameters (and caches) placed on the
+  cell's mesh, bound to its first replica (every replica's positions
+  make the same collectives), each position tallying the ones it takes
+  part in (:data:`repro_torch.core.mesh.position_collectives`), the
+  largest position a chip, its bytes on a ring (:func:`per_chip`: an
+  all-reduce over ``n`` positions sends ``2(n−1)/n`` of a position's
+  part, an all-gather ``(n−1)/n`` of the result): prefill and decode as
+  ``make_prefill_step`` / ``make_decode_step`` run them; train as ``mb``
+  passes, as the placed step runs each, and the clip's one all-reduce
+  (:func:`count_collectives`).  A mesh
+  whose ``model`` axis is 1 makes none.  And, for ``train``, the ring
+  all-reduce (``2(n−1)/n`` of the bytes) that a data-parallel step over
+  several cards would make of its float32 gradient accumulators over the
+  rules' batch axes, each position holding its blocks of the spec table
+  (:func:`gradient_reduction`); the port's step keeps every position on
+  one card with one set of accumulators and makes no such reduction
+  (:mod:`repro_torch.launch.steps`).  The split's collectives are those
+  of GSPMD's partition but for its design's own choices: the logits'
+  vocab blocks gathered (GSPMD reduces the loss's softmax over them),
+  keys and values gathered whole for the caches' layout, a read-whole
+  value's gradients summed over its units before one reduction (GSPMD
+  reduces each product's), MLA's decode scored over sequence blocks,
+  deepseek-v2's expert slots gathered, and the recurrent mixers, which
+  GSPMD partitions its own way.
 
 Counting a whole cell on ``meta`` is too slow for long sequences (the
 chunked attention runs a Python loop over chunk pairs), so
-:func:`layer_extrapolated` extrapolates, as the reference's
+:func:`layer_extrapolated` (and :func:`collectives_extrapolated`, with the
+collectives' counts and bytes) extrapolates, as the reference's
 ``calibrated_terms`` does: over layers
 (1 and 2 layers of each segment kind; the per-layer cost is exact), over
 microbatches (one microbatch counted, times their number: each is the same
@@ -59,6 +77,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import FlopCounterMode
 
+from repro_torch.core import mesh as mesh_mod
 from repro_torch.core.perfmodel import (H100_NVLINK_BW, H100_NVLINK_LAT,
                                         H100_SXM_BF16_DENSE_FLOPS,
                                         H100_SXM_HBM_BW, PEAK_FLOPS)
@@ -67,6 +86,8 @@ from repro_torch.launch.specs import (TUPLE_ENTRY_BYTES, block_bytes,
                                       stacked_leaves)
 from repro_torch.models import model as M
 from repro_torch.optim.tree import leaves_with_path, tree_map
+from repro_torch.parallel.sharding import use_sharding
+from repro_torch.parallel.tensor import MODEL, place_params
 
 # -- hardware constants (H100 SXM) -------------------------------------------
 PEAK_BF16 = H100_SXM_BF16_DENSE_FLOPS
@@ -187,9 +208,10 @@ def count_pass(cfg, kind: str, rows: int, s: int) -> Dict[str, int]:
                  _tokens(cfg, rows, 1), s - 1)
 
 
-def _quadratic_at(xs, ys, x) -> int:
+def _quadratic_at(xs, ys, x, exact: bool = False):
     """The quadratic through three points, at ``x`` (exact: Lagrange over
-    fractions of integer counts)."""
+    fractions of integer or fractional counts), rounded to an integer
+    unless ``exact``."""
     total = Fraction(0)
     for i, (xi, yi) in enumerate(zip(xs, ys)):
         term = Fraction(yi)
@@ -197,7 +219,7 @@ def _quadratic_at(xs, ys, x) -> int:
             if j != i:
                 term *= Fraction(x - xj, xi - xj)
         total += term
-    return round(total)
+    return total if exact else round(total)
 
 
 def count_cell(cfg, shape, *, seq_direct: int = SEQ_DIRECT
@@ -213,17 +235,28 @@ def count_cell(cfg, shape, *, seq_direct: int = SEQ_DIRECT
 
 @functools.lru_cache(maxsize=None)
 def _count_cell(cfg, shape, seq_direct: int) -> Dict[str, int]:
+    return _over_sequence(
+        lambda rows, s: count_pass(cfg, shape.kind, rows, s), cfg, shape,
+        seq_direct)
+
+
+def _over_sequence(count, cfg, shape, seq_direct: int, exact: bool = False):
+    """``count(rows, s)`` of one pass of the cell (a train step's: one
+    microbatch's rows) times the passes, at the cell's length or, above
+    ``seq_direct`` tokens, the quadratic through 1, 2 and 3 ×
+    :data:`SEQ_UNIT` tokens (kept exact where ``exact``)."""
     mb = cfg.num_microbatches if shape.kind == "train" else 1
     rows = shape.global_batch // mb
     s = shape.seq_len
     if shape.kind == "decode" or s <= seq_direct:
-        c = count_pass(cfg, shape.kind, rows, s)
+        c = count(rows, s)
     else:
         if s % SEQ_UNIT:
             raise ValueError(f"sequence {s} is not a multiple of {SEQ_UNIT}")
         xs = [SEQ_UNIT * i for i in (1, 2, 3)]
-        ys = [count_pass(cfg, shape.kind, rows, x) for x in xs]
-        c = {k: _quadratic_at(xs, [y[k] for y in ys], s) for k in ys[0]}
+        ys = [count(rows, x) for x in xs]
+        c = {k: _quadratic_at(xs, [y.get(k, 0) for y in ys], s, exact)
+             for k in dict.fromkeys(k for y in ys for k in y)}
     return {k: mb * v for k, v in c.items()}
 
 
@@ -242,9 +275,6 @@ def _count_cell(cfg, shape, seq_direct: int) -> Dict[str, int]:
 # run (zamba2: 2 in place of 18).
 # ---------------------------------------------------------------------------
 
-_METRICS = ("flops", "matmul_bytes")
-
-
 def _variant_cfg(cfg, seg_counts):
     kinds = list(dict.fromkeys(k for k, _ in cfg.segments))
     segments = tuple((k, seg_counts.get(k, 1)) for k in kinds)
@@ -252,20 +282,184 @@ def _variant_cfg(cfg, seg_counts):
                                n_layers=sum(c for _, c in segments))
 
 
-def layer_extrapolated(cfg, shape, *, seq_direct: int = SEQ_DIRECT
-                       ) -> Dict[str, int]:
-    """Global counts of the full cell from the 1- and 2-layer variants."""
+def _over_layers(cfg, count) -> Dict:
+    """Every key of ``count(variant)`` for the full ``cfg`` from its 1- and
+    2-layer variants (a key missing from a count is 0 there)."""
     t_k: Dict[str, int] = {}
     for kind, n in cfg.segments:
         t_k[kind] = t_k.get(kind, 0) + n
-    f_a = count_cell(_variant_cfg(cfg, {}), shape, seq_direct=seq_direct)
+    f_a = count(_variant_cfg(cfg, {}))
     out = dict(f_a)
     for kind, total in t_k.items():
-        f_b = count_cell(_variant_cfg(cfg, {kind: 2}), shape,
-                         seq_direct=seq_direct)
-        for m in _METRICS:
-            out[m] += (total - 1) * (f_b[m] - f_a[m])
+        f_b = count(_variant_cfg(cfg, {kind: 2}))
+        for k in dict.fromkeys([*f_a, *f_b]):
+            out[k] = out.get(k, 0) + (total - 1) * (f_b.get(k, 0)
+                                                    - f_a.get(k, 0))
     return out
+
+
+def layer_extrapolated(cfg, shape, *, seq_direct: int = SEQ_DIRECT
+                       ) -> Dict[str, int]:
+    """Global counts of the full cell from the 1- and 2-layer variants."""
+    return _over_layers(cfg, lambda c: count_cell(c, shape,
+                                                  seq_direct=seq_direct))
+
+
+# ---------------------------------------------------------------------------
+# the model axis's collectives, counted from the split on meta
+#
+# The port's model split (:mod:`repro_torch.parallel.tensor`) runs on meta
+# parameters placed on the cell's mesh, bound to the first replica, and
+# each of its positions tallies the collectives it takes part in
+# (:data:`repro_torch.core.mesh.position_collectives`).  A tally is flat:
+# ``(position, kind, n, "n")`` the count and ``(position, kind, n,
+# "bytes")`` the result bytes of the ``kind`` collectives over groups of
+# ``n``, so that it extrapolates as the FLOPs do: a layer's collectives
+# depend on its kind alone, their count does not depend on the length,
+# and their bytes are linear in it.  :func:`per_chip` applies the ring.
+# ---------------------------------------------------------------------------
+
+_MODEL_KINDS = ("all-reduce", "all-gather")
+
+
+def _tally(fn) -> Dict[tuple, int]:
+    """What ``fn()`` adds to the positions' tally, flat; the counters are
+    as they were after."""
+    saved = (dict(mesh_mod.collectives),
+             {b: {k: list(v) for k, v in t.items()}
+              for b, t in mesh_mod.position_collectives.items()})
+    mesh_mod.reset_collectives()
+    try:
+        fn()
+        return {(b, kind, n, f): v
+                for b, t in mesh_mod.position_collectives.items()
+                for (kind, n), (count, nbytes) in t.items()
+                for f, v in (("n", count), ("bytes", nbytes))}
+    finally:
+        mesh_mod.collectives.update(saved[0])
+        mesh_mod.position_collectives.clear()
+        mesh_mod.position_collectives.update(saved[1])
+
+
+def collectives_pass(cfg, kind: str, rows: int, s: int, rules
+                     ) -> Dict[tuple, int]:
+    """The tally of one pass of the model split for ``kind`` over ``rows``
+    rows at length ``s`` on ``rules.mesh``, the parameters (and caches)
+    placed there on meta, bound to replica 0 (its ``rows / dp`` rows at
+    its positions; every replica's positions make the same collectives,
+    in passes of their own): a train pass over a microbatch of ``rows``
+    rows as :func:`repro_torch.launch.steps._accumulate_placed` runs each;
+    a prefill (the forward's last token, ``make_prefill_step``) and a
+    decode against an ``s``-token cache (``make_decode_step``) under
+    ``torch.no_grad()``, as :func:`repro_torch.launch.serve.serve` runs
+    them."""
+    cfg = dataclasses.replace(cfg, num_microbatches=1)
+    placed = place_params(M.init_params(cfg, device="meta"), rules, cfg)
+    tok = _tokens(cfg, rows, 1 if kind == "decode" else s)
+    with use_sharding(rules), torch.set_grad_enabled(kind == "train"):
+        split = M.model_split(placed, tok, cfg).bind(0)
+        part = tok[:split.rows]
+        if kind == "train":
+            return _tally(lambda: M.value_and_grad(
+                placed, {"tokens": part, "labels": part}, cfg, split=split))
+        if kind == "prefill":
+            return _tally(lambda: M.forward(placed, part, cfg,
+                                            last_only=True, split=split))
+        cache = M.init_cache(cfg, rows, s, device="meta", rules=rules)
+        return _tally(lambda: M.decode_step(placed, cache, part, s - 1, cfg,
+                                            split=split))
+
+
+def _add(a: Dict, b: Dict) -> Dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in dict.fromkeys([*a, *b])}
+
+
+_COLLECTIVE_CELLS: Dict[tuple, Dict] = {}
+
+
+def count_collectives(cfg, shape, rules, *, seq_direct: int = SEQ_DIRECT
+                      ) -> Dict[tuple, int]:
+    """The tally of one step of the cell ``shape`` for ``cfg`` (every
+    layer) at replica 0's positions of ``rules.mesh``
+    (:func:`collectives_pass`): a train step is its microbatches' passes
+    (one counted, times their number; above ``seq_direct`` tokens the
+    quadratic through three shorter ones, as :func:`count_cell`) and the
+    clip's one ``all-reduce`` of a float32 scalar, at every position
+    (:func:`repro_torch.launch.steps.clip_placed`); prefill and decode one
+    pass.  A mesh whose ``model`` axis is 1 (or absent) makes
+    none.  Each is counted once a process per (cell, mesh axes, rules)."""
+    if rules.mesh.shape.get(MODEL, 1) == 1:
+        return {}
+    key = (cfg, shape, seq_direct, tuple(rules.mesh.shape.items()),
+           repr(sorted(rules.rules.items())))
+    if key not in _COLLECTIVE_CELLS:
+        out = _over_sequence(
+            lambda rows, s: collectives_pass(cfg, shape.kind, rows, s, rules),
+            cfg, shape, seq_direct, exact=True)
+        # counts are constant in the length and bytes linear: whole numbers
+        if any(Fraction(v).denominator != 1 for v in out.values()):
+            raise ValueError(f"a fractional tally of {shape}: {out}")
+        out = {k: int(v) for k, v in out.items() if v}
+        if shape.kind == "train":
+            placed = place_params(M.init_params(cfg, device="meta"), rules,
+                                  cfg)
+            out = _add(out, _tally(lambda: steps_mod.clip_placed(placed,
+                                                                 1.0)))
+        _COLLECTIVE_CELLS[key] = out
+    return dict(_COLLECTIVE_CELLS[key])
+
+
+def collectives_extrapolated(cfg, shape, rules, *,
+                             seq_direct: int = SEQ_DIRECT
+                             ) -> Dict[tuple, int]:
+    """The tally of the full cell from its 1- and 2-layer variants."""
+    return _over_layers(cfg, lambda c: count_collectives(
+        c, shape, rules, seq_direct=seq_direct))
+
+
+def cell_collectives(spec, *, calibrate: bool = True) -> Dict[tuple, int]:
+    """The tally of the cell ``spec`` (:func:`repro_torch.launch.specs.
+    cell_specs`): extrapolated (``calibrate``) or counted at every layer
+    and the full length."""
+    cfg, shape = spec["cfg"], spec["shape"]
+    if calibrate:
+        return collectives_extrapolated(cfg, shape, spec["rules"])
+    return count_collectives(cfg, shape, spec["rules"],
+                             seq_direct=shape.seq_len)
+
+
+def ring_bytes(kind: str, n: int, result_bytes) -> float:
+    """What a position sends on a ring for ``kind`` collectives over
+    groups of ``n`` with ``result_bytes`` (the convention of
+    :func:`gradient_reduction`): an all-reduce ``2(n−1)/n`` of its part,
+    an all-gather ``(n−1)/n`` of the gathered result."""
+    share = 2 * (n - 1) if kind == "all-reduce" else n - 1
+    return float(share * result_bytes / n)
+
+
+def per_chip(tally: Dict[tuple, int]) -> Dict:
+    """The collective breakdown (keyed as :func:`no_collectives`, ring
+    bytes as floats, :func:`ring_bytes`) of the position that sends the
+    most bytes, then takes part in the most collectives, then comes first:
+    the per-chip figure, as the reference reads its one per-device
+    module."""
+    coll = no_collectives()
+    load: Dict[int, list] = {}
+    for (b, kind, n, f), v in tally.items():
+        row = load.setdefault(b, {k: [0.0, 0] for k in _MODEL_KINDS})[kind]
+        if f == "bytes":
+            row[0] += ring_bytes(kind, n, v)
+        else:
+            row[1] += int(v)
+    if not load:
+        return coll
+    b = max(sorted(load), key=lambda b: (
+        sum(r[0] for r in load[b].values()),
+        sum(r[1] for r in load[b].values())))
+    for kind, (sent, count) in load[b].items():
+        coll[kind], coll[kind + "_n"] = sent, count
+    coll["count"] = sum(coll[k + "_n"] for k in _MODEL_KINDS)
+    return coll
 
 
 def gradient_reduction(spec, mesh) -> Dict[str, int]:
@@ -295,17 +489,19 @@ def gradient_reduction(spec, mesh) -> Dict[str, int]:
     return coll
 
 
-def terms(spec, mesh, counts: Dict[str, int], memory: Dict[str, int]
-          ) -> Dict:
+def terms(spec, mesh, counts: Dict[str, int], memory: Dict[str, int],
+          tally: Dict[tuple, int]) -> Dict:
     """The roofline record of a cell from its global ``counts``
-    (:func:`count_cell` / :func:`layer_extrapolated`) and its
-    ``memory`` fields (:func:`repro_torch.launch.specs.memory_fields`)."""
+    (:func:`count_cell` / :func:`layer_extrapolated`), its ``memory``
+    fields (:func:`repro_torch.launch.specs.memory_fields`) and the tally
+    of its ``model`` collectives (:func:`cell_collectives`): charged per
+    chip, beside :func:`gradient_reduction`'s ring."""
     chips = mesh.size
     out_bytes = memory["output_size_in_bytes"]
     n_out = stacked_leaves(spec["outs"])
     if n_out > 1:                 # the tuple's index table moves no data
         out_bytes -= TUPLE_ENTRY_BYTES * n_out
-    coll = gradient_reduction(spec, mesh)
+    coll = _add(gradient_reduction(spec, mesh), per_chip(tally))
     rec = analyze(
         flops_per_chip=counts["flops"] / chips,
         hbm_bytes_per_chip=(memory["argument_size_in_bytes"] + out_bytes

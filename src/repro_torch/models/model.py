@@ -312,12 +312,13 @@ def init_cache(cfg, batch: int, s_max: int, device="cuda",
     return cache if rules is None else place_cache(cache, rules, cfg)
 
 
-def decode_step(params, cache, tokens, pos: int, cfg):
+def decode_step(params, cache, tokens, pos: int, cfg, *, split=None):
     """One token for the whole batch.  tokens (B, 1[, K]); pos the
     position it takes.  Attention caches are written in place; returns
     (logits (B, 1, V[, K]), the caches).  Placed parameters run the model
-    split on the placed cache that their prefill returned."""
-    split = model_split(params, tokens, cfg)
+    split on the placed cache that their prefill returned, or ``split``
+    where the caller gives one (a replica's, as :func:`forward`)."""
+    split = split or model_split(params, tokens, cfg)
     if split is not None:
         return _decode_split(split, params, cache, tokens, pos, cfg)
     cdt = _dtype(cfg.compute_dtype)
@@ -418,7 +419,7 @@ def _embed_split(split, params, tokens, cfg):
             first = split.index(emb, r, j)[vdim].start or 0
             ids = split.on(t, r, j) - first
             hit = (ids >= 0) & (ids < blk.shape[vdim])
-            ids = ids.clamp(0, blk.shape[vdim] - 1)
+            ids = torch.where(hit, ids, 0)
             if cfg.n_codebooks > 1:
                 row.append(torch.stack([
                     torch.where(hit[..., k, None], blk[k][ids[..., k]], 0.0)

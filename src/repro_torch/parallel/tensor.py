@@ -45,6 +45,33 @@ are a :class:`PlacedParams` (:func:`place_params`), with one
   ``d_skip``, the gated norm's ``scale``) is sliced by the block index of
   the weight that splits its axis (:meth:`ModelSplit.index`).
 
+Every movement of data between positions is charged to a collective in
+:data:`~repro_torch.core.mesh.position_collectives` (what the dry-run
+reads, :mod:`repro_torch.launch.roofline`), at the positions that take
+part:
+
+* :meth:`~ModelSplit.psum`, :meth:`~ModelSplit.pmax` (the softmax takes
+  one of each) and the backward of :meth:`~ModelSplit.fan` — an
+  ``all-reduce`` over ``model`` at every position of the group, of the
+  position's part;
+* :meth:`~ModelSplit.gather` (column-parallel products, gathered keys and
+  values, experts over ``model``, the lm_head's vocab blocks) and
+  :meth:`~ModelSplit.whole` of a leaf split over ``model`` (MLA's
+  ``wkv_b`` in decode) — an ``all-gather`` at row block ``r``'s
+  positions, of the gathered result;
+* charged to those, not on their own: :meth:`~ModelSplit.fan`'s and
+  :meth:`~ModelSplit.on`'s copies of a value replicated over ``model``
+  (an input, or what a reduction or gather just produced, which every
+  position of the group holds), and the backward of a gather or of
+  :meth:`~ModelSplit.psum` (each unit its slice, or the sum's gradient,
+  of a gradient replicated over ``model``);
+* no collective: :meth:`~ModelSplit.rows_of` and :meth:`~ModelSplit.join`
+  (the batch's rows placed over the batch axes on the way in, the
+  logits' row blocks on the way out, the reference's batch-sharded
+  output; MoE's router statistics, which serving drops and a bound pass
+  holds in one block), and the caches' blocks, read and written where
+  they are held.
+
 Where every position is on one device (one card, or the CPU) a placed
 tensor is one tensor and its blocks are views, so the split holds the
 weights once, and the train step records gradients on that tensor.
@@ -71,7 +98,8 @@ from typing import List, Sequence
 
 import torch
 
-from repro_torch.core.mesh import Mesh, pmax_axes, psum_axes
+from repro_torch.core.mesh import (Mesh, nbytes, pmax_axes, psum_axes,
+                                   record_collective)
 from repro_torch.optim.tree import leaves, tree_map, unflatten
 from repro_torch.parallel.params import (_CACHE_AXES, cache_specs_for,
                                          param_specs_for)
@@ -182,8 +210,15 @@ class ModelSplit:
         if mesh is None:
             mesh = self._row_meshes[r] = Mesh(
                 (self.m,), (MODEL,), [self.device(r, j)
-                                      for j in range(self.m)])
+                                      for j in range(self.m)],
+                positions=self._row_positions(r))
         return mesh
+
+    def _row_positions(self, r: int) -> list:
+        """The mesh positions that take part in row block ``r``'s
+        collectives: those of its units, in ``model`` order (bound: the
+        replica's)."""
+        return [self._first[(r, j)] for j in range(self.m)]
 
     # -- where a unit is ---------------------------------------------------
 
@@ -244,8 +279,13 @@ class ModelSplit:
 
     def whole(self, st: ShardedTensor, r: int) -> torch.Tensor:
         """A placed parameter gathered whole on row block ``r``'s device,
-        in the compute dtype (where it is one tensor there: itself)."""
+        in the compute dtype (where it is one tensor there: itself); an
+        ``all-gather`` at the row block's positions where it is split over
+        ``model``."""
         dev = self.device(r)
+        if any(MODEL in _axes(e) for e in st.spec):
+            record_collective("all-gather", self.mesh, self._row_positions(r),
+                              math.prod(st.shape) * st.dtype.itemsize)
         try:
             w = st.local()
         except ValueError:
@@ -321,10 +361,13 @@ class ModelSplit:
     def gather(self, parts: Sequence[torch.Tensor], dim: int,
                r: int) -> torch.Tensor:
         """Row block ``r``'s blocks over ``model`` concatenated along
-        ``dim`` on its device (an all-gather; under autograd its backward
-        hands each unit its slice)."""
+        ``dim`` on its device: an ``all-gather`` at the row block's
+        positions (under autograd its backward hands each unit its
+        slice)."""
         if len(parts) == 1:
             return parts[0]
+        record_collective("all-gather", self.mesh, self._row_positions(r),
+                          nbytes(parts))
         return torch.cat([self.on(p, r) for p in parts], dim=dim)
 
     # -- products ----------------------------------------------------------

@@ -448,7 +448,8 @@ def test_small_mesh_dryrun_and_multipod():
 def test_all_walk_allocates_nothing(tmp_path):
     """Every cell of ``--all`` at published width on 16×16: specs, the
     memory sizes and the collectives of every cell, and every decode cell
-    counted whole, with no tensor off the meta device."""
+    counted whole (its ``model`` collectives, counted from the split, above
+    0), with no tensor off the meta device."""
     mesh = make_production_mesh(device="meta")
     n = 0
     with _HostTensors() as guard:
@@ -462,6 +463,7 @@ def test_all_walk_allocates_nothing(tmp_path):
                     rec = dryrun.run_cell(arch, shape, mesh=mesh,
                                           verbose=False)
                     assert rec["t_total"] > 0
+                    assert rec["collective_bytes_per_chip"] > 0
                 n += 1
     assert guard.seen == [] and n == 33
 
