@@ -1,0 +1,7 @@
+"""device_idle.make: percent of the traced window in which no operation ran
+on the device."""
+from fieldbench.readers import idle_percent
+
+
+def read(run):
+    return idle_percent(run)
